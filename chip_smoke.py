@@ -5,21 +5,33 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the CUDA
    kernels from ``multimodalvc_tpu_torch/csrc`` with nvcc.
-2. Holds each kernel (K1 flash_attention, K2 prompt_attention, K3
-   gen_attention_ancestor, K4 beam_topk_columns) against its plain PyTorch
+2. Holds each kernel (K1 flash_attention, K2 prompt_attention and K3
+   gen_attention_ancestor with int8 and bf16 KV, K4 beam_topk_columns, K6
+   gather_rows, K7 int8_matmul, K8 int4_matmul) against its plain PyTorch
    version at the serving shapes, with edge cases, and times both.
-3. Serves a batch through the full-width AVSR path (Whisper-medium,
-   AV-HuBERT-Large, Q-Former, LLaMA-3.2-3B with bf16 random weights from a
-   seed): batch 8, 16 s, beam 5, 64 new tokens, int8 KV cache with the
-   ancestry decode.  Checks the output, that every kernel ran on that path,
-   and that the encoders, and one prefill + one decode step, give the same
-   outputs within tolerance through the kernels and the plain versions.
+3. Serves batches through the full-width AVSR path (Whisper-medium,
+   AV-HuBERT-Large, Q-Former, LLaMA-3.2-3B with random weights from seed 0):
+   batch 8, 16 s, beam 5, in five phases:
+   - bf16 weights, int8 KV with the ancestry decode (16 new tokens), with the
+     encoders and one prefill + decode step held against the plain versions;
+   - bf16 weights, bf16 KV through ``generate()``'s defaults (the ancestry
+     decode on the GPU), and bf16 KV with the gather reorder (16 tokens
+     each), with two decode steps from one prefill through both caches;
+   - int8 weights (the serving configuration: int8 KV, ancestry), 64 new
+     tokens, with the stage walls and the realtime factor;
+   - int4 weights, 16 new tokens.
+   Each phase checks its output and that its kernels ran; the quantized
+   phases hold one prefill + decode step against the plain versions.
 
-Prints JSON lines with the kernel checks and the slice, then the
+Prints JSON lines with the kernel checks and the phases, then the
 ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Needs a CUDA device and the repository around it; it does not fall
 back to the CPU.
+
+``python3 chip_smoke.py --profile`` runs no checks: it profiles the decode
+steps of the bf16- and int8-weight systems with ``torch.profiler`` and
+prints the device time per step by kernel and the device's idle share.
 """
 from __future__ import annotations
 
@@ -33,7 +45,19 @@ from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 DEV = "cuda"
-BATCH, SECONDS, BEAMS, NEW_TOKENS, INSTRUCTION = 8, 16, 5, 64, 10
+BATCH, SECONDS, BEAMS, INSTRUCTION = 8, 16, 5, 10
+NEW_TOKENS, SHORT_TOKENS = 64, 16  # the int8-weight phase, the other phases
+REL_TOL = 2e-2  # relative L2 between two paths (bf16 activations), layer by layer
+# End-to-end decode logits of two paths that round differently are gated
+# against the noise floor that the same run measures on the same weights and
+# cache: the relative L2 by which one bf16 ulp on 0.01% of the prompt
+# embeddings moves them.  This random-weight 28-layer model is chaotic, so the
+# floor is large (3.52e-2 with int8 and int4 weights on an H100 80GB HBM3 at
+# 700 W) and a kernel that merely sums in another order than cuBLAS lands
+# near it, where a wrong one lands at O(1).  The gate is FLOOR_MARGIN times
+# the floor, and never under REL_TOL; a floor above FLOOR_MAX means the model
+# or its rounding changed, and fails the run.
+FLOOR_MARGIN, FLOOR_MAX = 1.5, 5e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -49,11 +73,17 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device time of one call: CUDA events around ``iters`` calls queued
+    behind a ~50 ms device sleep, so the host's launch cost (tens of
+    microseconds through ctypes or PyTorch's dispatcher) hides behind it and
+    the events time the kernels alone."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -164,7 +194,49 @@ def check_decode(results):
         if valid == 0 and not (bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())
                                and bool((got[2] == 0).all())):
             raise SmokeFailure("gen_attention_ancestor: valid_len 0 must give (0, -1e30, 0)")
-        record(results, f"gen_attention_ancestor/int8_valid{valid}", err, 5e-2,
+        record(results, f"gen_attention_ancestor/int8/valid{valid}", err, 5e-2,
+               ms=time_ms(run), plain_ms=time_ms(plain))
+
+
+def check_decode_bf16(results):
+    """K2 and K3 with a bf16 KV cache at the serving decode shapes (K2:
+    batch 48, 130 prompt slots, a batch element with no valid slot; K3: 240
+    rows, 64 slots, valid 41 and 0).  Tolerance 5e-2 on out, m and l."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.decode_attention import (
+        gen_attention_ancestor,
+        gen_attention_ancestor_plain,
+        prompt_attention,
+        prompt_attention_plain,
+    )
+
+    g = torch.Generator(device=DEV).manual_seed(5)
+    b, beams, h, hkv, d, tp, slots = 48, BEAMS, 24, 8, 128, 130, 64
+    scale = d ** -0.5
+    bf16 = lambda *shape: torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)  # noqa: E731
+    q = bf16(b * beams, h, d)
+    pk, pv = bf16(b, hkv, tp, d), bf16(b, hkv, tp, d)
+    pad = torch.randint(0, 60, (b,), generator=g, device=DEV)
+    mask = (torch.arange(tp, device=DEV)[None, :] >= pad[:, None]).to(torch.int32)
+    mask[3] = 0  # a batch element with no valid prompt slot
+    run = lambda: prompt_attention(q, pk, pv, mask, beams=beams, scale=scale)  # noqa: E731
+    plain = lambda: prompt_attention_plain(q, pk, pv, mask, beams=beams, scale=scale)  # noqa: E731
+    err = max(max_err(a, c) for a, c in zip(run(), plain()))
+    record(results, "prompt_attention/bf16", err, 5e-2, ms=time_ms(run), plain_ms=time_ms(plain))
+
+    gk, gv = bf16(b * beams, slots, hkv, d), bf16(b * beams, slots, hkv, d)
+    anc = torch.randint(0, beams, (b * beams, slots), generator=g, device=DEV).to(torch.int32)
+    for valid in (41, 0):
+        run = lambda: gen_attention_ancestor(q, gk, gv, anc, valid, beams=beams, scale=scale)  # noqa: E731
+        plain = lambda: gen_attention_ancestor_plain(q, gk, gv, anc, valid, beams=beams,  # noqa: E731
+                                                     scale=scale)
+        got, want = run(), plain()
+        err = max(max_err(a, c) for a, c in zip(got, want))
+        if valid == 0 and not (bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())
+                               and bool((got[2] == 0).all())):
+            raise SmokeFailure("gen_attention_ancestor bf16: valid_len 0 must give (0, -1e30, 0)")
+        record(results, f"gen_attention_ancestor/bf16/valid{valid}", err, 5e-2,
                ms=time_ms(run), plain_ms=time_ms(plain))
 
 
@@ -202,45 +274,153 @@ def check_topk(results):
            ms=time_ms(run), plain_ms=time_ms(plain, iters=3))
 
 
+def check_gather_rows(results):
+    """K6 at the generated-KV leaf of the gather reorder, bf16 [B*K, 64, 8,
+    128] for batch 8 and 48, with repeated and permuted source rows.
+    Exact."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.beam_gather import gather_rows, gather_rows_plain
+
+    g = torch.Generator(device=DEV).manual_seed(6)
+    for rows in (8 * BEAMS, 48 * BEAMS):
+        x = torch.randn(rows, 64, 8, 128, generator=g, device=DEV).to(torch.bfloat16)
+        perm = torch.randperm(rows, generator=g, device=DEV).to(torch.int32)
+        src = perm.clone()
+        src[rows // 2:] = perm[: rows - rows // 2]  # a permuted half, then repeats of it
+        run = lambda: gather_rows(x, src)  # noqa: E731
+        plain = lambda: gather_rows_plain(x, src)  # noqa: E731
+        got = run()
+        if not torch.equal(got, plain()):
+            raise SmokeFailure(f"gather_rows [{rows}, 64, 8, 128]: rows differ")
+        record(results, f"gather_rows/{rows}x64x8x128", max_err(got, plain()), 0.0,
+               ms=time_ms(run), plain_ms=time_ms(plain))
+
+
+def _quant_case(results, name, quantize, kernel, plain, rows, d_in, d_out, tol, g):
+    import torch
+
+    w = torch.randn(d_in, d_out, generator=g, device=DEV) * 0.02
+    w_q, w_s = quantize(w)
+    del w
+    x = torch.randn(rows, d_in, generator=g, device=DEV).to(torch.bfloat16)
+    run = lambda: kernel(x, w_q, w_s, out_dtype=torch.float32)  # noqa: E731
+    ref = lambda: plain(x, w_q, w_s, out_dtype=torch.float32)  # noqa: E731
+    record(results, f"{name}/{rows}x{d_in}x{d_out}", max_err(run(), ref()), tol,
+           ms=time_ms(run), plain_ms=time_ms(ref))
+
+
+def check_int8_matmul(results):
+    """K7 at the decode shapes of the LLaMA-3.2-3B trunk (3072->3072 / 8192,
+    8192->3072) and the tied unembed (3072->128256) at batch 48 (240 rows)
+    and 8 (40 rows).  Tolerance 1e-2 absolute on f32 outputs (the JAX
+    selftest's)."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import int8_matmul as q
+
+    g = torch.Generator(device=DEV).manual_seed(7)
+    for rows, d_in, d_out in [(240, 3072, 3072), (240, 3072, 8192), (240, 8192, 3072),
+                              (240, 3072, 128256), (40, 3072, 128256)]:
+        _quant_case(results, "int8_matmul", q.quantize_kernel, q.int8_matmul,
+                    q.int8_matmul_plain, rows, d_in, d_out, 1e-2, g)
+
+
+def check_int4_matmul(results):
+    """K8 at the JAX selftest shape (240 x 1024 -> 2048) and the trunk and
+    unembed decode shapes at 240 rows.  Tolerance 5e-2 (the JAX selftest's)."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import int8_matmul as q
+
+    g = torch.Generator(device=DEV).manual_seed(8)
+    for rows, d_in, d_out in [(240, 1024, 2048), (240, 3072, 8192), (240, 8192, 3072),
+                              (240, 3072, 128256)]:
+        _quant_case(results, "int4_matmul", q.quantize_kernel_int4, q.int4_matmul,
+                    q.int4_matmul_plain, rows, d_in, d_out, 5e-2, g)
+
+
 # ---- the full-width serving slice --------------------------------------------
 
 
 def kernels():
+    """name -> (wrapper, counter attribute, source, TPU kernel, phase whose
+    run supplies the launch count, whether that phase must launch it)."""
     from multimodalvc_tpu_torch.ops.attention import flash_attention
+    from multimodalvc_tpu_torch.ops.beam_gather import gather_rows
     from multimodalvc_tpu_torch.ops.decode_attention import gen_attention_ancestor, prompt_attention
+    from multimodalvc_tpu_torch.ops.int8_matmul import int4_matmul, int8_matmul
     from multimodalvc_tpu_torch.ops.topk import beam_topk_columns
 
+    da = "multimodalvc_tpu/ops/decode_attention.py"
     return {
-        "flash_attention": (flash_attention, "csrc/flash_attention.cu",
-                            "multimodalvc_tpu/ops/attention.py:328"),
-        "prompt_attention": (prompt_attention, "csrc/decode_attention.cu",
-                             "multimodalvc_tpu/ops/decode_attention.py:370"),
-        "gen_attention_ancestor": (gen_attention_ancestor, "csrc/decode_attention.cu",
-                                   "multimodalvc_tpu/ops/decode_attention.py:195"),
-        "beam_topk_columns": (beam_topk_columns, "csrc/topk.cu",
-                              "multimodalvc_tpu/ops/topk.py:271"),
+        "flash_attention": (flash_attention, "launches", "csrc/flash_attention.cu",
+                            "multimodalvc_tpu/ops/attention.py:328", "int8_weights", True),
+        "prompt_attention/int8": (prompt_attention, "launches", "csrc/decode_attention.cu",
+                                  f"{da}:370", "int8_weights", True),
+        # no serving path runs K2 on a bf16 cache (the JAX package's neither:
+        # a bf16 prompt segment is plain einsums), so the bf16-KV phase must
+        # launch it 0 times; its check above is its only use
+        "prompt_attention/bf16": (prompt_attention, "launches_bf16", "csrc/decode_attention.cu",
+                                  f"{da}:370", "bf16_kv_ancestry", False),
+        "gen_attention_ancestor/int8": (gen_attention_ancestor, "launches",
+                                        "csrc/decode_attention.cu", f"{da}:195", "int8_weights",
+                                        True),
+        "gen_attention_ancestor/bf16": (gen_attention_ancestor, "launches_bf16",
+                                        "csrc/decode_attention.cu", f"{da}:195",
+                                        "bf16_kv_ancestry", True),
+        "beam_topk_columns": (beam_topk_columns, "launches", "csrc/topk.cu",
+                              "multimodalvc_tpu/ops/topk.py:271", "int8_weights", True),
+        "gather_rows": (gather_rows, "launches", "csrc/beam_gather.cu",
+                        "multimodalvc_tpu/ops/beam_gather.py:57", "bf16_kv_gather", True),
+        "int8_matmul": (int8_matmul, "launches", "csrc/quant_matmul.cu",
+                        "multimodalvc_tpu/ops/int8_matmul.py:113", "int8_weights", True),
+        "int4_matmul": (int4_matmul, "launches", "csrc/quant_matmul.cu",
+                        "multimodalvc_tpu/ops/int8_matmul.py:326", "int4_weights", True),
     }
 
 
-def plain_versions() -> ExitStack:
-    """Route the model's kernel call sites to the plain PyTorch versions."""
+def plain_versions(only=None) -> ExitStack:
+    """Route the model's kernel call sites to the plain PyTorch versions:
+    every kernel, or only the wrappers named in ``only``."""
     from multimodalvc_tpu_torch.nn import layers, llama, whisper
-    from multimodalvc_tpu_torch.ops import attention, decode_attention
+    from multimodalvc_tpu_torch.ops import attention, beam_gather, decode_attention, int8_matmul
 
     stack = ExitStack()
-    for mod in (layers, whisper, llama):
-        stack.enter_context(mock.patch.object(mod, "flash_attention", attention.flash_attention_plain))
-    stack.enter_context(mock.patch.object(llama, "prompt_attention",
-                                          decode_attention.prompt_attention_plain))
-    stack.enter_context(mock.patch.object(llama, "gen_attention_ancestor",
-                                          decode_attention.gen_attention_ancestor_plain))
+    for site, name, plain in [
+        (layers, "flash_attention", attention.flash_attention_plain),
+        (whisper, "flash_attention", attention.flash_attention_plain),
+        (llama, "flash_attention", attention.flash_attention_plain),
+        (llama, "prompt_attention", decode_attention.prompt_attention_plain),
+        (llama, "gen_attention_ancestor", decode_attention.gen_attention_ancestor_plain),
+        (llama, "int8_matmul", int8_matmul.int8_matmul_plain),
+        (llama, "int4_matmul", int8_matmul.int4_matmul_plain),
+        (beam_gather, "gather_rows", beam_gather.gather_rows_plain),
+    ]:
+        if only is None or name in only:
+            stack.enter_context(mock.patch.object(site, name, plain))
     return stack
 
 
-def make_batch(cfg, g):
+def reset_counts(table) -> None:
+    for fn, attr, *_ in table.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(table) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr, *_) in table.items()}
+
+
+def make_batch():
+    """The serving batch of AVSRConfig(): BATCH clips of SECONDS s, random
+    features and instructions from seed 1."""
     import torch
 
-    t_v = cfg.max_video_frames
+    from multimodalvc_tpu_torch.models.avsr import AVSRConfig
+
+    cfg = AVSRConfig()
+    t_v = cfg.max_video_frames = SECONDS * 25
+    g = torch.Generator(device=DEV).manual_seed(1)
     return {
         "audio_feats": torch.randn(BATCH, cfg.whisper.n_mels, 2 * cfg.whisper.max_frames,
                                    generator=g, device=DEV),
@@ -260,54 +440,233 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def run_slice(kernel_table) -> dict:
+def build_system(mode=None):
+    """AVSRConfig() at full width, bf16 random weights from seed 0; with
+    ``mode``, the LLaMA quantized in place to int8 or int4."""
     import torch
 
     from multimodalvc_tpu_torch.models.avsr import AVSRConfig, AVSRSystem
-    from multimodalvc_tpu_torch.nn.llama import decode_step, prefill_ancestry_cache
 
     cfg = AVSRConfig()
     cfg.max_video_frames = SECONDS * 25
-    system, t_init = wall(lambda: AVSRSystem(cfg, dtype=torch.bfloat16, device=DEV))
+    t0 = time.perf_counter()
+    system = AVSRSystem(cfg, dtype=torch.bfloat16, device=DEV)
     system.init_random(seed=0)
-    g = torch.Generator(device=DEV).manual_seed(1)
-    batch = make_batch(cfg, g)
-    gen_kw = dict(num_beams=BEAMS, kv_quant="int8")
-    print(f"slice: AVSRConfig() full width, bf16 random weights (seed 0), batch {BATCH}, "
-          f"{SECONDS} s, beam {BEAMS}, {NEW_TOKENS} new tokens; build {t_init:.1f} s")
+    if mode:
+        system.enable_quantized_decode(mode)
+    torch.cuda.synchronize()
+    print(f"system: {mode or 'bf16'} weights, built in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return system
 
-    system.generate(batch, max_new_tokens=4, **gen_kw)  # warm-up (cuBLAS/cuDNN set-up)
-    for fn, _, _ in kernel_table.values():
-        fn.launches = 0
-    (seqs, scores), t_gen = wall(lambda: system.generate(batch, max_new_tokens=NEW_TOKENS, **gen_kw))
-    launches = {name: fn.launches for name, (fn, _, _) in kernel_table.items()}
-    print(f"  generate: {t_gen:.3f} s, launches {launches}")
 
-    vocab = cfg.llama.vocab_size
-    if tuple(seqs.shape) != (BATCH, BEAMS, NEW_TOKENS) or tuple(scores.shape) != (BATCH, BEAMS):
-        raise SmokeFailure(f"output shapes {tuple(seqs.shape)}, {tuple(scores.shape)}")
+def check_output(name, seqs, scores, vocab, new_tokens):
+    import torch
+
+    if tuple(seqs.shape) != (BATCH, BEAMS, new_tokens) or tuple(scores.shape) != (BATCH, BEAMS):
+        raise SmokeFailure(f"{name}: output shapes {tuple(seqs.shape)}, {tuple(scores.shape)}")
     if not bool(torch.isfinite(scores).all()):
-        raise SmokeFailure("non-finite beam scores")
+        raise SmokeFailure(f"{name}: non-finite beam scores")
     if not bool(((seqs >= 0) & (seqs < vocab)).all()):
-        raise SmokeFailure("token ids out of range")
+        raise SmokeFailure(f"{name}: token ids out of range")
     if not bool((scores[:, :-1] >= scores[:, 1:]).all()):
-        raise SmokeFailure("beam scores not sorted")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise SmokeFailure(f"kernels never launched on the main path: {missing}")
+        raise SmokeFailure(f"{name}: beam scores not sorted")
 
-    # stage times (same inputs, after the measured run)
-    llama = system.llama_module
-    n_layers = cfg.llama.num_layers
-    steps = launches["prompt_attention"] // n_layers
-    with torch.inference_mode():
-        (emb, mask), t_enc = wall(lambda: system.module.prompt_for_generation(batch))
-        _, t_pre = wall(lambda: prefill_ancestry_cache(
-            llama, emb, mask, num_beams=BEAMS, max_new_tokens=NEW_TOKENS))
-    decode_ms = (t_gen - t_enc - t_pre) / max(steps, 1) * 1e3
+
+def run_phase(table, system, batch, name, new_tokens, gen_kw) -> dict:
+    """One generate() call with every launch count set to 0 just before it
+    and read just after; fails unless each kernel assigned to this phase ran."""
+    reset_counts(table)
+    (seqs, scores), t_gen = wall(lambda: system.generate(
+        batch, num_beams=BEAMS, max_new_tokens=new_tokens, **gen_kw))
+    launches = read_counts(table)
+    check_output(name, seqs, scores, system.cfg.llama.vocab_size, new_tokens)
+    mine = {k: on_path for k, (*_, phase, on_path) in table.items() if phase == name}
+    missing = [k for k, on_path in mine.items() if on_path and launches[k] == 0]
+    missing += [k for k in ("flash_attention", "beam_topk_columns") if launches[k] == 0]
+    if missing:
+        raise SmokeFailure(f"{name}: kernels never launched on this path: {missing}")
+    stray = [k for k, on_path in mine.items() if not on_path and launches[k]]
+    if stray:
+        raise SmokeFailure(f"{name}: kernels launched off this path: {stray}")
     rtf = BATCH * SECONDS / t_gen
-    print(f"  encoders+prompt {t_enc * 1e3:.1f} ms, prefill {t_pre * 1e3:.1f} ms, "
-          f"decode {decode_ms:.2f} ms/step over {steps} steps, realtime factor {rtf:.1f}x")
+    print(f"  phase {name}: generate {t_gen:.3f} s ({new_tokens} new tokens), realtime factor "
+          f"{rtf:.1f}x, launches {launches}")
+    return {"generate_s": t_gen, "realtime_factor": rtf, "new_tokens": new_tokens,
+            "launches": launches, "seqs": seqs}
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def compare(out, name, got, want, tol):
+    """Record kernel-vs-plain (or cache-vs-cache) agreement; fail above tol."""
+    rel = rel_l2(got, want)
+    out[name] = {"max_abs": max_err(got, want), "rel_l2": rel, "tol_rel_l2": tol}
+    print(f"  {name}: max_abs={out[name]['max_abs']:.3e} rel_l2={rel:.3e} (tol {tol:g})")
+    if not rel <= tol:
+        raise SmokeFailure(f"{name}: the two paths disagree (rel {rel:.3e})")
+
+
+def prefill_and_step(llama, emb, mask, tokens, **cache_kw):
+    """One prefill and one decode step of every beam: (first logits, step logits)."""
+    from multimodalvc_tpu_torch.nn.llama import decode_step, prefill_split_cache
+
+    first, cache, lens = prefill_split_cache(
+        llama, emb, mask, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS, **cache_kw)
+    logits, _ = decode_step(llama, tokens, lens.repeat_interleave(BEAMS)[:, None], cache)
+    return first, logits
+
+
+INT8_KV = dict(ancestry_reorder=True, kv_quant="int8")
+
+
+def logits_gate(llama, emb, mask, tokens, logits, **cache_kw) -> dict:
+    """The gate for end-to-end decode-step logits on these weights and this
+    cache: the noise floor, the relative L2 by which one bf16 ulp on every
+    9973rd prompt-embedding value moves ``logits`` (what rounding alone does
+    here), times FLOOR_MARGIN, and at least REL_TOL.  Fails if the floor
+    exceeds FLOOR_MAX."""
+    nudged = emb.clone()
+    flat = nudged.view(-1)
+    flat[::9973] = flat[::9973] * (1 + 2 ** -7)
+    floor = rel_l2(prefill_and_step(llama, nudged, mask, tokens, **cache_kw)[1], logits)
+    tol = max(REL_TOL, FLOOR_MARGIN * floor)
+    print(f"    noise floor (one bf16 ulp on 0.01% of the prompt): rel_l2={floor:.3e}, "
+          f"logits gate {tol:.3e} (floor limit {FLOOR_MAX:g})")
+    if not floor <= FLOOR_MAX:
+        raise SmokeFailure(f"the noise floor {floor:.3e} exceeds {FLOOR_MAX:g}")
+    return {"noise_floor_rel_l2": floor, "tol_rel_l2": tol}
+
+
+def isolate(llama, emb, mask, tokens, logits, names) -> dict:
+    """Not gated: the step logits with one kernel at a time made plain,
+    against the all-kernel ``logits``: which kernel moves them, and how far."""
+    out = {}
+    for name in names:
+        with plain_versions(only=(name,)):
+            out[name] = rel_l2(prefill_and_step(llama, emb, mask, tokens, **INT8_KV)[1], logits)
+    print("    step logits with one kernel plain: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out.items()))
+    return out
+
+
+def layerwise(llama, emb, mask, tokens, name) -> dict:
+    """One decode step, layer by layer: each layer's update (output minus
+    input) from the same input and cache, through the kernels and through
+    the plain versions, then the final norm and unembed.  Gated at REL_TOL."""
+    from multimodalvc_tpu_torch.nn.llama import prefill_split_cache
+
+    _, cache, lens = prefill_split_cache(
+        llama, emb, mask, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS, **INT8_KV)
+    pos = lens.repeat_interleave(BEAMS)[:, None]
+    x = llama.embed(tokens)
+    worst = 0.0
+    for layer, c in zip(llama.layers, cache):
+        # both runs write the same slot of this layer's cache from the same x
+        y, _ = layer(x, pos, None, c)
+        with plain_versions():
+            y_plain, _ = layer(x, pos, None, c)
+        worst = max(worst, rel_l2(y - x, y_plain - x))
+        x = y
+    hidden = llama.norm(x)
+    logits = llama.unembed(hidden)
+    with plain_versions():
+        worst_unembed = rel_l2(logits, llama.unembed(hidden))
+    out = {f"{name}/layerwise": {"rel_l2_worst_layer": worst, "rel_l2_unembed": worst_unembed,
+                                 "tol_rel_l2": REL_TOL}}
+    print(f"  {name}/layerwise: worst layer rel_l2={worst:.3e}, unembed {worst_unembed:.3e} "
+          f"(tol {REL_TOL:g})")
+    if not max(worst, worst_unembed) <= REL_TOL:
+        raise SmokeFailure(f"{name}: kernels and plain versions disagree layer by layer")
+    return out
+def reorder_equivalence(llama, emb, mask, tokens) -> dict:
+    """The ancestry (K3 bf16) and the gather (K6) bf16-KV caches from one
+    prefill, two decode steps with a beam reorder between them, then each
+    layer's attention on the same random q/k/v against both caches, gated at
+    REL_TOL; the logits at the gate of ``logits_gate`` (bf16 KV, ancestry),
+    with the plain versions' beside them.
+
+    The two reorders compute the same attention but round to bf16 at other
+    points (the ancestry decode merges f32 partials; the gather reorder
+    rounds the normalised weights and each segment's sum, both in the JAX op
+    order), so each layer differs by ~2^-9 relative and the logits by what
+    28 layers of random weights make of that."""
+    import torch
+
+    from multimodalvc_tpu_torch.nn.llama import decode_step, prefill_split_cache
+    from multimodalvc_tpu_torch.ops.beam_search import _gather_beams
+
+    cfg = llama.cfg
+    parents = torch.tensor([[1, 1, 0, 4, 2]] * BATCH, device=DEV)
+    step_tokens = [tokens, torch.flip(tokens, dims=(0,))]
+
+    def two_steps(reorder):
+        _, cache, lens = prefill_split_cache(
+            llama, emb, mask, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS,
+            ancestry_reorder=reorder, kv_quant=None)
+        pos = lens.repeat_interleave(BEAMS)[:, None]
+        out = []
+        for i, tok in enumerate(step_tokens):
+            step_logits, cache = decode_step(llama, tok, pos + i, cache)
+            out.append(step_logits)
+            cache = _gather_beams(cache, parents, BATCH, BEAMS)
+        return out, cache
+
+    checks = {}
+    (anc_logits, anc_cache), (gat_logits, gat_cache) = two_steps(True), two_steps(False)
+    with plain_versions():
+        plain_anc, _ = two_steps(True)
+        plain_gat, _ = two_steps(False)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    rows = BATCH * BEAMS
+    worst = 0.0
+    for i, layer in enumerate(llama.layers):
+        attn = layer.self_attn
+        q = torch.randn(rows, cfg.num_heads, 1, cfg.head_dim, generator=g, device=DEV)
+        k, v = (torch.randn(rows, cfg.num_kv_heads, 1, cfg.head_dim, generator=g, device=DEV)
+                for _ in range(2))
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        a, _ = attn._ancestry_step(q, k, v, dict(anc_cache[i]))
+        b, _ = attn._gather_step(q, k, v, dict(gat_cache[i]))
+        worst = max(worst, rel_l2(a, b))
+    checks["bf16_kv/attention_ancestry_vs_gather"] = {"rel_l2_worst_layer": worst,
+                                                       "tol_rel_l2": REL_TOL}
+    print(f"  bf16_kv/attention_ancestry_vs_gather: worst layer rel_l2={worst:.3e} (tol {REL_TOL:g})")
+    if not worst <= REL_TOL:
+        raise SmokeFailure(f"bf16 KV: the ancestry and gather attention disagree ({worst:.3e})")
+    gate = logits_gate(llama, emb, mask, tokens, anc_logits[0], ancestry_reorder=True,
+                       kv_quant=None)
+    for i in range(2):
+        name = f"bf16_kv/logits_ancestry_vs_gather_step{i + 1}"
+        compare(checks, name, anc_logits[i], gat_logits[i], gate["tol_rel_l2"])
+        plain = rel_l2(plain_anc[i], plain_gat[i])
+        checks[name].update(plain_rel_l2=plain, noise_floor_rel_l2=gate["noise_floor_rel_l2"])
+        print(f"    the same through the plain versions: rel_l2={plain:.3e}")
+    return checks
+
+
+def bf16_weight_phases(table, batch) -> tuple:
+    """The bf16-weight phase (int8 KV, ancestry) and the two bf16-KV
+    phases, on one system.  Returns (phases, checks, prompt, first-step
+    tokens, the bf16-weight logits for the quantized phases to compare with)."""
+    import torch
+
+    system = build_system()
+    llama = system.llama_module
+    system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
+    phases = {
+        "bf16_weights": run_phase(table, system, batch, "bf16_weights", SHORT_TOKENS,
+                                  dict(kv_quant="int8")),
+        # generate()'s defaults: kv_quant=None, and on the GPU the ancestry decode
+        "bf16_kv_ancestry": run_phase(table, system, batch, "bf16_kv_ancestry", SHORT_TOKENS, {}),
+        "bf16_kv_gather": run_phase(table, system, batch, "bf16_kv_gather", SHORT_TOKENS,
+                                    dict(ancestry_reorder=False)),
+    }
+    if phases["bf16_kv_ancestry"]["launches"]["gen_attention_ancestor/int8"]:
+        raise SmokeFailure("generate() defaults took the int8 KV cache")
+    tokens = phases["bf16_weights"]["seqs"][:, :, 0].reshape(-1, 1)
 
     # the same weights and inputs through the kernels and the plain versions:
     # the two encoders (K1), then one prefill + one decode step (K2, K3) from
@@ -315,40 +674,155 @@ def run_slice(kernel_table) -> dict:
     # speech-rate factor is truncated to an integer query count, so a last-bit
     # difference upstream may move a query across the left-pad boundary.
     enc = system.module.encoder
-    tokens = seqs[:, :, 0].reshape(-1, 1)
-
-    def encoders():
-        return (enc.whisper(batch["audio_feats"]),
-                enc.avhubert(video=batch["video"], lengths=batch["video_lengths"]))
-
-    def prefill_and_step():
-        first, cache, lens = prefill_ancestry_cache(
-            llama, emb, mask, num_beams=BEAMS, max_new_tokens=NEW_TOKENS)
-        logits, _ = decode_step(llama, tokens, lens.repeat_interleave(BEAMS)[:, None], cache)
-        return first, logits
-
+    checks = {}
     with torch.inference_mode():
-        got = encoders() + prefill_and_step()
+        emb, mask = system.module.prompt_for_generation(batch)
+
+        def encoders():
+            return (enc.whisper(batch["audio_feats"]),
+                    enc.avhubert(video=batch["video"], lengths=batch["video_lengths"]))
+
+        got = encoders() + prefill_and_step(llama, emb, mask, tokens, **INT8_KV)
         with plain_versions():
-            want = encoders() + prefill_and_step()
-    # bf16 activations: the kernels round the attention probabilities at other
-    # points than the plain versions (bf16 relative resolution 2^-8), and 24
-    # layers carry that on; tolerance: relative L2 of the difference <= 2e-2.
-    # The prefill (130 slots) runs no kernel, so its logits must be identical.
-    step = {}
-    names = ("whisper_out", "avhubert_out", "prefill_logits", "step_logits")
-    for name, a, c in zip(names, got, want):
-        rel = float((a.float() - c.float()).norm() / c.float().norm())
-        tol = 0.0 if name == "prefill_logits" else 2e-2
-        step[name] = {"max_abs": max_err(a, c), "rel_l2": rel, "tol_rel_l2": tol}
-        print(f"  {name}: kernel vs plain max_abs={step[name]['max_abs']:.3e} rel_l2={rel:.3e}")
-        if not rel <= tol:
-            raise SmokeFailure(f"{name}: kernel and plain paths disagree (rel {rel:.3e})")
-    return {
-        "launches": launches, "generate_s": t_gen, "encoders_s": t_enc, "prefill_s": t_pre,
-        "decode_ms_per_step": decode_ms, "decode_steps": steps, "realtime_factor": rtf,
-        "step_check": step,
+            want = encoders() + prefill_and_step(llama, emb, mask, tokens, **INT8_KV)
+        # bf16 activations: the kernels round the attention probabilities at
+        # other points than the plain versions (bf16 relative resolution
+        # 2^-8), and 24 layers carry that on.  The prefill (130 slots) runs
+        # no kernel, so its logits must be identical.
+        for name, a, c in zip(("whisper_out", "avhubert_out", "prefill_logits", "step_logits"),
+                              got, want):
+            compare(checks, f"bf16_weights/{name}", a, c, 0.0 if name == "prefill_logits" else REL_TOL)
+        bf16_logits = got[2:]
+
+        checks.update(reorder_equivalence(llama, emb, mask, tokens))
+    for ph in phases.values():
+        ph.pop("seqs")
+    del system, llama, enc
+    torch.cuda.empty_cache()
+    return phases, checks, (emb, mask), tokens, bf16_logits
+
+
+def quantized_phase(table, batch, mode, new_tokens, prompt, tokens, bf16_logits) -> dict:
+    """A full-width system with ``mode`` weights, served with the int8 KV
+    cache and the ancestry decode; one prefill + decode step held against
+    the plain versions on the same quantized weights."""
+    import torch
+
+    from multimodalvc_tpu_torch.nn.llama import prefill_split_cache
+
+    system = build_system(mode)
+    llama = system.llama_module
+    name = f"{mode}_weights"
+    system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
+    phase = run_phase(table, system, batch, name, new_tokens, dict(kv_quant="int8"))
+    phase.pop("seqs")
+    emb, mask = prompt
+    with torch.inference_mode():
+        # stage walls of the same inputs, after the measured run
+        _, t_enc = wall(lambda: system.module.prompt_for_generation(batch))
+        _, t_pre = wall(lambda: prefill_split_cache(
+            llama, emb, mask, num_beams=BEAMS, max_new_tokens=new_tokens, **INT8_KV))
+        steps = phase["launches"]["prompt_attention/int8"] // system.cfg.llama.num_layers
+        decode_ms = (phase["generate_s"] - t_enc - t_pre) / max(steps, 1) * 1e3
+        print(f"  {name}: encoders+prompt {t_enc * 1e3:.1f} ms, prefill {t_pre * 1e3:.1f} ms, "
+              f"decode {decode_ms:.2f} ms/step over {steps} steps")
+        phase.update(encoders_s=t_enc, prefill_s=t_pre, decode_ms_per_step=decode_ms,
+                     decode_steps=steps)
+        checks = {}
+        got = prefill_and_step(llama, emb, mask, tokens, **INT8_KV)
+        with plain_versions():
+            want = prefill_and_step(llama, emb, mask, tokens, **INT8_KV)
+        gate = logits_gate(llama, emb, mask, tokens, got[1], **INT8_KV)
+        for label, a, c in zip(("prefill_logits", "step_logits"), got, want):
+            compare(checks, f"{name}/{label}", a, c, gate["tol_rel_l2"])
+        checks[f"{name}/step_logits"]["noise_floor_rel_l2"] = gate["noise_floor_rel_l2"]
+        checks[f"{name}/step_logits"]["one_kernel_plain_rel_l2"] = isolate(
+            llama, emb, mask, tokens, got[1],
+            (f"{mode}_matmul", "prompt_attention", "gen_attention_ancestor"))
+        checks.update(layerwise(llama, emb, mask, tokens, name))
+        # quantization error itself, not gated: against the bf16 weights
+        phase["rel_l2_vs_bf16_weights"] = {
+            label: rel_l2(a, c) for label, a, c in zip(("prefill_logits", "step_logits"),
+                                                       got, bf16_logits)}
+        print(f"  {name}: logits vs bf16 weights (not gated) {phase['rel_l2_vs_bf16_weights']}")
+    phase["step_check"] = checks
+    del system, llama
+    torch.cuda.empty_cache()
+    return phase
+
+
+def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict:
+    """Where a decode step's time goes, at the serving batch with the int8
+    KV cache: generate() with 1 + ``steps`` new tokens against generate()
+    with 1 (the prefill's token, no decode step), unprofiled (the median of
+    three walls) and under torch.profiler (device time of every kernel,
+    copy and memset); the differences over ``steps`` are the decode steps'
+    share, without the encoders and the prefill."""
+    import statistics
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def gen(n):
+        return system.generate(batch, num_beams=BEAMS, max_new_tokens=n, kv_quant="int8")
+
+    def unprofiled(n):
+        return statistics.median(wall(lambda: gen(n))[1] for _ in range(3))
+
+    def profiled(n):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, t = wall(lambda: gen(n))
+        us, count = Counter(), Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us[e.name] += e.time_range.elapsed_us()
+                count[e.name] += 1
+        return t, us, count
+
+    reset_counts(table)
+    gen(1 + steps)
+    n = read_counts(table)["prompt_attention/int8"] // system.cfg.llama.num_layers
+    if n != steps:
+        raise SmokeFailure(f"profile: {n} decode steps, expected {steps}")
+    wall_ms = (unprofiled(1 + steps) - unprofiled(1)) / steps * 1e3
+    (t_long, us_long, n_long), (t_short, us_short, n_short) = profiled(1 + steps), profiled(1)
+    per_step = {k: (us_long[k] - us_short[k]) / steps / 1e3 for k in us_long}
+    device_ms = sum(per_step.values())
+    if device_ms <= 0:
+        raise SmokeFailure("profile: torch.profiler recorded no device time")
+    prof_wall_ms = (t_long - t_short) / steps * 1e3
+    out = {
+        "decode_ms_per_step": wall_ms, "profiled_ms_per_step": prof_wall_ms,
+        "device_ms_per_step": device_ms, "idle_share_profiled": 1 - device_ms / prof_wall_ms,
+        "idle_share_unprofiled": 1 - device_ms / wall_ms,
+        "device_ops_per_step": (sum(n_long.values()) - sum(n_short.values())) / steps,
+        "top_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])[:top]),
     }
+    print(f"  decode {wall_ms:.2f} ms/step ({prof_wall_ms:.2f} profiled), device "
+          f"{device_ms:.3f} ms/step, idle share {out['idle_share_unprofiled']:.3f} "
+          f"({out['idle_share_profiled']:.3f} profiled), {out['device_ops_per_step']:.0f} device "
+          f"ops/step")
+    for k, v in out["top_ms_per_step"].items():
+        print(f"    {v:8.3f} ms/step  {k[:110]}")
+    return out
+
+
+def profile_main(table, batch) -> dict:
+    """``--profile``: the decode profile of the bf16- and int8-weight
+    systems (int8 KV, ancestry), one system at a time."""
+    import torch
+
+    out = {}
+    for mode in (None, "int8"):
+        system = build_system(mode)
+        system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
+        with torch.inference_mode():
+            out[f"{mode or 'bf16'}_weights"] = profile_decode(table, system, batch)
+        del system
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -376,30 +850,43 @@ def main() -> int:
     print(f"kernels built in {lib.build_s:.1f} s -> {lib.path.name}")
     print(lib.log.strip())
 
+    if "--profile" in sys.argv[1:]:
+        print(json.dumps({"profile": profile_main(kernels(), make_batch())}))
+        print(card)
+        return 0
+
     results = []
     print("kernel checks (kernel vs plain PyTorch, same inputs, CUDA-event ms):")
-    check_flash(results)
-    check_decode(results)
-    check_topk(results)
+    for check in (check_flash, check_decode, check_decode_bf16, check_topk, check_gather_rows,
+                  check_int8_matmul, check_int4_matmul):
+        check(results)
+        torch.cuda.empty_cache()
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
         raise SmokeFailure(f"kernel checks failed: {failed}")
 
     table = kernels()
-    slice_out = run_slice(table)
+    batch = make_batch()
+    print(f"serving: AVSRConfig() full width, random weights (seed 0), batch {BATCH}, "
+          f"{SECONDS} s, beam {BEAMS}")
+    phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
+    phases["int8_weights"] = quantized_phase(table, batch, "int8", NEW_TOKENS, prompt, tokens,
+                                             bf16_logits)
+    phases["int4_weights"] = quantized_phase(table, batch, "int4", SHORT_TOKENS, prompt, tokens,
+                                             bf16_logits)
 
     summary = []
-    for name, (fn, src, replaces) in table.items():
+    for name, (fn, attr, src, replaces, phase, on_path) in table.items():
         mine = [r for r in results if r["name"].startswith(name + "/") or r["name"] == name]
-        main_case = mine[0]
         summary.append({
             "name": name, "route": "cuda", "source": f"multimodalvc_tpu_torch/{src}",
-            "replaces": replaces, "launches": slice_out["launches"][name],
+            "replaces": replaces, "phase": phase, "on_path": on_path,
+            "launches": phases[phase]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
         })
     print(json.dumps({"cases": results}))
-    print(json.dumps({"slice": slice_out}))
+    print(json.dumps({"phases": phases, "checks": checks}))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

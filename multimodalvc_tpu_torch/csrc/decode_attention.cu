@@ -1,5 +1,6 @@
 // K2 · prompt_attention and K3 · gen_attention_ancestor: beam-decode
-// attention partials over an int8 KV cache with per-vector f32 scales.
+// attention partials over an int8 KV cache with per-vector f32 scales, or a
+// bf16 KV cache with no scales.
 //
 // Replace the Pallas kernels of multimodalvc_tpu/ops/decode_attention.py:
 //   K2 prompt_attention (pallas_call at :370, body _prompt_kernel :278): the
@@ -11,23 +12,27 @@
 //      element, so the beam reorder never moves the cache.
 // Both return unnormalised f32 out [B*K, h, d] with the row max m and row
 // sum l [B*K, h] (m = -1e30, l = 0, out = 0 for a row with no valid key),
-// which the caller merges (merge_softmax_segments).
+// which the caller merges (merge_softmax_segments).  Each kernel is a
+// template on the KV element type, as the TPU kernels take either
+// (``quantized``): int8 with f32 scales, or bf16 read as it is.
 //
 // Design for Hopper.  One block per (kv head, batch element) serves the
 // K*rep query rows that share that kv head (GQA rep = h/g; beam 5 with 24
-// query and 8 kv heads gives 15 rows), so each int8 key/value row is read
-// once per block, not once per query head.  Phase 1: one thread per key
-// slot dequantizes its key row in registers (16 bytes at a time) and dots it
-// with the 15 query rows staged in shared memory.  Phase 2: a warp per query
-// row takes the masked max, exp and sum.  Phase 3: one thread per head-dim
-// column accumulates P.V over the slots; the value reads are coalesced
-// across the block.  Scores stay in shared memory.
+// query and 8 kv heads gives 15 rows), so each key/value row is read once
+// per block, not once per query head.  Phase 1: one thread per key slot
+// converts its key row to f32 in registers (16 bytes at a time: 16 int8 or
+// 8 bf16 values) and dots it with the 15 query rows staged in shared
+// memory.  Phase 2: a warp per query row takes the masked max, exp and sum.
+// Phase 3: one thread per head-dim column accumulates P.V over the slots;
+// the value reads are coalesced across the block.  Scores stay in shared
+// memory.
 //
-// What bounds it on the H100: the int8 KV bytes (per decode step and layer,
-// ~2*B*g*(Tp + L)*d) against 3.35 TB/s; the arithmetic is ~2 flops a byte.
-// At serving batch the grid is g*B = 384 blocks of 128 threads, a few per
-// SM, and the per-slot thread mapping reads 128-byte key rows with strided
-// 16-byte loads; a split-KV layout fused with the merge is later work.
+// What bounds it on the H100: the KV bytes (per decode step and layer,
+// ~2*B*g*(Tp + L)*d elements, 1 byte each in int8 and 2 in bf16) against
+// 3.35 TB/s; the arithmetic is ~2 flops a byte.  At serving batch the grid
+// is g*B = 384 blocks of 128 threads, a few per SM, and the per-slot thread
+// mapping reads each key row with strided 16-byte loads; a split-KV layout
+// fused with the merge is later work.
 #include "common.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -49,22 +54,31 @@ __device__ void load_queries(const bf16* __restrict__ q, float* qs, int b, int g
   }
 }
 
-// acc[x] += q[x] . dequant(krow) for x < nx, 16 int8 values at a time.
-__device__ __forceinline__ void dot_int8_row(const float* qs, int nx, const int8_t* krow,
-                                             float ksc, int d, float* acc) {
-  for (int d0 = 0; d0 < d; d0 += 16) {
+// The KV element types: 16 bytes hold 16 int8 or 8 bf16 values.
+__device__ __forceinline__ float to_f32(int8_t v) { return float(v); }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// The f32 scale of one key/value row; a bf16 cache has none.
+__device__ __forceinline__ float row_scale(const float* s, size_t i) { return s ? s[i] : 1.f; }
+
+// acc[x] += q[x] . (krow * ksc) for x < nx, 16 bytes of krow at a time.
+template <typename T>
+__device__ __forceinline__ void dot_row(const float* qs, int nx, const T* krow, float ksc, int d,
+                                        float* acc) {
+  constexpr int V = 16 / sizeof(T);
+  for (int d0 = 0; d0 < d; d0 += V) {
     const int4 raw = *reinterpret_cast<const int4*>(krow + d0);
-    const int8_t* k8 = reinterpret_cast<const int8_t*>(&raw);
-    float kf[16];
+    const T* kv = reinterpret_cast<const T*>(&raw);
+    float kf[V];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) kf[j] = float(k8[j]) * ksc;
+    for (int j = 0; j < V; ++j) kf[j] = to_f32(kv[j]) * ksc;
 #pragma unroll
     for (int x = 0; x < MAXX; ++x) {
       if (x < nx) {
         const float* qr = qs + x * d + d0;
         float a = acc[x];
 #pragma unroll
-        for (int j = 0; j < 16; ++j) a += qr[j] * kf[j];
+        for (int j = 0; j < V; ++j) a += qr[j] * kf[j];
         acc[x] = a;
       }
     }
@@ -96,9 +110,10 @@ __device__ void softmax_rows(float* S, int X, int T, const int* mask, int valid,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-prompt_attention_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ pk,
-                        const int8_t* __restrict__ pv, const float* __restrict__ pks,
+prompt_attention_kernel(const bf16* __restrict__ q, const T* __restrict__ pk,
+                        const T* __restrict__ pv, const float* __restrict__ pks,
                         const float* __restrict__ pvs, const int* __restrict__ mask,
                         float* __restrict__ out, float* __restrict__ m_out,
                         float* __restrict__ l_out, int K, int h, int g, int Tp, int d,
@@ -118,7 +133,7 @@ prompt_attention_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ p
 #pragma unroll
     for (int x = 0; x < MAXX; ++x) acc[x] = 0.f;
     const bool ok = mrow[p] != 0;
-    if (ok) dot_int8_row(qs, X, pk + (kv0 + p) * d, pks[kv0 + p], d, acc);
+    if (ok) dot_row(qs, X, pk + (kv0 + p) * d, row_scale(pks, kv0 + p), d, acc);
 #pragma unroll
     for (int x = 0; x < MAXX; ++x)
       if (x < X) S[x * Tp + p] = ok ? acc[x] * scale : mmvc::kNeg;
@@ -132,7 +147,7 @@ prompt_attention_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ p
 #pragma unroll
     for (int x = 0; x < MAXX; ++x) acc[x] = 0.f;
     for (int p = 0; p < Tp; ++p) {
-      const float vv = float(pv[(kv0 + p) * d + j]) * pvs[kv0 + p];
+      const float vv = to_f32(pv[(kv0 + p) * d + j]) * row_scale(pvs, kv0 + p);
 #pragma unroll
       for (int x = 0; x < MAXX; ++x)
         if (x < X) acc[x] += S[x * Tp + p] * vv;
@@ -143,9 +158,10 @@ prompt_attention_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ p
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gen_attention_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ gk,
-                     const int8_t* __restrict__ gv, const float* __restrict__ gks,
+gen_attention_kernel(const bf16* __restrict__ q, const T* __restrict__ gk,
+                     const T* __restrict__ gv, const float* __restrict__ gks,
                      const float* __restrict__ gvs, const int* __restrict__ anc, int valid,
                      float* __restrict__ out, float* __restrict__ m_out,
                      float* __restrict__ l_out, int K, int h, int g, int L, int d,
@@ -170,7 +186,7 @@ gen_attention_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ gk,
     const bool ok = l < valid;
     if (ok) {
       const size_t kvrow = (size_t(src[pr]) * L + l) * g + gi;
-      dot_int8_row(qs + beam * rep * d, rep, gk + kvrow * d, gks[kvrow], d, acc);
+      dot_row(qs + beam * rep * d, rep, gk + kvrow * d, row_scale(gks, kvrow), d, acc);
     }
 #pragma unroll
     for (int r = 0; r < MAXREP; ++r)
@@ -187,7 +203,7 @@ gen_attention_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ gk,
       for (int r = 0; r < MAXREP; ++r) acc[r] = 0.f;
       for (int l = 0; l < valid; ++l) {
         const size_t kvrow = (size_t(src[beam * L + l]) * L + l) * g + gi;
-        const float vv = float(gv[kvrow * d + j]) * gvs[kvrow];
+        const float vv = to_f32(gv[kvrow * d + j]) * row_scale(gvs, kvrow);
 #pragma unroll
         for (int r = 0; r < MAXREP; ++r)
           if (r < rep) acc[r] += S[(beam * rep + r) * L + l] * vv;
@@ -212,41 +228,69 @@ int set_smem(const void* fn, size_t bytes) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" int mmvc_prompt_attention(const void* q, const void* pk, const void* pv,
-                                     const void* pks, const void* pvs, const void* mask,
-                                     void* out, void* m, void* l, int B, int K, int h, int g,
-                                     int Tp, int d, float scale, void* stream) {
-  int e = check_dims(B, K, h, g, Tp, d);
-  if (e) return e;
+template <typename T>
+int launch_prompt(const void* q, const void* pk, const void* pv, const void* pks, const void* pvs,
+                  const void* mask, void* out, void* m, void* l, int B, int K, int h, int g,
+                  int Tp, int d, float scale, cudaStream_t stream) {
   const int X = K * (h / g);
   const size_t bytes = size_t(X) * (d + Tp) * sizeof(float);
-  if ((e = set_smem(reinterpret_cast<const void*>(prompt_attention_kernel), bytes))) return e;
-  prompt_attention_kernel<<<dim3(g, B), THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(pk),
-      static_cast<const int8_t*>(pv), static_cast<const float*>(pks),
-      static_cast<const float*>(pvs), static_cast<const int*>(mask), static_cast<float*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), K, h, g, Tp, d, scale);
+  int e = set_smem(reinterpret_cast<const void*>(prompt_attention_kernel<T>), bytes);
+  if (e) return e;
+  prompt_attention_kernel<T><<<dim3(g, B), THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(pk), static_cast<const T*>(pv),
+      static_cast<const float*>(pks), static_cast<const float*>(pvs),
+      static_cast<const int*>(mask), static_cast<float*>(out), static_cast<float*>(m),
+      static_cast<float*>(l), K, h, g, Tp, d, scale);
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_gen(const void* q, const void* gk, const void* gv, const void* gks, const void* gvs,
+               const void* anc, int valid, void* out, void* m, void* l, int B, int K, int h,
+               int g, int L, int d, float scale, cudaStream_t stream) {
+  const int X = K * (h / g);
+  const size_t bytes = size_t(X) * (d + L) * sizeof(float) + size_t(K) * L * sizeof(int);
+  int e = set_smem(reinterpret_cast<const void*>(gen_attention_kernel<T>), bytes);
+  if (e) return e;
+  gen_attention_kernel<T><<<dim3(g, B), THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(gk), static_cast<const T*>(gv),
+      static_cast<const float*>(gks), static_cast<const float*>(gvs),
+      static_cast<const int*>(anc), valid, static_cast<float*>(out), static_cast<float*>(m),
+      static_cast<float*>(l), K, h, g, L, d, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// kv_bf16 = 0: int8 K/V with f32 scales pks/pvs [B, g, Tp];
+// kv_bf16 = 1: bf16 K/V, pks/pvs null.
+extern "C" int mmvc_prompt_attention(const void* q, const void* pk, const void* pv,
+                                     const void* pks, const void* pvs, const void* mask,
+                                     void* out, void* m, void* l, int B, int K, int h, int g,
+                                     int Tp, int d, float scale, int kv_bf16, void* stream) {
+  int e = check_dims(B, K, h, g, Tp, d);
+  if (e) return e;
+  if (!kv_bf16 && (!pks || !pvs)) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  return kv_bf16 ? launch_prompt<bf16>(q, pk, pv, nullptr, nullptr, mask, out, m, l, B, K, h, g,
+                                       Tp, d, scale, st)
+                 : launch_prompt<int8_t>(q, pk, pv, pks, pvs, mask, out, m, l, B, K, h, g, Tp,
+                                         d, scale, st);
+}
+
+// kv_bf16 as above; scales gks/gvs [B*K, L, g] for int8.
 extern "C" int mmvc_gen_attention_ancestor(const void* q, const void* gk, const void* gv,
                                            const void* gks, const void* gvs, const void* anc,
                                            int valid, void* out, void* m, void* l, int B,
                                            int K, int h, int g, int L, int d, float scale,
-                                           void* stream) {
+                                           int kv_bf16, void* stream) {
   int e = check_dims(B, K, h, g, L, d);
   if (e) return e;
+  if (!kv_bf16 && (!gks || !gvs)) return cudaErrorInvalidValue;
   valid = min(max(valid, 0), L);
-  const int X = K * (h / g);
-  const size_t bytes = size_t(X) * (d + L) * sizeof(float) + size_t(K) * L * sizeof(int);
-  if ((e = set_smem(reinterpret_cast<const void*>(gen_attention_kernel), bytes))) return e;
-  gen_attention_kernel<<<dim3(g, B), THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(gk),
-      static_cast<const int8_t*>(gv), static_cast<const float*>(gks),
-      static_cast<const float*>(gvs), static_cast<const int*>(anc), valid,
-      static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l), K, h, g, L, d,
-      scale);
-  return cudaGetLastError();
+  auto st = static_cast<cudaStream_t>(stream);
+  return kv_bf16 ? launch_gen<bf16>(q, gk, gv, nullptr, nullptr, anc, valid, out, m, l, B, K, h,
+                                    g, L, d, scale, st)
+                 : launch_gen<int8_t>(q, gk, gv, gks, gvs, anc, valid, out, m, l, B, K, h, g, L,
+                                      d, scale, st);
 }

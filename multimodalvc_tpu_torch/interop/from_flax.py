@@ -15,6 +15,10 @@ state_dict key by joining with dots; only the leaf names and layouts change:
                                              (+ ``num_batches_tracked`` = 0)
 - LoRA ``lora_a`` [in, r] / ``lora_b`` [r, out], ``sr_token`` and
   ``query_tokens`` keep their names and layouts.
+- The quantized leaves of ``QuantDense`` (``w_q``, ``w_packed``,
+  ``w_scale``) cross untransposed, in the flax [d_in, d_out] layout and
+  their packed formats, so both packages serve from one checkpoint byte for
+  byte.  bf16 leaves (the quantized tree's embedding table) stay bf16.
 """
 from __future__ import annotations
 
@@ -48,16 +52,22 @@ def _convert(name: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
     return _RENAME.get(name, name), x
 
 
+def _tensor(x: np.ndarray) -> torch.Tensor:
+    if x.dtype.name == "bfloat16":  # ml_dtypes: torch.from_numpy does not take it
+        return torch.from_numpy(np.array(x).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
 def flax_to_state_dict(variables: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
     """Convert ``{"params": ..., "batch_stats": ...}`` to a state_dict whose
     keys are the module paths joined by dots (``prefix`` is prepended)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, x in _leaves(variables.get("params", {})):
         name, y = _convert(path[-1], x)
-        sd[prefix + ".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(y))
+        sd[prefix + ".".join(path[:-1] + (name,))] = _tensor(y)
     for path, x in _leaves(variables.get("batch_stats", {})):
         base = prefix + ".".join(path[:-1])
-        sd[f"{base}.{_STATS[path[-1]]}"] = torch.from_numpy(np.array(x))
+        sd[f"{base}.{_STATS[path[-1]]}"] = _tensor(x)
         sd[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd
 

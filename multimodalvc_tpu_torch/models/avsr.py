@@ -2,8 +2,10 @@
 
 Port of ``multimodalvc_tpu/models/avsr.py`` for the serving path:
 ``AVSRSystem.generate`` runs the encoders, assembles the left-padded prompt,
-prefills LLaMA and beam-decodes with the int8 ancestry cache.  Training,
-the other fusion modes and the other decode modes are not ported yet.
+prefills LLaMA and beam-decodes over the split cache (ancestry decode with an
+int8 or bf16 KV cache, or the gather reorder), with float, int8 or int4
+weights (``enable_quantized_decode``).  Training, the other fusion modes and
+the other decode modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from torch import nn
 
 from ..nn.avhubert import AVHubertConfig, AVHubertModel
-from ..nn.llama import LlamaConfig, LlamaModel, RMSNorm, generate_beam
+from ..nn.llama import LlamaConfig, LlamaModel, RMSNorm, generate_beam, quantize_llama_
 from ..nn.modules import Projector, SpeechRatePredictor
 from ..nn.qformer import QFormer, QFormerConfig
 from ..nn.whisper import WhisperEncoder, WhisperEncoderConfig
@@ -170,6 +172,13 @@ class AVSRModel(nn.Module):
         return self.build_prompt(queries, query_lens, batch)
 
 
+def resolve_ancestry_reorder(kv_quant: Optional[str], device: torch.device | str) -> bool:
+    """``generate``'s default beam reorder, the JAX package's rule
+    (models/avsr.py:516-517) with CUDA as the accelerator: the ancestry decode
+    for an int8 KV cache or on the accelerator, the gather reorder on the CPU."""
+    return bool(kv_quant) or torch.device(device).type == "cuda"
+
+
 class AVSRSystem:
     """Bundles the module with generation (HF-generate-equivalent decode)."""
 
@@ -200,6 +209,17 @@ class AVSRSystem:
             if isinstance(mod, nn.BatchNorm2d):
                 mod.reset_running_stats()
 
+    def enable_quantized_decode(self, mode: str = "int8") -> None:
+        """Serve the LLaMA with weight-only quantized weights: quantize the
+        live trunk and the tied unembed in place on their device (``mode``
+        "int8", or "int4" with group-128 scales) and free the float base
+        weights, so one trunk stays resident.  The prompt assembly reads the
+        input table, which drops to bf16, as in the JAX package."""
+        quantize_llama_(self.llama_module, mode)
+
+    def enable_int8_decode(self) -> None:
+        self.enable_quantized_decode("int8")
+
     @torch.inference_mode()
     def generate(
         self,
@@ -215,10 +235,13 @@ class AVSRSystem:
         constraints=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Beam-search transcription: (sequences [B, K, max_new_tokens],
-        scores [B, K]).  Ported mode: ``kv_quant="int8"`` with the ancestry
-        decode (``ancestry_reorder`` None or True)."""
+        scores [B, K]).  ``ancestry_reorder=None`` resolves as in the JAX
+        package (``resolve_ancestry_reorder``); ``kv_quant="int8"`` needs the
+        ancestry decode.  Constraints, n-gram blocking and
+        ``encoder_microbatch`` are not ported yet."""
         if ancestry_reorder is None:
-            ancestry_reorder = bool(kv_quant)
+            ancestry_reorder = resolve_ancestry_reorder(
+                kv_quant, self.llama_module.norm.weight.device)
         if encoder_microbatch > 1:
             raise NotImplementedError("encoder_microbatch is not ported yet")
         emb, attn_mask = self.module.prompt_for_generation(batch)

@@ -1,25 +1,38 @@
 """LLaMA decoder with LoRA adapters, a KV cache and beam generation.
 
-Port of ``multimodalvc_tpu/nn/llama.py``, float weights only: RMSNorm
-pre-norm, GQA attention with llama3-scaled RoPE, SwiGLU MLP, tied
-embeddings.  The cache is a tuple of per-layer dicts with the JAX keys.
+Port of ``multimodalvc_tpu/nn/llama.py``: RMSNorm pre-norm, GQA attention
+with llama3-scaled RoPE, SwiGLU MLP, tied embeddings.  Weights are float, or
+weight-only int8 / int4 (``LlamaConfig.weight_quant``: every projection and
+the tied unembed become ``QuantDense``, K7 ``int8_matmul`` or K8
+``int4_matmul``).  The cache is a tuple of per-layer dicts with the JAX keys.
 Unlike the JAX package, its tensors are updated in place (the cache
 ``index`` is a Python int): a decode step writes one slot instead of
 copying the cache.
 
-``generate_beam`` serves one decode mode: the split cache with the prompt
-KV shared across beams, an int8 KV cache, and the ancestry map that
-replaces the physical beam reorder (K2 ``prompt_attention`` and K3
-``gen_attention_ancestor`` in every layer, K4 in every beam step).
-Prefill attention at serving prompt lengths stays plain tensor code, as
-the JAX package leaves it to XLA (``_flash_prefill_ok``).
+``generate_beam`` serves the split cache, with the prompt KV shared across
+beams, in three forms:
+
+- the ancestry map with an int8 KV cache: K2 ``prompt_attention`` and K3
+  ``gen_attention_ancestor`` in every layer;
+- the ancestry map with a bf16 (or f32) KV cache: the prompt segment as
+  plain einsums, as the JAX package leaves it to XLA, and the generated
+  segment through K3;
+- the gather reorder with a bf16 (or f32) KV cache: one softmax over the
+  prompt and the generated scores as grouped einsums, and the per-beam
+  generated segment reordered physically every step (K6 ``gather_rows``).
+
+K4 picks the beam candidates in every step.  Prefill attention at serving
+prompt lengths stays plain tensor code, as the JAX package leaves it to XLA
+(``_flash_prefill_ok``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,8 +47,16 @@ from ..ops.decode_attention import (
     prompt_attention,
     quantize_kv,
 )
+from ..ops.int8_matmul import (
+    INT4_GROUP,
+    int4_matmul,
+    int8_matmul,
+    quantize_kernel,
+    quantize_kernel_int4,
+)
 from .layers import add_layers
 
+NEG = -1e30
 
 @dataclass
 class LoraConfig:
@@ -62,6 +83,8 @@ class LlamaConfig:
     lora: Optional[LoraConfig] = field(default_factory=LoraConfig)
     # flash prefill gate: None = auto (padded t >= 512 and batch*t >= 4096)
     use_flash_prefill: Optional[bool] = None
+    # weight-only quantized serving: None (float), "int8" or "int4"
+    weight_quant: Optional[str] = None
 
     @classmethod
     def llama32_3b(cls):
@@ -121,23 +144,85 @@ class RMSNorm(nn.Module):
         return (normed * self.weight.float()).to(self.weight.dtype)
 
 
+def quantize_weight(weight: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
+    """A float ``weight`` [out, in] (torch layout) -> the ``QuantDense``
+    buffers, in the flax [in, out] layout of the JAX package."""
+    if mode == "int4":
+        w_packed, w_scale = quantize_kernel_int4(weight.T)
+        return {"w_packed": w_packed, "w_scale": w_scale}
+    if mode == "int8":
+        w_q, w_scale = quantize_kernel(weight.T)
+        return {"w_q": w_q, "w_scale": w_scale}
+    raise ValueError(f"unsupported weight_quant {mode!r}")
+
+
+class QuantDense(nn.Module):
+    """Dense with weight-only quantized weights (the flax ``QuantDense``).
+
+    mode "int8": ``w_q`` [d_in, d_out] int8 and ``w_scale`` [d_out] f32 (K7);
+    mode "int4": ``w_packed`` [d_in/2, d_out] int8, two half-split nibbles a
+    byte, and ``w_scale`` [d_in/128, d_out] f32 (K8).  The leaves keep the
+    flax [d_in, d_out] layout and are buffers (serving weights, not trained).
+    The output type is ``dtype``."""
+
+    def __init__(self, d_in: int, features: int, mode: str = "int8", device=None, dtype=None):
+        super().__init__()
+        self.mode = mode
+        self.dtype = dtype or torch.get_default_dtype()
+        kw = dict(device=device)
+        if mode == "int4":
+            self.register_buffer("w_packed", torch.zeros(d_in // 2, features, dtype=torch.int8, **kw))
+            self.register_buffer("w_scale", torch.ones(d_in // INT4_GROUP, features, **kw))
+        elif mode == "int8":
+            self.register_buffer("w_q", torch.zeros(d_in, features, dtype=torch.int8, **kw))
+            self.register_buffer("w_scale", torch.ones(features, **kw))
+        else:
+            raise ValueError(f"unsupported weight_quant {mode!r}")
+
+    @classmethod
+    def from_weight(cls, weight: torch.Tensor, mode: str, dtype) -> "QuantDense":
+        """The quantized copy of a float ``weight`` [out, in], on its device."""
+        out_f, in_f = weight.shape
+        mod = cls(in_f, out_f, mode, device="meta", dtype=dtype)
+        for name, buf in quantize_weight(weight, mode).items():
+            setattr(mod, name, buf)
+        return mod
+
+    def forward(self, x):
+        if self.mode == "int4":
+            return int4_matmul(x, self.w_packed, self.w_scale, out_dtype=self.dtype)
+        return int8_matmul(x, self.w_q, self.w_scale, out_dtype=self.dtype)
+
+
 class LoraDense(nn.Module):
     """Dense with an additive low-rank adapter: y = xW + s*(x A) B.  The
-    adapter factors keep the flax layout: lora_a [in, r], lora_b [r, out]."""
+    adapter factors keep the flax layout: lora_a [in, r], lora_b [r, out].
+    With ``quant`` the base is a ``QuantDense`` named ``base_q``; the adapter
+    stays float and is added after the base product."""
 
-    def __init__(self, d_in: int, features: int, lora: Optional[LoraConfig], device=None,
-                 dtype=None):
+    def __init__(self, d_in: int, features: int, lora: Optional[LoraConfig],
+                 quant: Optional[str] = None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.base = nn.Linear(d_in, features, bias=False, **kw)
+        self.quant = quant
+        if quant:
+            self.base_q = QuantDense(d_in, features, quant, **kw)
+        else:
+            self.base = nn.Linear(d_in, features, bias=False, **kw)
         self.scale = 0.0
         if lora is not None and lora.rank > 0:
             self.lora_a = nn.Parameter(torch.zeros(d_in, lora.rank, **kw))
             self.lora_b = nn.Parameter(torch.zeros(lora.rank, features, **kw))
             self.scale = lora.alpha / lora.rank
 
+    def quantize_(self, mode: str) -> None:
+        """Replace the float base by its quantized copy, in place."""
+        self.base_q = QuantDense.from_weight(self.base.weight, mode, self.base.weight.dtype)
+        del self.base
+        self.quant = mode
+
     def forward(self, x):
-        y = self.base(x)
+        y = self.base_q(x) if self.quant else self.base(x)
         if self.scale:
             y = y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype) * self.scale
         return y
@@ -151,10 +236,11 @@ class LlamaAttention(nn.Module):
         self.dtype = dtype or torch.get_default_dtype()
         h, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
         lora = lambda name: cfg.lora if (cfg.lora and name in cfg.lora.targets) else None  # noqa: E731
-        self.q_proj = LoraDense(d, h * hd, lora("q_proj"), **kw)
-        self.k_proj = LoraDense(d, hkv * hd, lora("k_proj"), **kw)
-        self.v_proj = LoraDense(d, hkv * hd, lora("v_proj"), **kw)
-        self.o_proj = LoraDense(h * hd, d, lora("o_proj"), **kw)
+        wq = cfg.weight_quant
+        self.q_proj = LoraDense(d, h * hd, lora("q_proj"), wq, **kw)
+        self.k_proj = LoraDense(d, hkv * hd, lora("k_proj"), wq, **kw)
+        self.v_proj = LoraDense(d, hkv * hd, lora("v_proj"), wq, **kw)
+        self.o_proj = LoraDense(h * hd, d, lora("o_proj"), wq, **kw)
         inv = torch.from_numpy(llama3_rope_frequencies(cfg))
         self.register_buffer("inv_freq", inv.to(device=device), persistent=False)
 
@@ -183,19 +269,22 @@ class LlamaAttention(nn.Module):
         )
 
     def _ancestry_step(self, q, k, v, cache) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One decode token against the split int8 cache with the ancestry map."""
+        """One decode token against the split cache with the ancestry map.
+        The generated segment goes through K3; the prompt segment through K2
+        for an int8 cache, and as plain einsums for a bf16/f32 cache."""
         cfg = self.cfg
         b = q.shape[0]
         h, hd = cfg.num_heads, cfg.head_dim
-        if cache["fixed_k"].dtype != torch.int8:
-            raise NotImplementedError("the ancestry decode is ported for the int8 KV cache only")
         idx = cache["index"]
-        k_q, k_sc = quantize_kv(k.transpose(1, 2))  # [B*K, 1, hkv, d], scales [B*K, 1, hkv]
-        v_q, v_sc = quantize_kv(v.transpose(1, 2))
-        cache["fixed_k"][:, idx : idx + 1] = k_q
-        cache["fixed_v"][:, idx : idx + 1] = v_q
-        cache["fixed_ks"][:, idx : idx + 1] = k_sc
-        cache["fixed_vs"][:, idx : idx + 1] = v_sc
+        k_sl, v_sl = k.transpose(1, 2), v.transpose(1, 2)  # [B*K, 1, hkv, d]
+        kv_q = cache["fixed_k"].dtype == torch.int8
+        if kv_q:
+            k_sl, k_sc = quantize_kv(k_sl)  # scales [B*K, 1, hkv]
+            v_sl, v_sc = quantize_kv(v_sl)
+            cache["fixed_ks"][:, idx : idx + 1] = k_sc
+            cache["fixed_vs"][:, idx : idx + 1] = v_sc
+        cache["fixed_k"][:, idx : idx + 1] = k_sl
+        cache["fixed_v"][:, idx : idx + 1] = v_sl
         nb = cache["prompt_k"].shape[0]
         kbeams = b // nb
         anc = cache["anc"]
@@ -203,16 +292,92 @@ class LlamaAttention(nn.Module):
         new_cache = {**cache, "index": idx + 1}
         scale = 1.0 / math.sqrt(hd)
         q_flat = q[:, :, 0, :].to(self.dtype).contiguous()  # [B*K, h, d]
-        out_p, m_p, l_p = prompt_attention(
-            q_flat, cache["prompt_k"], cache["prompt_v"], cache["prompt_mask"],
-            beams=kbeams, scale=scale, k_scale=cache["prompt_ks"], v_scale=cache["prompt_vs"],
-        )
+        if kv_q:
+            out_p, m_p, l_p = prompt_attention(
+                q_flat, cache["prompt_k"], cache["prompt_v"], cache["prompt_mask"],
+                beams=kbeams, scale=scale, k_scale=cache["prompt_ks"], v_scale=cache["prompt_vs"],
+            )
+        else:
+            out_p, m_p, l_p = self._prompt_partials(q, cache, kbeams, scale)
         out_g, m_g, l_g = gen_attention_ancestor(
-            q_flat, cache["fixed_k"], cache["fixed_v"], anc, idx + 1,
-            beams=kbeams, scale=scale, k_scale=cache["fixed_ks"], v_scale=cache["fixed_vs"],
+            q_flat, cache["fixed_k"], cache["fixed_v"], anc, idx + 1, beams=kbeams, scale=scale,
+            k_scale=cache.get("fixed_ks"), v_scale=cache.get("fixed_vs"),
         )
         out = merge_softmax_segments(out_p, m_p, l_p, out_g, m_g, l_g)
         return self.o_proj(out.to(self.dtype).reshape(b, 1, h * hd)), new_cache
+
+    def _prompt_scores(self, q, cache, scale: float) -> torch.Tensor:
+        """f32 scores [B*K, h, t, Tp] of the decode queries q [B*K, h, t, d]
+        against the shared bf16/f32 prompt keys [B, hkv, Tp, d], as a grouped
+        GQA einsum, with the invalid prompt slots at NEG."""
+        b, h, t, hd = q.shape
+        pk = cache["prompt_k"]
+        nb, hkv, tp = pk.shape[:3]
+        q_r = q.reshape(nb, b // nb, hkv, h // hkv, t, hd)
+        s_p = torch.einsum("bkgrtd,bgpd->bkgrtp", q_r.float(), pk.to(self.dtype).float()) * scale
+        pmask = cache["prompt_mask"].bool()[:, None, None, None, None, :]
+        return torch.where(pmask, s_p, NEG).reshape(b, h, t, tp)
+
+    def _prompt_partials(self, q, cache, kbeams: int, scale: float):
+        """Softmax partials of one decode token against the shared bf16/f32
+        prompt KV, in the JAX op order (nn/llama.py:350-367): f32 scores,
+        probabilities cast to the compute type for the P.V product, whose
+        result is then cast to f32.  A batch element with no valid slot gives
+        m = -1e30 and uniform weights; the merge then ignores it."""
+        cfg = self.cfg
+        b = q.shape[0]
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        pv = cache["prompt_v"]  # [B, hkv, Tp, d]
+        nb, tp = pv.shape[0], pv.shape[2]
+        s_p = self._prompt_scores(q, cache, scale)[:, :, 0]  # t == 1 squeezed
+        m_p = s_p.amax(dim=-1)
+        p_p = torch.exp(s_p - m_p[..., None])
+        l_p = p_p.sum(dim=-1)
+        out_p = torch.einsum(
+            "bkgrp,bgpd->bkgrd", p_p.reshape(nb, kbeams, hkv, h // hkv, tp).to(self.dtype),
+            pv.to(self.dtype),
+        )
+        return out_p.reshape(b, h, hd).float(), m_p, l_p
+
+    def _gather_step(self, q, k, v, cache) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Decode tokens against the split cache whose per-beam generated
+        segment ``k``/``v`` [B*K, L, hkv, d] is reordered physically by the
+        beam search: one softmax over the prompt and the generated scores, as
+        grouped GQA einsums (q as [.., hkv, rep, ..] against the hkv-headed
+        keys, no per-head copies of the cache), in the JAX op order
+        (nn/llama.py:383-454)."""
+        cfg = self.cfg
+        b, _, t, _ = q.shape
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        rep = h // hkv
+        idx = cache["index"]
+        ck, cv = cache["k"], cache["v"]
+        ck[:, idx : idx + t] = k.transpose(1, 2).to(ck.dtype)
+        cv[:, idx : idx + t] = v.transpose(1, 2).to(cv.dtype)
+        new_cache = {**cache, "index": idx + t}
+        pv = cache["prompt_v"]  # [B, hkv, Tp, d]
+        nb, tp = pv.shape[0], pv.shape[2]
+        kbeams = b // nb
+        scale = 1.0 / math.sqrt(hd)
+        pv_c = pv.to(self.dtype)
+        s_p = self._prompt_scores(q, cache, scale)
+        q_g = q.reshape(b, hkv, rep, t, hd)
+        s_g = torch.einsum("Bgrtd,Blgd->Bgrtl", q_g.float(), ck.to(self.dtype).float()) * scale
+        tg = ck.shape[1]
+        s_g = s_g.reshape(b, h, t, tg)
+        gen_valid = torch.arange(tg, device=q.device) <= idx + t - 1
+        s_g = torch.where(gen_valid, s_g, NEG)
+        w = torch.softmax(torch.cat([s_p, s_g], dim=-1), dim=-1)
+        w_p, w_g = w[..., :tp], w[..., tp:]
+        out_p = torch.einsum(
+            "bkgrtp,bgpd->bkgrtd", w_p.reshape(nb, kbeams, hkv, rep, t, tp).to(self.dtype), pv_c,
+        ).reshape(b, h, t, hd)
+        out_g = torch.einsum(
+            "Bgrtl,Blgd->Bgrtd", w_g.reshape(b, hkv, rep, t, tg).to(self.dtype),
+            cv.to(self.dtype),
+        ).reshape(b, h, t, hd)
+        out = (out_p + out_g).transpose(1, 2).reshape(b, t, h * hd)
+        return self.o_proj(out), new_cache
 
     def forward(self, x, positions, attn_mask, cache=None, cache_positions=None):
         cfg = self.cfg
@@ -230,7 +395,7 @@ class LlamaAttention(nn.Module):
                 raise ValueError("the ancestry decode is a single-token path")
             return self._ancestry_step(q, k, v, cache)
         if cache is not None and "prompt_k" in cache:
-            raise NotImplementedError("the gather-reorder split cache is not ported yet")
+            return self._gather_step(q, k, v, cache)
         new_cache = None
         if cache is not None:
             idx = cache["index"]
@@ -267,10 +432,14 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        kw = dict(device=device, dtype=dtype)
+        if cfg.weight_quant:  # QuantDense directly, no base_q level (the flax tree)
+            dense = lambda i, o: QuantDense(i, o, cfg.weight_quant, **kw)  # noqa: E731
+        else:
+            dense = lambda i, o: nn.Linear(i, o, bias=False, **kw)  # noqa: E731
+        self.gate_proj = dense(cfg.hidden_size, cfg.intermediate_size)
+        self.up_proj = dense(cfg.hidden_size, cfg.intermediate_size)
+        self.down_proj = dense(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -301,15 +470,25 @@ class LlamaModel(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.dtype = dtype or torch.get_default_dtype()
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        # quantized serving keeps a bf16 table for the input gather only
+        emb_dtype = torch.bfloat16 if cfg.weight_quant else dtype
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device,
+                                         dtype=emb_dtype)
         self.layers = add_layers(self, [LlamaLayer(cfg, **kw) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        if cfg.weight_quant:
+            # the tied lm_head as a quantized copy of embed^T, f32 logits
+            self.unembed_q = QuantDense(cfg.hidden_size, cfg.vocab_size, cfg.weight_quant,
+                                        device=device, dtype=torch.float32)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        # gather the rows first, then cast (the table may be bf16)
         return self.embed_tokens.weight[input_ids].to(self.dtype)
 
     def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied lm_head: hidden @ embed^T -> f32 logits."""
+        if self.cfg.weight_quant:
+            return self.unembed_q(hidden)
         emb = self.embed_tokens.weight.to(self.dtype)
         if hidden.dtype == torch.float32 or not hidden.is_cuda:
             # bf16 x bf16 products are exact in f32: same as the JAX einsum's
@@ -357,21 +536,26 @@ class LlamaModel(nn.Module):
         )
 
 
-def prefill_ancestry_cache(
+def prefill_split_cache(
     model: LlamaModel,
     inputs_embeds: torch.Tensor,  # [B, T_prompt, D] left-padded
     attn_mask: torch.Tensor,  # [B, T_prompt] 1 = valid
     *,
     num_beams: int,
     max_new_tokens: int,
+    ancestry_reorder: bool,
+    kv_quant: Optional[str],
     cache_dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, Tuple, torch.Tensor]:
-    """Prefill the prompt at batch B and build the int8 ancestry cache:
+    """Prefill the prompt at batch B and build the split decode cache:
     (first_logits [B, V], per-layer caches, valid prompt lengths [B]).
 
-    The prompt KV stays at batch B, shared by the beams, quantized once; the
-    generated segment [B*K, L, hkv, d] (slots second) is quantized at write
-    time and never reordered (``anc`` records each slot's source beam)."""
+    The prompt KV stays at batch B, shared by the beams.  The generated
+    segment is [B*K, L, hkv, d] (slots second).  With ``ancestry_reorder`` it
+    is never reordered (``anc`` records each slot's source beam; leaves
+    ``fixed_*``); ``kv_quant="int8"`` quantizes the prompt once and each
+    generated slot at write time.  Without it, ``k``/``v`` are reordered by
+    the beam search every step."""
     b, t_prompt, _ = inputs_embeds.shape
     cfg = model.cfg
     dev = inputs_embeds.device
@@ -384,22 +568,30 @@ def prefill_ancestry_cache(
         cache_positions=slot_pos, logits_last_only=True,
     )
     gen_shape = (b * num_beams, max_new_tokens, cfg.num_kv_heads, cfg.head_dim)
+    zeros = functools.partial(torch.zeros, device=dev)
 
-    def anc_cache(c):
-        pk_q, pk_s = quantize_kv(c["k"])
-        pv_q, pv_s = quantize_kv(c["v"])
-        return {
-            "prompt_k": pk_q, "prompt_v": pv_q, "prompt_ks": pk_s, "prompt_vs": pv_s,
-            "prompt_mask": attn_mask,
-            "fixed_k": torch.zeros(gen_shape, dtype=torch.int8, device=dev),
-            "fixed_v": torch.zeros(gen_shape, dtype=torch.int8, device=dev),
-            "fixed_ks": torch.zeros(gen_shape[:3], dtype=torch.float32, device=dev),
-            "fixed_vs": torch.zeros(gen_shape[:3], dtype=torch.float32, device=dev),
-            "anc": torch.zeros((b * num_beams, max_new_tokens), dtype=torch.int32, device=dev),
-            "index": 0,
-        }
+    def split_cache(c):
+        entry = {"prompt_k": c["k"], "prompt_v": c["v"], "prompt_mask": attn_mask, "index": 0}
+        if not ancestry_reorder:
+            entry.update(k=zeros(gen_shape, dtype=cache_dtype), v=zeros(gen_shape, dtype=cache_dtype))
+            return entry
+        entry["anc"] = zeros((b * num_beams, max_new_tokens), dtype=torch.int32)
+        if kv_quant == "int8":
+            pk_q, pk_s = quantize_kv(c["k"])
+            pv_q, pv_s = quantize_kv(c["v"])
+            entry.update(
+                prompt_k=pk_q, prompt_v=pv_q, prompt_ks=pk_s, prompt_vs=pv_s,
+                fixed_k=zeros(gen_shape, dtype=torch.int8),
+                fixed_v=zeros(gen_shape, dtype=torch.int8),
+                fixed_ks=zeros(gen_shape[:3], dtype=torch.float32),
+                fixed_vs=zeros(gen_shape[:3], dtype=torch.float32),
+            )
+        else:
+            entry.update(fixed_k=zeros(gen_shape, dtype=cache_dtype),
+                         fixed_v=zeros(gen_shape, dtype=cache_dtype))
+        return entry
 
-    caches = tuple(anc_cache(c) for c in out["cache"])
+    caches = tuple(split_cache(c) for c in out["cache"])
     return out["logits"][:, -1], caches, attn_mask.sum(dim=1)
 
 
@@ -429,19 +621,21 @@ def generate_beam(
     """HF-generate-equivalent beam search over embedded prompts; returns
     (sequences [B, K, max_new_tokens], scores [B, K]).
 
-    Ported mode: ``share_prompt_kv=True, ancestry_reorder=True,
-    kv_quant="int8"``, one model (no ensembles, no constraints)."""
-    if not (share_prompt_kv and ancestry_reorder and kv_quant == "int8"):
-        raise NotImplementedError(
-            "generate_beam is ported for share_prompt_kv=True, ancestry_reorder=True, "
-            "kv_quant='int8' only"
-        )
+    Ported modes: the split cache (``share_prompt_kv=True``) with the
+    ancestry decode (int8, bf16 or f32 KV) or the gather reorder (bf16 or f32
+    KV); one model, no constraints, no n-gram blocking."""
+    if kv_quant and not (ancestry_reorder and share_prompt_kv):
+        raise ValueError("kv_quant requires ancestry_reorder (split cache)")
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unsupported kv_quant {kv_quant!r}")
+    if not share_prompt_kv:
+        raise NotImplementedError("share_prompt_kv=False is not ported yet")
     if constraints is not None or isinstance(inputs_embeds, (list, tuple)):
         raise NotImplementedError("constrained and ensemble decoding are not ported yet")
 
-    first_logits, cache_k, valid_lens = prefill_ancestry_cache(
-        model, inputs_embeds, attn_mask, num_beams=num_beams,
-        max_new_tokens=max_new_tokens, cache_dtype=cache_dtype,
+    first_logits, cache_k, valid_lens = prefill_split_cache(
+        model, inputs_embeds, attn_mask, num_beams=num_beams, max_new_tokens=max_new_tokens,
+        ancestry_reorder=ancestry_reorder, kv_quant=kv_quant, cache_dtype=cache_dtype,
     )
 
     return beam_search(
@@ -450,3 +644,63 @@ def generate_beam(
         max_new_tokens=max_new_tokens, num_beams=num_beams, length_penalty=length_penalty,
         no_repeat_ngram_size=no_repeat_ngram_size,
     )
+
+
+_ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj")
+_MLP_PROJ = ("gate_proj", "up_proj", "down_proj")
+# the float weights that weight quantization replaces, from the same name
+# lists as quantize_llama_
+_QUANT_KEY = re.compile(rf"(layers_\d+\.(?:self_attn\.(?:{'|'.join(_ATTN_PROJ)})\.base"
+                        rf"|mlp\.(?:{'|'.join(_MLP_PROJ)})))\.weight")
+
+
+def quantize_llama_params(
+    params: Union[Mapping[str, torch.Tensor], LlamaModel], mode: str = "int8",
+) -> Dict[str, torch.Tensor]:
+    """Float LLaMA state_dict (or module) -> the weight-quantized serving
+    state_dict that a ``LlamaModel`` with ``weight_quant=mode`` loads; the JAX
+    ``quantize_llama_params`` on the port's keys.
+
+    Every attention projection's base (``.base.weight`` -> ``.base_q.*``)
+    and every MLP weight becomes ``w_q``/``w_scale`` (int8) or
+    ``w_packed``/``w_scale`` (int4) in the flax [d_in, d_out] layout;
+    ``unembed_q`` is the quantized copy of embed^T for the tied lm_head; the
+    table kept for the input gather drops to bf16.  LoRA factors and norms
+    stay as they are."""
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    emb = params["embed_tokens.weight"]  # [V, D]: the [out, in] weight of the unembed
+    out = {f"unembed_q.{k}": v for k, v in quantize_weight(emb, mode).items()}
+    for key, val in params.items():
+        if key == "embed_tokens.weight":
+            out[key] = val.to(torch.bfloat16)
+            continue
+        match = _QUANT_KEY.fullmatch(key)
+        if match is None:
+            out[key] = val
+            continue
+        prefix = re.sub(r"\.base$", ".base_q", match.group(1))
+        out.update({f"{prefix}.{k}": v for k, v in quantize_weight(val, mode).items()})
+    return out
+
+
+@torch.no_grad()
+def quantize_llama_(model: LlamaModel, mode: str = "int8") -> LlamaModel:
+    """Quantize a float ``model`` in place on its device, to the layout of
+    ``quantize_llama_params``.  Each float weight is released as soon as its
+    quantized copy exists, so the float and the quantized trunk are never
+    resident together."""
+    if model.cfg.weight_quant:
+        raise ValueError(f"the model is already quantized ({model.cfg.weight_quant})")
+    cfg = dataclasses.replace(model.cfg, weight_quant=mode)
+    for layer in model.layers:
+        for name in _ATTN_PROJ:
+            getattr(layer.self_attn, name).quantize_(mode)
+        for name in _MLP_PROJ:
+            lin = getattr(layer.mlp, name)
+            setattr(layer.mlp, name, QuantDense.from_weight(lin.weight, mode, lin.weight.dtype))
+        layer.self_attn.cfg = cfg
+    model.unembed_q = QuantDense.from_weight(model.embed_tokens.weight, mode, torch.float32)
+    model.embed_tokens.to(torch.bfloat16)
+    model.cfg = cfg
+    return model

@@ -13,9 +13,11 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from .beam_gather import gather_beams_rows
 from .topk import beam_topk_columns, top_k
 
 NEG_INF = -1.0e7
+_K6_MIN_SIZE = 1 << 18  # elements: the JAX gate for the row-gather kernel
 
 
 def log_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -29,11 +31,18 @@ def _gather_beams(tree: Any, indices: torch.Tensor, b: int, k: int) -> Any:
 
     Leaves whose key starts with ``fixed_`` stay put (the ancestry cache's
     generated KV; only its small ``anc`` map moves), as do scalars and
-    leaves of another leading size."""
+    leaves of another leading size.  Large leaves on CUDA (the gather
+    cache's generated KV) take K6 under the JAX gate: ndim >= 3, at least
+    2**18 elements, a last dim that is a multiple of 128.  The rest take
+    ``take_along_axis`` semantics.  The JAX package's one-hot einsum branch
+    for k >= 8 is an XLA lowering workaround that selects exactly the same
+    rows; it has no counterpart here."""
 
     def gather(x):
         if not torch.is_tensor(x) or x.ndim == 0 or x.shape[0] != b * k:
             return x
+        if x.is_cuda and x.ndim >= 3 and x.numel() >= _K6_MIN_SIZE and x.shape[-1] % 128 == 0:
+            return gather_beams_rows(x, indices, b, k)
         xb = x.reshape((b, k) + x.shape[1:])
         idx = indices.reshape((b, k) + (1,) * (xb.ndim - 2)).expand_as(xb)
         return torch.gather(xb, 1, idx).reshape(x.shape)

@@ -8,9 +8,11 @@ return softmax partials (unnormalised f32 out, row max m, row sum l) that
 ``merge_softmax_segments`` combines.
 
 For CUDA tensors ``prompt_attention`` and ``gen_attention_ancestor`` launch
-``csrc/decode_attention.cu`` (int8 KV with f32 scales, bf16 queries); for
-CPU tensors they run the plain versions below, which follow the JAX
-``prompt_attention_ref`` / ``gen_attention_ancestor_ref`` oracles.
+``csrc/decode_attention.cu`` (bf16 queries; int8 KV with f32 scales, or bf16
+KV with none); for CPU tensors they run the plain versions below, which
+follow the JAX ``prompt_attention_ref`` / ``gen_attention_ancestor_ref``
+oracles.  Each wrapper counts its int8 launches in ``launches`` and its bf16
+launches in ``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -103,20 +105,39 @@ def _partials_out(q: torch.Tensor) -> Partials:
     return torch.empty(rows, h, d, **f32), torch.empty(rows, h, **f32), torch.empty(rows, h, **f32)
 
 
+def _check_kv(k, v, k_scale, v_scale, shape, name: str) -> bool:
+    """Validate the KV operands of K2/K3; True for a bf16 cache."""
+    bf16 = k_scale is None and v_scale is None
+    if not bf16 and (k_scale is None or v_scale is None):
+        raise ValueError(f"{name} kernel: give both k_scale and v_scale, or neither")
+    kv_type = torch.bfloat16 if bf16 else torch.int8
+    kernel_lib.check(k, f"{name} k", kv_type, shape)
+    kernel_lib.check(v, f"{name} v", kv_type, shape)
+    if not bf16:
+        kernel_lib.check(k_scale, f"{name} k_scale", torch.float32, shape[:3])
+        kernel_lib.check(v_scale, f"{name} v_scale", torch.float32, shape[:3])
+    return bf16
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def prompt_attention(
     q: torch.Tensor,  # [B*K, h, d]
-    prompt_k: torch.Tensor,  # [B, g, Tp, d] int8
+    prompt_k: torch.Tensor,  # [B, g, Tp, d] int8 or bf16
     prompt_v: torch.Tensor,
     prompt_mask: torch.Tensor,  # [B, Tp] nonzero = valid
     *,
     beams: int,
     scale: float,
-    k_scale: Optional[torch.Tensor] = None,  # [B, g, Tp] f32
+    k_scale: Optional[torch.Tensor] = None,  # [B, g, Tp] f32 for int8 KV
     v_scale: Optional[torch.Tensor] = None,
 ) -> Partials:
     """Shared-prompt segment softmax partials (out [B*K,h,d], m, l [B*K,h]).
 
-    CUDA tensors run K2: bf16 q, int8 K/V with f32 scales, int32 mask."""
+    CUDA tensors run K2: bf16 q, int8 K/V with f32 scales or bf16 K/V
+    without, int32 mask."""
     if q.device.type == "cpu":
         return prompt_attention_plain(
             q, prompt_k, prompt_v, prompt_mask, beams=beams, scale=scale,
@@ -124,45 +145,45 @@ def prompt_attention(
         )
     rows, h, d = q.shape
     b, g, tp, _ = prompt_k.shape
-    if k_scale is None or v_scale is None:
-        raise ValueError("prompt_attention kernel: int8 KV with k_scale/v_scale only")
     kernel_lib.check(q, "q", torch.bfloat16, (b * beams, h, d))
-    kernel_lib.check(prompt_k, "prompt_k", torch.int8, (b, g, tp, d))
-    kernel_lib.check(prompt_v, "prompt_v", torch.int8, (b, g, tp, d))
-    kernel_lib.check(k_scale, "k_scale", torch.float32, (b, g, tp))
-    kernel_lib.check(v_scale, "v_scale", torch.float32, (b, g, tp))
+    bf16 = _check_kv(prompt_k, prompt_v, k_scale, v_scale, (b, g, tp, d), "prompt_attention")
     kernel_lib.check(prompt_mask, "prompt_mask", torch.int32, (b, tp))
     out, m, l = _partials_out(q)
     kernel_lib.load().call(
         "mmvc_prompt_attention", q.data_ptr(), prompt_k.data_ptr(), prompt_v.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), prompt_mask.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale), prompt_mask.data_ptr(),
         out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, beams, h, g, tp, d, float(scale), kernel_lib.stream_ptr(q),
+        b, beams, h, g, tp, d, float(scale), int(bf16), kernel_lib.stream_ptr(q),
     )
-    prompt_attention.launches += 1
+    if bf16:
+        prompt_attention.launches_bf16 += 1
+    else:
+        prompt_attention.launches += 1
     return out, m, l
 
 
 prompt_attention.launches = 0
+prompt_attention.launches_bf16 = 0
 
 
 def gen_attention_ancestor(
     q: torch.Tensor,  # [B*K, h, d]
-    gen_k: torch.Tensor,  # [B*K, L, g, d] int8
+    gen_k: torch.Tensor,  # [B*K, L, g, d] int8 or bf16
     gen_v: torch.Tensor,
     anc: torch.Tensor,  # [B*K, L] int32, values 0..K-1 (within-batch rows)
     valid_len: Union[int, torch.Tensor],
     *,
     beams: int,
     scale: float,
-    k_scale: Optional[torch.Tensor] = None,  # [B*K, L, g] f32
+    k_scale: Optional[torch.Tensor] = None,  # [B*K, L, g] f32 for int8 KV
     v_scale: Optional[torch.Tensor] = None,
 ) -> Partials:
     """Softmax partials of the ancestry-selected generated segment:
     s_l = scale * q . k_(anc_l, l) for slots l < valid_len.  valid_len == 0
     gives (0, -1e30, 0), a no-op segment for the merge.
 
-    CUDA tensors run K3: bf16 q, int8 K/V with f32 scales, int32 anc."""
+    CUDA tensors run K3: bf16 q, int8 K/V with f32 scales or bf16 K/V
+    without, int32 anc."""
     if q.device.type == "cpu":
         return gen_attention_ancestor_plain(
             q, gen_k, gen_v, anc, valid_len, beams=beams, scale=scale,
@@ -170,25 +191,24 @@ def gen_attention_ancestor(
         )
     rows, h, d = q.shape
     _, slots, g, _ = gen_k.shape
-    if k_scale is None or v_scale is None:
-        raise ValueError("gen_attention_ancestor kernel: int8 KV with k_scale/v_scale only")
     kernel_lib.check(q, "q", torch.bfloat16, (rows, h, d))
-    kernel_lib.check(gen_k, "gen_k", torch.int8, (rows, slots, g, d))
-    kernel_lib.check(gen_v, "gen_v", torch.int8, (rows, slots, g, d))
-    kernel_lib.check(k_scale, "k_scale", torch.float32, (rows, slots, g))
-    kernel_lib.check(v_scale, "v_scale", torch.float32, (rows, slots, g))
+    bf16 = _check_kv(gen_k, gen_v, k_scale, v_scale, (rows, slots, g, d), "gen_attention_ancestor")
     kernel_lib.check(anc, "anc", torch.int32, (rows, slots))
     if rows % beams:
         raise ValueError(f"gen_attention_ancestor: {rows} rows not a multiple of {beams} beams")
     out, m, l = _partials_out(q)
     kernel_lib.load().call(
         "mmvc_gen_attention_ancestor", q.data_ptr(), gen_k.data_ptr(), gen_v.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), anc.data_ptr(), int(valid_len),
+        _ptr(k_scale), _ptr(v_scale), anc.data_ptr(), int(valid_len),
         out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        rows // beams, beams, h, g, slots, d, float(scale), kernel_lib.stream_ptr(q),
+        rows // beams, beams, h, g, slots, d, float(scale), int(bf16), kernel_lib.stream_ptr(q),
     )
-    gen_attention_ancestor.launches += 1
+    if bf16:
+        gen_attention_ancestor.launches_bf16 += 1
+    else:
+        gen_attention_ancestor.launches += 1
     return out, m, l
 
 
 gen_attention_ancestor.launches = 0
+gen_attention_ancestor.launches_bf16 = 0

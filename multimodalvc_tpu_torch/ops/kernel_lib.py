@@ -2,10 +2,11 @@
 
 The kernels are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface and bound with ``ctypes``: a build takes
-seconds, where a source that includes PyTorch's headers takes minutes.  The
-build happens at first use, keyed on a hash of the sources and the flags, into
-``build/kernels/`` at the repository root (listed in ``.gitignore``).  Nothing
-is built or imported when this module is imported.
+seconds, where a source that includes PyTorch's headers takes minutes.  Each
+source compiles in its own ``nvcc`` process, all started together, then one
+link.  The build happens at first use, keyed on a hash of the sources and the
+flags, into ``build/kernels/`` at the repository root (listed in
+``.gitignore``).  Nothing is built or imported when this module is imported.
 
 There is no fallback: if ``nvcc`` is missing or the build fails, ``load()``
 raises.  The wrappers in ``ops/`` call it only for CUDA tensors; for CPU
@@ -30,26 +31,28 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 # no --use_fast_math: the beam top-k kernel must reproduce PyTorch's f32
 # arithmetic bit for bit
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of csrc/*.cu; every function returns a cudaError_t
 SIGNATURES = {
     "mmvc_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "mmvc_prompt_attention": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
     "mmvc_gen_attention_ancestor": [
-        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
     "mmvc_beam_topk_columns": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ],
+    "mmvc_gather_rows": [_P, _P, _P, _I, _I, _L, _P],
+    "mmvc_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mmvc_int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -118,21 +121,28 @@ def _build(out: Path) -> str:
             "is no fallback to the plain PyTorch versions for CUDA tensors"
         )
     out.parent.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    # build to a private name, then rename: concurrent processes never load a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    srcs = sorted(CSRC.glob("*.cu"))
+    # build in a private directory, then rename: concurrent processes never
+    # load a half-written library
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        lib = str(Path(tmp) / out.name)
+        link = [nvcc, *ARCH, "-shared", "-o", lib, *objs]
+        failed = [(c, p.returncode, log) for c, p, log in zip(cmds, procs, logs) if p.returncode]
+        if not failed:
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(proc.stdout)
+            if proc.returncode:
+                failed.append((link, proc.returncode, proc.stdout))
+        if failed:
+            raise KernelBuildError("\n".join(
+                f"nvcc failed ({rc}):\n{' '.join(c)}\n{log}" for c, rc, log in failed))
+        os.replace(lib, out)
+    return "".join(logs)
 
 
 def load() -> _Library:

@@ -1,6 +1,6 @@
 """K2/K3 parity: the port's prompt_attention and gen_attention_ancestor (plain
-versions on the CPU) against the JAX Pallas kernels in interpret mode, plus
-quantize_kv and merge_softmax_segments."""
+versions on the CPU) against the JAX Pallas kernels in interpret mode, with
+int8, bf16 and f32 KV, plus quantize_kv and merge_softmax_segments."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,12 +17,19 @@ SCALE = D ** -0.5
 TOL = 1e-4
 
 
-def _kv(rng, shape, quant):
+def _kv(rng, shape, kv):
+    """(JAX array, torch tensor, JAX scales, torch scales) of one KV operand."""
     x = rng.standard_normal(shape).astype(np.float32)
-    if not quant:
-        return x, None
+    if kv == "f32":
+        return jnp.asarray(x), t(x), None, None
+    if kv == "bf16":  # the same bf16 values on both sides
+        xb = jnp.asarray(x, jnp.bfloat16)
+        return xb, t(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16), None, None
     q, s = jda.quantize_kv(jnp.asarray(x))
-    return np.asarray(q), np.asarray(s)
+    return q, t(np.asarray(q)), s, t(np.asarray(s))
+
+
+KV_TYPES = ["int8", "f32", "bf16"]
 
 
 def test_quantize_kv_matches_jax_and_rounds_half_to_even():
@@ -37,41 +44,36 @@ def test_quantize_kv_matches_jax_and_rounds_half_to_even():
     assert gq[0, 0, :4].tolist() == [127, 2, -4, 0]
 
 
-@pytest.mark.parametrize("quant", [True, False], ids=["int8", "f32"])
-def test_prompt_attention_matches_jax_kernel(quant):
+@pytest.mark.parametrize("kv", KV_TYPES, ids=KV_TYPES)
+def test_prompt_attention_matches_jax_kernel(kv):
     rng = np.random.default_rng(1)
     q = rng.standard_normal((B * BEAMS, H, D)).astype(np.float32)
-    pk, ks = _kv(rng, (B, G, TP, D), quant)
-    pv, vs = _kv(rng, (B, G, TP, D), quant)
+    jk, tk, jks, tks = _kv(rng, (B, G, TP, D), kv)
+    jv, tv, jvs, tvs = _kv(rng, (B, G, TP, D), kv)
     mask = np.ones((B, TP), np.int32)
     mask[0, :5] = 0  # left pad
     mask[1] = 0  # no valid prompt slot: (0, -1e30, 0)
-    jkw = dict(k_scale=None, v_scale=None) if not quant else dict(
-        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
-    want = jda.prompt_attention(jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
-                                jnp.asarray(mask), beams=BEAMS, scale=SCALE,
-                                interpret=True, **jkw)
-    tkw = dict(k_scale=None, v_scale=None) if not quant else dict(k_scale=t(ks), v_scale=t(vs))
-    got = tda.prompt_attention(t(q), t(pk), t(pv), t(mask), beams=BEAMS, scale=SCALE, **tkw)
+    want = jda.prompt_attention(jnp.asarray(q), jk, jv, jnp.asarray(mask), beams=BEAMS,
+                                scale=SCALE, interpret=True, k_scale=jks, v_scale=jvs)
+    got = tda.prompt_attention(t(q), tk, tv, t(mask), beams=BEAMS, scale=SCALE,
+                               k_scale=tks, v_scale=tvs)
     for w, g in zip(want, got):
         assert max_err(w, g) < TOL
 
 
 @pytest.mark.parametrize("valid", [5, 0])
-@pytest.mark.parametrize("quant", [True, False], ids=["int8", "f32"])
-def test_gen_attention_ancestor_matches_jax_kernel(quant, valid):
+@pytest.mark.parametrize("kv", KV_TYPES, ids=KV_TYPES)
+def test_gen_attention_ancestor_matches_jax_kernel(kv, valid):
     rng = np.random.default_rng(2)
     q = rng.standard_normal((B * BEAMS, H, D)).astype(np.float32)
-    gk, ks = _kv(rng, (B * BEAMS, L, G, D), quant)
-    gv, vs = _kv(rng, (B * BEAMS, L, G, D), quant)
+    jk, tk, jks, tks = _kv(rng, (B * BEAMS, L, G, D), kv)
+    jv, tv, jvs, tvs = _kv(rng, (B * BEAMS, L, G, D), kv)
     anc = rng.integers(0, BEAMS, (B * BEAMS, L)).astype(np.int32)
-    jkw = dict() if not quant else dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
-    want = jda.gen_attention_ancestor(jnp.asarray(q), jnp.asarray(gk), jnp.asarray(gv),
-                                      jnp.asarray(anc), jnp.int32(valid), beams=BEAMS,
-                                      scale=SCALE, interpret=True, **jkw)
-    tkw = dict() if not quant else dict(k_scale=t(ks), v_scale=t(vs))
-    got = tda.gen_attention_ancestor(t(q), t(gk), t(gv), t(anc), valid, beams=BEAMS,
-                                     scale=SCALE, **tkw)
+    jkw = dict() if jks is None else dict(k_scale=jks, v_scale=jvs)
+    want = jda.gen_attention_ancestor(jnp.asarray(q), jk, jv, jnp.asarray(anc), jnp.int32(valid),
+                                      beams=BEAMS, scale=SCALE, interpret=True, **jkw)
+    got = tda.gen_attention_ancestor(t(q), tk, tv, t(anc), valid, beams=BEAMS, scale=SCALE,
+                                     k_scale=tks, v_scale=tvs)
     for w, g in zip(want, got):
         assert max_err(w, g) < TOL
     if valid == 0:

@@ -9,7 +9,14 @@ import pytest
 import torch
 import torch_parity  # noqa: F401  (pins torch to one thread)
 
-from multimodalvc_tpu_torch.ops import attention, decode_attention, kernel_lib, topk
+from multimodalvc_tpu_torch.ops import (
+    attention,
+    beam_gather,
+    decode_attention,
+    int8_matmul,
+    kernel_lib,
+    topk,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 SLICE_MODULES = [
@@ -24,8 +31,10 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch.nn.resnet",
     "multimodalvc_tpu_torch.nn.whisper",
     "multimodalvc_tpu_torch.ops.attention",
+    "multimodalvc_tpu_torch.ops.beam_gather",
     "multimodalvc_tpu_torch.ops.beam_search",
     "multimodalvc_tpu_torch.ops.decode_attention",
+    "multimodalvc_tpu_torch.ops.int8_matmul",
     "multimodalvc_tpu_torch.ops.interpolate",
     "multimodalvc_tpu_torch.ops.kernel_lib",
     "multimodalvc_tpu_torch.ops.topk",
@@ -57,49 +66,83 @@ def _refuse_load():
     raise AssertionError("a CPU tensor reached the kernel loader")
 
 
+COUNTERS = [
+    (attention.flash_attention, "launches"),
+    (decode_attention.prompt_attention, "launches"),
+    (decode_attention.prompt_attention, "launches_bf16"),
+    (decode_attention.gen_attention_ancestor, "launches"),
+    (decode_attention.gen_attention_ancestor, "launches_bf16"),
+    (topk.beam_topk_columns, "launches"),
+    (beam_gather.gather_rows, "launches"),
+    (int8_matmul.int8_matmul, "launches"),
+    (int8_matmul.int4_matmul, "launches"),
+]
+
+
 def test_cpu_tensors_run_the_plain_versions(monkeypatch):
     monkeypatch.setattr(kernel_lib, "load", _refuse_load)
-    wrappers = [attention.flash_attention, decode_attention.prompt_attention,
-                decode_attention.gen_attention_ancestor, topk.beam_topk_columns]
-    before = [w.launches for w in wrappers]
+    before = [getattr(w, name) for w, name in COUNTERS]
     x = torch.randn(1, 2, 8, 16)
     attention.flash_attention(x, x, x)
     q = torch.randn(2, 4, 16)
     kv, sc = decode_attention.quantize_kv(torch.randn(1, 2, 5, 16))
-    decode_attention.prompt_attention(q, kv, kv, torch.ones(1, 5, dtype=torch.int32), beams=2,
-                                      scale=0.25, k_scale=sc, v_scale=sc)
+    for k_sc in (sc, None):
+        decode_attention.prompt_attention(q, kv, kv, torch.ones(1, 5, dtype=torch.int32),
+                                          beams=2, scale=0.25, k_scale=k_sc, v_scale=k_sc)
     gk, gs = decode_attention.quantize_kv(torch.randn(2, 3, 2, 16))
-    decode_attention.gen_attention_ancestor(q, gk, gk, torch.zeros(2, 3, dtype=torch.int32), 2,
-                                            beams=2, scale=0.25, k_scale=gs, v_scale=gs)
+    for g_sc in (gs, None):
+        decode_attention.gen_attention_ancestor(q, gk, gk, torch.zeros(2, 3, dtype=torch.int32),
+                                                2, beams=2, scale=0.25, k_scale=g_sc,
+                                                v_scale=g_sc)
     logits = torch.randn(4, 32)
     topk.beam_topk_columns(logits, logits.amax(-1), logits.amax(-1), torch.zeros(2, 2), 3)
-    assert [w.launches for w in wrappers] == before
+    beam_gather.gather_rows(torch.randn(4, 2, 128), torch.tensor([1, 0], dtype=torch.int32))
+    w = torch.randn(256, 128)
+    int8_matmul.int8_matmul(torch.randn(3, 256), *int8_matmul.quantize_kernel(w))
+    int8_matmul.int4_matmul(torch.randn(3, 256), *int8_matmul.quantize_kernel_int4(w))
+    assert [getattr(w, name) for w, name in COUNTERS] == before
 
 
-@pytest.mark.parametrize("which", ["flash", "prompt", "gen", "topk"])
+KINDS = ["flash", "prompt", "prompt_bf16", "gen", "gen_bf16", "topk", "gather", "int8", "int4"]
+
+
+@pytest.mark.parametrize("which", KINDS)
 def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, which):
     """A tensor that is not on the CPU goes to the kernel path, whose operand
     check refuses anything but a CUDA tensor: there is no silent fallback."""
     monkeypatch.setattr(kernel_lib, "load", _refuse_load)
     meta = dict(device="meta")
+    bf16 = which.endswith("_bf16")
+    kv_type = torch.bfloat16 if bf16 else torch.int8
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         if which == "flash":
             x = torch.empty(1, 2, 8, 64, dtype=torch.bfloat16, **meta)
             attention.flash_attention(x, x, x)
-        elif which == "prompt":
+        elif which.startswith("prompt"):
             q = torch.empty(2, 4, 16, dtype=torch.bfloat16, **meta)
-            kv = torch.empty(1, 2, 5, 16, dtype=torch.int8, **meta)
-            sc = torch.empty(1, 2, 5, **meta)
+            kv = torch.empty(1, 2, 5, 16, dtype=kv_type, **meta)
+            sc = None if bf16 else torch.empty(1, 2, 5, **meta)
             decode_attention.prompt_attention(q, kv, kv, torch.empty(1, 5, dtype=torch.int32, **meta),
                                               beams=2, scale=0.25, k_scale=sc, v_scale=sc)
-        elif which == "gen":
+        elif which.startswith("gen"):
             q = torch.empty(2, 4, 16, dtype=torch.bfloat16, **meta)
-            kv = torch.empty(2, 3, 2, 16, dtype=torch.int8, **meta)
-            sc = torch.empty(2, 3, 2, **meta)
+            kv = torch.empty(2, 3, 2, 16, dtype=kv_type, **meta)
+            sc = None if bf16 else torch.empty(2, 3, 2, **meta)
             decode_attention.gen_attention_ancestor(
                 q, kv, kv, torch.empty(2, 3, dtype=torch.int32, **meta), 2, beams=2, scale=0.25,
                 k_scale=sc, v_scale=sc)
-        else:
+        elif which == "topk":
             logits = torch.empty(4, 32, **meta)
             topk.beam_topk_columns(logits, torch.empty(4, **meta), torch.empty(4, **meta),
                                    torch.empty(2, 2, **meta), 3)
+        elif which == "gather":
+            beam_gather.gather_rows(torch.empty(4, 2, 128, dtype=torch.bfloat16, **meta),
+                                    torch.empty(2, dtype=torch.int32, **meta))
+        elif which == "int8":
+            int8_matmul.int8_matmul(torch.empty(3, 256, dtype=torch.bfloat16, **meta),
+                                    torch.empty(256, 128, dtype=torch.int8, **meta),
+                                    torch.empty(128, **meta))
+        else:
+            int8_matmul.int4_matmul(torch.empty(3, 256, dtype=torch.bfloat16, **meta),
+                                    torch.empty(128, 128, dtype=torch.int8, **meta),
+                                    torch.empty(2, 128, **meta))

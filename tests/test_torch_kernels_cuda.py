@@ -1,4 +1,4 @@
-"""On-card tier of the port: each hand-written CUDA kernel (K1-K4) built by
+"""On-card tier of the port: each hand-written CUDA kernel (K1-K4, K6-K8) built by
 nvcc and held against its plain PyTorch version at the serving shapes,
 through the same checks chip_smoke.py runs.  Needs an NVIDIA GPU with nvcc:
 
@@ -58,4 +58,32 @@ def test_decode_attention_kernels(smoke):
 def test_beam_topk_columns_kernel(smoke):
     results = []
     smoke.check_topk(results)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
+def test_decode_attention_bf16_kernels(smoke):
+    results = []
+    smoke.check_decode_bf16(results)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
+def test_gather_rows_kernel(smoke):
+    results = []
+    smoke.check_gather_rows(results)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_kernel(smoke):
+    results = []
+    smoke.check_int8_matmul(results)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
+def test_int4_matmul_kernel(smoke):
+    results = []
+    smoke.check_int4_matmul(results)
     _all_ok(results)

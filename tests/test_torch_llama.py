@@ -83,8 +83,9 @@ def _jax_prefill(jm, v, emb, mask):
 def test_prefill_and_ancestry_decode_steps(pair):
     jm, v, tm, emb, mask = pair
     j_first, j_cache, j_lens = _jax_prefill(jm, v, jnp.asarray(emb), jnp.asarray(mask))
-    t_first, t_cache, t_lens = tl.prefill_ancestry_cache(
-        tm, t(emb), t(mask), num_beams=BEAMS, max_new_tokens=NEW, cache_dtype=torch.float32)
+    t_first, t_cache, t_lens = tl.prefill_split_cache(
+        tm, t(emb), t(mask), num_beams=BEAMS, max_new_tokens=NEW, ancestry_reorder=True,
+        kv_quant="int8", cache_dtype=torch.float32)
     assert max_err(j_first, t_first) < TOL
     np.testing.assert_array_equal(np.asarray(j_lens), t_lens.numpy())
     np.testing.assert_array_equal(np.asarray(j_cache[0]["prompt_k"]), t_cache[0]["prompt_k"].numpy())
