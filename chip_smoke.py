@@ -6,22 +6,30 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the CUDA
    kernels from ``multimodalvc_tpu_torch/csrc`` with nvcc.
 2. Holds each kernel (K1 flash_attention, K2 prompt_attention and K3
-   gen_attention_ancestor with int8 and bf16 KV, K4 beam_topk_columns, K6
-   gather_rows, K7 int8_matmul, K8 int4_matmul) against its plain PyTorch
-   version at the serving shapes, with edge cases, and times both.
+   gen_attention_ancestor with int8 and bf16 KV, K4 beam_topk_columns, K5
+   beam_topk / beam_topk_from_logits, K6 gather_rows, K7 int8_matmul, K8
+   int4_matmul) against its plain PyTorch version at the serving shapes, with
+   edge cases, and times both, the one PyTorch call that computes the same
+   function where there is one, and the card's bound for the work.
 3. Serves batches through the full-width AVSR path (Whisper-medium,
    AV-HuBERT-Large, Q-Former, LLaMA-3.2-3B with random weights from seed 0):
-   batch 8, 16 s, beam 5, in five phases:
+   batch 8, 16 s, beam 5, in ten phases:
    - bf16 weights, int8 KV with the ancestry decode (16 new tokens), with the
      encoders and one prefill + decode step held against the plain versions;
    - bf16 weights, bf16 KV through ``generate()``'s defaults (the ancestry
      decode on the GPU), and bf16 KV with the gather reorder (16 tokens
      each), with two decode steps from one prefill through both caches;
+   - bf16 weights: unordered constraints (16 tokens); the full per-beam
+     cache (``generate_beam(share_prompt_kv=False)``); a 32 s clip through
+     ``generate_long_form`` (two windows, int8 KV); a two-member ensemble
+     (seeds 0 and 1, int8 KV);
    - int8 weights (the serving configuration: int8 KV, ancestry), 64 new
-     tokens, with the stage walls and the realtime factor;
+     tokens, with the stage walls and the realtime factor, then n-gram
+     blocking (16 tokens), held against the same run with K5 plain;
    - int4 weights, 16 new tokens.
-   Each phase checks its output and that its kernels ran; the quantized
-   phases hold one prefill + decode step against the plain versions.
+   Each phase checks its output and the launches of every kernel (which
+   must run, how often, which must not); the quantized phases hold one
+   prefill + decode step against the plain versions.
 
 Prints JSON lines with the kernel checks and the phases, then the
 ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
@@ -58,6 +66,10 @@ REL_TOL = 2e-2  # relative L2 between two paths (bf16 activations), layer by lay
 # the floor, and never under REL_TOL; a floor above FLOOR_MAX means the model
 # or its rounding changed, and fails the run.
 FLOOR_MARGIN, FLOOR_MAX = 1.5, 5e-2
+# the card's published peaks (H100 SXM, dense): the bound of a kernel is the
+# larger of its bytes over HBM_BPS and its operations over the peak rate of
+# their type
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -96,11 +108,27 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def record(results, name, err, tol, **extra):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: float, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
+    """The least time the card could take: the larger of ``moved`` bytes
+    over the memory rate and ``ops`` operations over ``peak``."""
+    by_bytes, by_ops = moved / HBM_BPS * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def record(results, name, err, tol, library=None, **extra):
+    """One kernel case: its error against the plain version, its times
+    (``ms``, ``plain_ms``, ``library_ms`` = ``library`` timed, or None) and
+    its bound."""
     ok = err <= tol
+    extra["library_ms"] = None if library is None else time_ms(library)
     results.append({"name": name, "max_abs_err": err, "tol": tol, "ok": ok, **extra})
     print(f"  {name}: max_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}"
-          + "".join(f" {k}={v:.4f}" for k, v in extra.items()))
+          + "".join(f" {k}={v:.4f}" for k, v in extra.items() if isinstance(v, float)))
 
 
 # ---- kernels against their plain versions ------------------------------------
@@ -111,6 +139,7 @@ def check_flash(results):
     batch row, and at the LLaMA prefill shape with kv_starts + causal.
     Tolerance 3e-2 on bf16 outputs (the JAX selftest's)."""
     import torch
+    import torch.nn.functional as F
 
     from multimodalvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 
@@ -141,8 +170,18 @@ def check_flash(results):
                 raise SmokeFailure(f"flash_attention {name}: causal rows before kv_start not zero")
         if dead.any() and (got[dead].float().abs().max() != 0):
             raise SmokeFailure(f"flash_attention {name}: fully masked rows not exact zeros")
-        record(results, f"flash_attention/{name}", err, 3e-2,
-               ms=time_ms(run), plain_ms=time_ms(plain))
+        # the same boolean mask for the library call: key window, causality
+        allowed = (col[None, None, :] < kv_lens[:, None, None]).expand(-1, shape[2], -1)
+        if kv_starts is not None:
+            allowed = allowed & (col[None, None, :] >= kv_starts[:, None, None])
+        if causal:
+            allowed = allowed & (col[None, None, :] <= col[None, :, None])
+        sdpa_mask = allowed[:, None]
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)  # noqa: E731
+        # QK^T and PV over the key pairs this data allows; q, k, v, out once
+        ops = 4 * shape[1] * shape[3] * int(allowed.sum())
+        record(results, f"flash_attention/{name}", err, 3e-2, library=library,
+               ms=time_ms(run), plain_ms=time_ms(plain), **bound(nbytes(q, k, v, got), ops))
 
 
 def _int8_kv(shape, g):
@@ -153,10 +192,27 @@ def _int8_kv(shape, g):
     return quantize_kv(torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16))
 
 
-def check_decode(results):
-    """K2 and K3 at the serving decode shapes (batch 48 x beam 5, 24 query /
-    8 kv heads, d=128; prompt 130 slots, generated segment 64 slots).
-    Tolerance 5e-2 on out, m and l (the JAX selftest's)."""
+def prompt_bound(q, kv, out, mask, beams) -> dict:
+    """K2: q, the prompt KV (+ scales, mask) and the partials once; QK^T and
+    PV over each batch element's valid slots."""
+    rows, h, d = q.shape
+    ops = 4 * beams * h * d * int(mask.sum())
+    return bound(nbytes(q, *kv, *out), ops)
+
+
+def gen_bound(q, kv, out, valid, slots) -> dict:
+    """K3: q, the partials, and the first ``valid`` of ``slots`` generated
+    slots of the KV (+ scales, anc map); QK^T and PV over those slots."""
+    rows, h, d = q.shape
+    return bound(nbytes(q, *out) + nbytes(*kv) * valid / slots, 4 * rows * h * d * valid)
+
+
+def check_decode(results, kv="int8"):
+    """K2 and K3 with an int8 (or bf16) KV cache at the decode shapes of
+    batch 8 (the serving phases: 40 query rows, 16 generated slots, valid
+    15) and batch 48 (64 slots, valid 41 and 0); beam 5, 24 query / 8 kv
+    heads, d=128, 130 prompt slots, a batch element with no valid prompt
+    slot.  Tolerance 5e-2 on out, m and l (the JAX selftest's)."""
     import torch
 
     from multimodalvc_tpu_torch.ops.decode_attention import (
@@ -166,135 +222,200 @@ def check_decode(results):
         prompt_attention_plain,
     )
 
-    g = torch.Generator(device=DEV).manual_seed(1)
-    b, beams, h, hkv, d, tp, slots = 48, BEAMS, 24, 8, 128, 130, 64
+    g = torch.Generator(device=DEV).manual_seed(1 if kv == "int8" else 5)
+    beams, h, hkv, d, tp = BEAMS, 24, 8, 128, 130
     scale = d ** -0.5
-    q = torch.randn(b * beams, h, d, generator=g, device=DEV).to(torch.bfloat16)
 
-    pk, pks = _int8_kv((b, hkv, tp, d), g)
-    pv, pvs = _int8_kv((b, hkv, tp, d), g)
-    pad = torch.randint(0, 60, (b,), generator=g, device=DEV)
-    mask = (torch.arange(tp, device=DEV)[None, :] >= pad[:, None]).to(torch.int32)
-    mask[3] = 0  # a batch element with no valid prompt slot
-    kw = dict(beams=beams, scale=scale, k_scale=pks, v_scale=pvs)
-    run = lambda: prompt_attention(q, pk, pv, mask, **kw)  # noqa: E731
-    plain = lambda: prompt_attention_plain(q, pk, pv, mask, **kw)  # noqa: E731
-    err = max(max_err(a, c) for a, c in zip(run(), plain()))
-    record(results, "prompt_attention/int8", err, 5e-2, ms=time_ms(run), plain_ms=time_ms(plain))
+    def cache(shape):  # (values, scales or None)
+        if kv == "int8":
+            return _int8_kv(shape, g)
+        return torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16), None
 
-    gk, gks = _int8_kv((b * beams, slots, hkv, d), g)
-    gv, gvs = _int8_kv((b * beams, slots, hkv, d), g)
-    anc = torch.randint(0, beams, (b * beams, slots), generator=g, device=DEV).to(torch.int32)
-    kw = dict(beams=beams, scale=scale, k_scale=gks, v_scale=gvs)
-    for valid in (41, 0):
-        run = lambda: gen_attention_ancestor(q, gk, gv, anc, valid, **kw)  # noqa: E731
-        plain = lambda: gen_attention_ancestor_plain(q, gk, gv, anc, valid, **kw)  # noqa: E731
-        got, want = run(), plain()
-        err = max(max_err(a, c) for a, c in zip(got, want))
-        if valid == 0 and not (bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())
-                               and bool((got[2] == 0).all())):
-            raise SmokeFailure("gen_attention_ancestor: valid_len 0 must give (0, -1e30, 0)")
-        record(results, f"gen_attention_ancestor/int8/valid{valid}", err, 5e-2,
-               ms=time_ms(run), plain_ms=time_ms(plain))
+    for b, slots, valids in ((8, SHORT_TOKENS, (SHORT_TOKENS - 1,)), (48, 64, (41, 0))):
+        q = torch.randn(b * beams, h, d, generator=g, device=DEV).to(torch.bfloat16)
+        (pk, pks), (pv, pvs) = cache((b, hkv, tp, d)), cache((b, hkv, tp, d))
+        pad = torch.randint(0, 60, (b,), generator=g, device=DEV)
+        mask = (torch.arange(tp, device=DEV)[None, :] >= pad[:, None]).to(torch.int32)
+        mask[3] = 0  # a batch element with no valid prompt slot
+        kw = dict(beams=beams, scale=scale, k_scale=pks, v_scale=pvs)
+        run = lambda: prompt_attention(q, pk, pv, mask, **kw)  # noqa: E731
+        plain = lambda: prompt_attention_plain(q, pk, pv, mask, **kw)  # noqa: E731
+        got = run()
+        err = max(max_err(a, c) for a, c in zip(got, plain()))
+        moved = tuple(x for x in (pk, pv, pks, pvs, mask) if x is not None)
+        record(results, f"prompt_attention/{kv}/{b * beams}x{h}x{d}", err, 5e-2,
+               ms=time_ms(run), plain_ms=time_ms(plain),
+               **prompt_bound(q, moved, got, mask, beams))
 
-
-def check_decode_bf16(results):
-    """K2 and K3 with a bf16 KV cache at the serving decode shapes (K2:
-    batch 48, 130 prompt slots, a batch element with no valid slot; K3: 240
-    rows, 64 slots, valid 41 and 0).  Tolerance 5e-2 on out, m and l."""
-    import torch
-
-    from multimodalvc_tpu_torch.ops.decode_attention import (
-        gen_attention_ancestor,
-        gen_attention_ancestor_plain,
-        prompt_attention,
-        prompt_attention_plain,
-    )
-
-    g = torch.Generator(device=DEV).manual_seed(5)
-    b, beams, h, hkv, d, tp, slots = 48, BEAMS, 24, 8, 128, 130, 64
-    scale = d ** -0.5
-    bf16 = lambda *shape: torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)  # noqa: E731
-    q = bf16(b * beams, h, d)
-    pk, pv = bf16(b, hkv, tp, d), bf16(b, hkv, tp, d)
-    pad = torch.randint(0, 60, (b,), generator=g, device=DEV)
-    mask = (torch.arange(tp, device=DEV)[None, :] >= pad[:, None]).to(torch.int32)
-    mask[3] = 0  # a batch element with no valid prompt slot
-    run = lambda: prompt_attention(q, pk, pv, mask, beams=beams, scale=scale)  # noqa: E731
-    plain = lambda: prompt_attention_plain(q, pk, pv, mask, beams=beams, scale=scale)  # noqa: E731
-    err = max(max_err(a, c) for a, c in zip(run(), plain()))
-    record(results, "prompt_attention/bf16", err, 5e-2, ms=time_ms(run), plain_ms=time_ms(plain))
-
-    gk, gv = bf16(b * beams, slots, hkv, d), bf16(b * beams, slots, hkv, d)
-    anc = torch.randint(0, beams, (b * beams, slots), generator=g, device=DEV).to(torch.int32)
-    for valid in (41, 0):
-        run = lambda: gen_attention_ancestor(q, gk, gv, anc, valid, beams=beams, scale=scale)  # noqa: E731
-        plain = lambda: gen_attention_ancestor_plain(q, gk, gv, anc, valid, beams=beams,  # noqa: E731
-                                                     scale=scale)
-        got, want = run(), plain()
-        err = max(max_err(a, c) for a, c in zip(got, want))
-        if valid == 0 and not (bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())
-                               and bool((got[2] == 0).all())):
-            raise SmokeFailure("gen_attention_ancestor bf16: valid_len 0 must give (0, -1e30, 0)")
-        record(results, f"gen_attention_ancestor/bf16/valid{valid}", err, 5e-2,
-               ms=time_ms(run), plain_ms=time_ms(plain))
+        (gk, gks), (gv, gvs) = cache((b * beams, slots, hkv, d)), cache((b * beams, slots, hkv, d))
+        anc = torch.randint(0, beams, (b * beams, slots), generator=g, device=DEV).to(torch.int32)
+        kw = dict(beams=beams, scale=scale, k_scale=gks, v_scale=gvs)
+        moved = tuple(x for x in (gk, gv, gks, gvs, anc) if x is not None)
+        for valid in valids:
+            run = lambda: gen_attention_ancestor(q, gk, gv, anc, valid, **kw)  # noqa: E731
+            plain = lambda: gen_attention_ancestor_plain(q, gk, gv, anc, valid, **kw)  # noqa: E731
+            got, want = run(), plain()
+            err = max(max_err(a, c) for a, c in zip(got, want))
+            if valid == 0 and not (bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())
+                                   and bool((got[2] == 0).all())):
+                raise SmokeFailure(f"gen_attention_ancestor {kv}: valid_len 0 must give "
+                                   "(0, -1e30, 0)")
+            record(results, f"gen_attention_ancestor/{kv}/{b * beams}x{slots}x{hkv}x{d}/"
+                   f"valid{valid}", err, 5e-2, ms=time_ms(run), plain_ms=time_ms(plain),
+                   **gen_bound(q, moved, got, valid, slots))
 
 
 def check_topk(results):
-    """K4 at the serving shape [48*5, 128256], n = 2K = 10, with three
-    winners in one column, rows that tie everywhere, and ties across
-    columns.  Indices must be identical; values within 1e-6."""
+    """K4 at the serving shapes [8*5, 128256] and [48*5, 128256], n = 2K =
+    10, with three winners in one column, rows that tie everywhere, and ties
+    across columns.  Indices must be identical; values within 1e-6."""
     import torch
 
-    from multimodalvc_tpu_torch.ops.topk import beam_topk_columns, beam_topk_columns_plain
+    from multimodalvc_tpu_torch.ops.topk import (
+        _candidates,
+        beam_topk_columns,
+        beam_topk_columns_plain,
+    )
 
     g = torch.Generator(device=DEV).manual_seed(2)
-    b, k, v, n = 48, BEAMS, 128256, 2 * BEAMS
-    logits = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+    k, v, n = BEAMS, 128256, 2 * BEAMS
+    for b in (BATCH, 48):
+        logits = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+        scores = torch.randn(b, k, generator=g, device=DEV)
+        logits[0, 999], logits[1, 999], logits[3, 999] = 40.0, 39.5, 39.0  # 3 winners, 1 column
+        logits[k + 3] = logits[k + 2]  # batch 1: two beams tie on every candidate
+        scores[1, 3] = scores[1, 2]
+        logits[2 * k, 100] = logits[2 * k, 5000] = 45.0  # batch 2: a tie across chunks
+        logits[3 * k, 3] = logits[3 * k, 7] = 50.0  # batch 3: 4-way tie, 2 rows x 2 columns
+        logits[3 * k + 1] = logits[3 * k]
+        scores[3, 1] = scores[3, 0]
+        row_max = logits.amax(dim=-1, keepdim=True)
+        row_ls = torch.log(torch.exp(logits - row_max).sum(dim=-1, keepdim=True))
+        run = lambda: beam_topk_columns(logits, row_max, row_ls, scores, n)  # noqa: E731
+        plain = lambda: beam_topk_columns_plain(logits, row_max, row_ls, scores, n)  # noqa: E731
+        (gv, gi), (wv, wi) = run(), plain()
+        if not torch.equal(gi, wi):
+            bad = int((gi != wi).any(dim=1).nonzero()[0])
+            raise SmokeFailure(f"beam_topk_columns: indices differ at batch {bad}: "
+                               f"{gi[bad].tolist()} vs {wi[bad].tolist()}")
+        if wi[3, :4].tolist() != [3, 7, v + 3, v + 7]:
+            raise SmokeFailure(f"beam_topk_columns: tie order {wi[3, :4].tolist()}")
+        cand = _candidates(logits, row_max, row_ls, scores).reshape(b, -1)
+        record(results, f"beam_topk_columns/{b * k}x{v}", max_err(gv, wv), 1e-6,
+               library=lambda: torch.topk(cand, n), ms=time_ms(run),
+               plain_ms=time_ms(plain, iters=3),
+               **topk_bound(logits, (row_max, row_ls, scores), 4, (gv, gi)))
+
+
+def topk_bound(x, small, ops_per_value, out) -> dict:
+    """K4/K5: one read of the candidates' source ``x`` and of the per-row
+    scalars, the outputs written once; ``ops_per_value`` f32 operations on
+    every value (the normalise, the add, the clamp), outside the tensor cores."""
+    return bound(nbytes(x, *small, *out), ops_per_value * x.numel(), F32_FLOPS)
+
+
+def _planted(b, k, v, g, scale=3.0):
+    """Log-probs [B, K, V] f32 with ties across rows and across 2048-column
+    chunks, and -1e7 "banned" entries (what the n-gram block writes)."""
+    import torch
+
+    logp = torch.randn(b, k, v, generator=g, device=DEV) * scale - 12.0
     scores = torch.randn(b, k, generator=g, device=DEV)
-    logits[0, 999], logits[1, 999], logits[3, 999] = 40.0, 39.5, 39.0  # 3 winners, 1 column
-    logits[k + 3] = logits[k + 2]  # batch 1: two beams tie on every candidate
-    scores[1, 3] = scores[1, 2]
-    logits[2 * k, 100] = logits[2 * k, 5000] = 45.0  # batch 2: a tie across chunks
-    logits[3 * k, 3] = logits[3 * k, 7] = 50.0  # batch 3: 4-way tie over 2 rows x 2 columns
-    logits[3 * k + 1] = logits[3 * k]
-    scores[3, 1] = scores[3, 0]
-    row_max = logits.amax(dim=-1, keepdim=True)
-    row_ls = torch.log(torch.exp(logits - row_max).sum(dim=-1, keepdim=True))
-    run = lambda: beam_topk_columns(logits, row_max, row_ls, scores, n)  # noqa: E731
-    plain = lambda: beam_topk_columns_plain(logits, row_max, row_ls, scores, n)  # noqa: E731
-    (gv, gi), (wv, wi) = run(), plain()
-    if not torch.equal(gi, wi):
-        bad = int((gi != wi).any(dim=1).nonzero()[0])
-        raise SmokeFailure(f"beam_topk_columns: indices differ at batch {bad}: "
-                           f"{gi[bad].tolist()} vs {wi[bad].tolist()}")
-    if wi[3, :4].tolist() != [3, 7, v + 3, v + 7]:
-        raise SmokeFailure(f"beam_topk_columns: tie order {wi[3, :4].tolist()}")
-    record(results, "beam_topk_columns", max_err(gv, wv), 1e-6,
-           ms=time_ms(run), plain_ms=time_ms(plain, iters=3))
+    ban = torch.rand(b, k, v, generator=g, device=DEV) < 0.01
+    logp = logp.masked_fill(ban, -1.0e7)
+    logp[0, 0, 999] = logp[0, 2, 999] = 9.0  # batch 0: a tie across rows, one column
+    scores[0, 2] = scores[0, 0]
+    logp[1, 3, 100] = logp[1, 3, 5000] = 8.0  # batch 1: a tie across chunks
+    logp[2, 1] = logp[2, 0]  # batch 2: two beams tie on every candidate
+    scores[2, 1] = scores[2, 0]
+    logp[3, 4, :] = -1.0e7  # batch 3: a beam with every token banned
+    logp[3, 0, 2047] = logp[3, 0, 2048] = 7.5  # and a tie on a chunk boundary
+    return logp, scores
+
+
+def check_beam_topk(results, only=None):
+    """K5 at the n-gram phase's shape [8, 5, 128256] and the JAX selftest's
+    [4, 5, 128256], f32 and bf16 log-probs with planted ties and bans, and
+    from raw logits at [240, 128256] and [240, 128250] (V % 8 != 0); n = 10.
+    Indices must be identical; values within 1e-6.  ``library_ms`` is
+    ``torch.topk`` on the prebuilt candidate row, without the add that K5
+    fuses."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.topk import (
+        _candidates,
+        beam_topk,
+        beam_topk_from_logits,
+        beam_topk_from_logits_plain,
+        beam_topk_plain,
+    )
+
+    g = torch.Generator(device=DEV).manual_seed(10)
+    k, n = BEAMS, 2 * BEAMS
+    cases = [("f32", "logp/8x5x128256", 8, 128256, torch.float32),
+             ("f32", "logp/4x5x128256", 4, 128256, torch.float32),
+             ("bf16", "logp_bf16/4x5x128256", 4, 128256, torch.bfloat16),
+             ("from_logits", "from_logits/240x128256", 48, 128256, None),
+             ("from_logits_v_odd", "from_logits/240x128250", 48, 128250, None)]
+    for key, name, b, v, dtype in cases:
+        if only is not None and key != only:
+            continue
+        logp, scores = _planted(b, k, v, g)
+        if dtype is not None:
+            logp = logp.to(dtype)
+            run = lambda: beam_topk(logp, scores, n)  # noqa: E731
+            plain = lambda: beam_topk_plain(logp, scores, n)  # noqa: E731
+            cand = logp.float() + scores[:, :, None]
+            small, ops, x = (scores,), 2, logp
+        else:
+            x = (logp.reshape(b * k, v) * 0.25).contiguous()  # raw logits
+            row_max = x.amax(dim=-1, keepdim=True)
+            row_ls = torch.log(torch.exp(x - row_max).sum(dim=-1, keepdim=True))
+            run = lambda: beam_topk_from_logits(x, row_max, row_ls, scores, n)  # noqa: E731
+            plain = lambda: beam_topk_from_logits_plain(x, row_max, row_ls, scores, n)  # noqa: E731
+            cand = _candidates(x, row_max, row_ls, scores)
+            small, ops = (row_max, row_ls, scores), 4
+        cand = cand.reshape(b, -1)
+        (gv, gi), (wv, wi) = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(gi, wi):
+            bad = int((gi != wi).any(dim=1).nonzero()[0])
+            raise SmokeFailure(f"beam_topk {name}: indices differ at batch {bad}: "
+                               f"{gi[bad].tolist()} vs {wi[bad].tolist()}")
+        if dtype is not None and wi[0, :2].tolist() != [999, 2 * v + 999]:
+            raise SmokeFailure(f"beam_topk {name}: tie order {wi[0, :2].tolist()}")
+        record(results, f"beam_topk/{name}", max_err(gv, wv), 1e-6,
+               library=lambda: torch.topk(cand, n), ms=time_ms(run),
+               plain_ms=time_ms(plain, iters=3), **topk_bound(x, small, ops, (gv, gi)))
 
 
 def check_gather_rows(results):
-    """K6 at the generated-KV leaf of the gather reorder, bf16 [B*K, 64, 8,
-    128] for batch 8 and 48, with repeated and permuted source rows.
-    Exact."""
+    """K6 at the serving phases' leaves, bf16: the gather reorder's
+    generated KV [40, 16, 8, 128] and the full cache [40, 8, 146, 128]; and
+    [B*K, 64, 8, 128] for batch 8 and 48; with repeated and permuted source
+    rows.  Exact."""
     import torch
 
     from multimodalvc_tpu_torch.ops.beam_gather import gather_rows, gather_rows_plain
 
     g = torch.Generator(device=DEV).manual_seed(6)
-    for rows in (8 * BEAMS, 48 * BEAMS):
-        x = torch.randn(rows, 64, 8, 128, generator=g, device=DEV).to(torch.bfloat16)
+    for rows, shape in ((8 * BEAMS, (SHORT_TOKENS, 8, 128)), (8 * BEAMS, (8, 146, 128)),
+                        (8 * BEAMS, (64, 8, 128)), (48 * BEAMS, (64, 8, 128))):
+        x = torch.randn(rows, *shape, generator=g, device=DEV).to(torch.bfloat16)
         perm = torch.randperm(rows, generator=g, device=DEV).to(torch.int32)
         src = perm.clone()
         src[rows // 2:] = perm[: rows - rows // 2]  # a permuted half, then repeats of it
         run = lambda: gather_rows(x, src)  # noqa: E731
         plain = lambda: gather_rows_plain(x, src)  # noqa: E731
         got = run()
+        name = "x".join(str(i) for i in (rows, *shape))
         if not torch.equal(got, plain()):
-            raise SmokeFailure(f"gather_rows [{rows}, 64, 8, 128]: rows differ")
-        record(results, f"gather_rows/{rows}x64x8x128", max_err(got, plain()), 0.0,
-               ms=time_ms(run), plain_ms=time_ms(plain))
+            raise SmokeFailure(f"gather_rows [{name}]: rows differ")
+        library = lambda: torch.index_select(x, 0, src)  # noqa: E731
+        # each selected row read once and written once
+        record(results, f"gather_rows/{name}", max_err(got, plain()), 0.0,
+               library=library, ms=time_ms(run), plain_ms=time_ms(plain),
+               **bound(2 * nbytes(got) + nbytes(src)))
 
 
 def _quant_case(results, name, quantize, kernel, plain, rows, d_in, d_out, tol, g):
@@ -306,36 +427,41 @@ def _quant_case(results, name, quantize, kernel, plain, rows, d_in, d_out, tol, 
     x = torch.randn(rows, d_in, generator=g, device=DEV).to(torch.bfloat16)
     run = lambda: kernel(x, w_q, w_s, out_dtype=torch.float32)  # noqa: E731
     ref = lambda: plain(x, w_q, w_s, out_dtype=torch.float32)  # noqa: E731
-    record(results, f"{name}/{rows}x{d_in}x{d_out}", max_err(run(), ref()), tol,
-           ms=time_ms(run), plain_ms=time_ms(ref))
+    got = run()
+    record(results, f"{name}/{rows}x{d_in}x{d_out}", max_err(got, ref()), tol,
+           ms=time_ms(run), plain_ms=time_ms(ref),
+           **bound(nbytes(x, w_q, w_s, got), 2 * rows * d_in * d_out))
 
 
 def check_int8_matmul(results):
     """K7 at the decode shapes of the LLaMA-3.2-3B trunk (3072->3072 / 8192,
-    8192->3072) and the tied unembed (3072->128256) at batch 48 (240 rows)
-    and 8 (40 rows).  Tolerance 1e-2 absolute on f32 outputs (the JAX
+    8192->3072) and the tied unembed (3072->128256) at batch 8 (40 rows, the
+    serving phases) and 48 (240 rows).  Tolerance 1e-2 absolute on f32 outputs (the JAX
     selftest's)."""
     import torch
 
     from multimodalvc_tpu_torch.ops import int8_matmul as q
 
     g = torch.Generator(device=DEV).manual_seed(7)
-    for rows, d_in, d_out in [(240, 3072, 3072), (240, 3072, 8192), (240, 8192, 3072),
-                              (240, 3072, 128256), (40, 3072, 128256)]:
+    for rows, d_in, d_out in [(40, 3072, 3072), (40, 3072, 8192), (40, 8192, 3072),
+                              (40, 3072, 128256), (240, 3072, 3072), (240, 3072, 8192),
+                              (240, 8192, 3072), (240, 3072, 128256)]:
         _quant_case(results, "int8_matmul", q.quantize_kernel, q.int8_matmul,
                     q.int8_matmul_plain, rows, d_in, d_out, 1e-2, g)
 
 
 def check_int4_matmul(results):
-    """K8 at the JAX selftest shape (240 x 1024 -> 2048) and the trunk and
-    unembed decode shapes at 240 rows.  Tolerance 5e-2 (the JAX selftest's)."""
+    """K8 at the trunk and unembed decode shapes at 40 rows (the serving
+    phases), the JAX selftest shape (240 x 1024 -> 2048) and the trunk and
+    unembed shapes at 240 rows.  Tolerance 5e-2 (the JAX selftest's)."""
     import torch
 
     from multimodalvc_tpu_torch.ops import int8_matmul as q
 
     g = torch.Generator(device=DEV).manual_seed(8)
-    for rows, d_in, d_out in [(240, 1024, 2048), (240, 3072, 8192), (240, 8192, 3072),
-                              (240, 3072, 128256)]:
+    for rows, d_in, d_out in [(40, 3072, 3072), (40, 3072, 8192), (40, 8192, 3072),
+                              (40, 3072, 128256), (240, 1024, 2048), (240, 3072, 8192),
+                              (240, 8192, 3072), (240, 3072, 128256)]:
         _quant_case(results, "int4_matmul", q.quantize_kernel_int4, q.int4_matmul,
                     q.int4_matmul_plain, rows, d_in, d_out, 5e-2, g)
 
@@ -344,13 +470,13 @@ def check_int4_matmul(results):
 
 
 def kernels():
-    """name -> (wrapper, counter attribute, source, TPU kernel, phase whose
-    run supplies the launch count, whether that phase must launch it)."""
+    """name -> (wrapper, counter attribute, source, TPU kernel, the phase
+    whose run supplies the launch count, whether a serving path runs it)."""
     from multimodalvc_tpu_torch.ops.attention import flash_attention
     from multimodalvc_tpu_torch.ops.beam_gather import gather_rows
     from multimodalvc_tpu_torch.ops.decode_attention import gen_attention_ancestor, prompt_attention
     from multimodalvc_tpu_torch.ops.int8_matmul import int4_matmul, int8_matmul
-    from multimodalvc_tpu_torch.ops.topk import beam_topk_columns
+    from multimodalvc_tpu_torch.ops.topk import beam_topk, beam_topk_columns
 
     da = "multimodalvc_tpu/ops/decode_attention.py"
     return {
@@ -359,8 +485,8 @@ def kernels():
         "prompt_attention/int8": (prompt_attention, "launches", "csrc/decode_attention.cu",
                                   f"{da}:370", "int8_weights", True),
         # no serving path runs K2 on a bf16 cache (the JAX package's neither:
-        # a bf16 prompt segment is plain einsums), so the bf16-KV phase must
-        # launch it 0 times; its check above is its only use
+        # a bf16 prompt segment is plain einsums), so no phase may launch it;
+        # its check above is its only use
         "prompt_attention/bf16": (prompt_attention, "launches_bf16", "csrc/decode_attention.cu",
                                   f"{da}:370", "bf16_kv_ancestry", False),
         "gen_attention_ancestor/int8": (gen_attention_ancestor, "launches",
@@ -371,6 +497,9 @@ def kernels():
                                         "bf16_kv_ancestry", True),
         "beam_topk_columns": (beam_topk_columns, "launches", "csrc/topk.cu",
                               "multimodalvc_tpu/ops/topk.py:271", "int8_weights", True),
+        # beam_topk and beam_topk_from_logits share the counter: one TPU kernel
+        "beam_topk": (beam_topk, "launches", "csrc/topk.cu",
+                      "multimodalvc_tpu/ops/topk.py:125", "int8_ngram", True),
         "gather_rows": (gather_rows, "launches", "csrc/beam_gather.cu",
                         "multimodalvc_tpu/ops/beam_gather.py:57", "bf16_kv_gather", True),
         "int8_matmul": (int8_matmul, "launches", "csrc/quant_matmul.cu",
@@ -380,11 +509,42 @@ def kernels():
     }
 
 
+# The launches each phase must show: "+" = at least one, an int = exactly
+# that many (set by the caller where it depends on another phase); every
+# kernel not named must launch 0 times.
+ON = "+"
+EXPECT = {
+    "bf16_weights": {"flash_attention": ON, "prompt_attention/int8": ON,
+                     "gen_attention_ancestor/int8": ON, "beam_topk_columns": ON},
+    "bf16_kv_ancestry": {"flash_attention": ON, "gen_attention_ancestor/bf16": ON,
+                         "beam_topk_columns": ON},
+    "bf16_kv_gather": {"flash_attention": ON, "beam_topk_columns": ON, "gather_rows": ON},
+    "bf16_constrained": {"flash_attention": ON, "gather_rows": ON},
+    # no encoders and no flash prefill (the cache spans T + L slots, t != tkv)
+    "bf16_full_cache": {"beam_topk_columns": ON, "gather_rows": ON},
+    "int8_weights": {"flash_attention": ON, "prompt_attention/int8": ON,
+                     "gen_attention_ancestor/int8": ON, "beam_topk_columns": ON,
+                     "int8_matmul": ON},
+    "int8_ngram": {"flash_attention": ON, "prompt_attention/int8": ON,
+                   "gen_attention_ancestor/int8": ON, "beam_topk": ON, "int8_matmul": ON},
+    "int4_weights": {"flash_attention": ON, "prompt_attention/int8": ON,
+                     "gen_attention_ancestor/int8": ON, "beam_topk_columns": ON,
+                     "int4_matmul": ON},
+}
+
+
 def plain_versions(only=None) -> ExitStack:
     """Route the model's kernel call sites to the plain PyTorch versions:
     every kernel, or only the wrappers named in ``only``."""
     from multimodalvc_tpu_torch.nn import layers, llama, whisper
-    from multimodalvc_tpu_torch.ops import attention, beam_gather, decode_attention, int8_matmul
+    from multimodalvc_tpu_torch.ops import (
+        attention,
+        beam_gather,
+        beam_search,
+        decode_attention,
+        int8_matmul,
+        topk,
+    )
 
     stack = ExitStack()
     for site, name, plain in [
@@ -396,6 +556,9 @@ def plain_versions(only=None) -> ExitStack:
         (llama, "int8_matmul", int8_matmul.int8_matmul_plain),
         (llama, "int4_matmul", int8_matmul.int4_matmul_plain),
         (beam_gather, "gather_rows", beam_gather.gather_rows_plain),
+        (beam_search, "beam_topk_columns", topk.beam_topk_columns_plain),
+        (beam_search, "beam_topk", topk.beam_topk_plain),
+        (beam_search, "beam_topk_from_logits", topk.beam_topk_from_logits_plain),
     ]:
         if only is None or name in only:
             stack.enter_context(mock.patch.object(site, name, plain))
@@ -430,6 +593,24 @@ def make_batch():
     }
 
 
+def make_long_batch():
+    """BATCH clips of 2 x SECONDS s (two encoder windows) with full-clip mel
+    features (4 mel frames a video frame), random from seed 4."""
+    import torch
+
+    from multimodalvc_tpu_torch.models.avsr import AVSRConfig
+
+    t_v = 2 * SECONDS * 25
+    g = torch.Generator(device=DEV).manual_seed(4)
+    return {
+        "audio_feats": torch.randn(BATCH, AVSRConfig().whisper.n_mels, 4 * t_v, generator=g,
+                                   device=DEV),
+        "video": torch.randn(BATCH, t_v, 88, 88, 1, generator=g, device=DEV),
+        "video_lengths": torch.full((BATCH,), t_v, dtype=torch.int32, device=DEV),
+        "instruction": torch.randint(1, 200, (BATCH, INSTRUCTION), generator=g, device=DEV),
+    }
+
+
 def wall(fn):
     import torch
 
@@ -440,8 +621,8 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def build_system(mode=None):
-    """AVSRConfig() at full width, bf16 random weights from seed 0; with
+def build_system(mode=None, seed=0):
+    """AVSRConfig() at full width, bf16 random weights from ``seed``; with
     ``mode``, the LLaMA quantized in place to int8 or int4."""
     import torch
 
@@ -451,11 +632,11 @@ def build_system(mode=None):
     cfg.max_video_frames = SECONDS * 25
     t0 = time.perf_counter()
     system = AVSRSystem(cfg, dtype=torch.bfloat16, device=DEV)
-    system.init_random(seed=0)
+    system.init_random(seed=seed)
     if mode:
         system.enable_quantized_decode(mode)
     torch.cuda.synchronize()
-    print(f"system: {mode or 'bf16'} weights, built in {time.perf_counter() - t0:.1f} s, "
+    print(f"system: {mode or 'bf16'} weights (seed {seed}), built in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     return system
 
@@ -473,27 +654,32 @@ def check_output(name, seqs, scores, vocab, new_tokens):
         raise SmokeFailure(f"{name}: beam scores not sorted")
 
 
-def run_phase(table, system, batch, name, new_tokens, gen_kw) -> dict:
-    """One generate() call with every launch count set to 0 just before it
-    and read just after; fails unless each kernel assigned to this phase ran."""
+def run_phase(table, name, call, expect=None, audio_s=BATCH * SECONDS) -> tuple:
+    """Run ``call`` once with every launch count set to 0 just before it and
+    read just after; fails unless the launches meet ``expect`` (default
+    ``EXPECT[name]``).  Returns (the phase's record, what ``call`` returned)."""
     reset_counts(table)
-    (seqs, scores), t_gen = wall(lambda: system.generate(
-        batch, num_beams=BEAMS, max_new_tokens=new_tokens, **gen_kw))
+    out, t_gen = wall(call)
     launches = read_counts(table)
+    expect = EXPECT[name] if expect is None else expect
+    wrong = {k: (n, expect.get(k, 0)) for k, n in launches.items()
+             if not (n > 0 if expect.get(k, 0) == ON else n == expect.get(k, 0))}
+    if wrong:
+        raise SmokeFailure(f"{name}: launches (got, expected) {wrong}")
+    rtf = audio_s / t_gen
+    print(f"  phase {name}: {t_gen:.3f} s, realtime factor {rtf:.1f}x, launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    return {"generate_s": t_gen, "realtime_factor": rtf, "launches": launches}, out
+
+
+def serve(table, system, batch, name, new_tokens, gen_kw, expect=None) -> tuple:
+    """A ``generate`` phase with its output checked: (record, sequences,
+    scores)."""
+    phase, (seqs, scores) = run_phase(table, name, lambda: system.generate(
+        batch, num_beams=BEAMS, max_new_tokens=new_tokens, **gen_kw), expect)
     check_output(name, seqs, scores, system.cfg.llama.vocab_size, new_tokens)
-    mine = {k: on_path for k, (*_, phase, on_path) in table.items() if phase == name}
-    missing = [k for k, on_path in mine.items() if on_path and launches[k] == 0]
-    missing += [k for k in ("flash_attention", "beam_topk_columns") if launches[k] == 0]
-    if missing:
-        raise SmokeFailure(f"{name}: kernels never launched on this path: {missing}")
-    stray = [k for k, on_path in mine.items() if not on_path and launches[k]]
-    if stray:
-        raise SmokeFailure(f"{name}: kernels launched off this path: {stray}")
-    rtf = BATCH * SECONDS / t_gen
-    print(f"  phase {name}: generate {t_gen:.3f} s ({new_tokens} new tokens), realtime factor "
-          f"{rtf:.1f}x, launches {launches}")
-    return {"generate_s": t_gen, "realtime_factor": rtf, "new_tokens": new_tokens,
-            "launches": launches, "seqs": seqs}
+    phase["new_tokens"] = new_tokens
+    return phase, seqs, scores
 
 
 def rel_l2(a, b) -> float:
@@ -647,26 +833,116 @@ def reorder_equivalence(llama, emb, mask, tokens) -> dict:
     return checks
 
 
+def contains(row, phrase) -> bool:
+    return any(row[i : i + len(phrase)] == phrase for i in range(len(row) - len(phrase) + 1))
+
+
+def constrained_phase(table, system, batch) -> dict:
+    """Unordered constraints: rows 0-5 one 2-token phrase each (seed 3),
+    rows 6-7 none; the gather reorder with a bf16 KV cache (K6), the
+    candidates by a plain top-k (no K4, no K5).  Every constrained row's
+    best beam must hold its phrase: bank striping keeps a satisfied
+    hypothesis once one exists, and only satisfied ones finalise."""
+    import numpy as np
+
+    vocab = system.cfg.llama.vocab_size
+    phrases = np.random.default_rng(3).integers(3, vocab // 2, (6, 2)).tolist()
+    cons = [[p] for p in phrases] + [[] for _ in range(BATCH - len(phrases))]
+    phase, seqs, _ = serve(table, system, batch, "bf16_constrained", SHORT_TOKENS,
+                           dict(constraints=cons))
+    best = seqs[:, 0].tolist()
+    missing = [i for i, p in enumerate(phrases) if not contains(best[i], p)]
+    if missing:
+        raise SmokeFailure(f"bf16_constrained: rows {missing} lack their phrase")
+    phase["rows_holding_their_phrase"] = len(phrases)
+    return phase
+
+
+def full_cache_phase(table, system, emb, mask) -> dict:
+    """``generate_beam(share_prompt_kv=False)`` on the bf16 prompt: the
+    [B*K, 8, T+L, 128] per-beam cache, reordered by K6 every step; its wall
+    holds no encoder."""
+    import torch
+
+    from multimodalvc_tpu_torch.nn.llama import generate_beam
+
+    cfg = system.cfg
+
+    def call():
+        with torch.inference_mode():
+            return generate_beam(system.llama_module, emb, mask, eos_token_id=cfg.eos_token_id,
+                                 pad_token_id=cfg.pad_token_id, num_beams=BEAMS,
+                                 max_new_tokens=SHORT_TOKENS, share_prompt_kv=False)
+
+    phase, (seqs, scores) = run_phase(table, "bf16_full_cache", call)
+    check_output("bf16_full_cache", seqs, scores, cfg.llama.vocab_size, SHORT_TOKENS)
+    phase["new_tokens"] = SHORT_TOKENS
+    return phase
+
+
+def long_form_phase(table, system, flash_per_generate: int) -> dict:
+    """``generate_long_form`` on a 32 s clip (800 frames, chunk_frames 400,
+    mel [8, 80, 3200]), int8 KV: two ``generate`` calls, K1 twice as often as
+    one, and one merged token row per sample."""
+    import numpy as np
+
+    long_batch = make_long_batch()
+    calls = []
+    generate = system.generate
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return generate(*args, **kw)
+
+    expect = {**EXPECT["bf16_weights"], "flash_attention": 2 * flash_per_generate}
+    with mock.patch.object(system, "generate", counted):
+        phase, rows = run_phase(table, "long_form", lambda: system.generate_long_form(
+            long_batch, chunk_frames=SECONDS * 25, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS,
+            kv_quant="int8"), expect, audio_s=BATCH * 2 * SECONDS)
+    vocab = system.cfg.llama.vocab_size
+    if len(calls) != 2:
+        raise SmokeFailure(f"long_form: {len(calls)} generate calls, expected 2")
+    if len(rows) != BATCH or not all(isinstance(r, np.ndarray) and r.ndim == 1 and len(r)
+                                     and (r >= 0).all() and (r < vocab).all() for r in rows):
+        raise SmokeFailure(f"long_form: expected {BATCH} merged token rows")
+    phase.update(generate_calls=len(calls), merged_lengths=[len(r) for r in rows])
+    return phase
+
+
+def ensemble_phase(table, system, batch, flash_per_generate: int) -> dict:
+    """Two bf16 systems (seeds 0 and 1), int8 KV, ancestry: each member runs
+    its own encoders (K1 twice as often as one system), K2/K3 in both, K4
+    on the averaged log-probs."""
+    import torch
+
+    member = build_system(seed=1)
+    expect = {**EXPECT["bf16_weights"], "flash_attention": 2 * flash_per_generate}
+    phase, _, _ = serve(table, system, batch, "bf16_ensemble2", SHORT_TOKENS,
+                        dict(kv_quant="int8", ensemble=[member]), expect)
+    del member
+    torch.cuda.empty_cache()
+    return phase
+
+
 def bf16_weight_phases(table, batch) -> tuple:
-    """The bf16-weight phase (int8 KV, ancestry) and the two bf16-KV
-    phases, on one system.  Returns (phases, checks, prompt, first-step
+    """The bf16-weight phases on one system: int8 KV with the ancestry
+    decode, the two bf16-KV phases, constraints, the full cache, long-form
+    and a two-member ensemble.  Returns (phases, checks, prompt, first-step
     tokens, the bf16-weight logits for the quantized phases to compare with)."""
     import torch
 
     system = build_system()
     llama = system.llama_module
     system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
-    phases = {
-        "bf16_weights": run_phase(table, system, batch, "bf16_weights", SHORT_TOKENS,
-                                  dict(kv_quant="int8")),
-        # generate()'s defaults: kv_quant=None, and on the GPU the ancestry decode
-        "bf16_kv_ancestry": run_phase(table, system, batch, "bf16_kv_ancestry", SHORT_TOKENS, {}),
-        "bf16_kv_gather": run_phase(table, system, batch, "bf16_kv_gather", SHORT_TOKENS,
-                                    dict(ancestry_reorder=False)),
-    }
-    if phases["bf16_kv_ancestry"]["launches"]["gen_attention_ancestor/int8"]:
-        raise SmokeFailure("generate() defaults took the int8 KV cache")
-    tokens = phases["bf16_weights"]["seqs"][:, :, 0].reshape(-1, 1)
+    phases = {}
+    phases["bf16_weights"], seqs, _ = serve(table, system, batch, "bf16_weights", SHORT_TOKENS,
+                                            dict(kv_quant="int8"))
+    # generate()'s defaults: kv_quant=None, and on the GPU the ancestry decode
+    phases["bf16_kv_ancestry"], _, _ = serve(table, system, batch, "bf16_kv_ancestry",
+                                             SHORT_TOKENS, {})
+    phases["bf16_kv_gather"], _, _ = serve(table, system, batch, "bf16_kv_gather", SHORT_TOKENS,
+                                           dict(ancestry_reorder=False))
+    tokens = seqs[:, :, 0].reshape(-1, 1)
 
     # the same weights and inputs through the kernels and the plain versions:
     # the two encoders (K1), then one prefill + one decode step (K2, K3) from
@@ -695,17 +971,81 @@ def bf16_weight_phases(table, batch) -> tuple:
         bf16_logits = got[2:]
 
         checks.update(reorder_equivalence(llama, emb, mask, tokens))
-    for ph in phases.values():
-        ph.pop("seqs")
+    flash = phases["bf16_weights"]["launches"]["flash_attention"]
+    phases["bf16_constrained"] = constrained_phase(table, system, batch)
+    phases["bf16_full_cache"] = full_cache_phase(table, system, emb, mask)
+    phases["long_form"] = long_form_phase(table, system, flash)
+    phases["bf16_ensemble2"] = ensemble_phase(table, system, batch, flash)
     del system, llama, enc
     torch.cuda.empty_cache()
     return phases, checks, (emb, mask), tokens, bf16_logits
 
 
+def ngram_phase(table, system, batch) -> dict:
+    """n-gram blocking (size 3) on the int8-weight system, int8 KV: K5 once
+    per decode step and K4 never; no returned beam repeats a 3-gram; the same
+    ``generate`` with only K5 plain gives identical sequences and scores, and
+    K5 matches its plain version exactly on the log-probs of every step of
+    that run."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import beam_search, topk
+
+    gen_kw = dict(kv_quant="int8", no_repeat_ngram_size=3)
+    phase, seqs, scores = serve(table, system, batch, "int8_ngram", SHORT_TOKENS, gen_kw)
+    steps = phase["launches"]["prompt_attention/int8"] // system.cfg.llama.num_layers
+    if phase["launches"]["beam_topk"] != steps:
+        raise SmokeFailure(f"int8_ngram: K5 launched {phase['launches']['beam_topk']} times "
+                           f"in {steps} decode steps")
+    eos = system.cfg.eos_token_id
+    for row in seqs.reshape(-1, SHORT_TOKENS).tolist():
+        toks = row[: row.index(eos) + 1] if eos in row else row
+        grams = [tuple(toks[i : i + 3]) for i in range(len(toks) - 2)]
+        if len(grams) != len(set(grams)):
+            raise SmokeFailure(f"int8_ngram: a beam repeats a 3-gram: {toks}")
+
+    captured = []
+
+    def plain_k5(logp, sc, n):
+        captured.append((logp.clone(), sc.clone(), n))
+        return topk.beam_topk_plain(logp, sc, n)
+
+    def again():
+        return system.generate(batch, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS, **gen_kw)
+
+    with mock.patch.object(beam_search, "beam_topk", plain_k5):
+        p_seqs, p_scores = again()
+    identical = bool(torch.equal(seqs, p_seqs) and torch.equal(scores, p_scores))
+    deterministic = None
+    if not identical:  # the kernel run once more: is the decode itself deterministic?
+        r_seqs, r_scores = again()
+        deterministic = bool(torch.equal(seqs, r_seqs) and torch.equal(scores, r_scores))
+        if deterministic:
+            raise SmokeFailure("int8_ngram: K5 made plain changes the sequences or scores")
+    worst = 0.0
+    for logp, sc, n in captured:
+        (gv, gi), (wv, wi) = topk.beam_topk(logp, sc, n), topk.beam_topk_plain(logp, sc, n)
+        if not torch.equal(gi, wi):
+            raise SmokeFailure("int8_ngram: K5 and its plain version pick other candidates")
+        worst = max(worst, max_err(gv, wv))
+    if worst > 1e-6 or len(captured) != steps:
+        raise SmokeFailure(f"int8_ngram: K5 on the phase's log-probs: max_err {worst:.3e}, "
+                           f"{len(captured)} steps of {steps}")
+    print(f"  int8_ngram: {steps} decode steps; K5 plain gives "
+          f"{'identical' if identical else 'different'} sequences and scores"
+          + ("" if deterministic is None else ", the decode is nondeterministic")
+          + f"; K5 vs plain on the {len(captured)} steps' log-probs: max_err {worst:.1e}")
+    phase.update(decode_steps=steps, k5_plain_identical=identical,
+                 nondeterministic=deterministic is False, k5_steps_checked=len(captured),
+                 k5_step_max_abs_err=worst)
+    return phase
+
+
 def quantized_phase(table, batch, mode, new_tokens, prompt, tokens, bf16_logits) -> dict:
     """A full-width system with ``mode`` weights, served with the int8 KV
     cache and the ancestry decode; one prefill + decode step held against
-    the plain versions on the same quantized weights."""
+    the plain versions on the same quantized weights.  With int8 weights the
+    n-gram phase follows on the same system.  Returns {phase name: record}."""
     import torch
 
     from multimodalvc_tpu_torch.nn.llama import prefill_split_cache
@@ -714,8 +1054,7 @@ def quantized_phase(table, batch, mode, new_tokens, prompt, tokens, bf16_logits)
     llama = system.llama_module
     name = f"{mode}_weights"
     system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
-    phase = run_phase(table, system, batch, name, new_tokens, dict(kv_quant="int8"))
-    phase.pop("seqs")
+    phase, _, _ = serve(table, system, batch, name, new_tokens, dict(kv_quant="int8"))
     emb, mask = prompt
     with torch.inference_mode():
         # stage walls of the same inputs, after the measured run
@@ -746,9 +1085,12 @@ def quantized_phase(table, batch, mode, new_tokens, prompt, tokens, bf16_logits)
                                                        got, bf16_logits)}
         print(f"  {name}: logits vs bf16 weights (not gated) {phase['rel_l2_vs_bf16_weights']}")
     phase["step_check"] = checks
+    out = {name: phase}
+    if mode == "int8":
+        out["int8_ngram"] = ngram_phase(table, system, batch)
     del system, llama
     torch.cuda.empty_cache()
-    return phase
+    return out
 
 
 def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict:
@@ -857,8 +1199,8 @@ def main() -> int:
 
     results = []
     print("kernel checks (kernel vs plain PyTorch, same inputs, CUDA-event ms):")
-    for check in (check_flash, check_decode, check_decode_bf16, check_topk, check_gather_rows,
-                  check_int8_matmul, check_int4_matmul):
+    for check in (check_flash, check_decode, lambda r: check_decode(r, "bf16"), check_topk,
+                  check_beam_topk, check_gather_rows, check_int8_matmul, check_int4_matmul):
         check(results)
         torch.cuda.empty_cache()
     failed = [r["name"] for r in results if not r["ok"]]
@@ -870,20 +1212,20 @@ def main() -> int:
     print(f"serving: AVSRConfig() full width, random weights (seed 0), batch {BATCH}, "
           f"{SECONDS} s, beam {BEAMS}")
     phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
-    phases["int8_weights"] = quantized_phase(table, batch, "int8", NEW_TOKENS, prompt, tokens,
-                                             bf16_logits)
-    phases["int4_weights"] = quantized_phase(table, batch, "int4", SHORT_TOKENS, prompt, tokens,
-                                             bf16_logits)
+    phases.update(quantized_phase(table, batch, "int8", NEW_TOKENS, prompt, tokens, bf16_logits))
+    phases.update(quantized_phase(table, batch, "int4", SHORT_TOKENS, prompt, tokens, bf16_logits))
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():
         mine = [r for r in results if r["name"].startswith(name + "/") or r["name"] == name]
+        # times and bound of the first case: the shape the serving path gives it
         summary.append({
             "name": name, "route": "cuda", "source": f"multimodalvc_tpu_torch/{src}",
             "replaces": replaces, "phase": phase, "on_path": on_path,
             "launches": phases[phase]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
+            **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "case": mine[0]["name"],
         })
     print(json.dumps({"cases": results}))
     print(json.dumps({"phases": phases, "checks": checks}))

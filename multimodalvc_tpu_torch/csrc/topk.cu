@@ -1,11 +1,20 @@
-// K4 · beam_topk_columns: the beam search's top-2K candidates straight from
-// the raw unembed logits, exact in values and indices.
+// K4 · beam_topk_columns and K5 · beam_topk / beam_topk_from_logits: the beam
+// search's top-2K candidates, exact in values and indices.
 //
-// Replaces the Pallas kernel multimodalvc_tpu/ops/topk.py: beam_topk_columns
-// (pallas_call at :271, body _column_champion_kernel :189) together with the
-// gather + (value desc, flat asc) merge its caller runs.  Per batch element:
+// Replaces two Pallas kernels of multimodalvc_tpu/ops/topk.py, each together
+// with the gather + (value desc, flat asc) merge its caller runs:
+//   K4 beam_topk_columns (pallas_call at :271, body _column_champion_kernel
+//      :189): raw f32 unembed logits with row max m and logsumexp ls, V % 8 == 0;
+//   K5 _run_and_merge (pallas_call at :125, body _block_topk_kernel :58),
+//      entries beam_topk (:303: f32 or bf16 log-probs, m = ls = 0) and
+//      beam_topk_from_logits (:157: as K4, any V).
+// The V -> 8 sublane fold of K4 and the column blocks of K5 are TPU tiling;
+// both compute one function, which one kernel family computes here for any V,
+// templated on the input element type.  Per batch element:
 //   x[r, c] = max(((logit[r, c] - m[r]) - ls[r]) + s[r], -2.9e38)   (f32)
-// in exactly that order (XLA's and PyTorch's log_softmax order); each
+// in exactly that order (XLA's and PyTorch's log_softmax order), with a null
+// m / ls pointer meaning 0.0f, so that ((x - 0) - 0) + s is bit-identical to
+// logp + score, the contract of beam_topk; each
 // column's champion is its best row, lowest row on ties; the top-n champion
 // columns are taken by (value desc, flat index asc); the K rows of those n
 // columns are the provable superset of the true top-n, which is then picked
@@ -22,9 +31,11 @@
 // extracts the final top-n.  No fast-math: the values are bit-identical to
 // the plain PyTorch version.
 //
-// What bounds it on the H100: one read of the [B*K, V] f32 logits (123 MB
-// at batch 48) against 3.35 TB/s, ~37 us; the n block-wide reductions of
-// pass 1 add latency per block, which the 63 x B blocks hide only partly.
+// What bounds it on the H100: one read of the [B*K, V] input against 3.35
+// TB/s: 123 MB, ~37 us, at [240, 128256] f32 (K4, and K5 from logits);
+// 10.3 MB, ~3.1 us, at K5's [4, 5, 128256] f32 selftest shape (half of that
+// in bf16).  The n block-wide reductions of pass 1 add latency per block,
+// which the 63 x B blocks hide only partly.
 #include "common.cuh"
 
 namespace {
@@ -34,12 +45,19 @@ constexpr int PER_THREAD = 8;
 constexpr int CHUNK = THREADS * PER_THREAD;  // columns per pass-1 block
 constexpr float kClamp = -2.9e38f;
 
-__device__ __forceinline__ float candidate(float logit, float m, float ls, float s) {
-  return fmaxf(((logit - m) - ls) + s, kClamp);
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// m and ls may be null: 0.0f
+__device__ __forceinline__ float candidate(float logit, const float* m, const float* ls,
+                                           const float* s, int row) {
+  const float mr = m ? m[row] : 0.0f, lr = ls ? ls[row] : 0.0f;
+  return fmaxf(((logit - mr) - lr) + s[row], kClamp);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-column_champions(const float* __restrict__ logits, const float* __restrict__ m,
+column_champions(const T* __restrict__ logits, const float* __restrict__ m,
                  const float* __restrict__ ls, const float* __restrict__ s,
                  float* __restrict__ cand_v, int* __restrict__ cand_f, int K, int V, int n,
                  int nchunks) {
@@ -56,7 +74,7 @@ column_champions(const float* __restrict__ logits, const float* __restrict__ m,
     if (col < V) {
       for (int r = 0; r < K; ++r) {
         const int row = b * K + r;
-        const float x = candidate(logits[size_t(row) * V + col], m[row], ls[row], s[row]);
+        const float x = candidate(to_f32(logits[size_t(row) * V + col]), m, ls, s, row);
         if (r == 0 || x > bv[i]) {  // strict: the lowest row keeps a tie
           bv[i] = x;
           bf[i] = r * V + col;
@@ -88,8 +106,9 @@ column_champions(const float* __restrict__ logits, const float* __restrict__ m,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-merge_champions(const float* __restrict__ logits, const float* __restrict__ m,
+merge_champions(const T* __restrict__ logits, const float* __restrict__ m,
                 const float* __restrict__ ls, const float* __restrict__ s,
                 const float* __restrict__ cand_v, const int* __restrict__ cand_f,
                 float* __restrict__ out_v, int* __restrict__ out_f, int K, int V, int n,
@@ -131,7 +150,7 @@ merge_champions(const float* __restrict__ logits, const float* __restrict__ m,
   // every beam row of the champion columns, values recomputed in the same order
   for (int t = threadIdx.x; t < kn; t += THREADS) {
     const int r = t / n, col = cols[t % n], row = b * K + r;
-    gv[t] = candidate(logits[size_t(row) * V + col], m[row], ls[row], s[row]);
+    gv[t] = candidate(to_f32(logits[size_t(row) * V + col]), m, ls, s, row);
     gf[t] = r * V + col;
   }
   __syncthreads();
@@ -157,36 +176,54 @@ merge_champions(const float* __restrict__ logits, const float* __restrict__ m,
   }
 }
 
-}  // namespace
-
-// Columns per pass-1 chunk: the wrapper sizes its [B, chunks, n] scratch by it.
-extern "C" int mmvc_beam_topk_chunk_columns() { return CHUNK; }
-
-extern "C" int mmvc_beam_topk_columns(const void* logits, const void* m, const void* ls,
-                                      const void* s, void* cand_v, void* cand_f, void* out_v,
-                                      void* out_f, int B, int K, int V, int n, void* stream) {
+template <typename T>
+int launch(const void* logits, const void* m, const void* ls, const void* s, void* cand_v,
+           void* cand_f, void* out_v, void* out_f, int B, int K, int V, int n, void* stream) {
   if (B <= 0 || K <= 0 || V <= 0 || n <= 0 || n > K * V || B > 65535 ||
       (long long)K * V >= INT_MAX)
     return cudaErrorInvalidValue;
   const int nchunks = (V + CHUNK - 1) / CHUNK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lg = static_cast<const float*>(logits);
+  const T* lg = static_cast<const T*>(logits);
   const float* mm = static_cast<const float*>(m);
   const float* ll = static_cast<const float*>(ls);
   const float* ss = static_cast<const float*>(s);
-  column_champions<<<dim3(nchunks, B), THREADS, 0, st>>>(
+  column_champions<T><<<dim3(nchunks, B), THREADS, 0, st>>>(
       lg, mm, ll, ss, static_cast<float*>(cand_v), static_cast<int*>(cand_f), K, V, n, nchunks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t bytes = size_t(nchunks) * n * 8 + size_t(n) * 4 + size_t(K) * n * 8;
   if (bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(merge_champions, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(merge_champions<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(bytes));
     if (e != cudaSuccess) return e;
   }
-  merge_champions<<<B, THREADS, bytes, st>>>(lg, mm, ll, ss, static_cast<const float*>(cand_v),
-                                            static_cast<const int*>(cand_f),
-                                            static_cast<float*>(out_v), static_cast<int*>(out_f),
-                                            K, V, n, nchunks);
+  merge_champions<T><<<B, THREADS, bytes, st>>>(
+      lg, mm, ll, ss, static_cast<const float*>(cand_v), static_cast<const int*>(cand_f),
+      static_cast<float*>(out_v), static_cast<int*>(out_f), K, V, n, nchunks);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Columns per pass-1 chunk: the wrappers size their [B, chunks, n] scratch by it.
+extern "C" int mmvc_beam_topk_chunk_columns() { return CHUNK; }
+
+// K4, and K5 from logits: f32 logits [B*K, V] with f32 row statistics m, ls [B*K].
+extern "C" int mmvc_beam_topk_columns(const void* logits, const void* m, const void* ls,
+                                      const void* s, void* cand_v, void* cand_f, void* out_v,
+                                      void* out_f, int B, int K, int V, int n, void* stream) {
+  if (m == nullptr || ls == nullptr) return cudaErrorInvalidValue;
+  return launch<float>(logits, m, ls, s, cand_v, cand_f, out_v, out_f, B, K, V, n, stream);
+}
+
+// K5 beam_topk: log-probs [B, K, V], f32 (bf16 == 0) or bf16 (bf16 == 1); m = ls = 0.
+extern "C" int mmvc_beam_topk(const void* logp, int bf16, const void* s, void* cand_v,
+                              void* cand_f, void* out_v, void* out_f, int B, int K, int V, int n,
+                              void* stream) {
+  if (bf16)
+    return launch<__nv_bfloat16>(logp, nullptr, nullptr, s, cand_v, cand_f, out_v, out_f, B, K,
+                                 V, n, stream);
+  return launch<float>(logp, nullptr, nullptr, s, cand_v, cand_f, out_v, out_f, B, K, V, n,
+                       stream);
 }

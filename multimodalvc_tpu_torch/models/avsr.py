@@ -1,18 +1,22 @@
 """MMS-LLaMA-class AVSR serving: Whisper + AV-HuBERT -> Q-Former -> LLaMA.
 
 Port of ``multimodalvc_tpu/models/avsr.py`` for the serving path:
-``AVSRSystem.generate`` runs the encoders, assembles the left-padded prompt,
-prefills LLaMA and beam-decodes over the split cache (ancestry decode with an
-int8 or bf16 KV cache, or the gather reorder), with float, int8 or int4
-weights (``enable_quantized_decode``).  Training, the other fusion modes and
-the other decode modes are not ported yet.
+``AVSRSystem.generate`` runs the encoders (optionally in batch chunks),
+assembles the left-padded prompt, prefills LLaMA and beam-decodes over the
+split cache (ancestry decode with an int8 or bf16 KV cache, or the gather
+reorder), with float, int8 or int4 weights (``enable_quantized_decode``),
+n-gram blocking, lexical constraints and ensembles of systems;
+``generate_long_form`` decodes clips longer than one window in chunks.
+Training and the other fusion modes are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn.avhubert import AVHubertConfig, AVHubertModel
@@ -20,6 +24,13 @@ from ..nn.llama import LlamaConfig, LlamaModel, RMSNorm, generate_beam, quantize
 from ..nn.modules import Projector, SpeechRatePredictor
 from ..nn.qformer import QFormer, QFormerConfig
 from ..nn.whisper import WhisperEncoder, WhisperEncoderConfig
+from ..ops.constraints import (
+    SequenceArrays,
+    TrieArrays,
+    build_ordered,
+    build_unordered,
+    pack_constraints,
+)
 from ..ops.interpolate import linear_resize_batched
 
 LLAMA3_EOS = 128001  # <|end_of_text|>
@@ -172,6 +183,39 @@ class AVSRModel(nn.Module):
         return self.build_prompt(queries, query_lens, batch)
 
 
+def merge_token_rows(rows, eos_token_id: int, pad_token_id: int, dedup: bool = True) -> np.ndarray:
+    """Stitch per-chunk transcripts into one token row (whisper-style).
+
+    Each row is cleaned (cut at EOS, pad dropped); with ``dedup``
+    consecutive rows are joined with the longest exact suffix/prefix token
+    overlap removed.  ``dedup=False`` (for chunks that do not overlap)
+    concatenates unchanged, so genuinely repeated words across a chunk
+    boundary survive."""
+
+    def clean(row):
+        out = []
+        for t in row:
+            t = int(t)
+            if t == eos_token_id:
+                break
+            if t != pad_token_id:
+                out.append(t)
+        return out
+
+    rows = list(rows)
+    merged = clean(rows[0]) if rows else []
+    for row in rows[1:]:
+        nxt = clean(row)
+        k = 0
+        if dedup:
+            for cand in range(min(len(merged), len(nxt)), 0, -1):
+                if merged[len(merged) - cand :] == nxt[:cand]:
+                    k = cand
+                    break
+        merged.extend(nxt[k:])
+    return np.asarray(merged, np.int32)
+
+
 def resolve_ancestry_reorder(kv_quant: Optional[str], device: torch.device | str) -> bool:
     """``generate``'s default beam reorder, the JAX package's rule
     (models/avsr.py:516-517) with CUDA as the accelerator: the ancestry decode
@@ -183,7 +227,7 @@ class AVSRSystem:
     """Bundles the module with generation (HF-generate-equivalent decode)."""
 
     def __init__(self, cfg: AVSRConfig, dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.module = AVSRModel(cfg, device=device, dtype=dtype).eval()
         self.llama_module = self.module.llama
@@ -221,6 +265,23 @@ class AVSRSystem:
         self.enable_quantized_decode("int8")
 
     @torch.inference_mode()
+    def prompt(self, batch: Dict[str, torch.Tensor], encoder_microbatch: int = 0):
+        """Encoders + prompt assembly: (embeddings [B, L, D], mask [B, L]).
+        ``encoder_microbatch`` > 1 runs them in that many sequential batch
+        chunks; the prompt width (instruction + ``max_queries``) does not
+        depend on the chunk, so the chunks concatenate."""
+        if encoder_microbatch <= 1:
+            return self.module.prompt_for_generation(batch)
+        nb = next(iter(batch.values())).shape[0]
+        if nb % encoder_microbatch:
+            raise ValueError(
+                f"batch {nb} not divisible by encoder_microbatch {encoder_microbatch}")
+        size = nb // encoder_microbatch
+        parts = [self.module.prompt_for_generation({k: x[i : i + size] for k, x in batch.items()})
+                 for i in range(0, nb, size)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    @torch.inference_mode()
     def generate(
         self,
         batch: Dict[str, torch.Tensor],
@@ -233,23 +294,104 @@ class AVSRSystem:
         kv_quant: Optional[str] = None,
         encoder_microbatch: int = 0,
         constraints=None,
+        constraints_mode: str = "unordered",
+        ensemble: Sequence["AVSRSystem"] = (),
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Beam-search transcription: (sequences [B, K, max_new_tokens],
         scores [B, K]).  ``ancestry_reorder=None`` resolves as in the JAX
         package (``resolve_ancestry_reorder``); ``kv_quant="int8"`` needs the
-        ancestry decode.  Constraints, n-gram blocking and
-        ``encoder_microbatch`` are not ported yet."""
+        ancestry decode.  ``encoder_microbatch`` > 1 runs the encoders and
+        the prompt assembly in that many batch chunks.
+
+        ``constraints``: lexically constrained transcription, a per-row list
+        of phrases, each a list of token ids (an empty list leaves its row
+        unconstrained), or a built ``TrieArrays`` / ``SequenceArrays``;
+        ``constraints_mode`` "unordered" or "ordered".  Constraints take the
+        gather reorder and a float KV cache, as in the JAX package.
+
+        ``ensemble``: further systems of the same config (their own weights)
+        that decode together with this one; each runs its own encoders, and
+        every step averages the members' log-probs."""
+        constraint_set = None
+        if constraints is not None:
+            if isinstance(constraints, (TrieArrays, SequenceArrays)):
+                constraint_set = constraints
+            else:
+                build = build_ordered if constraints_mode == "ordered" else build_unordered
+                constraint_set = build(pack_constraints(constraints))
+            ancestry_reorder, kv_quant = False, None
         if ancestry_reorder is None:
             ancestry_reorder = resolve_ancestry_reorder(
                 kv_quant, self.llama_module.norm.weight.device)
-        if encoder_microbatch > 1:
-            raise NotImplementedError("encoder_microbatch is not ported yet")
-        emb, attn_mask = self.module.prompt_for_generation(batch)
+        systems = [self, *ensemble]
+        prompts = [s.prompt(batch, encoder_microbatch) for s in systems]
+        single = len(systems) == 1
         return generate_beam(
-            self.llama_module, emb, attn_mask,
+            self.llama_module if single else [s.llama_module for s in systems],
+            prompts[0][0] if single else [p[0] for p in prompts],
+            prompts[0][1] if single else [p[1] for p in prompts],
             eos_token_id=self.cfg.eos_token_id, pad_token_id=self.cfg.pad_token_id,
             num_beams=num_beams, max_new_tokens=max_new_tokens,
             length_penalty=length_penalty, no_repeat_ngram_size=no_repeat_ngram_size,
             cache_dtype=cache_dtype, ancestry_reorder=ancestry_reorder, kv_quant=kv_quant,
-            constraints=constraints,
+            constraints=constraint_set, constraints_mode=constraints_mode,
         )
+
+    def generate_long_form(
+        self,
+        batch: Dict[str, torch.Tensor],
+        chunk_frames: int = 400,
+        overlap_frames: int = 0,
+        merge: bool = True,
+        **gen_kwargs,
+    ):
+        """Chunked long-form transcription: a window of ``chunk_frames`` video
+        frames slides over the clip (stride ``chunk_frames -
+        overlap_frames``), the mel features following at 4 frames per video
+        frame, and each window is decoded by ``generate``.
+
+        ``batch["audio_feats"]`` must be the full-clip mel features [B, 80,
+        >= 4 * video frames].  With ``merge`` (the default) each sample's
+        chunk transcripts are stitched by ``merge_token_rows`` (the overlap
+        dedup only where the windows overlap) into one token row per sample;
+        ``merge=False`` returns the per-chunk best rows of each sample."""
+        video = batch["video"]
+        lengths = batch["video_lengths"].cpu().numpy()
+        b, t_total = video.shape[0], video.shape[1]
+        stride = chunk_frames - overlap_frames
+        if stride <= 0:
+            raise ValueError("overlap must be smaller than the chunk")
+        audio_feats = batch["audio_feats"]
+        # 8 mel frames of slack: real corpora round audio a frame or two short
+        if t_total > chunk_frames and audio_feats.shape[-1] < 4 * int(max(lengths)) - 8:
+            raise ValueError(
+                f"audio_feats covers {audio_feats.shape[-1]} mel frames but the clip spans "
+                f"{int(max(lengths))} video frames (~{4 * int(max(lengths))} mel frames at "
+                "100 Hz); pass full-clip mel features, not a single 30 s whisper window")
+        texts = [[] for _ in range(b)]
+        a_window = 2 * self.cfg.whisper.max_frames  # the encoder's window
+        for start in range(0, max(t_total - overlap_frames, 1), stride):
+            end = min(start + chunk_frames, t_total)
+            if end <= start:
+                break
+            v = video[:, start:end]
+            pad = chunk_frames - (end - start)
+            if pad:
+                v = torch.cat([v, v.new_zeros((b, pad) + tuple(v.shape[2:]))], dim=1)
+            chunk_lens = np.clip(lengths - start, 0, chunk_frames).astype(np.int32)
+            # the mel features run at 4x the video rate
+            a_start = min(4 * start, max(audio_feats.shape[-1] - 1, 0))
+            a = audio_feats[..., a_start : a_start + a_window]
+            a = F.pad(a, (0, a_window - a.shape[-1]))
+            chunk_batch = {**batch, "video": v, "audio_feats": a,
+                           "video_lengths": torch.from_numpy(np.maximum(chunk_lens, 1)).to(
+                               batch["video_lengths"].device)}
+            seqs, _ = self.generate(chunk_batch, **gen_kwargs)
+            best = seqs[:, 0].cpu().numpy()
+            for i in range(b):
+                if chunk_lens[i] > 0:
+                    texts[i].append(best[i])
+        if not merge:
+            return texts
+        return [merge_token_rows(rows, self.cfg.eos_token_id, self.cfg.pad_token_id,
+                                 dedup=overlap_frames > 0) for rows in texts]

@@ -10,7 +10,7 @@ Unlike the JAX package, its tensors are updated in place (the cache
 copying the cache.
 
 ``generate_beam`` serves the split cache, with the prompt KV shared across
-beams, in three forms:
+beams, in three forms, and a full per-beam cache (``share_prompt_kv=False``):
 
 - the ancestry map with an int8 KV cache: K2 ``prompt_attention`` and K3
   ``gen_attention_ancestor`` in every layer;
@@ -21,7 +21,8 @@ beams, in three forms:
   prompt and the generated scores as grouped einsums, and the per-beam
   generated segment reordered physically every step (K6 ``gather_rows``).
 
-K4 picks the beam candidates in every step.  Prefill attention at serving
+It also serves ensembles and constrained decoding.  K4 (or K5 with n-gram
+blocking) picks the beam candidates in every step.  Prefill attention at serving
 prompt lengths stays plain tensor code, as the JAX package leaves it to XLA
 (``_flash_prefill_ok``).
 """
@@ -32,7 +33,7 @@ import functools
 import math
 import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
-from ..ops.beam_search import beam_search
+from ..ops.beam_search import beam_search, constrained_beam_search, log_softmax
 from ..ops.decode_attention import (
     gen_attention_ancestor,
     merge_softmax_segments,
@@ -601,10 +602,56 @@ def decode_step(model: LlamaModel, tokens, positions, cache):
     return o["logits"][:, -1], o["cache"]
 
 
-def generate_beam(
+def prefill_full_cache(
     model: LlamaModel,
     inputs_embeds: torch.Tensor,  # [B, T_prompt, D] left-padded
     attn_mask: torch.Tensor,  # [B, T_prompt] 1 = valid
+    *,
+    num_beams: int,
+    max_new_tokens: int,
+    cache_dtype=torch.bfloat16,
+):
+    """``share_prompt_kv=False``: prefill the prompt into a cache of
+    T_prompt + L slots at batch B, then tile it to the beams.  Returns
+    (first_logits [B, V], per-layer caches with leaves [B*K, hkv, T+L, d],
+    decode_fn, valid prompt lengths [B]); every decode step attends over the
+    prompt mask and the generated slots written so far (``cache_positions``
+    = the write slot)."""
+    b, t_prompt, _ = inputs_embeds.shape
+    k, gen = num_beams, max_new_tokens
+    dev = inputs_embeds.device
+    attn_mask = attn_mask.to(torch.int32)
+    cache = model.init_cache(b, t_prompt + gen, dtype=cache_dtype)
+    rope_pos = torch.clamp(torch.cumsum(attn_mask, dim=1) - 1, min=0)  # HF generate
+    slot_pos = torch.arange(t_prompt, device=dev)[None].expand(b, t_prompt)
+    prefill_mask = torch.cat([attn_mask, torch.zeros(b, gen, dtype=torch.int32, device=dev)], 1)
+    out = model(
+        inputs_embeds=inputs_embeds, attn_mask=prefill_mask, positions=rope_pos, cache=cache,
+        cache_positions=slot_pos, logits_last_only=True,
+    )
+    caches = tuple(
+        {"k": c["k"].repeat_interleave(k, dim=0), "v": c["v"].repeat_interleave(k, dim=0),
+         "index": c["index"]}
+        for c in out["cache"]
+    )
+    prompt_mask_k = attn_mask.repeat_interleave(k, dim=0)  # [B*K, T_prompt]
+    gen_slot_ids = torch.arange(gen, device=dev)[None, :]
+
+    def decode_fn(tokens, positions, cache):
+        idx = cache[0]["index"]  # the next write slot
+        gen_mask = (gen_slot_ids <= idx - t_prompt).to(torch.int32).expand(b * k, gen)
+        slot = torch.full((b * k, 1), idx, dtype=torch.long, device=dev)
+        o = model(input_ids=tokens, attn_mask=torch.cat([prompt_mask_k, gen_mask], dim=1),
+                  positions=positions, cache=cache, cache_positions=slot)
+        return o["logits"][:, -1], o["cache"]
+
+    return out["logits"][:, -1], caches, decode_fn, attn_mask.sum(dim=1)
+
+
+def generate_beam(
+    model: Union[LlamaModel, Sequence[LlamaModel]],
+    inputs_embeds: Union[torch.Tensor, Sequence[torch.Tensor]],  # [B, T_prompt, D] left-padded
+    attn_mask: Union[torch.Tensor, Sequence[torch.Tensor]],  # [B, T_prompt] 1 = valid
     *,
     eos_token_id: int,
     pad_token_id: int,
@@ -617,33 +664,76 @@ def generate_beam(
     ancestry_reorder: bool = False,
     kv_quant: Optional[str] = None,
     constraints=None,
+    constraints_mode: str = "unordered",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """HF-generate-equivalent beam search over embedded prompts; returns
     (sequences [B, K, max_new_tokens], scores [B, K]).
 
-    Ported modes: the split cache (``share_prompt_kv=True``) with the
-    ancestry decode (int8, bf16 or f32 KV) or the gather reorder (bf16 or f32
-    KV); one model, no constraints, no n-gram blocking."""
+    The cache is the split cache (``share_prompt_kv=True``: the ancestry
+    decode with an int8, bf16 or f32 KV cache, or the gather reorder), or a
+    full per-beam cache of T + L slots (``share_prompt_kv=False``).
+
+    An ensemble passes equal-length lists of models, embeddings and masks (a
+    single tensor is shared by every member): each member prefills its own
+    prompt, which may differ in length, and every step averages the members'
+    normalised log-probs, ``logsumexp - log n`` (fairseq's EnsembleModel).
+    ``constraints`` (``ops.constraints.TrieArrays`` or ``SequenceArrays``)
+    runs ``constrained_beam_search``; not with an ensemble."""
     if kv_quant and not (ancestry_reorder and share_prompt_kv):
         raise ValueError("kv_quant requires ancestry_reorder (split cache)")
     if kv_quant not in (None, "int8"):
         raise ValueError(f"unsupported kv_quant {kv_quant!r}")
-    if not share_prompt_kv:
-        raise NotImplementedError("share_prompt_kv=False is not ported yet")
-    if constraints is not None or isinstance(inputs_embeds, (list, tuple)):
-        raise NotImplementedError("constrained and ensemble decoding are not ported yet")
+    lists = [x for x in (model, inputs_embeds, attn_mask) if isinstance(x, (list, tuple))]
+    n_ens = len(lists[0]) if lists else 1
+    if any(len(x) != n_ens for x in lists):
+        raise ValueError("ensemble models, embeddings and masks must have one length")
+    ens = [list(x) if isinstance(x, (list, tuple)) else [x] * n_ens
+           for x in (model, inputs_embeds, attn_mask)]
+    k = num_beams
 
-    first_logits, cache_k, valid_lens = prefill_split_cache(
-        model, inputs_embeds, attn_mask, num_beams=num_beams, max_new_tokens=max_new_tokens,
-        ancestry_reorder=ancestry_reorder, kv_quant=kv_quant, cache_dtype=cache_dtype,
-    )
+    def prefill(member, emb, mask):
+        if not share_prompt_kv:
+            return prefill_full_cache(member, emb, mask, num_beams=k,
+                                      max_new_tokens=max_new_tokens, cache_dtype=cache_dtype)
+        first, cache, lens = prefill_split_cache(
+            member, emb, mask, num_beams=k, max_new_tokens=max_new_tokens,
+            ancestry_reorder=ancestry_reorder, kv_quant=kv_quant, cache_dtype=cache_dtype)
+        return first, cache, functools.partial(decode_step, member), lens
 
-    return beam_search(
-        functools.partial(decode_step, model), cache_k, prompt_lengths=valid_lens,
-        first_logits=first_logits, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
-        max_new_tokens=max_new_tokens, num_beams=num_beams, length_penalty=length_penalty,
-        no_repeat_ngram_size=no_repeat_ngram_size,
-    )
+    members = [prefill(*m) for m in zip(*ens)]
+    search = dict(eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+                  max_new_tokens=max_new_tokens, num_beams=k, length_penalty=length_penalty)
+    if constraints is not None:
+        if n_ens != 1:
+            raise NotImplementedError("constrained decoding with ensembles")
+        first_logits, cache_k, decode_fn, valid_lens = members[0]
+        return constrained_beam_search(
+            decode_fn, cache_k, prompt_lengths=valid_lens, first_logits=first_logits,
+            constraint_set=constraints, mode=constraints_mode, **search)
+    if n_ens == 1:
+        first_logits, cache_k, decode_fn, valid_lens = members[0]
+        return beam_search(decode_fn, cache_k, prompt_lengths=valid_lens,
+                           first_logits=first_logits,
+                           no_repeat_ngram_size=no_repeat_ngram_size, **search)
+
+    lens0 = members[0][3]
+    log_n = math.log(n_ens)
+    ens_first = torch.logsumexp(
+        torch.stack([log_softmax(m[0].float()) for m in members]), dim=0) - log_n
+
+    def ens_decode(tokens, positions, caches):
+        # positions arrive relative to member 0's prompt lengths
+        logps, new_caches = [], []
+        for (_, _, dfn, lens), cache in zip(members, caches):
+            off = (lens - lens0).repeat_interleave(k)[:, None]
+            lg, nc = dfn(tokens, positions + off, cache)
+            logps.append(log_softmax(lg.float()))
+            new_caches.append(nc)
+        return torch.logsumexp(torch.stack(logps), dim=0) - log_n, tuple(new_caches)
+
+    return beam_search(ens_decode, tuple(m[1] for m in members), prompt_lengths=lens0,
+                       first_logits=ens_first, no_repeat_ngram_size=no_repeat_ngram_size,
+                       **search)
 
 
 _ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj")

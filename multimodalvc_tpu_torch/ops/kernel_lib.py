@@ -50,6 +50,7 @@ SIGNATURES = {
     "mmvc_beam_topk_columns": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ],
+    "mmvc_beam_topk": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mmvc_gather_rows": [_P, _P, _P, _I, _I, _L, _P],
     "mmvc_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mmvc_int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -33,6 +33,7 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch.ops.attention",
     "multimodalvc_tpu_torch.ops.beam_gather",
     "multimodalvc_tpu_torch.ops.beam_search",
+    "multimodalvc_tpu_torch.ops.constraints",
     "multimodalvc_tpu_torch.ops.decode_attention",
     "multimodalvc_tpu_torch.ops.int8_matmul",
     "multimodalvc_tpu_torch.ops.interpolate",

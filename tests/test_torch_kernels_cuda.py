@@ -1,4 +1,4 @@
-"""On-card tier of the port: each hand-written CUDA kernel (K1-K4, K6-K8) built by
+"""On-card tier of the port: each hand-written CUDA kernel (K1-K8) built by
 nvcc and held against its plain PyTorch version at the serving shapes,
 through the same checks chip_smoke.py runs.  Needs an NVIDIA GPU with nvcc:
 
@@ -62,9 +62,19 @@ def test_beam_topk_columns_kernel(smoke):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "bf16", "from_logits", "from_logits_v_odd"])
+def test_beam_topk_kernel(smoke, case):
+    """K5: f32 and bf16 log-probs with ties and bans, and from raw logits at
+    V % 8 == 0 and != 0; indices identical to the plain version."""
+    results = []
+    smoke.check_beam_topk(results, only=case)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
 def test_decode_attention_bf16_kernels(smoke):
     results = []
-    smoke.check_decode_bf16(results)
+    smoke.check_decode(results, "bf16")
     _all_ok(results)
 
 

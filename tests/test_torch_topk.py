@@ -101,3 +101,53 @@ def test_gather_beams_skips_fixed_leaves():
     assert out["anc"][:, 0].tolist() == [2, 2, 0, 4, 3, 3]
     assert out["fixed_k"] is x and out["index"] == 3
     assert out["prompt_mask"] is tree[0]["prompt_mask"]
+
+
+def _k5_inputs(rng, b, k, v, dtype):
+    """Log-probs [B, K, V] with ties within a row, across rows and at the
+    -1e7 "banned" value, which the n-gram block writes."""
+    logp = (rng.standard_normal((b, k, v)) * 3.0 - 8.0).astype(np.float32)
+    logp[:, :, rng.integers(0, v, 40)] = -1.0e7  # bans
+    logp[0, 0, 11] = logp[0, 2, 11] = 20.0  # a tie across rows
+    logp[0, 0, 700] = logp[0, 2, 3] = 19.0  # and one across columns
+    logp[1, 1] = logp[1, 0]  # two beams tie on every candidate
+    logp[1, 2, :] = -1.0e7  # a beam with everything banned
+    scores = rng.standard_normal((b, k)).astype(np.float32)
+    scores[0, 2] = scores[0, 0]
+    scores[1, 1] = scores[1, 0]
+    j = jnp.asarray(logp).astype(dtype)
+    return j, t(np.asarray(j.astype(jnp.float32))).to(
+        torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32), scores
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_beam_topk_matches_jax_kernel_exactly(dtype):
+    """K5 on log-probs (the n-gram path): indices and values bit-equal to the
+    JAX Pallas kernel in interpret mode, in f32 and bf16."""
+    rng = np.random.default_rng(3)
+    b, k, v, n = 2, 3, 1000, 6
+    jlogp, tlogp, scores = _k5_inputs(rng, b, k, v, dtype)
+    want_v, want_i = jtopk.beam_topk(jlogp, jnp.asarray(scores), n, interpret=True)
+    got_v, got_i = ttopk.beam_topk(tlogp, t(scores), n)
+    np.testing.assert_array_equal(np.asarray(want_i), got_i.numpy())
+    np.testing.assert_array_equal(np.asarray(want_v), got_v.numpy())
+    assert got_i.dtype == torch.int32
+    assert got_i[0, :4].tolist() == [11, 2 * v + 11, 700, 2 * v + 3]  # lowest flat first
+
+
+def test_beam_topk_from_logits_matches_jax_kernel_exactly():
+    """K5 from raw logits at V % 8 != 0 (V = 1001), bit-equal."""
+    rng = np.random.default_rng(4)
+    b, k, v, n = 2, 3, 1001, 6
+    logits = (rng.standard_normal((b * k, v)) * 4.0).astype(np.float32)
+    logits[0, 5] = logits[0, 1000] = logits[2, 5] = 30.0
+    logits[k + 2] = logits[k]
+    scores = rng.standard_normal((b, k)).astype(np.float32)
+    scores[1, 2] = scores[1, 0]
+    lf = jnp.asarray(logits)
+    row_max, row_ls = _row_stats(lf)
+    want_v, want_i = jtopk.beam_topk_from_logits(lf, row_max, row_ls, jnp.asarray(scores), n,
+                                                 interpret=True)
+    got_v, got_i = ttopk.beam_topk_from_logits(t(logits), t(row_max), t(row_ls), t(scores), n)
+    np.testing.assert_array_equal(np.asarray(want_i), got_i.numpy())
+    np.testing.assert_array_equal(np.asarray(want_v), got_v.numpy())
