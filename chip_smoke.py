@@ -134,54 +134,147 @@ def record(results, name, err, tol, library=None, **extra):
 # ---- kernels against their plain versions ------------------------------------
 
 
+# K1 cases: (name, [B, H, T, D], kv_lens, kv_starts or None, causal).  The
+# serving shapes, the JAX selftest's flash shapes (multimodalvc_tpu/ops/
+# selftest.py), the serving prefill (130 slots, ragged against every tile,
+# left-pad starts), and edge rows: kv_len 1, kv_len inside a key tile,
+# kv_start inside the first key tile with causal (whole leading query rows
+# dead), a batch row with kv_len 0 at D=128.
+FLASH_CASES = [
+    ("whisper", (8, 16, 1536, 64), [1500] * 8, None, False),
+    ("avhubert_masked_row", (8, 16, 400, 64), [400, 0, 257, 400, 1, 400, 64, 399], None, False),
+    ("prefill_causal_starts", (2, 24, 256, 128), [256, 200], [0, 37], True),
+    ("encoder_selftest", (2, 16, 768, 64), [700, 512], None, False),
+    ("prefill_1kb", (8, 24, 512, 128), [512] * 8, [0, 63, 0, 0, 17, 0, 0, 128], True),
+    ("serving_prefill", (8, 24, 130, 128), [130] * 8, [0, 7, 19, 33, 41, 52, 58, 64], True),
+    ("edges_d64", (4, 2, 200, 64), [1, 100, 200, 37], [0, 0, 45, 0], False),
+    ("edges_causal_d128", (4, 2, 150, 128), [150, 0, 150, 90], [29, 0, 5, 70], True),
+]
+# K1 against its plain version: at most 3e-2 absolute on bf16 outputs (the
+# JAX selftest's) and at most 1e-2 relative L2.  The absolute bound alone is
+# about a typical output value at Whisper (1500 keys average the values down
+# to ~0.04), so a smaller fault could pass it there; the relative one scales
+# with the output.  Every case proves that the check fails the plain version
+# with the last FLASH_TILE_KEYS-key tile of each window dropped.
+FLASH_TOL, FLASH_REL_TOL, FLASH_TILE_KEYS = 3e-2, 1e-2, 64
+# the serving prefill also runs through the LLaMA attention layer, both
+# branches of its flash gate
+SERVING_PREFILL = "serving_prefill"
+
+
+def flash_inputs(case, g):
+    """q, k, v, kv_lens, kv_starts (or None) and the allowed-pair mask [B, T, T]."""
+    import torch
+
+    _, shape, lens, starts, causal = case
+    b, h, t, d = shape
+    q, k, v = (torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16) for _ in range(3))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    kv_starts = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=DEV)
+    col = torch.arange(t, device=DEV)
+    allowed = (col[None, None, :] < kv_lens[:, None, None]).expand(-1, t, -1)
+    if kv_starts is not None:
+        allowed = allowed & (col[None, None, :] >= kv_starts[:, None, None])
+    if causal:
+        allowed = allowed & (col[None, None, :] <= col[None, :, None])
+    return q, k, v, kv_lens, kv_starts, allowed
+
+
+def flash_bound(shape, allowed, ops, *index) -> dict:
+    """K1's bound from the pairs this data allows: ``ops`` operations; the q
+    rows that have a valid key, the K and V rows that some query row sees
+    (per batch row, every head), the whole output and the ``index`` tensors
+    (kv_lens, kv_starts), each once."""
+    b, h, t, d = shape
+    q_rows = int(allowed.any(dim=-1).sum())
+    kv_rows = int(allowed.any(dim=-2).sum())
+    return bound(2 * h * d * (q_rows + 2 * kv_rows + b * t) + nbytes(*index), ops)
+
+
+def prefill_layer(starts, g) -> dict:
+    """One LLaMA-3.2-3B attention layer (random weights) on the serving
+    prefill, [len(starts), 130] tokens with these left pads, through both
+    branches of its flash gate (``use_flash_prefill``): False, the plain
+    grouped attention that serving prompts take today; True, the GQA
+    repeat + K1.  Their ms, and their agreement on the rows that are not
+    padding."""
+    import dataclasses
+
+    import torch
+
+    from multimodalvc_tpu_torch.nn.llama import LlamaAttention, LlamaConfig
+
+    cfg = LlamaConfig()
+    torch.manual_seed(0)
+    attn = LlamaAttention(cfg, device=DEV, dtype=torch.bfloat16)
+    b, t = len(starts), 130
+    x = torch.randn(b, t, cfg.hidden_size, generator=g, device=DEV).to(torch.bfloat16)
+    slot = torch.arange(t, device=DEV)[None].expand(b, t)
+    mask = (slot >= torch.tensor(starts, device=DEV)[:, None]).to(torch.int32)
+    # as prefill_split_cache calls it: RoPE positions from the mask, the
+    # cache's slot ids for causality, a [B, Hkv, T, D] cache to fill
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    kv = torch.zeros(b, cfg.num_kv_heads, t, cfg.head_dim, dtype=torch.bfloat16, device=DEV)
+    cache = {"k": kv, "v": kv.clone(), "index": 0}
+    out, ms = {}, {}
+    with torch.inference_mode():
+        for flash in (False, True):
+            attn.cfg = dataclasses.replace(cfg, use_flash_prefill=flash)
+            call = lambda: attn(x, positions, mask, cache, slot)[0]  # noqa: E731
+            out[flash], ms[flash] = call(), time_ms(call)
+    real = mask.bool()
+    rel = rel_l2(out[True][real], out[False][real])
+    if not rel <= REL_TOL:
+        raise SmokeFailure(f"prefill layer: the flash and plain branches disagree ({rel:.3e})")
+    return {"layer_plain_ms": ms[False], "layer_flash_ms": ms[True], "layer_rel_l2": rel}
+
+
 def check_flash(results):
-    """K1 at the Whisper and AV-HuBERT encoder shapes, with a fully masked
-    batch row, and at the LLaMA prefill shape with kv_starts + causal.
-    Tolerance 3e-2 on bf16 outputs (the JAX selftest's)."""
+    """K1 at FLASH_CASES against its plain version, at FLASH_TOL and
+    FLASH_REL_TOL, with exact zeros on every row with no valid key; the
+    reading of the same check on the plain version with each window's last
+    key tile dropped must fail it.  Each case reports the kernel's TFLOP/s
+    and share of its bound, and ``library_ms``: SDPA with the same boolean
+    mask (key window, causality)."""
     import torch
     import torch.nn.functional as F
 
     from multimodalvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 
     g = torch.Generator(device=DEV).manual_seed(0)
-    cases = [
-        ("whisper", (8, 16, 1536, 64), [1500] * 8, None, False),
-        ("avhubert_masked_row", (8, 16, 400, 64), [400, 0, 257, 400, 1, 400, 64, 399], None, False),
-        ("prefill_causal_starts", (2, 24, 256, 128), [256, 200], [0, 37], True),
-    ]
-    for name, shape, lens, starts, causal in cases:
-        q, k, v = (torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16) for _ in range(3))
-        kv_lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
-        kv_starts = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=DEV)
+    for case in FLASH_CASES:
+        name, shape, _, _, causal = case
+        q, k, v, kv_lens, kv_starts, allowed = flash_inputs(case, g)
         run = lambda: flash_attention(q, k, v, kv_lens, causal, None, kv_starts)  # noqa: E731
         plain = lambda: flash_attention_plain(q, k, v, kv_lens, causal, None, kv_starts)  # noqa: E731
         got, want = run(), plain()
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        # rows with no valid key are exact zeros in both
-        col = torch.arange(shape[2], device=DEV)
-        row_ok = (col[None, :] < kv_lens[:, None])
-        if kv_starts is not None:
-            row_ok = row_ok & (col[None, :] >= kv_starts[:, None])
-        dead = ~row_ok.any(dim=1)
-        if causal and kv_starts is not None:
-            dead_rows = col[None, :] < kv_starts[:, None]  # causal: row < start sees nothing
-            if (got.float().abs().amax(dim=(1, 3))[dead_rows] != 0).any():
-                raise SmokeFailure(f"flash_attention {name}: causal rows before kv_start not zero")
-        if dead.any() and (got[dead].float().abs().max() != 0):
-            raise SmokeFailure(f"flash_attention {name}: fully masked rows not exact zeros")
-        # the same boolean mask for the library call: key window, causality
-        allowed = (col[None, None, :] < kv_lens[:, None, None]).expand(-1, shape[2], -1)
-        if kv_starts is not None:
-            allowed = allowed & (col[None, None, :] >= kv_starts[:, None, None])
-        if causal:
-            allowed = allowed & (col[None, None, :] <= col[None, :, None])
+        dead = ~allowed.any(dim=-1)  # [B, T]: rows with no valid key
+        if dead.any() and (got.float().abs().amax(dim=(1, 3))[dead] != 0).any():
+            raise SmokeFailure(f"flash_attention {name}: rows with no valid key not exact zeros")
+        lo = torch.zeros_like(kv_lens) if kv_starts is None else kv_starts
+        short = torch.maximum(lo, (kv_lens - 1).div(FLASH_TILE_KEYS, rounding_mode="floor")
+                              * FLASH_TILE_KEYS)
+        dropped = flash_attention_plain(q, k, v, short, causal, None, kv_starts)
+        rel, wrong_rel, wrong_err = rel_l2(got, want), rel_l2(dropped, want), max_err(dropped, want)
+        if not rel <= FLASH_REL_TOL:
+            raise SmokeFailure(f"flash_attention {name}: rel_l2 {rel:.3e} > {FLASH_REL_TOL:g}")
+        if not (wrong_rel > FLASH_REL_TOL or wrong_err > FLASH_TOL):
+            raise SmokeFailure(f"flash_attention {name}: the check passes a dropped key tile "
+                               f"(rel_l2 {wrong_rel:.3e})")
         sdpa_mask = allowed[:, None]
         library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)  # noqa: E731
-        # QK^T and PV over the key pairs this data allows; q, k, v, out once
-        ops = 4 * shape[1] * shape[3] * int(allowed.sum())
-        record(results, f"flash_attention/{name}", err, 3e-2, library=library,
-               ms=time_ms(run), plain_ms=time_ms(plain), **bound(nbytes(q, k, v, got), ops))
+        # QK^T and PV over the key pairs this data allows
+        ops, ms = 4 * shape[1] * shape[3] * int(allowed.sum()), time_ms(run)
+        index = (kv_lens,) if kv_starts is None else (kv_lens, kv_starts)
+        extra = dict(ms=ms, plain_ms=time_ms(plain), **flash_bound(shape, allowed, ops, *index))
+        extra.update(tflops=ops / ms / 1e9, bound_share=extra["bound_ms"] / ms, rel_l2=rel,
+                     dropped_tile_max_abs_err=wrong_err, dropped_tile_rel_l2=wrong_rel,
+                     dead_rows=int(dead.sum()))
+        if name == SERVING_PREFILL:
+            extra.update(prefill_layer(case[3], g))
+        record(results, f"flash_attention/{name}", max_err(got, want), FLASH_TOL,
+               library=library, **extra)
 
 
 def _int8_kv(shape, g):

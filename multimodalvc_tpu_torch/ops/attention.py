@@ -91,10 +91,14 @@ def flash_attention(
 
     The valid key window of batch row b is [kv_starts[b], kv_lens[b])
     (defaults: the whole Tk); ``causal`` adds col <= row.  A row with no
-    valid key returns exact zeros.  The default scale is 1/sqrt(D).
+    valid key returns exact zeros.  The default scale is 1/sqrt(D); a given
+    scale must be positive, on every device (the kernel takes the running
+    max on the unscaled scores).
 
     CUDA tensors run the K1 kernel: bf16 q/k/v, contiguous, D in {64, 128}.
     """
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_lens, causal, scale, kv_starts)
     b, h, tq, d = q.shape

@@ -20,6 +20,14 @@ CASES = {
                              causal=True),
     "fully_masked_row": dict(shape=(2, 2, 48, 16), kv_lens=[0, 30], kv_starts=None,
                              causal=False),
+    # the kernel's tile edges: D=128 with kv_start inside the first key tile
+    # (causal: whole leading rows dead), kv_len 1, ragged T with kv_len
+    # inside a tile
+    "d128_causal_kv_starts_mid_tile": dict(shape=(2, 2, 72, 128), kv_lens=None,
+                                           kv_starts=[0, 29], causal=True),
+    "kv_len_one": dict(shape=(2, 2, 40, 64), kv_lens=[1, 33], kv_starts=None, causal=False),
+    "ragged_72_kv_len_65": dict(shape=(2, 2, 72, 64), kv_lens=[65, 72], kv_starts=None,
+                                causal=False),
 }
 
 
@@ -40,8 +48,19 @@ def test_flash_attention_matches_jax_kernel(case):
         kv_starts=None if starts is None else t(starts),
     )
     assert max_err(want, got) < TOL
+    # the contract: a row with no valid key is exact zeros, not mean(V)
+    b, _, tq, _ = c["shape"]
+    col = np.arange(tq)
+    lo = np.zeros(b, np.int32) if starts is None else starts
+    hi = np.full(b, tq, np.int32) if lens is None else lens
+    allowed = (col[None, None, :] >= lo[:, None, None]) & (col[None, None, :] < hi[:, None, None])
+    allowed = np.broadcast_to(allowed, (b, tq, tq))  # [B, row, col]; Tq == Tk here
+    if c["causal"]:
+        allowed = allowed & (col[None, None, :] <= col[None, :, None])
+    dead = ~allowed.any(axis=-1)  # [B, T]
+    assert torch.all(got.permute(0, 2, 1, 3)[torch.from_numpy(dead)] == 0)
     if case == "fully_masked_row":
-        assert torch.all(got[0] == 0)  # the contract: exact zeros, not mean(V)
+        assert dead[0].all()
 
 
 def test_flash_attention_cpu_launches_no_kernel():
@@ -49,6 +68,15 @@ def test_flash_attention_cpu_launches_no_kernel():
     x = torch.zeros(1, 1, 8, 16)
     tattn.flash_attention(x, x, x)
     assert tattn.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_flash_attention_rejects_non_positive_scale(scale):
+    """The contract on every device: the kernel's running max is taken on the
+    unscaled scores, so a scale <= 0 is refused on the CPU as on the card."""
+    x = torch.zeros(1, 1, 8, 16)
+    with pytest.raises(ValueError, match="scale must be positive"):
+        tattn.flash_attention(x, x, x, scale=scale)
 
 
 @pytest.mark.parametrize("causal", [False, True])
