@@ -10,7 +10,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    beam_topk / beam_topk_from_logits, K6 gather_rows, K7 int8_matmul, K8
    int4_matmul) against its plain PyTorch version at the serving shapes, with
    edge cases, and times both, the one PyTorch call that computes the same
-   function where there is one, and the card's bound for the work.
+   function where there is one, and the card's bound for the work (K7 and
+   K8 with a cold L2, as the decode finds their weights).
 3. Serves batches through the full-width AVSR path (Whisper-medium,
    AV-HuBERT-Large, Q-Former, LLaMA-3.2-3B with random weights from seed 0):
    batch 8, 16 s, beam 5, in ten phases:
@@ -39,11 +40,15 @@ back to the CPU.
 
 ``python3 chip_smoke.py --profile`` runs no checks: it profiles the decode
 steps of the bf16- and int8-weight systems with ``torch.profiler`` and
-prints the device time per step by kernel and the device's idle share.
+prints the device time per step by kernel and the device's idle share, and
+the host time a call of K7's wrapper beside ``F.linear``'s.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -122,10 +127,11 @@ def bound(moved: float, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
 
 def record(results, name, err, tol, library=None, **extra):
     """One kernel case: its error against the plain version, its times
-    (``ms``, ``plain_ms``, ``library_ms`` = ``library`` timed, or None) and
-    its bound."""
+    (``ms``, ``plain_ms``, ``library_ms`` = ``library`` timed unless given,
+    or None) and its bound."""
     ok = err <= tol
-    extra["library_ms"] = None if library is None else time_ms(library)
+    if "library_ms" not in extra:
+        extra["library_ms"] = None if library is None else time_ms(library)
     results.append({"name": name, "max_abs_err": err, "tol": tol, "ok": ok, **extra})
     print(f"  {name}: max_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}"
           + "".join(f" {k}={v:.4f}" for k, v in extra.items() if isinstance(v, float)))
@@ -134,21 +140,25 @@ def record(results, name, err, tol, library=None, **extra):
 # ---- kernels against their plain versions ------------------------------------
 
 
-# K1 cases: (name, [B, H, T, D], kv_lens, kv_starts or None, causal).  The
-# serving shapes, the JAX selftest's flash shapes (multimodalvc_tpu/ops/
-# selftest.py), the serving prefill (130 slots, ragged against every tile,
-# left-pad starts), and edge rows: kv_len 1, kv_len inside a key tile,
-# kv_start inside the first key tile with causal (whole leading query rows
-# dead), a batch row with kv_len 0 at D=128.
+# K1 cases: (name, [B, H, T, D], kv_lens, kv_starts or None, causal, scale
+# or None for 1/sqrt(D)).  The serving shapes, the JAX selftest's flash shapes
+# (multimodalvc_tpu/ops/selftest.py), the serving prefill (130 slots, ragged
+# against every tile, left-pad starts), and edge rows: kv_len 1, kv_len
+# inside a key tile, kv_start inside the first key tile with causal (whole
+# leading query rows dead), a batch row with kv_len 0 at D=128; then Whisper
+# at scales 0 (uniform weights) and -0.125, which the wrapper folds into q.
 FLASH_CASES = [
-    ("whisper", (8, 16, 1536, 64), [1500] * 8, None, False),
-    ("avhubert_masked_row", (8, 16, 400, 64), [400, 0, 257, 400, 1, 400, 64, 399], None, False),
-    ("prefill_causal_starts", (2, 24, 256, 128), [256, 200], [0, 37], True),
-    ("encoder_selftest", (2, 16, 768, 64), [700, 512], None, False),
-    ("prefill_1kb", (8, 24, 512, 128), [512] * 8, [0, 63, 0, 0, 17, 0, 0, 128], True),
-    ("serving_prefill", (8, 24, 130, 128), [130] * 8, [0, 7, 19, 33, 41, 52, 58, 64], True),
-    ("edges_d64", (4, 2, 200, 64), [1, 100, 200, 37], [0, 0, 45, 0], False),
-    ("edges_causal_d128", (4, 2, 150, 128), [150, 0, 150, 90], [29, 0, 5, 70], True),
+    ("whisper", (8, 16, 1536, 64), [1500] * 8, None, False, None),
+    ("avhubert_masked_row", (8, 16, 400, 64), [400, 0, 257, 400, 1, 400, 64, 399], None, False,
+     None),
+    ("prefill_causal_starts", (2, 24, 256, 128), [256, 200], [0, 37], True, None),
+    ("encoder_selftest", (2, 16, 768, 64), [700, 512], None, False, None),
+    ("prefill_1kb", (8, 24, 512, 128), [512] * 8, [0, 63, 0, 0, 17, 0, 0, 128], True, None),
+    ("serving_prefill", (8, 24, 130, 128), [130] * 8, [0, 7, 19, 33, 41, 52, 58, 64], True, None),
+    ("edges_d64", (4, 2, 200, 64), [1, 100, 200, 37], [0, 0, 45, 0], False, None),
+    ("edges_causal_d128", (4, 2, 150, 128), [150, 0, 150, 90], [29, 0, 5, 70], True, None),
+    ("whisper_scale0", (8, 16, 1536, 64), [1500] * 8, None, False, 0.0),
+    ("whisper_scale_neg", (8, 16, 1536, 64), [1500] * 8, None, False, -0.125),
 ]
 # K1 against its plain version: at most 3e-2 absolute on bf16 outputs (the
 # JAX selftest's) and at most 1e-2 relative L2.  The absolute bound alone is
@@ -166,7 +176,7 @@ def flash_inputs(case, g):
     """q, k, v, kv_lens, kv_starts (or None) and the allowed-pair mask [B, T, T]."""
     import torch
 
-    _, shape, lens, starts, causal = case
+    _, shape, lens, starts, causal, _ = case
     b, h, t, d = shape
     q, k, v = (torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16) for _ in range(3))
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
@@ -243,10 +253,10 @@ def check_flash(results):
 
     g = torch.Generator(device=DEV).manual_seed(0)
     for case in FLASH_CASES:
-        name, shape, _, _, causal = case
+        name, shape, _, _, causal, scale = case
         q, k, v, kv_lens, kv_starts, allowed = flash_inputs(case, g)
-        run = lambda: flash_attention(q, k, v, kv_lens, causal, None, kv_starts)  # noqa: E731
-        plain = lambda: flash_attention_plain(q, k, v, kv_lens, causal, None, kv_starts)  # noqa: E731
+        run = lambda: flash_attention(q, k, v, kv_lens, causal, scale, kv_starts)  # noqa: E731
+        plain = lambda: flash_attention_plain(q, k, v, kv_lens, causal, scale, kv_starts)  # noqa: E731
         got, want = run(), plain()
         torch.cuda.synchronize()
         dead = ~allowed.any(dim=-1)  # [B, T]: rows with no valid key
@@ -255,7 +265,7 @@ def check_flash(results):
         lo = torch.zeros_like(kv_lens) if kv_starts is None else kv_starts
         short = torch.maximum(lo, (kv_lens - 1).div(FLASH_TILE_KEYS, rounding_mode="floor")
                               * FLASH_TILE_KEYS)
-        dropped = flash_attention_plain(q, k, v, short, causal, None, kv_starts)
+        dropped = flash_attention_plain(q, k, v, short, causal, scale, kv_starts)
         rel, wrong_rel, wrong_err = rel_l2(got, want), rel_l2(dropped, want), max_err(dropped, want)
         if not rel <= FLASH_REL_TOL:
             raise SmokeFailure(f"flash_attention {name}: rel_l2 {rel:.3e} > {FLASH_REL_TOL:g}")
@@ -263,7 +273,8 @@ def check_flash(results):
             raise SmokeFailure(f"flash_attention {name}: the check passes a dropped key tile "
                                f"(rel_l2 {wrong_rel:.3e})")
         sdpa_mask = allowed[:, None]
-        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=sdpa_mask, scale=scale)
         # QK^T and PV over the key pairs this data allows
         ops, ms = 4 * shape[1] * shape[3] * int(allowed.sum()), time_ms(run)
         index = (kv_lens,) if kv_starts is None else (kv_lens, kv_starts)
@@ -511,36 +522,96 @@ def check_gather_rows(results):
                **bound(2 * nbytes(got) + nbytes(src)))
 
 
-def _quant_case(results, name, quantize, kernel, plain, rows, d_in, d_out, tol, g):
+# A rotation of weight copies at least this large (two 50 MB L2s) finds
+# every copy cold at its next use, as the decode does, which streams ~3.2 GB
+# of int8 weight a step.
+COLD_BYTES = 100e6
+
+
+def time_cold(calls) -> float:
+    """``time_ms`` of ``calls`` taken in turn, each copy used once a round."""
+    it = itertools.cycle(calls)
+    return time_ms(lambda: next(it)(), iters=max(10, 2 * len(calls)))
+
+
+def int8_library(x, w_q, w_s):
+    """K7's library call: ``torch._weight_int8pack_mm`` (bf16 x, int8 [N, K],
+    bf16 scales), its operands built here, outside the timed call."""
+    import torch
+
+    w_t, s = w_q.T.contiguous(), w_s.to(torch.bfloat16)
+    return lambda: torch._weight_int8pack_mm(x, w_t, s)
+
+
+def int4_library(x, packed, scale):
+    """K8's library call: ``torch._weight_int4pack_mm`` on the same weights,
+    converted once: nibbles offset by 8 (its unsigned form), zero points 0,
+    group 128."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.int8_matmul import INT4_GROUP
+
+    w8 = packed.to(torch.int32)
+    u = (torch.cat([((w8 & 0xF) ^ 8) - 8, w8 >> 4], dim=0).T + 8).to(torch.uint8)  # [N, K]
+    w_t = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).contiguous(), 8)
+    sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()
+    return lambda: torch._weight_int4pack_mm(x, w_t, INT4_GROUP, sz)
+
+
+def _quant_case(results, name, quantize, kernel, plain, library, rows, d_in, d_out, tol, g):
+    """One K7/K8 shape: f32 outputs against the plain version; two launches
+    must give the same bits.  ``ms``, ``plain_ms`` and ``library_ms`` rotate
+    over copies of the weights that together exceed COLD_BYTES;
+    ``ms_l2_warm`` repeats one copy.  A library call that refuses the case
+    leaves ``library_ms`` None and its error in ``library_error``."""
     import torch
 
     w = torch.randn(d_in, d_out, generator=g, device=DEV) * 0.02
     w_q, w_s = quantize(w)
     del w
     x = torch.randn(rows, d_in, generator=g, device=DEV).to(torch.bfloat16)
-    run = lambda: kernel(x, w_q, w_s, out_dtype=torch.float32)  # noqa: E731
-    ref = lambda: plain(x, w_q, w_s, out_dtype=torch.float32)  # noqa: E731
-    got = run()
-    record(results, f"{name}/{rows}x{d_in}x{d_out}", max_err(got, ref()), tol,
-           ms=time_ms(run), plain_ms=time_ms(ref),
-           **bound(nbytes(x, w_q, w_s, got), 2 * rows * d_in * d_out))
+    copies = max(1, math.ceil(COLD_BYTES / nbytes(w_q, w_s)))
+    weights = [(w_q, w_s)] + [(w_q.clone(), w_s.clone()) for _ in range(copies - 1)]
+    f32 = torch.float32
+    calls = [functools.partial(kernel, x, a, b, out_dtype=f32) for a, b in weights]
+    plains = [functools.partial(plain, x, a, b, out_dtype=f32) for a, b in weights]
+    case = f"{name}/{rows}x{d_in}x{d_out}"
+    got, want = calls[0](), plains[0]()
+    if not torch.equal(got, calls[0]()):
+        raise SmokeFailure(f"{case}: two launches on the same inputs differ")
+    extra = dict(ms=time_cold(calls), ms_l2_warm=time_ms(calls[0]), plain_ms=time_cold(plains),
+                 weight_copies=copies, **bound(nbytes(x, w_q, w_s, got), 2 * rows * d_in * d_out))
+    try:
+        libs = [library(x, a, b) for a, b in weights]
+        extra.update(library_max_abs_err=max_err(libs[0](), want), library_ms=time_cold(libs))
+    except RuntimeError as e:  # the op refuses these shapes or types on this card
+        extra.update(library_ms=None, library_error=str(e).splitlines()[0][:200])
+        print(f"  {case}: library call refused: {extra['library_error']}")
+    extra["bound_share"] = extra["bound_ms"] / extra["ms"]
+    record(results, case, max_err(got, want), tol, **extra)
+    del weights, calls, plains
+    torch.cuda.empty_cache()
+
+
+# (d_in, d_out) of the trunk's projections and the tied unembed
+TRUNK_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256)]
 
 
 def check_int8_matmul(results):
-    """K7 at the decode shapes of the LLaMA-3.2-3B trunk (3072->3072 / 8192,
-    8192->3072) and the tied unembed (3072->128256) at batch 8 (40 rows, the
-    serving phases) and 48 (240 rows).  Tolerance 1e-2 absolute on f32 outputs (the JAX
-    selftest's)."""
+    """K7 at the decode shapes of the LLaMA-3.2-3B trunk (3072->3072 q/o,
+    3072->1024 k/v, 3072->8192 gate/up, 8192->3072 down) and the tied unembed
+    (3072->128256) at batch 8 (40 rows, the serving phases) and 48 (240
+    rows).  Tolerance 1e-2 absolute on f32 outputs (the JAX selftest's);
+    the same bits from two launches (the split-K sum keeps its order)."""
     import torch
 
     from multimodalvc_tpu_torch.ops import int8_matmul as q
 
     g = torch.Generator(device=DEV).manual_seed(7)
-    for rows, d_in, d_out in [(40, 3072, 3072), (40, 3072, 8192), (40, 8192, 3072),
-                              (40, 3072, 128256), (240, 3072, 3072), (240, 3072, 8192),
-                              (240, 8192, 3072), (240, 3072, 128256)]:
-        _quant_case(results, "int8_matmul", q.quantize_kernel, q.int8_matmul,
-                    q.int8_matmul_plain, rows, d_in, d_out, 1e-2, g)
+    for rows in (40, 240):
+        for d_in, d_out in TRUNK_SHAPES:
+            _quant_case(results, "int8_matmul", q.quantize_kernel, q.int8_matmul,
+                        q.int8_matmul_plain, int8_library, rows, d_in, d_out, 1e-2, g)
 
 
 def check_int4_matmul(results):
@@ -556,7 +627,7 @@ def check_int4_matmul(results):
                               (40, 3072, 128256), (240, 1024, 2048), (240, 3072, 8192),
                               (240, 8192, 3072), (240, 3072, 128256)]:
         _quant_case(results, "int4_matmul", q.quantize_kernel_int4, q.int4_matmul,
-                    q.int4_matmul_plain, rows, d_in, d_out, 5e-2, g)
+                    q.int4_matmul_plain, int4_library, rows, d_in, d_out, 5e-2, g)
 
 
 # ---- the full-width serving slice --------------------------------------------
@@ -595,7 +666,7 @@ def kernels():
                       "multimodalvc_tpu/ops/topk.py:125", "int8_ngram", True),
         "gather_rows": (gather_rows, "launches", "csrc/beam_gather.cu",
                         "multimodalvc_tpu/ops/beam_gather.py:57", "bf16_kv_gather", True),
-        "int8_matmul": (int8_matmul, "launches", "csrc/quant_matmul.cu",
+        "int8_matmul": (int8_matmul, "launches", "csrc/int8_matmul.cu",
                         "multimodalvc_tpu/ops/int8_matmul.py:113", "int8_weights", True),
         "int4_matmul": (int4_matmul, "launches", "csrc/quant_matmul.cu",
                         "multimodalvc_tpu/ops/int8_matmul.py:326", "int4_weights", True),
@@ -1244,9 +1315,57 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
     return out
 
 
+def wrapper_host_us(llama, rounds: int = 5) -> dict:
+    """Host time a call of K7's wrapper, beside ``F.linear`` on bf16 weights
+    of the same shapes: one decode step's projections (every QuantDense of
+    the LLaMA: 196 of the trunk and the unembed) on [40, d_in] bf16 inputs,
+    issued from an idle device and timed to the last enqueue (the launch
+    queue holds them all, so no call waits for the device); the median of
+    ``rounds``, in us a call."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from multimodalvc_tpu_torch.nn.llama import QuantDense
+    from multimodalvc_tpu_torch.ops.int8_matmul import int8_matmul
+
+    dense = [m for m in llama.modules() if isinstance(m, QuantDense)]
+    shapes = {tuple(m.w_q.shape) for m in dense}
+    g = torch.Generator(device=DEV).manual_seed(9)
+    xs = {d_in: torch.randn(BATCH * BEAMS, d_in, generator=g, device=DEV).to(torch.bfloat16)
+          for d_in, _ in shapes}
+    w16 = {(d_in, d_out): torch.zeros(d_out, d_in, dtype=torch.bfloat16, device=DEV)
+           for d_in, d_out in shapes}
+    calls = {
+        "int8_matmul": [functools.partial(int8_matmul, xs[m.w_q.shape[0]], m.w_q, m.w_scale,
+                                          out_dtype=m.dtype) for m in dense],
+        "linear_bf16": [functools.partial(F.linear, xs[m.w_q.shape[0]], w16[tuple(m.w_q.shape)])
+                        for m in dense],
+    }
+
+    def one_round(fns) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fn in fns:
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / len(fns) * 1e6
+
+    out = {"calls_per_step": len(dense)}
+    for name, fns in calls.items():
+        one_round(fns)  # warm-up
+        out[f"{name}_us"] = statistics.median(one_round(fns) for _ in range(rounds))
+    print(f"  host time a call over {len(dense)} projections: int8_matmul "
+          f"{out['int8_matmul_us']:.2f} us, F.linear bf16 {out['linear_bf16_us']:.2f} us")
+    return out
+
+
 def profile_main(table, batch) -> dict:
     """``--profile``: the decode profile of the bf16- and int8-weight
-    systems (int8 KV, ancestry), one system at a time."""
+    systems (int8 KV, ancestry), one system at a time, and the host time of
+    K7's wrapper on the int8 system's weights."""
     import torch
 
     out = {}
@@ -1255,6 +1374,8 @@ def profile_main(table, batch) -> dict:
         system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
         with torch.inference_mode():
             out[f"{mode or 'bf16'}_weights"] = profile_decode(table, system, batch)
+            if mode == "int8":
+                out["int8_wrapper_host"] = wrapper_host_us(system.llama_module)
         del system
         torch.cuda.empty_cache()
     return out

@@ -78,6 +78,20 @@ def flash_attention_plain(q, k, v, kv_lens=None, causal=False, scale=None, kv_st
     return _windowed_reference_attention(q, k, v, kv_lens, kv_starts, causal, scale)
 
 
+def fold_scale(q: torch.Tensor, scale: float):
+    """(q', scale') with scale' > 0 and q'.k * scale' == q.k * scale exactly,
+    for the K1 kernel, which takes its running max on the unscaled scores:
+    a negative scale moves its sign into q (negation is exact in bf16), and
+    a zero scale becomes zero q with scale 1 (every valid score 0, so the
+    softmax is uniform over the valid keys, as in the JAX kernel).  A NaN
+    passes through, for the kernel's entry to refuse."""
+    if scale < 0:
+        return -q, -scale
+    if scale == 0:
+        return torch.zeros_like(q), 1.0
+    return q, scale
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -91,14 +105,11 @@ def flash_attention(
 
     The valid key window of batch row b is [kv_starts[b], kv_lens[b])
     (defaults: the whole Tk); ``causal`` adds col <= row.  A row with no
-    valid key returns exact zeros.  The default scale is 1/sqrt(D); a given
-    scale must be positive, on every device (the kernel takes the running
-    max on the unscaled scores).
+    valid key returns exact zeros.  The default scale is 1/sqrt(D); any
+    scale is accepted (``fold_scale`` hands the kernel a positive one).
 
     CUDA tensors run the K1 kernel: bf16 q/k/v, contiguous, D in {64, 128}.
     """
-    if scale is not None and not scale > 0:
-        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_lens, causal, scale, kv_starts)
     b, h, tq, d = q.shape
@@ -110,6 +121,7 @@ def flash_attention(
         kernel_lib.check(t, name, torch.bfloat16, shape)
     kernel_lib.check(kv_lens, "kv_lens", torch.int32, (b,))
     kernel_lib.check(kv_starts, "kv_starts", torch.int32, (b,))
+    q, scale = fold_scale(q, scale)
     out = torch.empty_like(q)
     kernel_lib.load().call(
         "mmvc_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -13,12 +13,16 @@ group-128 half-split nibbles, and the matmul dequantizes on chip:
 JAX shape rule sends odd dims and more than 512 rows (prefill, training) to
 a dense product: dequantize to bf16, then one matmul with f32 accumulation,
 which the JAX package leaves to XLA.  That rule is static; inside it a CUDA
-tensor launches ``csrc/quant_matmul.cu`` or raises, and a CPU tensor runs the
-plain version, which is the dense product.
+tensor launches its kernel (K7 ``csrc/int8_matmul.cu``, K8
+``csrc/quant_matmul.cu``) or raises, and a CPU tensor runs the plain
+version, which is the dense product.  ``k7_plan`` chooses K7's split-K
+schedule.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -126,18 +130,76 @@ def int4_matmul_plain(x, w_packed, scale, out_dtype=None) -> torch.Tensor:
 # ---- the kernel wrappers -----------------------------------------------------
 
 
-def _launch(name: str, x, w, scale, out_dtype, d_in: int, d_out: int, *extra) -> torch.Tensor:
+# K7's schedule (csrc/int8_matmul.cu): a block owns 128 output columns, a row
+# tile of at most 64 rows and a K chunk of KC weight rows, streamed 32 rows a
+# stage; split-K until the grid holds K7_MIN_BLOCKS blocks, keeping KC >= 128.
+# On the H100 more splits (two blocks an SM, 264) cost more in the split sum
+# than they gain in bytes in flight.  Above K7_ONE_LEVEL splits the sum takes
+# two levels.
+K7_BN, K7_KSTEP, K7_MIN_KC, K7_MAX_ROW_TILE = 128, 32, 128, 64
+K7_MIN_BLOCKS, K7_ONE_LEVEL = 128, 8
+K7_COUNTERS = 4096  # int32 arrival counters a device
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class K7Plan(NamedTuple):
+    splits: int  # K chunks, one block each
+    kc: int  # weight rows a block reads: d_in // splits
+    group: int  # splits summed together first (the two-level split-K sum)
+    row_tile: int  # rows a block computes, a multiple of 8
+    workspace: int  # f32 partials [splits, rows, d_out], 0 with one split
+    counters: int  # arrival counters: per tile, one a group and one for the groups
+
+
+@functools.lru_cache(maxsize=None)  # a decode step asks for the same few shapes 197 times
+def k7_plan(rows: int, d_in: int, d_out: int) -> K7Plan:
+    """The fewest splits that give the grid K7_MIN_BLOCKS blocks, among
+    those whose KC divides d_in, is a multiple of the 32-row stage and is at
+    least 128; the most such splits where none reaches it; 1 where the
+    column and row tiles alone fill the card."""
+    row_tiles = _cdiv(rows, K7_MAX_ROW_TILE)
+    row_tile = 8 * _cdiv(_cdiv(rows, row_tiles), 8)
+    tiles = d_out // K7_BN * row_tiles
+    splits = 1
+    if tiles < K7_MIN_BLOCKS:
+        for s in range(2, d_in // K7_MIN_KC + 1):
+            if d_in % (s * K7_KSTEP) == 0:
+                splits = s
+                if tiles * s >= K7_MIN_BLOCKS:
+                    break
+    # ceil(sqrt(splits)) a group: each level's summing block reads ~sqrt(splits)
+    group = splits if splits <= K7_ONE_LEVEL else math.isqrt(splits - 1) + 1
+    groups = _cdiv(splits, group)
+    workspace = counters = 0
+    if splits > 1:
+        workspace = splits * rows * d_out
+        counters = tiles * (groups + 1 if groups > 1 else 1)
+    return K7Plan(splits, d_in // splits, group, row_tile, workspace, counters)
+
+
+# per device: K7_COUNTERS zeroed int32 arrival counters (a split plan has
+# fewer tiles than K7_MIN_BLOCKS, each with at most groups + 1 counters); the
+# kernel sets each back to 0 once every block it counts has arrived
+_K7_COUNTERS = {}
+
+
+def _k7_counters(device: torch.device) -> torch.Tensor:
+    counters = _K7_COUNTERS.get(device)
+    if counters is None:
+        counters = torch.zeros(K7_COUNTERS, dtype=torch.int32, device=device)
+        _K7_COUNTERS[device] = counters
+    return counters
+
+
+def _operands(x, d_in: int, d_out: int, out_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     if out_dtype not in _OUT_TYPES:
-        raise ValueError(f"{name}: output type {out_dtype} (kernel writes bf16 or f32)")
+        raise ValueError(f"output type {out_dtype} (the kernels write bf16 or f32)")
     x2 = x.reshape(-1, d_in).to(torch.bfloat16).contiguous()
-    rows = x2.shape[0]
     kernel_lib.check(x2, "x", torch.bfloat16)
-    out = torch.empty((rows, d_out), dtype=out_dtype, device=x.device)
-    kernel_lib.load().call(
-        name, x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d_in,
-        d_out, *extra, int(out_dtype == torch.float32), kernel_lib.stream_ptr(x2),
-    )
-    return out.reshape(*x.shape[:-1], d_out)
+    return x2, torch.empty((x2.shape[0], d_out), dtype=out_dtype, device=x.device)
 
 
 def int8_matmul(
@@ -149,7 +211,8 @@ def int8_matmul(
     """``(bf16(x) @ w_q) * scale`` in ``out_dtype`` (default x's type).
 
     Inside the JAX shape rule (d_in % 128 == 0, d_out % 128 == 0, rows <= 512)
-    a CUDA tensor runs K7; outside it the dense product runs."""
+    a CUDA tensor runs K7 on ``k7_plan``'s schedule; outside it the dense
+    product runs."""
     d_in, d_out = w_q.shape
     rows = x.numel() // d_in
     out_dtype = out_dtype or x.dtype
@@ -157,9 +220,21 @@ def int8_matmul(
         return int8_matmul_plain(x, w_q, scale, out_dtype)
     kernel_lib.check(w_q, "w_q", torch.int8, (d_in, d_out))
     kernel_lib.check(scale, "scale", torch.float32, (d_out,))
-    y = _launch("mmvc_int8_matmul", x, w_q, scale, out_dtype, d_in, d_out)
+    x2, out = _operands(x, d_in, d_out, out_dtype)
+    plan = k7_plan(rows, d_in, d_out)
+    ws = ws_ptr = counters_ptr = None  # null pointers with one split
+    if plan.splits > 1:  # ws stays referenced until the launch is queued
+        if plan.counters > K7_COUNTERS:
+            raise ValueError(f"int8_matmul: {plan.counters} arrival counters > {K7_COUNTERS}")
+        ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+        ws_ptr, counters_ptr = ws.data_ptr(), _k7_counters(x.device).data_ptr()
+    kernel_lib.load().call(
+        "mmvc_int8_matmul", x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        ws_ptr, counters_ptr, rows, d_in, d_out, plan.splits, plan.kc, plan.group, plan.row_tile,
+        int(out_dtype == torch.float32), kernel_lib.stream_ptr(x2),
+    )
     int8_matmul.launches += 1
-    return y
+    return out.reshape(*x.shape[:-1], d_out)
 
 
 int8_matmul.launches = 0
@@ -185,9 +260,14 @@ def int4_matmul(
         return int4_matmul_plain(x, w_packed, scale, out_dtype)
     kernel_lib.check(w_packed, "w_packed", torch.int8, (half, d_out))
     kernel_lib.check(scale, "scale", torch.float32, (d_in // group, d_out))
-    y = _launch("mmvc_int4_matmul", x, w_packed, scale, out_dtype, d_in, d_out, group)
+    x2, out = _operands(x, d_in, d_out, out_dtype)
+    kernel_lib.load().call(
+        "mmvc_int4_matmul", x2.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), x2.shape[0], d_in, d_out, group, int(out_dtype == torch.float32),
+        kernel_lib.stream_ptr(x2),
+    )
     int4_matmul.launches += 1
-    return y
+    return out.reshape(*x.shape[:-1], d_out)
 
 
 int4_matmul.launches = 0

@@ -72,11 +72,35 @@ def test_flash_attention_cpu_launches_no_kernel():
 
 @pytest.mark.parametrize("scale", [0.0, -0.125])
 def test_flash_attention_rejects_non_positive_scale(scale):
-    """The contract on every device: the kernel's running max is taken on the
-    unscaled scores, so a scale <= 0 is refused on the CPU as on the card."""
-    x = torch.zeros(1, 1, 8, 16)
-    with pytest.raises(ValueError, match="scale must be positive"):
-        tattn.flash_attention(x, x, x, scale=scale)
+    """No scale is rejected: at 0 and below, the port matches the JAX kernel,
+    which scales the scores before their max (0 gives uniform weights over
+    the valid keys), with a masked batch row and a causal window."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal((2, 2, 72, 64)).astype(np.float32) for _ in range(3))
+    lens, starts = np.asarray([72, 40], np.int32), np.asarray([0, 9], np.int32)
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 kv_lens=jnp.asarray(lens), causal=True, scale=scale,
+                                 kv_starts=jnp.asarray(starts), interpret=True)
+    got = tattn.flash_attention(t(q), t(k), t(v), kv_lens=t(lens), causal=True, scale=scale,
+                                kv_starts=t(starts))
+    assert max_err(want, got) < TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [0.0, -0.125, -1.0, 0.125])
+def test_fold_scale_gives_the_unfolded_result_exactly(scale, dtype):
+    """What the CUDA path hands the kernel: q and scale through fold_scale,
+    a positive scale, then the plain version; bit for bit the plain version
+    on the unfolded arguments."""
+    rng = np.random.default_rng(3)
+    q, k, v = (t(rng.standard_normal((2, 2, 40, 64)).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    lens, starts = torch.tensor([40, 17], dtype=torch.int32), torch.tensor([0, 5], dtype=torch.int32)
+    fq, fscale = tattn.fold_scale(q, scale)
+    assert fscale > 0 and fq.dtype == q.dtype and fq.shape == q.shape
+    want = tattn.flash_attention_plain(q, k, v, lens, True, scale, starts)
+    got = tattn.flash_attention_plain(fq, k, v, lens, True, fscale, starts)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -64,6 +64,36 @@ def test_int8_matmul_matches_jax(case):
     assert max_err(want, got) < TOL
 
 
+# (d_in, d_out) of the LLaMA-3.2-3B trunk (q/o, k/v, gate/up, down) and the
+# tied unembed, at the decode's 40 rows (batch 8 x beam 5) and 240 (48 x 5)
+K7_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256)]
+
+
+@pytest.mark.parametrize("rows", [40, 240])
+@pytest.mark.parametrize("d_in,d_out", K7_SHAPES)
+def test_k7_plan(rows, d_in, d_out):
+    """K7's split-K schedule: K chunks that divide d_in in whole 32-row
+    stages, a grid of K7_MIN_BLOCKS blocks unless the minimum chunk stops it
+    or the tiles alone reach it, row tiles that cover the rows, the
+    workspace of the split partials and the groups of the split sum."""
+    p = tq.k7_plan(rows, d_in, d_out)
+    assert p.kc * p.splits == d_in and p.kc % tq.K7_KSTEP == 0 and p.kc >= tq.K7_MIN_KC
+    row_tiles = -(-rows // p.row_tile)
+    tiles = d_out // tq.K7_BN * row_tiles
+    if tiles >= tq.K7_MIN_BLOCKS:
+        assert p.splits == 1
+    else:
+        assert tiles * p.splits >= tq.K7_MIN_BLOCKS or p.kc == tq.K7_MIN_KC
+    assert p.row_tile % 8 == 0 and p.row_tile <= tq.K7_MAX_ROW_TILE
+    assert row_tiles <= -(-rows // tq.K7_MAX_ROW_TILE)  # no more row tiles than 64-row ones
+    assert p.workspace == (p.splits * rows * d_out if p.splits > 1 else 0)
+    groups = -(-p.splits // p.group)
+    assert (groups - 1) * p.group < p.splits <= groups * p.group
+    assert p.counters <= tq.K7_COUNTERS and (p.splits == 1) == (p.counters == 0)
+    if rows == 40:  # five n8 tiles, no dead rows
+        assert p.row_tile == 40
+
+
 INT4_CASES = {
     "kernel": ((24,), 512, 384, dict(block_in=128, block_out=128)),
     "dense_odd": ((8,), 256, 192, {}),
