@@ -39,13 +39,15 @@ line.  Needs a CUDA device and the repository around it; it does not fall
 back to the CPU.
 
 ``python3 chip_smoke.py --profile`` runs no checks: it profiles the decode
-steps of the bf16- and int8-weight systems with ``torch.profiler`` and
-prints the device time per step by kernel and the device's idle share, and
-the host time a call of K7's wrapper beside ``F.linear``'s.
+steps of the bf16-, int8- and int4-weight systems with ``torch.profiler``
+and prints the device time per step by kernel (K7's and K8's apart) and the
+device's idle share, and the host time a call of K7's wrapper beside
+``F.linear``'s.
 """
 from __future__ import annotations
 
 import functools
+import hashlib
 import itertools
 import json
 import math
@@ -579,6 +581,8 @@ def _quant_case(results, name, quantize, kernel, plain, library, rows, d_in, d_o
     got, want = calls[0](), plains[0]()
     if not torch.equal(got, calls[0]()):
         raise SmokeFailure(f"{case}: two launches on the same inputs differ")
+    # the output's bits, to hold one kernel against another build of it
+    print(f"  {case}: output sha256 {hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]}")
     extra = dict(ms=time_cold(calls), ms_l2_warm=time_ms(calls[0]), plain_ms=time_cold(plains),
                  weight_copies=copies, **bound(nbytes(x, w_q, w_s, got), 2 * rows * d_in * d_out))
     try:
@@ -615,19 +619,56 @@ def check_int8_matmul(results):
 
 
 def check_int4_matmul(results):
-    """K8 at the trunk and unembed decode shapes at 40 rows (the serving
-    phases), the JAX selftest shape (240 x 1024 -> 2048) and the trunk and
-    unembed shapes at 240 rows.  Tolerance 5e-2 (the JAX selftest's)."""
+    """K8 at the decode shapes of check_int8_matmul (40 and 240 rows) and the
+    JAX selftest shape (240 x 1024 -> 2048), tolerance 5e-2 (the JAX
+    selftest's), the same bits from two launches; then its dequantization
+    bit for bit (int4_exact)."""
     import torch
 
     from multimodalvc_tpu_torch.ops import int8_matmul as q
 
     g = torch.Generator(device=DEV).manual_seed(8)
-    for rows, d_in, d_out in [(40, 3072, 3072), (40, 3072, 8192), (40, 8192, 3072),
-                              (40, 3072, 128256), (240, 1024, 2048), (240, 3072, 8192),
-                              (240, 8192, 3072), (240, 3072, 128256)]:
+    for rows, d_in, d_out in [(rows, d_in, d_out) for rows in (40, 240)
+                              for d_in, d_out in TRUNK_SHAPES] + [(240, 1024, 2048)]:
         _quant_case(results, "int4_matmul", q.quantize_kernel_int4, q.int4_matmul,
                     q.int4_matmul_plain, int4_library, rows, d_in, d_out, 5e-2, g)
+    int4_exact(results, g)
+
+
+def int4_exact(results, g):
+    """K8's in-register dequantization, bit for bit: one-hot x rows (x[i,
+    k_i] = 1) pick logical weight rows k_i, so the f32 output must equal
+    those rows of ``dequantize_int4``.  The packed weight holds every byte,
+    so all 16 nibbles in both halves; column 1 is all zero with the scale
+    floor 1e-12 / 7; the other scales are f32 spread over 2^-40..2^20.  At
+    512 rows (64-row tiles, split-K) two launches pick every logical row,
+    the low-nibble half then the high; at 40 rows (five n8 tiles) one picks
+    rows spread over both halves."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import int8_matmul as q
+
+    d_in, d_out = 1024, 1024
+    half = d_in // 2
+    packed = torch.randint(-128, 128, (half, d_out), generator=g, device=DEV).to(torch.int8)
+    packed[:256, 0] = torch.arange(-128, 128, device=DEV).to(torch.int8)
+    packed[:, 1] = 0
+    exponent = torch.rand(d_in // q.INT4_GROUP, d_out, generator=g, device=DEV) * 60 - 40
+    scale = torch.exp2(exponent).float()
+    scale[:, 1] = torch.tensor(1e-12, device=DEV) * torch.tensor(1 / 7, device=DEV)
+    want_rows = q.dequantize_int4(packed, scale).float()
+    for rows, picks in [(512, [torch.arange(half), torch.arange(half, d_in)]),
+                        (40, [torch.arange(40) * 25 + 3])]:
+        for k in picks:
+            k = k.to(DEV)
+            x = torch.zeros(rows, d_in, dtype=torch.bfloat16, device=DEV)
+            x[torch.arange(rows, device=DEV), k] = 1
+            got, want = q.int4_matmul(x, packed, scale, out_dtype=torch.float32), want_rows[k]
+            case = f"int4_matmul/exact/{rows}x{d_in}x{d_out}/rows{int(k[0])}-{int(k[-1])}"
+            if not torch.equal(got, want):
+                bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+                raise SmokeFailure(f"{case}: {bad} outputs differ from dequantize_int4 in bits")
+            record(results, case, max_err(got, want), 0.0)
 
 
 # ---- the full-width serving slice --------------------------------------------
@@ -668,7 +709,7 @@ def kernels():
                         "multimodalvc_tpu/ops/beam_gather.py:57", "bf16_kv_gather", True),
         "int8_matmul": (int8_matmul, "launches", "csrc/int8_matmul.cu",
                         "multimodalvc_tpu/ops/int8_matmul.py:113", "int8_weights", True),
-        "int4_matmul": (int4_matmul, "launches", "csrc/quant_matmul.cu",
+        "int4_matmul": (int4_matmul, "launches", "csrc/int8_matmul.cu",
                         "multimodalvc_tpu/ops/int8_matmul.py:326", "int4_weights", True),
     }
 
@@ -1305,11 +1346,15 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
         "idle_share_unprofiled": 1 - device_ms / wall_ms,
         "device_ops_per_step": (sum(n_long.values()) - sum(n_short.values())) / steps,
         "top_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])[:top]),
+        # K7's and K8's kernels, summed by their __global__ names
+        "kernel_ms_per_step": {name: sum(v for k, v in per_step.items() if f"{name}_kernel" in k)
+                               for name in ("int8_matmul", "int4_matmul")},
     }
     print(f"  decode {wall_ms:.2f} ms/step ({prof_wall_ms:.2f} profiled), device "
           f"{device_ms:.3f} ms/step, idle share {out['idle_share_unprofiled']:.3f} "
           f"({out['idle_share_profiled']:.3f} profiled), {out['device_ops_per_step']:.0f} device "
           f"ops/step")
+    print("  " + ", ".join(f"{k} {v:.3f} ms/step" for k, v in out["kernel_ms_per_step"].items()))
     for k, v in out["top_ms_per_step"].items():
         print(f"    {v:8.3f} ms/step  {k[:110]}")
     return out
@@ -1363,13 +1408,13 @@ def wrapper_host_us(llama, rounds: int = 5) -> dict:
 
 
 def profile_main(table, batch) -> dict:
-    """``--profile``: the decode profile of the bf16- and int8-weight
+    """``--profile``: the decode profile of the bf16-, int8- and int4-weight
     systems (int8 KV, ancestry), one system at a time, and the host time of
     K7's wrapper on the int8 system's weights."""
     import torch
 
     out = {}
-    for mode in (None, "int8"):
+    for mode in (None, "int8", "int4"):
         system = build_system(mode)
         system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
         with torch.inference_mode():

@@ -13,10 +13,10 @@ group-128 half-split nibbles, and the matmul dequantizes on chip:
 JAX shape rule sends odd dims and more than 512 rows (prefill, training) to
 a dense product: dequantize to bf16, then one matmul with f32 accumulation,
 which the JAX package leaves to XLA.  That rule is static; inside it a CUDA
-tensor launches its kernel (K7 ``csrc/int8_matmul.cu``, K8
-``csrc/quant_matmul.cu``) or raises, and a CPU tensor runs the plain
-version, which is the dense product.  ``k7_plan`` chooses K7's split-K
-schedule.
+tensor launches its kernel (K7 and K8, one kernel template on one split-K
+schedule in ``csrc/int8_matmul.cu``) or raises, and a CPU tensor runs the
+plain version, which is the dense product.  ``k7_plan`` and ``k8_plan``
+choose the schedule.
 """
 from __future__ import annotations
 
@@ -130,43 +130,42 @@ def int4_matmul_plain(x, w_packed, scale, out_dtype=None) -> torch.Tensor:
 # ---- the kernel wrappers -----------------------------------------------------
 
 
-# K7's schedule (csrc/int8_matmul.cu): a block owns 128 output columns, a row
-# tile of at most 64 rows and a K chunk of KC weight rows, streamed 32 rows a
-# stage; split-K until the grid holds K7_MIN_BLOCKS blocks, keeping KC >= 128.
-# On the H100 more splits (two blocks an SM, 264) cost more in the split sum
-# than they gain in bytes in flight.  Above K7_ONE_LEVEL splits the sum takes
-# two levels.
+# K7's and K8's schedule (csrc/int8_matmul.cu): a block owns 128 output
+# columns, a row tile of at most 64 rows and a K chunk of KC weight rows (K8:
+# packed rows, each two logical rows), streamed 32 rows a stage; split-K until
+# the grid holds K7_MIN_BLOCKS blocks, keeping KC >= 128.  On the H100 more
+# splits (two blocks an SM, 264) cost more in the split sum than they gain in
+# bytes in flight.  Above K7_ONE_LEVEL splits the sum takes two levels.
 K7_BN, K7_KSTEP, K7_MIN_KC, K7_MAX_ROW_TILE = 128, 32, 128, 64
 K7_MIN_BLOCKS, K7_ONE_LEVEL = 128, 8
-K7_COUNTERS = 4096  # int32 arrival counters a device
+K7_COUNTERS = 4096  # int32 arrival counters a device and kernel
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-class K7Plan(NamedTuple):
+class SplitPlan(NamedTuple):
     splits: int  # K chunks, one block each
-    kc: int  # weight rows a block reads: d_in // splits
+    kc: int  # weight rows (K8: packed rows) a block reads: k_rows // splits
     group: int  # splits summed together first (the two-level split-K sum)
     row_tile: int  # rows a block computes, a multiple of 8
     workspace: int  # f32 partials [splits, rows, d_out], 0 with one split
     counters: int  # arrival counters: per tile, one a group and one for the groups
 
 
-@functools.lru_cache(maxsize=None)  # a decode step asks for the same few shapes 197 times
-def k7_plan(rows: int, d_in: int, d_out: int) -> K7Plan:
+def _split_plan(rows: int, k_rows: int, d_out: int, step: int) -> SplitPlan:
     """The fewest splits that give the grid K7_MIN_BLOCKS blocks, among
-    those whose KC divides d_in, is a multiple of the 32-row stage and is at
-    least 128; the most such splits where none reaches it; 1 where the
+    those whose KC divides k_rows, is a multiple of ``step`` and is at least
+    K7_MIN_KC; the most such splits where none reaches it; 1 where the
     column and row tiles alone fill the card."""
     row_tiles = _cdiv(rows, K7_MAX_ROW_TILE)
     row_tile = 8 * _cdiv(_cdiv(rows, row_tiles), 8)
     tiles = d_out // K7_BN * row_tiles
     splits = 1
     if tiles < K7_MIN_BLOCKS:
-        for s in range(2, d_in // K7_MIN_KC + 1):
-            if d_in % (s * K7_KSTEP) == 0:
+        for s in range(2, k_rows // K7_MIN_KC + 1):
+            if k_rows % (s * step) == 0:
                 splits = s
                 if tiles * s >= K7_MIN_BLOCKS:
                     break
@@ -177,21 +176,47 @@ def k7_plan(rows: int, d_in: int, d_out: int) -> K7Plan:
     if splits > 1:
         workspace = splits * rows * d_out
         counters = tiles * (groups + 1 if groups > 1 else 1)
-    return K7Plan(splits, d_in // splits, group, row_tile, workspace, counters)
+    return SplitPlan(splits, k_rows // splits, group, row_tile, workspace, counters)
 
 
-# per device: K7_COUNTERS zeroed int32 arrival counters (a split plan has
-# fewer tiles than K7_MIN_BLOCKS, each with at most groups + 1 counters); the
-# kernel sets each back to 0 once every block it counts has arrived
-_K7_COUNTERS = {}
+@functools.lru_cache(maxsize=None)  # a decode step asks for the same few shapes 197 times
+def k7_plan(rows: int, d_in: int, d_out: int) -> SplitPlan:
+    """K7's plan over the d_in weight rows, in K chunks of whole 32-row
+    stages."""
+    return _split_plan(rows, d_in, d_out, K7_KSTEP)
 
 
-def _k7_counters(device: torch.device) -> torch.Tensor:
-    counters = _K7_COUNTERS.get(device)
+@functools.lru_cache(maxsize=None)
+def k8_plan(rows: int, d_in: int, d_out: int, group: int = INT4_GROUP) -> SplitPlan:
+    """K8's plan over the d_in / 2 packed rows, in K chunks of whole scale
+    groups of each half.  A stage lies in one group of each half only when
+    ``group`` is a multiple of the 32-row stage: K8 takes no other."""
+    if group % K7_KSTEP:
+        raise ValueError(f"int4_matmul: scale group {group} is not a multiple of {K7_KSTEP}")
+    return _split_plan(rows, d_in // 2, d_out, group)
+
+
+# per device and kernel: K7_COUNTERS zeroed int32 arrival counters (a split
+# plan has fewer tiles than K7_MIN_BLOCKS, each with at most groups + 1
+# counters); the kernel sets each back to 0 once every block it counts has
+# arrived.  K7 and K8 never share one.
+_COUNTERS = {}
+
+
+def _split_buffers(plan: SplitPlan, device: torch.device, kernel: str) -> tuple:
+    """(workspace, its pointer, the counters' pointer) for the C entry: null
+    pointers with one split.  The caller keeps the workspace referenced
+    until the launch is queued."""
+    if plan.splits == 1:
+        return None, None, None
+    if plan.counters > K7_COUNTERS:
+        raise ValueError(f"{kernel}: {plan.counters} arrival counters > {K7_COUNTERS}")
+    counters = _COUNTERS.get((device, kernel))
     if counters is None:
         counters = torch.zeros(K7_COUNTERS, dtype=torch.int32, device=device)
-        _K7_COUNTERS[device] = counters
-    return counters
+        _COUNTERS[(device, kernel)] = counters
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=device)
+    return ws, ws.data_ptr(), counters.data_ptr()
 
 
 def _operands(x, d_in: int, d_out: int, out_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -222,12 +247,7 @@ def int8_matmul(
     kernel_lib.check(scale, "scale", torch.float32, (d_out,))
     x2, out = _operands(x, d_in, d_out, out_dtype)
     plan = k7_plan(rows, d_in, d_out)
-    ws = ws_ptr = counters_ptr = None  # null pointers with one split
-    if plan.splits > 1:  # ws stays referenced until the launch is queued
-        if plan.counters > K7_COUNTERS:
-            raise ValueError(f"int8_matmul: {plan.counters} arrival counters > {K7_COUNTERS}")
-        ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
-        ws_ptr, counters_ptr = ws.data_ptr(), _k7_counters(x.device).data_ptr()
+    ws, ws_ptr, counters_ptr = _split_buffers(plan, x.device, "int8_matmul")
     kernel_lib.load().call(
         "mmvc_int8_matmul", x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         ws_ptr, counters_ptr, rows, d_in, d_out, plan.splits, plan.kc, plan.group, plan.row_tile,
@@ -249,7 +269,9 @@ def int4_matmul(
     """``bf16(x) @ dequant(w_packed, scale)`` in ``out_dtype``.
 
     Inside the JAX shape rule (d_in/2 % 128 == 0 and % group, d_out % 128 == 0,
-    rows <= 512) a CUDA tensor runs K8; outside it the dense product runs."""
+    rows <= 512) a CUDA tensor runs K8 on ``k8_plan``'s schedule, which
+    raises for a group that is not a multiple of 32; outside it the dense
+    product runs."""
     half, d_out = w_packed.shape
     d_in = 2 * half
     group = d_in // scale.shape[0]
@@ -261,9 +283,12 @@ def int4_matmul(
     kernel_lib.check(w_packed, "w_packed", torch.int8, (half, d_out))
     kernel_lib.check(scale, "scale", torch.float32, (d_in // group, d_out))
     x2, out = _operands(x, d_in, d_out, out_dtype)
+    plan = k8_plan(rows, d_in, d_out, group)
+    ws, ws_ptr, counters_ptr = _split_buffers(plan, x.device, "int4_matmul")
     kernel_lib.load().call(
         "mmvc_int4_matmul", x2.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), x2.shape[0], d_in, d_out, group, int(out_dtype == torch.float32),
+        out.data_ptr(), ws_ptr, counters_ptr, rows, d_in, d_out, plan.splits, plan.kc,
+        plan.group, plan.row_tile, group, int(out_dtype == torch.float32),
         kernel_lib.stream_ptr(x2),
     )
     int4_matmul.launches += 1

@@ -94,6 +94,48 @@ def test_k7_plan(rows, d_in, d_out):
         assert p.row_tile == 40
 
 
+@pytest.mark.parametrize("rows", [40, 240])
+@pytest.mark.parametrize("d_in,d_out", K7_SHAPES)
+def test_k8_plan(rows, d_in, d_out):
+    """K8 on K7's schedule over the d_in / 2 packed rows: K chunks of whole
+    32-row stages and whole scale groups, so that every stage lies in one
+    scale group of each half; a grid of K7_MIN_BLOCKS blocks unless the
+    minimum chunk stops it or the tiles alone reach it; row tiles, workspace
+    and counters as K7's."""
+    half, group = d_in // 2, tq.INT4_GROUP
+    p = tq.k8_plan(rows, d_in, d_out)
+    assert p.kc * p.splits == half and p.kc % tq.K7_KSTEP == 0 and p.kc % group == 0
+    assert p.kc >= tq.K7_MIN_KC
+    for kb in range(0, half, tq.K7_KSTEP):  # every stage of every chunk
+        for first in (kb, half + kb):  # its low- and high-nibble rows
+            assert first // group == (first + tq.K7_KSTEP - 1) // group
+    row_tiles = -(-rows // p.row_tile)
+    tiles = d_out // tq.K7_BN * row_tiles
+    if tiles >= tq.K7_MIN_BLOCKS:
+        assert p.splits == 1
+    else:
+        assert tiles * p.splits >= tq.K7_MIN_BLOCKS or p.kc == tq.K7_MIN_KC
+    assert p.row_tile % 8 == 0 and p.row_tile <= tq.K7_MAX_ROW_TILE
+    assert row_tiles <= -(-rows // tq.K7_MAX_ROW_TILE)
+    assert p.workspace == (p.splits * rows * d_out if p.splits > 1 else 0)
+    groups = -(-p.splits // p.group)
+    assert (groups - 1) * p.group < p.splits <= groups * p.group
+    assert p.counters <= tq.K7_COUNTERS and (p.splits == 1) == (p.counters == 0)
+    if rows == 40:
+        assert p.row_tile == 40
+
+
+@pytest.mark.parametrize("group", [32, 64, 48, 100])
+def test_k8_plan_takes_only_groups_of_whole_stages(group):
+    """A scale group that is not a multiple of the 32-row stage would put
+    two groups in one stage: k8_plan, and so the CUDA wrapper, raises."""
+    if group % tq.K7_KSTEP:
+        with pytest.raises(ValueError, match="scale group"):
+            tq.k8_plan(40, 3072, 3072, group)
+    else:
+        assert tq.k8_plan(40, 3072, 3072, group).kc % group == 0
+
+
 INT4_CASES = {
     "kernel": ((24,), 512, 384, dict(block_in=128, block_out=128)),
     "dense_odd": ((8,), 256, 192, {}),
