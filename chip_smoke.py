@@ -6,9 +6,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the CUDA
    kernels from ``multimodalvc_tpu_torch/csrc`` with nvcc.
 2. Holds each kernel (K1 flash_attention, K2 prompt_attention and K3
-   gen_attention_ancestor with int8 and bf16 KV, K4 beam_topk_columns, K5
-   beam_topk / beam_topk_from_logits, K6 gather_rows, K7 int8_matmul, K8
-   int4_matmul) against its plain PyTorch version at the serving shapes, with
+   gen_attention_ancestor with int8 and bf16 KV, their merged entry
+   ancestry_attention, K4 beam_topk_columns, K5 beam_topk /
+   beam_topk_from_logits, K6 gather_rows, K7 int8_matmul, K8 int4_matmul)
+   against its plain PyTorch version at the serving shapes, with
    edge cases, and times both, the one PyTorch call that computes the same
    function where there is one, and the card's bound for the work (K7 and
    K8 with a cold L2, as the decode finds their weights).
@@ -37,6 +38,9 @@ Prints JSON lines with the kernel checks and the phases, then the
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Needs a CUDA device and the repository around it; it does not fall
 back to the CPU.
+
+``python3 chip_smoke.py --plans`` times the decode-attention entries at the
+serving shapes under other chunk plans than ``decode_plan``'s (PLAN_CASES).
 
 ``python3 chip_smoke.py --profile`` runs no checks: it profiles the decode
 steps of the bf16-, int8- and int4-weight systems with ``torch.profiler``
@@ -313,12 +317,77 @@ def gen_bound(q, kv, out, valid, slots) -> dict:
     return bound(nbytes(q, *out) + nbytes(*kv) * valid / slots, 4 * rows * h * d * valid)
 
 
+def merged_bound(q, prompt, mask, gen, out, valid, slots, beams) -> dict:
+    """The merged entry: q, the valid prompt slots' K/V and scales (and the
+    mask), the first ``valid`` generated slots' K/V and scales of every
+    source row (and their anc), the bf16 output; QK^T and PV over each
+    row's valid prompt slots and generated slots."""
+    rows, h, d = q.shape
+    share = float(mask.float().mean())
+    moved = nbytes(q, mask, out) + nbytes(*prompt) * share + nbytes(*gen) * valid / slots
+    return bound(moved, 4 * h * d * (beams * int(mask.sum()) + rows * valid))
+
+
+# The earlier decode-attention kernels' times at these cases (one block a
+# batch element and kv head, f32 FMAs; H100 80GB HBM3, 700 W, as PERF.md
+# records them), printed beside the new ones; a case they were not timed
+# at has none.
+EARLIER_MS = {
+    "prompt_attention/int8/40x24x128": 0.0626, "prompt_attention/int8/240x24x128": 0.0668,
+    "prompt_attention/bf16/40x24x128": 0.1409, "prompt_attention/bf16/240x24x128": 0.1472,
+    "gen_attention_ancestor/int8/40x16x8x128/valid15": 0.0307,
+    "gen_attention_ancestor/int8/240x64x8x128/valid41": 0.0766,
+    "gen_attention_ancestor/bf16/40x16x8x128/valid15": 0.0309,
+    "gen_attention_ancestor/bf16/240x64x8x128/valid41": 0.0858,
+}
+# the decode shapes: (batch, generated slots, valid lengths).  Batch 8 with
+# 16 slots serves the 16-token phases, batch 8 with 64 the int8-weight phase
+# (valid 1 and 63: its first and last steps), batch 48 the serving batch.
+DECODE_CASES = ((8, SHORT_TOKENS, (SHORT_TOKENS - 1,)), (48, 64, (41, 0)), (8, 64, (1, 63)))
+DECODE_TOL = 5e-2  # the JAX selftest's
+
+
+def decode_inputs(b, slots, kv, g):
+    """q, the prompt KV (values, scales or None) and mask, the generated KV
+    and anc of one decode case: beam 5, 24 query / 8 kv heads, d=128, 130
+    prompt slots with random left pads, batch element 3 without a valid
+    prompt slot."""
+    import torch
+
+    beams, h, hkv, d, tp = BEAMS, 24, 8, 128, 130
+
+    def cache(shape):  # (values, scales or None)
+        if kv == "int8":
+            return _int8_kv(shape, g)
+        return torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16), None
+
+    q = torch.randn(b * beams, h, d, generator=g, device=DEV).to(torch.bfloat16)
+    prompt = cache((b, hkv, tp, d)), cache((b, hkv, tp, d))
+    pad = torch.randint(0, 60, (b,), generator=g, device=DEV)
+    mask = (torch.arange(tp, device=DEV)[None, :] >= pad[:, None]).to(torch.int32)
+    mask[3] = 0  # a batch element with no valid prompt slot
+    gen = cache((b * beams, slots, hkv, d)), cache((b * beams, slots, hkv, d))
+    anc = torch.randint(0, beams, (b * beams, slots), generator=g, device=DEV).to(torch.int32)
+    return q, prompt, mask, gen, anc
+
+
+def _same_bits(name, run, got):
+    """A second launch on the same inputs must give the same bits."""
+    import torch
+
+    again = run()
+    for a, c in zip(got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)):
+        if not torch.equal(a, c):
+            raise SmokeFailure(f"{name}: two launches on the same inputs differ")
+
+
 def check_decode(results, kv="int8"):
-    """K2 and K3 with an int8 (or bf16) KV cache at the decode shapes of
-    batch 8 (the serving phases: 40 query rows, 16 generated slots, valid
-    15) and batch 48 (64 slots, valid 41 and 0); beam 5, 24 query / 8 kv
-    heads, d=128, 130 prompt slots, a batch element with no valid prompt
-    slot.  Tolerance 5e-2 on out, m and l (the JAX selftest's)."""
+    """K2 and K3 with an int8 (or bf16) KV cache at DECODE_CASES' first two
+    shapes: batch 8 (40 query rows, 16 generated slots, valid 15) and batch
+    48 (64 slots, valid 41 and 0).  Tolerance DECODE_TOL on out, m and l; a
+    row with no valid key (K2: batch element 3; K3: valid 0) must be exactly
+    (0, -1e30, 0); two launches must give the same bits."""
     import torch
 
     from multimodalvc_tpu_torch.ops.decode_attention import (
@@ -328,47 +397,96 @@ def check_decode(results, kv="int8"):
         prompt_attention_plain,
     )
 
+    def empty(part, rows) -> bool:
+        return (bool((part[0][rows] == 0).all()) and bool((part[1][rows] == -1e30).all())
+                and bool((part[2][rows] == 0).all()))
+
     g = torch.Generator(device=DEV).manual_seed(1 if kv == "int8" else 5)
-    beams, h, hkv, d, tp = BEAMS, 24, 8, 128, 130
-    scale = d ** -0.5
-
-    def cache(shape):  # (values, scales or None)
-        if kv == "int8":
-            return _int8_kv(shape, g)
-        return torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16), None
-
-    for b, slots, valids in ((8, SHORT_TOKENS, (SHORT_TOKENS - 1,)), (48, 64, (41, 0))):
-        q = torch.randn(b * beams, h, d, generator=g, device=DEV).to(torch.bfloat16)
-        (pk, pks), (pv, pvs) = cache((b, hkv, tp, d)), cache((b, hkv, tp, d))
-        pad = torch.randint(0, 60, (b,), generator=g, device=DEV)
-        mask = (torch.arange(tp, device=DEV)[None, :] >= pad[:, None]).to(torch.int32)
-        mask[3] = 0  # a batch element with no valid prompt slot
-        kw = dict(beams=beams, scale=scale, k_scale=pks, v_scale=pvs)
+    beams, h, d = BEAMS, 24, 128
+    for b, slots, valids in DECODE_CASES[:2]:
+        q, ((pk, pks), (pv, pvs)), mask, ((gk, gks), (gv, gvs)), anc = decode_inputs(
+            b, slots, kv, g)
+        hkv = pk.shape[1]
+        kw = dict(beams=beams, scale=d ** -0.5, k_scale=pks, v_scale=pvs)
         run = lambda: prompt_attention(q, pk, pv, mask, **kw)  # noqa: E731
         plain = lambda: prompt_attention_plain(q, pk, pv, mask, **kw)  # noqa: E731
         got = run()
+        name = f"prompt_attention/{kv}/{b * beams}x{h}x{d}"
         err = max(max_err(a, c) for a, c in zip(got, plain()))
+        if not empty(got, slice(3 * beams, 4 * beams)):
+            raise SmokeFailure(f"{name}: a batch element without a valid slot must give "
+                               "(0, -1e30, 0)")
+        _same_bits(name, run, got)
         moved = tuple(x for x in (pk, pv, pks, pvs, mask) if x is not None)
-        record(results, f"prompt_attention/{kv}/{b * beams}x{h}x{d}", err, 5e-2,
-               ms=time_ms(run), plain_ms=time_ms(plain),
-               **prompt_bound(q, moved, got, mask, beams))
+        record(results, name, err, DECODE_TOL, ms=time_ms(run), plain_ms=time_ms(plain),
+               earlier_ms=EARLIER_MS.get(name), **prompt_bound(q, moved, got, mask, beams))
 
-        (gk, gks), (gv, gvs) = cache((b * beams, slots, hkv, d)), cache((b * beams, slots, hkv, d))
-        anc = torch.randint(0, beams, (b * beams, slots), generator=g, device=DEV).to(torch.int32)
-        kw = dict(beams=beams, scale=scale, k_scale=gks, v_scale=gvs)
+        kw = dict(beams=beams, scale=d ** -0.5, k_scale=gks, v_scale=gvs)
         moved = tuple(x for x in (gk, gv, gks, gvs, anc) if x is not None)
         for valid in valids:
             run = lambda: gen_attention_ancestor(q, gk, gv, anc, valid, **kw)  # noqa: E731
             plain = lambda: gen_attention_ancestor_plain(q, gk, gv, anc, valid, **kw)  # noqa: E731
             got, want = run(), plain()
+            name = f"gen_attention_ancestor/{kv}/{b * beams}x{slots}x{hkv}x{d}/valid{valid}"
             err = max(max_err(a, c) for a, c in zip(got, want))
-            if valid == 0 and not (bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())
-                                   and bool((got[2] == 0).all())):
-                raise SmokeFailure(f"gen_attention_ancestor {kv}: valid_len 0 must give "
-                                   "(0, -1e30, 0)")
-            record(results, f"gen_attention_ancestor/{kv}/{b * beams}x{slots}x{hkv}x{d}/"
-                   f"valid{valid}", err, 5e-2, ms=time_ms(run), plain_ms=time_ms(plain),
-                   **gen_bound(q, moved, got, valid, slots))
+            if valid == 0 and not empty(got, slice(None)):
+                raise SmokeFailure(f"{name}: valid_len 0 must give (0, -1e30, 0)")
+            _same_bits(name, run, got)
+            record(results, name, err, DECODE_TOL, ms=time_ms(run), plain_ms=time_ms(plain),
+                   earlier_ms=EARLIER_MS.get(name), **gen_bound(q, moved, got, valid, slots))
+
+
+def check_merged(results):
+    """The merged entry (int8 KV, bf16 output) at every DECODE_CASES shape
+    against the merge of the plain partials, cast: tolerance DECODE_TOL on
+    the bf16 output and on the f32 output of the same entry; the rows with
+    no valid key in either segment (batch element 3 with valid 0) exactly
+    zero; two launches the same bits.  ``unfused_ms`` is this tree's K2 +
+    K3 + the PyTorch merge and cast, the decode step's path before the
+    merged entry."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.decode_attention import (
+        ancestry_attention,
+        ancestry_attention_plain,
+        gen_attention_ancestor,
+        merge_softmax_segments,
+        prompt_attention,
+    )
+
+    g = torch.Generator(device=DEV).manual_seed(11)
+    beams, h, d = BEAMS, 24, 128
+    for b, slots, valids in DECODE_CASES:
+        q, ((pk, pks), (pv, pvs)), mask, ((gk, gks), (gv, gvs)), anc = decode_inputs(
+            b, slots, "int8", g)
+        for valid in valids:
+            kw = dict(beams=beams, scale=d ** -0.5, prompt_k_scale=pks, prompt_v_scale=pvs,
+                      gen_k_scale=gks, gen_v_scale=gvs)
+            args = (q, pk, pv, mask, gk, gv, anc, valid)
+            run = lambda: ancestry_attention(*args, **kw)  # noqa: E731
+            plain = lambda: ancestry_attention_plain(*args, **kw)  # noqa: E731
+
+            def unfused():
+                part_p = prompt_attention(q, pk, pv, mask, beams=beams, scale=d ** -0.5,
+                                          k_scale=pks, v_scale=pvs)
+                part_g = gen_attention_ancestor(q, gk, gv, anc, valid, beams=beams,
+                                                scale=d ** -0.5, k_scale=gks, v_scale=gvs)
+                return merge_softmax_segments(*part_p, *part_g).to(torch.bfloat16)
+
+            got, want = run(), plain()
+            name = f"ancestry_attention/int8/{b * beams}x{slots}x{pk.shape[1]}x{d}/valid{valid}"
+            f32 = dict(kw, out_dtype=torch.float32)
+            err_f32 = max_err(ancestry_attention(*args, **f32), ancestry_attention_plain(*args, **f32))
+            if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got).all()):
+                raise SmokeFailure(f"{name}: expected a finite bf16 output")
+            if valid == 0 and not bool((got[3 * beams : 4 * beams] == 0).all()):
+                raise SmokeFailure(f"{name}: rows with no valid key must be exact zeros")
+            _same_bits(name, run, got)
+            record(results, name, max(max_err(got, want), err_f32), DECODE_TOL,
+                   ms=time_ms(run), plain_ms=time_ms(plain), unfused_ms=time_ms(unfused),
+                   f32_out_max_abs_err=err_f32,
+                   **merged_bound(q, (pk, pv, pks, pvs), mask, (gk, gv, gks, gvs, anc), got,
+                                  valid, slots, beams))
 
 
 def check_topk(results):
@@ -679,7 +797,11 @@ def kernels():
     whose run supplies the launch count, whether a serving path runs it)."""
     from multimodalvc_tpu_torch.ops.attention import flash_attention
     from multimodalvc_tpu_torch.ops.beam_gather import gather_rows
-    from multimodalvc_tpu_torch.ops.decode_attention import gen_attention_ancestor, prompt_attention
+    from multimodalvc_tpu_torch.ops.decode_attention import (
+        ancestry_attention,
+        gen_attention_ancestor,
+        prompt_attention,
+    )
     from multimodalvc_tpu_torch.ops.int8_matmul import int4_matmul, int8_matmul
     from multimodalvc_tpu_torch.ops.topk import beam_topk, beam_topk_columns
 
@@ -687,19 +809,24 @@ def kernels():
     return {
         "flash_attention": (flash_attention, "launches", "csrc/flash_attention.cu",
                             "multimodalvc_tpu/ops/attention.py:328", "int8_weights", True),
+        # the int8 decode runs K2's and K3's segments through the merged
+        # entry (below), and no serving path runs K2 on a bf16 cache (the JAX
+        # package's neither: a bf16 prompt segment is plain einsums), so no
+        # phase may launch these three; their checks above are their only use
         "prompt_attention/int8": (prompt_attention, "launches", "csrc/decode_attention.cu",
-                                  f"{da}:370", "int8_weights", True),
-        # no serving path runs K2 on a bf16 cache (the JAX package's neither:
-        # a bf16 prompt segment is plain einsums), so no phase may launch it;
-        # its check above is its only use
+                                  f"{da}:370", "int8_weights", False),
         "prompt_attention/bf16": (prompt_attention, "launches_bf16", "csrc/decode_attention.cu",
                                   f"{da}:370", "bf16_kv_ancestry", False),
         "gen_attention_ancestor/int8": (gen_attention_ancestor, "launches",
                                         "csrc/decode_attention.cu", f"{da}:195", "int8_weights",
-                                        True),
+                                        False),
         "gen_attention_ancestor/bf16": (gen_attention_ancestor, "launches_bf16",
                                         "csrc/decode_attention.cu", f"{da}:195",
                                         "bf16_kv_ancestry", True),
+        # K2 + K3 + their merge, one launch a layer and step (the JAX decode
+        # step's attention: both kernels, merge_softmax_segments, the cast)
+        "ancestry_attention": (ancestry_attention, "launches", "csrc/decode_attention.cu",
+                               "multimodalvc_tpu/nn/llama.py:342", "int8_weights", True),
         "beam_topk_columns": (beam_topk_columns, "launches", "csrc/topk.cu",
                               "multimodalvc_tpu/ops/topk.py:271", "int8_weights", True),
         # beam_topk and beam_topk_from_logits share the counter: one TPU kernel
@@ -719,23 +846,24 @@ def kernels():
 # kernel not named must launch 0 times.
 ON = "+"
 EXPECT = {
-    "bf16_weights": {"flash_attention": ON, "prompt_attention/int8": ON,
-                     "gen_attention_ancestor/int8": ON, "beam_topk_columns": ON},
+    "bf16_weights": {"flash_attention": ON, "ancestry_attention": ON, "beam_topk_columns": ON},
     "bf16_kv_ancestry": {"flash_attention": ON, "gen_attention_ancestor/bf16": ON,
                          "beam_topk_columns": ON},
     "bf16_kv_gather": {"flash_attention": ON, "beam_topk_columns": ON, "gather_rows": ON},
     "bf16_constrained": {"flash_attention": ON, "gather_rows": ON},
     # no encoders and no flash prefill (the cache spans T + L slots, t != tkv)
     "bf16_full_cache": {"beam_topk_columns": ON, "gather_rows": ON},
-    "int8_weights": {"flash_attention": ON, "prompt_attention/int8": ON,
-                     "gen_attention_ancestor/int8": ON, "beam_topk_columns": ON,
+    "int8_weights": {"flash_attention": ON, "ancestry_attention": ON, "beam_topk_columns": ON,
                      "int8_matmul": ON},
-    "int8_ngram": {"flash_attention": ON, "prompt_attention/int8": ON,
-                   "gen_attention_ancestor/int8": ON, "beam_topk": ON, "int8_matmul": ON},
-    "int4_weights": {"flash_attention": ON, "prompt_attention/int8": ON,
-                     "gen_attention_ancestor/int8": ON, "beam_topk_columns": ON,
+    "int8_ngram": {"flash_attention": ON, "ancestry_attention": ON, "beam_topk": ON,
+                   "int8_matmul": ON},
+    "int4_weights": {"flash_attention": ON, "ancestry_attention": ON, "beam_topk_columns": ON,
                      "int4_matmul": ON},
 }
+# Beyond EXPECT: an ancestry phase launches the merged entry (int8 KV) or K3
+# (bf16 KV) once a layer, decode step and ensemble member, the decode steps
+# counted by the beam candidates' kernel (K4, or K5 with n-gram blocking);
+# the PyTorch merge runs once a layer and step with bf16 KV, never with int8.
 
 
 def plain_versions(only=None) -> ExitStack:
@@ -756,7 +884,7 @@ def plain_versions(only=None) -> ExitStack:
         (layers, "flash_attention", attention.flash_attention_plain),
         (whisper, "flash_attention", attention.flash_attention_plain),
         (llama, "flash_attention", attention.flash_attention_plain),
-        (llama, "prompt_attention", decode_attention.prompt_attention_plain),
+        (llama, "ancestry_attention", decode_attention.ancestry_attention_plain),
         (llama, "gen_attention_ancestor", decode_attention.gen_attention_ancestor_plain),
         (llama, "int8_matmul", int8_matmul.int8_matmul_plain),
         (llama, "int4_matmul", int8_matmul.int4_matmul_plain),
@@ -859,29 +987,58 @@ def check_output(name, seqs, scores, vocab, new_tokens):
         raise SmokeFailure(f"{name}: beam scores not sorted")
 
 
-def run_phase(table, name, call, expect=None, audio_s=BATCH * SECONDS) -> tuple:
+def check_ancestry(name, launches, merges, layers, members) -> None:
+    """The per-step launches of an ancestry phase (see EXPECT)."""
+    steps = launches["beam_topk_columns"] + launches["beam_topk"]
+    per_step = members * layers * steps
+    anc_int8, anc_bf16 = launches["ancestry_attention"], launches["gen_attention_ancestor/bf16"]
+    if anc_int8 and (anc_int8, merges) != (per_step, 0):
+        raise SmokeFailure(f"{name}: {anc_int8} merged-entry launches and {merges} PyTorch "
+                           f"merges in {steps} decode steps of {members} x {layers} layers")
+    if anc_bf16 and (anc_bf16, merges) != (per_step, per_step):
+        raise SmokeFailure(f"{name}: {anc_bf16} K3 launches and {merges} PyTorch merges in "
+                           f"{steps} decode steps of {members} x {layers} layers")
+
+
+def run_phase(table, name, call, expect=None, audio_s=BATCH * SECONDS, layers=None,
+              members=1) -> tuple:
     """Run ``call`` once with every launch count set to 0 just before it and
     read just after; fails unless the launches meet ``expect`` (default
-    ``EXPECT[name]``).  Returns (the phase's record, what ``call`` returned)."""
+    ``EXPECT[name]``) and, given the model's ``layers``, ``check_ancestry``.
+    Returns (the phase's record, what ``call`` returned)."""
+    from multimodalvc_tpu_torch.nn import llama
+
+    merges = []
+    merge = llama.merge_softmax_segments
+
+    def counted_merge(*args):
+        merges.append(1)
+        return merge(*args)
+
     reset_counts(table)
-    out, t_gen = wall(call)
+    with mock.patch.object(llama, "merge_softmax_segments", counted_merge):
+        out, t_gen = wall(call)
     launches = read_counts(table)
     expect = EXPECT[name] if expect is None else expect
     wrong = {k: (n, expect.get(k, 0)) for k, n in launches.items()
              if not (n > 0 if expect.get(k, 0) == ON else n == expect.get(k, 0))}
     if wrong:
         raise SmokeFailure(f"{name}: launches (got, expected) {wrong}")
+    if layers is not None:
+        check_ancestry(name, launches, len(merges), layers, members)
     rtf = audio_s / t_gen
     print(f"  phase {name}: {t_gen:.3f} s, realtime factor {rtf:.1f}x, launches "
-          f"{ {k: n for k, n in launches.items() if n} }")
-    return {"generate_s": t_gen, "realtime_factor": rtf, "launches": launches}, out
+          f"{ {k: n for k, n in launches.items() if n} }, PyTorch merges {len(merges)}")
+    return {"generate_s": t_gen, "realtime_factor": rtf, "launches": launches,
+            "pytorch_merges": len(merges)}, out
 
 
-def serve(table, system, batch, name, new_tokens, gen_kw, expect=None) -> tuple:
+def serve(table, system, batch, name, new_tokens, gen_kw, expect=None, members=1) -> tuple:
     """A ``generate`` phase with its output checked: (record, sequences,
     scores)."""
     phase, (seqs, scores) = run_phase(table, name, lambda: system.generate(
-        batch, num_beams=BEAMS, max_new_tokens=new_tokens, **gen_kw), expect)
+        batch, num_beams=BEAMS, max_new_tokens=new_tokens, **gen_kw), expect,
+        layers=system.cfg.llama.num_layers, members=members)
     check_output(name, seqs, scores, system.cfg.llama.vocab_size, new_tokens)
     phase["new_tokens"] = new_tokens
     return phase, seqs, scores
@@ -1103,7 +1260,8 @@ def long_form_phase(table, system, flash_per_generate: int) -> dict:
     with mock.patch.object(system, "generate", counted):
         phase, rows = run_phase(table, "long_form", lambda: system.generate_long_form(
             long_batch, chunk_frames=SECONDS * 25, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS,
-            kv_quant="int8"), expect, audio_s=BATCH * 2 * SECONDS)
+            kv_quant="int8"), expect, audio_s=BATCH * 2 * SECONDS,
+            layers=system.cfg.llama.num_layers)
     vocab = system.cfg.llama.vocab_size
     if len(calls) != 2:
         raise SmokeFailure(f"long_form: {len(calls)} generate calls, expected 2")
@@ -1116,14 +1274,14 @@ def long_form_phase(table, system, flash_per_generate: int) -> dict:
 
 def ensemble_phase(table, system, batch, flash_per_generate: int) -> dict:
     """Two bf16 systems (seeds 0 and 1), int8 KV, ancestry: each member runs
-    its own encoders (K1 twice as often as one system), K2/K3 in both, K4
-    on the averaged log-probs."""
+    its own encoders (K1 twice as often as one system) and decode (the
+    merged entry in both), K4 on the averaged log-probs."""
     import torch
 
     member = build_system(seed=1)
     expect = {**EXPECT["bf16_weights"], "flash_attention": 2 * flash_per_generate}
     phase, _, _ = serve(table, system, batch, "bf16_ensemble2", SHORT_TOKENS,
-                        dict(kv_quant="int8", ensemble=[member]), expect)
+                        dict(kv_quant="int8", ensemble=[member]), expect, members=2)
     del member
     torch.cuda.empty_cache()
     return phase
@@ -1198,7 +1356,7 @@ def ngram_phase(table, system, batch) -> dict:
 
     gen_kw = dict(kv_quant="int8", no_repeat_ngram_size=3)
     phase, seqs, scores = serve(table, system, batch, "int8_ngram", SHORT_TOKENS, gen_kw)
-    steps = phase["launches"]["prompt_attention/int8"] // system.cfg.llama.num_layers
+    steps = phase["launches"]["ancestry_attention"] // system.cfg.llama.num_layers
     if phase["launches"]["beam_topk"] != steps:
         raise SmokeFailure(f"int8_ngram: K5 launched {phase['launches']['beam_topk']} times "
                            f"in {steps} decode steps")
@@ -1266,7 +1424,7 @@ def quantized_phase(table, batch, mode, new_tokens, prompt, tokens, bf16_logits)
         _, t_enc = wall(lambda: system.module.prompt_for_generation(batch))
         _, t_pre = wall(lambda: prefill_split_cache(
             llama, emb, mask, num_beams=BEAMS, max_new_tokens=new_tokens, **INT8_KV))
-        steps = phase["launches"]["prompt_attention/int8"] // system.cfg.llama.num_layers
+        steps = phase["launches"]["ancestry_attention"] // system.cfg.llama.num_layers
         decode_ms = (phase["generate_s"] - t_enc - t_pre) / max(steps, 1) * 1e3
         print(f"  {name}: encoders+prompt {t_enc * 1e3:.1f} ms, prefill {t_pre * 1e3:.1f} ms, "
               f"decode {decode_ms:.2f} ms/step over {steps} steps")
@@ -1282,7 +1440,7 @@ def quantized_phase(table, batch, mode, new_tokens, prompt, tokens, bf16_logits)
         checks[f"{name}/step_logits"]["noise_floor_rel_l2"] = gate["noise_floor_rel_l2"]
         checks[f"{name}/step_logits"]["one_kernel_plain_rel_l2"] = isolate(
             llama, emb, mask, tokens, got[1],
-            (f"{mode}_matmul", "prompt_attention", "gen_attention_ancestor"))
+            (f"{mode}_matmul", "ancestry_attention"))
         checks.update(layerwise(llama, emb, mask, tokens, name))
         # quantization error itself, not gated: against the bf16 weights
         phase["rel_l2_vs_bf16_weights"] = {
@@ -1330,7 +1488,7 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
 
     reset_counts(table)
     gen(1 + steps)
-    n = read_counts(table)["prompt_attention/int8"] // system.cfg.llama.num_layers
+    n = read_counts(table)["ancestry_attention"] // system.cfg.llama.num_layers
     if n != steps:
         raise SmokeFailure(f"profile: {n} decode steps, expected {steps}")
     wall_ms = (unprofiled(1 + steps) - unprofiled(1)) / steps * 1e3
@@ -1346,9 +1504,11 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
         "idle_share_unprofiled": 1 - device_ms / wall_ms,
         "device_ops_per_step": (sum(n_long.values()) - sum(n_short.values())) / steps,
         "top_ms_per_step": dict(sorted(per_step.items(), key=lambda kv: -kv[1])[:top]),
-        # K7's and K8's kernels, summed by their __global__ names
+        # K7's, K8's and the decode attention's kernels, summed by their
+        # __global__ names (K2, K3, the merged entry)
         "kernel_ms_per_step": {name: sum(v for k, v in per_step.items() if f"{name}_kernel" in k)
-                               for name in ("int8_matmul", "int4_matmul")},
+                               for name in ("int8_matmul", "int4_matmul", "prompt_attention",
+                                            "gen_attention", "ancestry_attention")},
     }
     print(f"  decode {wall_ms:.2f} ms/step ({prof_wall_ms:.2f} profiled), device "
           f"{device_ms:.3f} ms/step, idle share {out['idle_share_unprofiled']:.3f} "
@@ -1426,6 +1586,71 @@ def profile_main(table, batch) -> dict:
     return out
 
 
+# --plans: the decode-attention entries at the serving shapes under other
+# chunk plans than decode_plan's: (batch, generated slots, valid, entry,
+# [(prompt slots a chunk, generated slots a chunk, splits), ...]); 130
+# prompt slots, int8 KV.  The first plan of a case is decode_plan's.
+PLAN_CASES = [
+    (8, SHORT_TOKENS, SHORT_TOKENS - 1, "merged",
+     [(48, 8, 5), (48, 4, 7), (32, 6, 8), (64, 6, 6), (80, 16, 3), (48, 8, 3)]),
+    (8, SHORT_TOKENS, SHORT_TOKENS - 1, "gen", [(0, 3, 6), (0, 4, 4), (0, 8, 2), (0, 16, 1)]),
+    (8, SHORT_TOKENS, SHORT_TOKENS - 1, "prompt", [(48, 0, 3), (32, 0, 5), (80, 0, 2), (16, 0, 7)]),
+    (8, 64, 63, "merged", [(80, 16, 6), (48, 16, 7), (80, 13, 7), (128, 22, 5)]),
+    (48, 64, 41, "merged", [(80, 16, 3), (80, 16, 6), (80, 16, 2), (128, 22, 5), (48, 8, 7)]),
+]
+
+
+def plans_main() -> list:
+    """``--plans``: time each entry of PLAN_CASES under each plan (the
+    wrappers' ``decode_plan`` replaced by the plan), held against the plain
+    version at DECODE_TOL; fails if the first plan is not decode_plan's."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=DEV).manual_seed(12)
+    beams, h, d, tp = BEAMS, 24, 128, 130
+    out = []
+    for b, slots, valid, entry, plans in PLAN_CASES:
+        q, ((pk, pks), (pv, pvs)), mask, ((gk, gks), (gv, gvs)), anc = decode_inputs(
+            b, slots, "int8", g)
+        seg = (tp if entry != "gen" else 0, slots if entry != "prompt" else 0)
+        if tuple(da.decode_plan(b, beams, h, 8, d, *seg)) != da.DecodePlan(
+                plans[0][0], -(-seg[0] // plans[0][0]) if seg[0] else 0, plans[0][1],
+                -(-seg[1] // plans[0][1]) if seg[1] else 0, plans[0][2]):
+            raise SmokeFailure(f"--plans {entry} b{b} L{slots}: the first plan is not decode_plan's")
+        kw = dict(beams=beams, scale=d ** -0.5)
+        if entry == "merged":
+            args = (q, pk, pv, mask, gk, gv, anc, valid)
+            kw.update(prompt_k_scale=pks, prompt_v_scale=pvs, gen_k_scale=gks, gen_v_scale=gvs)
+            fn, plain = da.ancestry_attention, da.ancestry_attention_plain
+        elif entry == "gen":
+            args, fn, plain = (q, gk, gv, anc, valid), da.gen_attention_ancestor, \
+                da.gen_attention_ancestor_plain
+            kw.update(k_scale=gks, v_scale=gvs)
+        else:
+            args, fn, plain = (q, pk, pv, mask), da.prompt_attention, da.prompt_attention_plain
+            kw.update(k_scale=pks, v_scale=pvs)
+        want = plain(*args, **kw)
+        for cp, cg, splits in plans:
+            plan = da.DecodePlan(cp, -(-seg[0] // cp) if seg[0] else 0, cg,
+                                 -(-seg[1] // cg) if seg[1] else 0, splits)
+            with mock.patch.object(da, "decode_plan", lambda *a, plan=plan: plan):
+                got = fn(*args, **kw)
+                err = max(max_err(a, c) for a, c in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)))
+                ms = time_ms(lambda: fn(*args, **kw), iters=20)
+            name = f"{entry}/b{b}/L{slots}/valid{valid}/cp{cp}/cg{cg}/splits{splits}"
+            print(f"  {name}: ms={ms:.4f} max_err={err:.3e}"
+                  + (" (decode_plan's)" if (cp, cg, splits) == plans[0] else ""))
+            if not err <= DECODE_TOL:
+                raise SmokeFailure(f"--plans {name}: max_err {err:.3e}")
+            out.append({"case": name, "ms": ms, "max_abs_err": err,
+                        "decode_plan": (cp, cg, splits) == plans[0]})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1455,11 +1680,15 @@ def main() -> int:
         print(json.dumps({"profile": profile_main(kernels(), make_batch())}))
         print(card)
         return 0
+    if "--plans" in sys.argv[1:]:
+        print(json.dumps({"plans": plans_main()}))
+        print(card)
+        return 0
 
     results = []
     print("kernel checks (kernel vs plain PyTorch, same inputs, CUDA-event ms):")
-    for check in (check_flash, check_decode, lambda r: check_decode(r, "bf16"), check_topk,
-                  check_beam_topk, check_gather_rows, check_int8_matmul, check_int4_matmul):
+    for check in (check_flash, check_decode, lambda r: check_decode(r, "bf16"), check_merged,
+                  check_topk, check_beam_topk, check_gather_rows, check_int8_matmul, check_int4_matmul):
         check(results)
         torch.cuda.empty_cache()
     failed = [r["name"] for r in results if not r["ok"]]

@@ -12,8 +12,9 @@ copying the cache.
 ``generate_beam`` serves the split cache, with the prompt KV shared across
 beams, in three forms, and a full per-beam cache (``share_prompt_kv=False``):
 
-- the ancestry map with an int8 KV cache: K2 ``prompt_attention`` and K3
-  ``gen_attention_ancestor`` in every layer;
+- the ancestry map with an int8 KV cache: ``ancestry_attention`` in every
+  layer, K2's prompt segment, K3's generated segment and their merge in one
+  kernel launch;
 - the ancestry map with a bf16 (or f32) KV cache: the prompt segment as
   plain einsums, as the JAX package leaves it to XLA, and the generated
   segment through K3;
@@ -43,9 +44,9 @@ from torch import nn
 from ..ops.attention import flash_attention
 from ..ops.beam_search import beam_search, constrained_beam_search, log_softmax
 from ..ops.decode_attention import (
+    ancestry_attention,
     gen_attention_ancestor,
     merge_softmax_segments,
-    prompt_attention,
     quantize_kv,
 )
 from ..ops.int8_matmul import (
@@ -271,8 +272,9 @@ class LlamaAttention(nn.Module):
 
     def _ancestry_step(self, q, k, v, cache) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One decode token against the split cache with the ancestry map.
-        The generated segment goes through K3; the prompt segment through K2
-        for an int8 cache, and as plain einsums for a bf16/f32 cache."""
+        An int8 cache takes ``ancestry_attention`` (both segments and their
+        merge in one launch); a bf16/f32 cache the prompt segment as plain
+        einsums, the generated segment through K3, and the merge."""
         cfg = self.cfg
         b = q.shape[0]
         h, hd = cfg.num_heads, cfg.head_dim
@@ -294,18 +296,21 @@ class LlamaAttention(nn.Module):
         scale = 1.0 / math.sqrt(hd)
         q_flat = q[:, :, 0, :].to(self.dtype).contiguous()  # [B*K, h, d]
         if kv_q:
-            out_p, m_p, l_p = prompt_attention(
+            out = ancestry_attention(
                 q_flat, cache["prompt_k"], cache["prompt_v"], cache["prompt_mask"],
-                beams=kbeams, scale=scale, k_scale=cache["prompt_ks"], v_scale=cache["prompt_vs"],
+                cache["fixed_k"], cache["fixed_v"], anc, idx + 1, beams=kbeams, scale=scale,
+                prompt_k_scale=cache["prompt_ks"], prompt_v_scale=cache["prompt_vs"],
+                gen_k_scale=cache["fixed_ks"], gen_v_scale=cache["fixed_vs"],
+                out_dtype=self.dtype,
             )
         else:
             out_p, m_p, l_p = self._prompt_partials(q, cache, kbeams, scale)
-        out_g, m_g, l_g = gen_attention_ancestor(
-            q_flat, cache["fixed_k"], cache["fixed_v"], anc, idx + 1, beams=kbeams, scale=scale,
-            k_scale=cache.get("fixed_ks"), v_scale=cache.get("fixed_vs"),
-        )
-        out = merge_softmax_segments(out_p, m_p, l_p, out_g, m_g, l_g)
-        return self.o_proj(out.to(self.dtype).reshape(b, 1, h * hd)), new_cache
+            out_g, m_g, l_g = gen_attention_ancestor(
+                q_flat, cache["fixed_k"], cache["fixed_v"], anc, idx + 1, beams=kbeams,
+                scale=scale,
+            )
+            out = merge_softmax_segments(out_p, m_p, l_p, out_g, m_g, l_g).to(self.dtype)
+        return self.o_proj(out.reshape(b, 1, h * hd)), new_cache
 
     def _prompt_scores(self, q, cache, scale: float) -> torch.Tensor:
         """f32 scores [B*K, h, t, Tp] of the decode queries q [B*K, h, t, d]

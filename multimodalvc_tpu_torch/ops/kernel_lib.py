@@ -42,10 +42,14 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "mmvc_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "mmvc_prompt_attention": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
     "mmvc_gen_attention_ancestor": [
-        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ],
+    "mmvc_ancestry_attention": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _F, _I, _P,
     ],
     "mmvc_beam_topk_columns": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,

@@ -1,6 +1,12 @@
 """K2/K3 parity: the port's prompt_attention and gen_attention_ancestor (plain
 versions on the CPU) against the JAX Pallas kernels in interpret mode, with
-int8, bf16 and f32 KV, plus quantize_kv and merge_softmax_segments."""
+int8, bf16 and f32 KV, plus quantize_kv and merge_softmax_segments; the
+merged ancestry_attention against the JAX merge of the two kernels; the
+split-KV plan; and the int8 ancestry decode step through the merged entry."""
+import copy
+import inspect
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,7 +14,9 @@ import torch
 from torch_parity import max_err, t
 
 from multimodalvc_tpu.ops import decode_attention as jda
+from multimodalvc_tpu_torch.nn import llama as tl
 from multimodalvc_tpu_torch.ops import decode_attention as tda
+from multimodalvc_tpu_torch.ops import kernel_lib
 
 B, BEAMS, G, H, D, TP, L = 2, 3, 2, 4, 16, 12, 8
 SCALE = D ** -0.5
@@ -90,3 +98,227 @@ def test_merge_softmax_segments_matches_jax():
     want = jda.merge_softmax_segments(*map(jnp.asarray, parts))
     got = tda.merge_softmax_segments(*map(t, parts))
     assert max_err(want, got) < 1e-6
+
+
+def _merged_case(kv, no_prompt_row):
+    """q, the two segments' KV (JAX and torch operands) and anc."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((B * BEAMS, H, D)).astype(np.float32)
+    pk, pv = _kv(rng, (B, G, TP, D), kv), _kv(rng, (B, G, TP, D), kv)
+    gk, gv = _kv(rng, (B * BEAMS, L, G, D), kv), _kv(rng, (B * BEAMS, L, G, D), kv)
+    anc = rng.integers(0, BEAMS, (B * BEAMS, L)).astype(np.int32)
+    mask = np.ones((B, TP), np.int32)
+    mask[0, :5] = 0  # left pad
+    if no_prompt_row:
+        mask[1] = 0  # a batch element with no valid prompt slot
+    return q, pk, pv, gk, gv, anc, mask
+
+
+@pytest.mark.parametrize("no_prompt_row", [True, False], ids=["empty_prompt_row", "full_prompt"])
+@pytest.mark.parametrize("valid", [0, 1, L])
+@pytest.mark.parametrize("kv", KV_TYPES, ids=KV_TYPES)
+def test_ancestry_attention_plain_matches_jax_merge(kv, valid, no_prompt_row):
+    """The merged entry's plain version, before the cast to the model dtype,
+    against the JAX merge of the two interpret-mode kernels.  With valid 0
+    the batch element without a prompt slot has no valid key at all: its
+    rows must be exact zeros, as the JAX merge gives them (0 / 1e-30)."""
+    q, pk, pv, gk, gv, anc, mask = _merged_case(kv, no_prompt_row)
+    jkw = dict() if pk[2] is None else dict(k_scale=pk[2], v_scale=pv[2])
+    want_p = jda.prompt_attention(jnp.asarray(q), pk[0], pv[0], jnp.asarray(mask), beams=BEAMS,
+                                  scale=SCALE, interpret=True, **jkw)
+    jkw = dict() if gk[2] is None else dict(k_scale=gk[2], v_scale=gv[2])
+    want_g = jda.gen_attention_ancestor(jnp.asarray(q), gk[0], gv[0], jnp.asarray(anc),
+                                        jnp.int32(valid), beams=BEAMS, scale=SCALE,
+                                        interpret=True, **jkw)
+    want = jda.merge_softmax_segments(*want_p, *want_g)
+    got = tda.ancestry_attention(
+        t(q), pk[1], pv[1], t(mask), gk[1], gv[1], t(anc), valid, beams=BEAMS, scale=SCALE,
+        prompt_k_scale=pk[3], prompt_v_scale=pv[3], gen_k_scale=gk[3], gen_v_scale=gv[3],
+        out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert max_err(want, got) < TOL
+    if no_prompt_row and valid == 0:
+        assert torch.all(got[BEAMS : 2 * BEAMS] == 0)
+
+
+# (batch, beams, heads, kv heads, head dim, prompt slots, generated slots):
+# the serving decode at batch 8 (16 and 64 generated slots) and 48, K2 and
+# K3 alone, a prompt of one slot, a long prompt, beams 8 with one head a
+# kv head, generated slots that no chunk size divides
+PLAN_SHAPES = [
+    (8, 5, 24, 8, 128, 130, 16), (8, 5, 24, 8, 128, 130, 64), (48, 5, 24, 8, 128, 130, 64),
+    (8, 5, 24, 8, 128, 130, 0), (8, 5, 24, 8, 128, 0, 16), (48, 5, 24, 8, 128, 0, 64),
+    (1, 1, 24, 8, 128, 1, 1), (2, 3, 8, 4, 128, 4000, 300), (4, 8, 16, 16, 128, 130, 17),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
+def test_decode_plan(shape):
+    """Every slot of each segment lands in exactly one chunk, each chunk
+    holds a slot, each fits the kernel (prompt chunks of a multiple of 16 up
+    to 128 slots, K x generated slots up to 128 key rows), one cluster of 1
+    to 7 blocks takes them (blocks loop over the chunks where there are
+    more); the plan is a function of the shapes alone, with no valid_len
+    among them."""
+    b, beams, h, g, d, tp, slots = shape
+    plan = tda.decode_plan(*shape)
+    for size, chunks, total in ((plan.prompt_slots, plan.prompt_chunks, tp),
+                                (plan.gen_slots, plan.gen_chunks, slots)):
+        owner = [c for c in range(chunks) for s in range(size * c, min(size * (c + 1), total))]
+        assert owner == sorted(owner) and len(owner) == total
+        assert set(owner) == set(range(chunks))
+    if tp:
+        assert plan.prompt_slots % 16 == 0 and plan.prompt_slots <= tda.DECODE_MAX_KEYS
+    if slots:
+        assert math.ceil(beams * plan.gen_slots / 16) * 16 <= tda.DECODE_MAX_KEYS
+    assert 1 <= plan.splits <= min(plan.chunks, tda.DECODE_MAX_SPLITS)
+    assert list(inspect.signature(tda.decode_plan).parameters) == [
+        "batch", "beams", "heads", "kv_heads", "head_dim", "prompt_slots", "gen_slots"]
+
+
+# the plans at the serving shapes, as measured best on the H100 (PERF.md):
+# (batch, generated slots) -> (prompt slots a chunk, prompt chunks, generated
+# slots a chunk, generated chunks, splits)
+SERVING_PLANS = {
+    (8, 16): (48, 3, 8, 2, 5),  # the 16-token phases: 5 blocks a pair, 320 in all
+    (8, 64): (80, 2, 16, 4, 6),  # the int8-weight phase, 64 tokens
+    (48, 64): (80, 2, 16, 4, 3),  # batch 48: 6 chunks over 3 blocks a pair
+}
+
+
+@pytest.mark.parametrize("key", list(SERVING_PLANS), ids=["b8_L16", "b8_L64", "b48_L64"])
+def test_decode_plan_at_the_serving_shapes(key):
+    batch, slots = key
+    plan = tda.decode_plan(batch, 5, 24, 8, 128, 130, slots)
+    assert tuple(plan) == SERVING_PLANS[key]
+    # fewer blocks than chunks only where the grid would pass the target
+    assert plan.splits == plan.chunks or batch * 8 * (plan.splits - 1) < tda.DECODE_TARGET_BLOCKS
+
+
+REFUSED = {
+    "head_dim_64": (8, 5, 24, 8, 64, 130, 16),
+    "18_rows_a_kv_head": (8, 6, 24, 8, 128, 130, 16),
+    "heads_not_a_multiple": (8, 5, 24, 7, 128, 130, 16),
+    "batch_65536": (65536, 5, 24, 8, 128, 130, 16),
+    "no_slots": (8, 5, 24, 8, 128, 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_decode_plan_refuses_what_the_kernel_cannot_take(name):
+    with pytest.raises(ValueError, match="decode attention kernel"):
+        tda.decode_plan(*REFUSED[name])
+
+
+@pytest.mark.parametrize("entry", ["prompt", "gen", "merged"])
+def test_wrappers_launch_one_grid_for_every_valid_len(monkeypatch, entry):
+    """The kernel path (meta tensors, a recording stand-in for the library):
+    the plan passed to the C entry is the same at every valid_len, and is
+    decode_plan's for the shapes."""
+    calls = []
+
+    class Lib:
+        def call(self, name, *args):
+            calls.append((name, args))
+
+    monkeypatch.setattr(kernel_lib, "load", lambda: Lib())
+    monkeypatch.setattr(kernel_lib, "check", lambda *a, **kw: None)
+    monkeypatch.setattr(kernel_lib, "stream_ptr", lambda t: 0)
+    b, beams, h, g, d, tp, slots = 8, 5, 24, 8, 128, 130, 16
+    meta = dict(device="meta")
+    q = torch.empty(b * beams, h, d, dtype=torch.bfloat16, **meta)
+    pk = torch.empty(b, g, tp, d, dtype=torch.int8, **meta)
+    ps = torch.empty(b, g, tp, **meta)
+    gk = torch.empty(b * beams, slots, g, d, dtype=torch.int8, **meta)
+    gs = torch.empty(b * beams, slots, g, **meta)
+    anc = torch.empty(b * beams, slots, dtype=torch.int32, **meta)
+    mask = torch.empty(b, tp, dtype=torch.int32, **meta)
+    for valid in (0, 1, slots):
+        if entry == "prompt":
+            tda.prompt_attention(q, pk, pk, mask, beams=beams, scale=0.1, k_scale=ps, v_scale=ps)
+        elif entry == "gen":
+            tda.gen_attention_ancestor(q, gk, gk, anc, valid, beams=beams, scale=0.1,
+                                       k_scale=gs, v_scale=gs)
+        else:
+            tda.ancestry_attention(q, pk, pk, mask, gk, gk, anc, valid, beams=beams, scale=0.1,
+                                   prompt_k_scale=ps, prompt_v_scale=ps, gen_k_scale=gs,
+                                   gen_v_scale=gs, out_dtype=torch.bfloat16)
+    plan = tda.decode_plan(b, beams, h, g, d, 0 if entry == "gen" else tp,
+                           0 if entry == "prompt" else slots)
+    want = {"prompt": (plan.prompt_slots, plan.prompt_chunks, plan.splits),
+            "gen": (plan.gen_slots, plan.gen_chunks, plan.splits),
+            "merged": (plan.prompt_slots, plan.prompt_chunks, plan.gen_slots, plan.gen_chunks,
+                       plan.splits)}
+    sent = []
+    for name, args in calls:
+        i = args.index(d, 9)  # the plan's integers follow the head dim
+        sent.append(args[i + 1 : i + 1 + len(want[entry])])
+    assert len(calls) == 3 and sent == [want[entry]] * 3
+
+
+def _attention_and_cache(dtype, b=2, beams=3, tp=7, slots=5):
+    """A tiny LLaMA attention layer and an int8 split cache for it, random
+    from seed 5, with two generated slots written and a reordered ancestry."""
+    torch.manual_seed(5)
+    cfg = tl.LlamaConfig.tiny(vocab_size=64)
+    attn = tl.LlamaAttention(cfg, dtype=dtype)
+    g, d = cfg.num_kv_heads, cfg.head_dim
+    pk, pks = tda.quantize_kv(torch.randn(b, g, tp, d))
+    pv, pvs = tda.quantize_kv(torch.randn(b, g, tp, d))
+    fk, fks = tda.quantize_kv(torch.randn(b * beams, slots, g, d))
+    fv, fvs = tda.quantize_kv(torch.randn(b * beams, slots, g, d))
+    mask = torch.ones(b, tp, dtype=torch.int32)
+    mask[0, :3] = 0
+    anc = torch.randint(0, beams, (b * beams, slots), dtype=torch.int32)
+    cache = {"prompt_k": pk, "prompt_v": pv, "prompt_ks": pks, "prompt_vs": pvs,
+             "prompt_mask": mask, "fixed_k": fk, "fixed_v": fv, "fixed_ks": fks,
+             "fixed_vs": fvs, "anc": anc, "index": 2}
+    return attn, cfg, cache
+
+
+def _unfused_attention(q, prompt_k, prompt_v, prompt_mask, gen_k, gen_v, anc, valid_len, *, beams,
+               scale, prompt_k_scale, prompt_v_scale, gen_k_scale, gen_v_scale, out_dtype):
+    """The int8 ancestry attention as two partial calls, the merge, then the
+    cast, as the decode step computed it before the merged entry."""
+    out_p, m_p, l_p = tda.prompt_attention(q, prompt_k, prompt_v, prompt_mask, beams=beams,
+                                           scale=scale, k_scale=prompt_k_scale,
+                                           v_scale=prompt_v_scale)
+    out_g, m_g, l_g = tda.gen_attention_ancestor(q, gen_k, gen_v, anc, valid_len, beams=beams,
+                                                 scale=scale, k_scale=gen_k_scale,
+                                                 v_scale=gen_v_scale)
+    return tda.merge_softmax_segments(out_p, m_p, l_p, out_g, m_g, l_g).to(out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ancestry_step_int8_goes_through_the_merged_entry(monkeypatch, dtype):
+    """``_ancestry_step`` with an int8 cache calls ``ancestry_attention``
+    once, and never the PyTorch merge; its output and cache are bit for bit
+    those of the two partial calls, the merge and the cast."""
+    attn, cfg, cache = _attention_and_cache(dtype)
+    rows = cache["anc"].shape[0]
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn(rows, cfg.num_heads, 1, cfg.head_dim, generator=g).to(dtype)
+    k, v = (torch.randn(rows, cfg.num_kv_heads, 1, cfg.head_dim, generator=g).to(dtype)
+            for _ in range(2))
+    want_cache = copy.deepcopy(cache)
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return tda.ancestry_attention(*args, **kw)
+
+    def no_merge(*args, **kw):
+        raise AssertionError("the PyTorch merge ran on the int8 path")
+
+    with torch.no_grad():
+        with monkeypatch.context() as m:
+            m.setattr(tl, "ancestry_attention", counted)
+            m.setattr(tl, "merge_softmax_segments", no_merge)
+            got, got_cache = attn._ancestry_step(q, k, v, cache)
+        with monkeypatch.context() as m:
+            m.setattr(tl, "ancestry_attention", _unfused_attention)
+            want, want_cache = attn._ancestry_step(q, k, v, want_cache)
+    assert len(calls) == 1
+    assert got.dtype == dtype and torch.equal(got, want)
+    for key, x in want_cache.items():
+        assert torch.equal(got_cache[key], x) if torch.is_tensor(x) else got_cache[key] == x

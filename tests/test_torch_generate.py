@@ -18,6 +18,7 @@ from multimodalvc_tpu.models import avsr as javsr
 from multimodalvc_tpu.nn import llama as jl
 from multimodalvc_tpu_torch.models import avsr as tavsr
 from multimodalvc_tpu_torch.nn import llama as tl
+from multimodalvc_tpu_torch.ops import decode_attention as tdecode
 
 GEN = dict(num_beams=3, max_new_tokens=6, kv_quant="int8")
 # f32 prefill cache on both sides (compare in f32): with the serving bf16
@@ -72,6 +73,30 @@ def test_generate_matches_jax(systems):
     # scores are sums of 6 f32 log-probs (~1e-6 relative each); 1e-4 also
     # leaves room for one int8 KV value on a rounding boundary
     np.testing.assert_allclose(np.asarray(want_scores), got_scores.numpy(), atol=1e-4)
+
+
+def test_generate_int8_kv_goes_through_the_merged_entry(systems, monkeypatch):
+    """The int8-KV ancestry decode calls ``ancestry_attention`` once a layer
+    and step, never the PyTorch merge, and still gives the JAX beam tokens."""
+    jsys, variables, tsys, batch = systems
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return tdecode.ancestry_attention(*args, **kw)
+
+    def no_merge(*args, **kw):
+        raise AssertionError("the PyTorch merge ran on the int8 path")
+
+    monkeypatch.setattr(tl, "ancestry_attention", counted)
+    monkeypatch.setattr(tl, "merge_softmax_segments", no_merge)
+    want_seqs, _ = jsys.generate(variables, batch, ancestry_reorder=True,
+                                 cache_dtype=jnp.float32, **GEN)
+    got_seqs, _ = tsys.generate({k: t(x) for k, x in batch.items()},
+                                cache_dtype=torch.float32, **GEN)
+    np.testing.assert_array_equal(np.asarray(want_seqs), got_seqs.numpy())
+    layers = tsys.cfg.llama.num_layers
+    assert calls and len(calls) % layers == 0 and len(calls) <= layers * GEN["max_new_tokens"]
 
 
 @pytest.mark.parametrize("reorder", ["ancestry", "gather"])

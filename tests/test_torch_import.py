@@ -73,6 +73,7 @@ COUNTERS = [
     (decode_attention.prompt_attention, "launches_bf16"),
     (decode_attention.gen_attention_ancestor, "launches"),
     (decode_attention.gen_attention_ancestor, "launches_bf16"),
+    (decode_attention.ancestry_attention, "launches"),
     (topk.beam_topk_columns, "launches"),
     (beam_gather.gather_rows, "launches"),
     (int8_matmul.int8_matmul, "launches"),
@@ -95,6 +96,10 @@ def test_cpu_tensors_run_the_plain_versions(monkeypatch):
         decode_attention.gen_attention_ancestor(q, gk, gk, torch.zeros(2, 3, dtype=torch.int32),
                                                 2, beams=2, scale=0.25, k_scale=g_sc,
                                                 v_scale=g_sc)
+    decode_attention.ancestry_attention(
+        q, kv, kv, torch.ones(1, 5, dtype=torch.int32), gk, gk, torch.zeros(2, 3, dtype=torch.int32),
+        2, beams=2, scale=0.25, prompt_k_scale=sc, prompt_v_scale=sc, gen_k_scale=gs,
+        gen_v_scale=gs)
     logits = torch.randn(4, 32)
     topk.beam_topk_columns(logits, logits.amax(-1), logits.amax(-1), torch.zeros(2, 2), 3)
     beam_gather.gather_rows(torch.randn(4, 2, 128), torch.tensor([1, 0], dtype=torch.int32))
@@ -104,7 +109,8 @@ def test_cpu_tensors_run_the_plain_versions(monkeypatch):
     assert [getattr(w, name) for w, name in COUNTERS] == before
 
 
-KINDS = ["flash", "prompt", "prompt_bf16", "gen", "gen_bf16", "topk", "gather", "int8", "int4"]
+KINDS = ["flash", "prompt", "prompt_bf16", "gen", "gen_bf16", "merged", "topk", "gather", "int8",
+         "int4"]
 
 
 @pytest.mark.parametrize("which", KINDS)
@@ -132,6 +138,15 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, which):
             decode_attention.gen_attention_ancestor(
                 q, kv, kv, torch.empty(2, 3, dtype=torch.int32, **meta), 2, beams=2, scale=0.25,
                 k_scale=sc, v_scale=sc)
+        elif which == "merged":
+            q = torch.empty(2, 4, 16, dtype=torch.bfloat16, **meta)
+            pk = torch.empty(1, 2, 5, 16, dtype=torch.int8, **meta)
+            gk = torch.empty(2, 3, 2, 16, dtype=torch.int8, **meta)
+            ps, gs = torch.empty(1, 2, 5, **meta), torch.empty(2, 3, 2, **meta)
+            decode_attention.ancestry_attention(
+                q, pk, pk, torch.empty(1, 5, dtype=torch.int32, **meta), gk, gk,
+                torch.empty(2, 3, dtype=torch.int32, **meta), 2, beams=2, scale=0.25,
+                prompt_k_scale=ps, prompt_v_scale=ps, gen_k_scale=gs, gen_v_scale=gs)
         elif which == "topk":
             logits = torch.empty(4, 32, **meta)
             topk.beam_topk_columns(logits, torch.empty(4, **meta), torch.empty(4, **meta),

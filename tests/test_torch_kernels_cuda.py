@@ -1,6 +1,6 @@
-"""On-card tier of the port: each hand-written CUDA kernel (K1-K8) built by
-nvcc and held against its plain PyTorch version at the serving shapes,
-through the same checks chip_smoke.py runs.  Needs an NVIDIA GPU with nvcc:
+"""On-card tier of the port: each hand-written CUDA kernel (K1-K8, and the
+merged K2 + K3 entry) built by nvcc and held against its plain PyTorch
+version at the serving shapes, through the same checks chip_smoke.py runs.  Needs an NVIDIA GPU with nvcc:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 
@@ -51,6 +51,16 @@ def test_flash_attention_kernel(smoke):
 def test_decode_attention_kernels(smoke):
     results = []
     smoke.check_decode(results)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
+def test_ancestry_attention_kernel(smoke):
+    """The merged K2 + K3 entry at the decode shapes against the merge of
+    the plain partials; exact zeros where no key is valid; the same bits
+    from two launches."""
+    results = []
+    smoke.check_merged(results)
     _all_ok(results)
 
 
