@@ -40,13 +40,20 @@ line.  Needs a CUDA device and the repository around it; it does not fall
 back to the CPU.
 
 ``python3 chip_smoke.py --plans`` times the decode-attention entries at the
-serving shapes under other chunk plans than ``decode_plan``'s (PLAN_CASES).
+serving shapes under other chunk plans than ``decode_plan``'s (PLAN_CASES),
+and K4/K5 under other cluster sizes and rings than ``topk_plan``'s
+(TOPK_PLAN_CASES).
+
+``python3 chip_smoke.py --phases`` times K4's phases (``PHASE_NAMES``): it
+builds ``csrc/topk.cu`` with ``MMVC_TOPK_MARKS`` defined, which reads the
+global timer at their boundaries.
 
 ``python3 chip_smoke.py --profile`` runs no checks: it profiles the decode
 steps of the bf16-, int8- and int4-weight systems with ``torch.profiler``
-and prints the device time per step by kernel (K7's and K8's apart) and the
-device's idle share, and the host time a call of K7's wrapper beside
-``F.linear``'s.
+and prints the device time per step by kernel (K7's, K8's, the decode
+attention's and the top-k kernels apart) and the device's idle share, the
+host time a call of K7's wrapper beside ``F.linear``'s, and the decode
+step's candidate stage alone (``candidate_stage``).
 """
 from __future__ import annotations
 
@@ -140,7 +147,8 @@ def record(results, name, err, tol, library=None, **extra):
         extra["library_ms"] = None if library is None else time_ms(library)
     results.append({"name": name, "max_abs_err": err, "tol": tol, "ok": ok, **extra})
     print(f"  {name}: max_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}"
-          + "".join(f" {k}={v:.4f}" for k, v in extra.items() if isinstance(v, float)))
+          + "".join(f" {k}={v:.3e}" if k.endswith("_err") else f" {k}={v:.4f}"
+                    for k, v in extra.items() if isinstance(v, float)))
 
 
 # ---- kernels against their plain versions ------------------------------------
@@ -489,32 +497,141 @@ def check_merged(results):
                                   valid, slots, beams))
 
 
+# K4/K5 with the statistics inside the kernel: m must equal torch.amax, ls
+# (summed in another order than PyTorch's) within LS_TOL of
+# log(sum(exp(x - m))), and the selection must equal the plain version's on
+# the kernel's own m and ls bit for bit.  Against the fully plain chain the
+# indices must agree on the planted cases, and each value within the ls
+# difference plus 2 ulps of the largest value (two f32 roundings).
+LS_TOL = 2e-6
+TOPK_OPS_STATS = 8  # f32 ops a value with the statistics inside: max, sub, exp, add; sub, sub, add, max
+
+
+def _topk_stats_case(results, name, fn, plain, x, scores, n, check_ties):
+    """One statistics-inside case of K4 or of K5 from logits (``fn``, with
+    ``plain`` its plain version) on raw logits ``x`` [B*K, V]."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.topk import _candidates, row_stats
+
+    r = x.shape[0]
+    b = scores.shape[0]
+
+    def run():
+        m, ls = torch.empty(r, device=DEV), torch.empty(r, device=DEV)
+        return (*fn(x, None, None, scores, n, stats_out=(m, ls)), m, ls)
+
+    got = run()
+    gv, gi, m, ls = got
+    want_m, want_ls = (t.reshape(r) for t in row_stats(x))
+    torch.cuda.synchronize()
+    if not torch.equal(m, want_m):
+        raise SmokeFailure(f"{name}: row max differs from torch.amax by "
+                           f"{max_err(m, want_m):.3e}")
+    ls_err = max_err(ls, want_ls)
+    if not ls_err <= LS_TOL:
+        raise SmokeFailure(f"{name}: logsumexp {ls_err:.3e} from PyTorch's (tol {LS_TOL:g})")
+    wv, wi = plain(x, m, ls, scores, n)  # the plain version on the kernel's statistics
+    if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+        bad = int(((gi != wi) | (gv != wv)).any(dim=1).nonzero()[0])
+        raise SmokeFailure(f"{name}: selection differs from the plain version on the kernel's "
+                           f"statistics at batch {bad}: {gi[bad].tolist()} vs {wi[bad].tolist()}")
+    fv, fi = plain(x, None, None, scores, n)  # the fully plain chain
+    if not torch.equal(gi, fi):
+        bad = int((gi != fi).any(dim=1).nonzero()[0])
+        raise SmokeFailure(f"{name}: indices differ from the plain chain at batch {bad}: "
+                           f"{gi[bad].tolist()} vs {fi[bad].tolist()}")
+    chain_err = max_err(gv, fv)
+    chain_tol = ls_err + 2 * torch.finfo(torch.float32).eps * float(fv.abs().max())
+    if not chain_err <= chain_tol:
+        raise SmokeFailure(f"{name}: values {chain_err:.3e} from the plain chain "
+                           f"(tol {chain_tol:.3e})")
+    check_ties(fi)
+    _same_bits(name, run, got)
+    ms_planted = time_ms(lambda: fn(x, None, None, scores, n))
+    x, scores = _unplanted(x, scores)
+    k, v = r // b, x.shape[1]
+    cand = _candidates(x, *row_stats(x), scores).reshape(b, -1)
+    chain = lambda: torch.topk(  # noqa: E731
+        (scores[:, :, None] + torch.log_softmax(x, dim=-1).reshape(b, k, v)).reshape(b, -1), n)
+    record(results, name, max_err(gv, wv), 0.0, library=lambda: torch.topk(cand, n),
+           ms=time_ms(lambda: fn(x, None, None, scores, n)), ms_planted=ms_planted,
+           plain_ms=time_ms(lambda: plain(x, None, None, scores, n), iters=3),
+           library_chain_ms=time_ms(chain), ls_err=ls_err, chain_err=chain_err,
+           **topk_bound(x, (scores,), TOPK_OPS_STATS, (gv, gi)))
+
+
+def _unplanted(*like):
+    """Fresh N(0, 3^2) logits (and N(0, 1) scores) of the planted inputs'
+    shapes: the times of K4/K5 are taken on these, as the decode's logits
+    hold no planted ties (the planted case that makes a warp take its exact
+    path is timed beside them as ``ms_planted``)."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(20)
+    out = [torch.randn(t.shape, generator=g, device=DEV) * (3.0 if t.ndim > 2 or i == 0 else 1.0)
+           for i, t in enumerate(like)]
+    return [o.to(t.dtype) for o, t in zip(out, like)]
+
+
+# columns that thread 0 of a block's first 512 threads streams (f32: units
+# of 4 columns, 512 apart; bf16: of 8): with more than its 4 kept keys among
+# the best n, its warp must take its exact path
+FIVE_IN_ONE_THREAD = [0, 1, 2, 3, 2048, 4096]
+
+
+def _k4_inputs(b, k, v, g):
+    """Raw logits [B*K, V] and scores with three winners in one column, rows
+    that tie everywhere, a tie across blocks and a 4-way tie (2 rows x 2
+    columns, batch 3: flat [3, 7, V + 3, V + 7] first)."""
+    import torch
+
+    logits = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+    scores = torch.randn(b, k, generator=g, device=DEV)
+    logits[0, 999], logits[1, 999], logits[3, 999] = 40.0, 39.5, 39.0  # 3 winners, 1 column
+    logits[k + 3] = logits[k + 2]  # batch 1: two beams tie on every candidate
+    scores[1, 3] = scores[1, 2]
+    logits[2 * k, 100] = logits[2 * k, 5000] = 45.0  # batch 2: a tie within a block,
+    logits[2 * k, 50000] = 45.0  # and across blocks
+    logits[3 * k, 3] = logits[3 * k, 7] = 50.0  # batch 3: 4-way tie, 2 rows x 2 columns
+    logits[3 * k + 1] = logits[3 * k]
+    scores[3, 1] = scores[3, 0]
+    logits[4 * k + 2, FIVE_IN_ONE_THREAD] = 50.0  # batch 4: the best 6 in one thread's columns
+    return logits, scores
+
+
 def check_topk(results):
     """K4 at the serving shapes [8*5, 128256] and [48*5, 128256], n = 2K =
     10, with three winners in one column, rows that tie everywhere, and ties
-    across columns.  Indices must be identical; values within 1e-6."""
+    across blocks: first with the statistics inside the kernel (the decode
+    step's call; see LS_TOL), then given (the JAX contract: indices
+    identical, values within 1e-6); then beams 8 and 12 (n = 16, 24: the
+    kernel for up to 16 rows a batch element; beam 5 takes its own) at batch
+    8, statistics inside.  ``library_ms`` is
+    ``torch.topk`` on the prebuilt candidate row; ``library_chain_ms`` the
+    eager ``log_softmax`` + add + ``torch.topk``."""
     import torch
 
     from multimodalvc_tpu_torch.ops.topk import (
         _candidates,
         beam_topk_columns,
         beam_topk_columns_plain,
+        row_stats,
     )
 
     g = torch.Generator(device=DEV).manual_seed(2)
     k, v, n = BEAMS, 128256, 2 * BEAMS
-    for b in (BATCH, 48):
-        logits = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
-        scores = torch.randn(b, k, generator=g, device=DEV)
-        logits[0, 999], logits[1, 999], logits[3, 999] = 40.0, 39.5, 39.0  # 3 winners, 1 column
-        logits[k + 3] = logits[k + 2]  # batch 1: two beams tie on every candidate
-        scores[1, 3] = scores[1, 2]
-        logits[2 * k, 100] = logits[2 * k, 5000] = 45.0  # batch 2: a tie across chunks
-        logits[3 * k, 3] = logits[3 * k, 7] = 50.0  # batch 3: 4-way tie, 2 rows x 2 columns
-        logits[3 * k + 1] = logits[3 * k]
-        scores[3, 1] = scores[3, 0]
-        row_max = logits.amax(dim=-1, keepdim=True)
-        row_ls = torch.log(torch.exp(logits - row_max).sum(dim=-1, keepdim=True))
+
+    def ties(wi):
+        if wi[3, :4].tolist() != [3, 7, v + 3, v + 7]:
+            raise SmokeFailure(f"beam_topk_columns: tie order {wi[3, :4].tolist()}")
+
+    inputs = {b: _k4_inputs(b, k, v, g) for b in (BATCH, 48)}
+    for b, (logits, scores) in inputs.items():
+        _topk_stats_case(results, f"beam_topk_columns/{b * k}x{v}", beam_topk_columns,
+                         beam_topk_columns_plain, logits, scores, n, ties)
+    for b, (logits, scores) in inputs.items():
+        row_max, row_ls = row_stats(logits)
         run = lambda: beam_topk_columns(logits, row_max, row_ls, scores, n)  # noqa: E731
         plain = lambda: beam_topk_columns_plain(logits, row_max, row_ls, scores, n)  # noqa: E731
         (gv, gi), (wv, wi) = run(), plain()
@@ -522,25 +639,34 @@ def check_topk(results):
             bad = int((gi != wi).any(dim=1).nonzero()[0])
             raise SmokeFailure(f"beam_topk_columns: indices differ at batch {bad}: "
                                f"{gi[bad].tolist()} vs {wi[bad].tolist()}")
-        if wi[3, :4].tolist() != [3, 7, v + 3, v + 7]:
-            raise SmokeFailure(f"beam_topk_columns: tie order {wi[3, :4].tolist()}")
+        ties(wi)
+        _same_bits(f"beam_topk_columns/stats_given/{b * k}x{v}", run, (gv, gi))
+        ms_planted = time_ms(run)
+        logits, scores = _unplanted(logits, scores)
+        row_max, row_ls = row_stats(logits)
         cand = _candidates(logits, row_max, row_ls, scores).reshape(b, -1)
-        record(results, f"beam_topk_columns/{b * k}x{v}", max_err(gv, wv), 1e-6,
-               library=lambda: torch.topk(cand, n), ms=time_ms(run),
+        record(results, f"beam_topk_columns/stats_given/{b * k}x{v}", max_err(gv, wv), 1e-6,
+               library=lambda: torch.topk(cand, n), ms=time_ms(run), ms_planted=ms_planted,
                plain_ms=time_ms(plain, iters=3),
                **topk_bound(logits, (row_max, row_ls, scores), 4, (gv, gi)))
+    for wide in (8, 12):  # the kernel for up to 16 rows, with 16-byte copies
+        logits, scores = _k4_inputs(BATCH, wide, v, g)
+        _topk_stats_case(results, f"beam_topk_columns/beam{wide}/{BATCH * wide}x{v}",
+                         beam_topk_columns, beam_topk_columns_plain, logits, scores, 2 * wide,
+                         ties)
 
 
 def topk_bound(x, small, ops_per_value, out) -> dict:
     """K4/K5: one read of the candidates' source ``x`` and of the per-row
     scalars, the outputs written once; ``ops_per_value`` f32 operations on
-    every value (the normalise, the add, the clamp), outside the tensor cores."""
+    every value (the normalise, the add, the clamp; with the statistics
+    inside also their max, subtract, exp and add), outside the tensor cores."""
     return bound(nbytes(x, *small, *out), ops_per_value * x.numel(), F32_FLOPS)
 
 
 def _planted(b, k, v, g, scale=3.0):
-    """Log-probs [B, K, V] f32 with ties across rows and across 2048-column
-    chunks, and -1e7 "banned" entries (what the n-gram block writes)."""
+    """Log-probs [B, K, V] f32 with ties across rows and across blocks, and
+    -1e7 "banned" entries (what the n-gram block writes)."""
     import torch
 
     logp = torch.randn(b, k, v, generator=g, device=DEV) * scale - 12.0
@@ -549,21 +675,41 @@ def _planted(b, k, v, g, scale=3.0):
     logp = logp.masked_fill(ban, -1.0e7)
     logp[0, 0, 999] = logp[0, 2, 999] = 9.0  # batch 0: a tie across rows, one column
     scores[0, 2] = scores[0, 0]
-    logp[1, 3, 100] = logp[1, 3, 5000] = 8.0  # batch 1: a tie across chunks
+    logp[1, 3, 100] = logp[1, 3, 5000] = 8.0  # batch 1: a tie within a block,
+    logp[1, 3, 50000] = 8.0  # and across blocks
     logp[2, 1] = logp[2, 0]  # batch 2: two beams tie on every candidate
     scores[2, 1] = scores[2, 0]
     logp[3, 4, :] = -1.0e7  # batch 3: a beam with every token banned
-    logp[3, 0, 2047] = logp[3, 0, 2048] = 7.5  # and a tie on a chunk boundary
+    logp[3, 0, 2047] = logp[3, 0, 2048] = 7.5  # and ties across 2048 columns
+    logp[3, 1, 8015] = logp[3, 1, 8016] = 7.5  # and a block boundary
+    logp[3, 2, FIVE_IN_ONE_THREAD] = 9.5  # and the best 6 in one thread's columns
     return logp, scores
 
 
+# K5 cases: (key, name, batch, V, log-prob type or None for raw logits,
+# statistics inside)
+BEAM_TOPK_CASES = [
+    ("f32", "logp/8x5x128256", 8, 128256, "f32", False),
+    ("f32", "logp/4x5x128256", 4, 128256, "f32", False),
+    ("bf16", "logp_bf16/4x5x128256", 4, 128256, "bf16", False),
+    ("v_odd", "logp/4x5x128250", 4, 128250, "f32", False),  # 4-byte copies
+    ("v_odd", "logp_bf16/4x5x128250", 4, 128250, "bf16", False),  # no ring: global loads
+    ("from_logits_stats", "from_logits/240x128256", 48, 128256, None, True),
+    ("from_logits_v_odd_stats", "from_logits/240x128250", 48, 128250, None, True),
+    ("from_logits", "from_logits/stats_given/240x128256", 48, 128256, None, False),
+    ("from_logits_v_odd", "from_logits/stats_given/240x128250", 48, 128250, None, False),
+]
+
+
 def check_beam_topk(results, only=None):
-    """K5 at the n-gram phase's shape [8, 5, 128256] and the JAX selftest's
-    [4, 5, 128256], f32 and bf16 log-probs with planted ties and bans, and
-    from raw logits at [240, 128256] and [240, 128250] (V % 8 != 0); n = 10.
-    Indices must be identical; values within 1e-6.  ``library_ms`` is
-    ``torch.topk`` on the prebuilt candidate row, without the add that K5
-    fuses."""
+    """K5 (BEAM_TOPK_CASES) at the n-gram phase's shape [8, 5, 128256] and
+    the JAX selftest's [4, 5, 128256], f32 and bf16 log-probs with planted
+    ties and bans (and at V = 128250, whose rows take the unaligned paths);
+    from raw logits at [240, 128256] and [240, 128250] (V % 8
+    != 0), with the statistics inside (see LS_TOL) and given; n = 10.
+    Indices must be identical; values within 1e-6 where given.
+    ``library_ms`` is ``torch.topk`` on the prebuilt candidate row, without
+    the add that K5 fuses."""
     import torch
 
     from multimodalvc_tpu_torch.ops.topk import (
@@ -572,34 +718,37 @@ def check_beam_topk(results, only=None):
         beam_topk_from_logits,
         beam_topk_from_logits_plain,
         beam_topk_plain,
+        row_stats,
     )
 
     g = torch.Generator(device=DEV).manual_seed(10)
     k, n = BEAMS, 2 * BEAMS
-    cases = [("f32", "logp/8x5x128256", 8, 128256, torch.float32),
-             ("f32", "logp/4x5x128256", 4, 128256, torch.float32),
-             ("bf16", "logp_bf16/4x5x128256", 4, 128256, torch.bfloat16),
-             ("from_logits", "from_logits/240x128256", 48, 128256, None),
-             ("from_logits_v_odd", "from_logits/240x128250", 48, 128250, None)]
-    for key, name, b, v, dtype in cases:
+    for key, name, b, v, dtype, stats in BEAM_TOPK_CASES:
         if only is not None and key != only:
             continue
         logp, scores = _planted(b, k, v, g)
+        if dtype is None:
+            x = (logp.reshape(b * k, v) * 0.25).contiguous()  # raw logits
+            x[2 * k, 321] = x[2 * k + 1, 321] = 60.0  # batch 2: the tied rows' best, first
+        if stats:
+            def ties(fi, v=v):
+                if fi[2, :2].tolist() != [321, v + 321]:
+                    raise SmokeFailure(f"beam_topk {name}: tie order {fi[2, :2].tolist()}")
+
+            _topk_stats_case(results, f"beam_topk/{name}", beam_topk_from_logits,
+                             beam_topk_from_logits_plain, x, scores, n, ties)
+            continue
         if dtype is not None:
-            logp = logp.to(dtype)
+            logp = logp.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
             run = lambda: beam_topk(logp, scores, n)  # noqa: E731
             plain = lambda: beam_topk_plain(logp, scores, n)  # noqa: E731
-            cand = logp.float() + scores[:, :, None]
+            cand = (logp.float() + scores[:, :, None]).reshape(b, -1)
             small, ops, x = (scores,), 2, logp
         else:
-            x = (logp.reshape(b * k, v) * 0.25).contiguous()  # raw logits
-            row_max = x.amax(dim=-1, keepdim=True)
-            row_ls = torch.log(torch.exp(x - row_max).sum(dim=-1, keepdim=True))
+            row_max, row_ls = row_stats(x)
             run = lambda: beam_topk_from_logits(x, row_max, row_ls, scores, n)  # noqa: E731
             plain = lambda: beam_topk_from_logits_plain(x, row_max, row_ls, scores, n)  # noqa: E731
-            cand = _candidates(x, row_max, row_ls, scores)
             small, ops = (row_max, row_ls, scores), 4
-        cand = cand.reshape(b, -1)
         (gv, gi), (wv, wi) = run(), plain()
         torch.cuda.synchronize()
         if not torch.equal(gi, wi):
@@ -608,8 +757,20 @@ def check_beam_topk(results, only=None):
                                f"{gi[bad].tolist()} vs {wi[bad].tolist()}")
         if dtype is not None and wi[0, :2].tolist() != [999, 2 * v + 999]:
             raise SmokeFailure(f"beam_topk {name}: tie order {wi[0, :2].tolist()}")
+        _same_bits(f"beam_topk/{name}", run, (gv, gi))
+        ms_planted = time_ms(run)
+        if dtype is not None:
+            logp, scores = _unplanted(logp, scores)
+            logp = logp - 12.0  # log-probs: below 0, as _planted's
+            cand = (logp.float() + scores[:, :, None]).reshape(b, -1)
+            small, x = (scores,), logp
+        else:
+            x, scores = _unplanted(x, scores)
+            row_max, row_ls = row_stats(x)
+            cand = _candidates(x, row_max, row_ls, scores).reshape(b, -1)
+            small = (row_max, row_ls, scores)
         record(results, f"beam_topk/{name}", max_err(gv, wv), 1e-6,
-               library=lambda: torch.topk(cand, n), ms=time_ms(run),
+               library=lambda: torch.topk(cand, n), ms=time_ms(run), ms_planted=ms_planted,
                plain_ms=time_ms(plain, iters=3), **topk_bound(x, small, ops, (gv, gi)))
 
 
@@ -1508,7 +1669,8 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
         # __global__ names (K2, K3, the merged entry)
         "kernel_ms_per_step": {name: sum(v for k, v in per_step.items() if f"{name}_kernel" in k)
                                for name in ("int8_matmul", "int4_matmul", "prompt_attention",
-                                            "gen_attention", "ancestry_attention")},
+                                            "gen_attention", "ancestry_attention",
+                                            "beam_topk_columns", "beam_topk")},
     }
     print(f"  decode {wall_ms:.2f} ms/step ({prof_wall_ms:.2f} profiled), device "
           f"{device_ms:.3f} ms/step, idle share {out['idle_share_unprofiled']:.3f} "
@@ -1567,13 +1729,48 @@ def wrapper_host_us(llama, rounds: int = 5) -> dict:
     return out
 
 
-def profile_main(table, batch) -> dict:
-    """``--profile``: the decode profile of the bf16-, int8- and int4-weight
-    systems (int8 KV, ancestry), one system at a time, and the host time of
-    K7's wrapper on the int8 system's weights."""
+def candidate_stage() -> dict:
+    """The decode step's candidate stage at the serving shape [40, 128256]
+    f32, CUDA-event ms: the row statistics in PyTorch (amax, subtract, exp,
+    sum, log) and K4 given them, as the step ran before K4 took them itself;
+    and K4 taking them itself (None where this tree's K4 takes no None).  It
+    runs on an older tree too, to hold two trees' stages in one call."""
     import torch
 
-    out = {}
+    from multimodalvc_tpu_torch.ops.topk import beam_topk_columns
+
+    g = torch.Generator(device=DEV).manual_seed(14)
+    b, k, v, n = BATCH, BEAMS, 128256, 2 * BEAMS
+    lf = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+    scores = torch.randn(b, k, generator=g, device=DEV)
+
+    def outside():
+        row_max = lf.amax(dim=-1, keepdim=True)
+        row_ls = torch.log(torch.exp(lf - row_max).sum(dim=-1, keepdim=True))
+        return beam_topk_columns(lf, row_max, row_ls, scores, n)
+
+    out = {"stats_outside_ms": time_ms(outside, iters=20), "stats_inside_ms": None}
+    try:
+        beam_topk_columns(lf, None, None, scores, n)
+    except (AttributeError, TypeError):
+        pass
+    else:
+        out["stats_inside_ms"] = time_ms(lambda: beam_topk_columns(lf, None, None, scores, n),
+                                         iters=20)
+    print(f"  candidate stage [40, 128256]: statistics in PyTorch + K4 "
+          f"{out['stats_outside_ms']:.4f} ms, K4 with the statistics inside "
+          f"{out['stats_inside_ms']}")
+    return out
+
+
+def profile_main(table, batch) -> dict:
+    """``--profile``: the decode profile of the bf16-, int8- and int4-weight
+    systems (int8 KV, ancestry), one system at a time, the host time of
+    K7's wrapper on the int8 system's weights, and the candidate stage
+    alone (``candidate_stage``)."""
+    import torch
+
+    out = {"candidate_stage": candidate_stage()}
     for mode in (None, "int8", "int4"):
         system = build_system(mode)
         system.generate(batch, num_beams=BEAMS, max_new_tokens=4, kv_quant="int8")  # warm-up
@@ -1648,7 +1845,149 @@ def plans_main() -> list:
                 raise SmokeFailure(f"--plans {name}: max_err {err:.3e}")
             out.append({"case": name, "ms": ms, "max_abs_err": err,
                         "decode_plan": (cp, cg, splits) == plans[0]})
+    return out + topk_plans()
+
+
+# --plans, the top-k kernel: (entry, batch, V, statistics inside, [(cluster,
+# ring stages or None for the deepest), ...]) at beam 5, n = 10; the first
+# plan of a case is topk_plan's
+TOPK_PLAN_CASES = [
+    ("columns", BATCH, 128256, True, [(8, None), (8, 5), (16, None), (4, None)]),
+    ("columns", 48, 128256, True, [(4, None), (2, None), (8, None), (16, None)]),
+    ("columns", BATCH, 128256, False, [(8, None), (8, 5), (16, None), (4, None)]),
+    ("columns", 48, 128256, False, [(4, None), (2, None), (8, None)]),
+    ("logp", BATCH, 128256, False, [(8, None), (16, None)]),
+]
+
+
+def topk_plans() -> list:
+    """Time K4 (statistics inside or given) and K5 on log-probs under each
+    plan of TOPK_PLAN_CASES (the wrappers' ``topk_plan`` replaced), with how
+    many clusters of it the card holds at once; each result equal to the
+    plain version's (on the kernel's statistics, where it computes them).
+    Fails if the first plan is not topk_plan's."""
+    import ctypes
+
+    import torch
+
+    from multimodalvc_tpu_torch.ops import kernel_lib
+    from multimodalvc_tpu_torch.ops import topk as tk
+
+    g = torch.Generator(device=DEV).manual_seed(13)
+    k, n = BEAMS, 2 * BEAMS
+    lib = kernel_lib.load()
+    out = []
+    for entry, b, v, stats, plans in TOPK_PLAN_CASES:
+        first = tk.plan_for(v, k, n, *plans[0])
+        if tk.topk_plan(b, k, v, n) != first:
+            raise SmokeFailure(f"--plans top-k {entry} b{b}: the first plan {first} is not "
+                               f"topk_plan's {tk.topk_plan(b, k, v, n)}")
+        x = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+        scores = torch.randn(b, k, generator=g, device=DEV)
+        stat_args = tk.row_stats(x) if entry == "columns" and not stats else (None, None)
+        m, ls = torch.empty(b * k, device=DEV), torch.empty(b * k, device=DEV)
+        if entry == "logp":
+            x = x.reshape(b, k, v)
+            fn = lambda: tk.beam_topk(x, scores, n)  # noqa: E731
+            want = tk.beam_topk_plain(x, scores, n)
+        else:
+            fn = lambda: tk.beam_topk_columns(x, *stat_args, scores, n)  # noqa: E731
+            want = tk.beam_topk_columns_plain(x, *stat_args, scores, n)
+        for i, (cluster, stages) in enumerate(plans):
+            plan = tk.plan_for(v, k, n, cluster, stages)
+            clusters = ctypes.c_int(-1)
+            lib.call("mmvc_beam_topk_max_clusters", int(entry == "columns"), b, k, v, n, *plan,
+                     ctypes.addressof(clusters))
+            with mock.patch.object(tk, "topk_plan", lambda *a, plan=plan: plan):
+                if stats:  # the plain version on this plan's statistics
+                    got = tk.beam_topk_columns(x, None, None, scores, n, stats_out=(m, ls))
+                    want = tk.beam_topk_columns_plain(x, m, ls, scores, n)
+                else:
+                    got = fn()
+                ms = time_ms(fn, iters=20)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise SmokeFailure(f"--plans top-k {entry} b{b} {plan}: differs from plain")
+            name = (f"topk_{entry}/b{b}/{'stats_inside' if stats else 'stats_given'}/"
+                    f"cluster{plan.cluster}/cols{plan.cols}/stages{plan.stages}"
+                    f"of{tk.topk_chunks(plan.cols)}/summarized{plan.summary}")
+            print(f"  {name}: ms={ms:.4f} max_active_clusters={clusters.value}"
+                  + (" (topk_plan's)" if i == 0 else ""))
+            out.append({"case": name, "ms": ms, "max_active_clusters": clusters.value,
+                        "topk_plan": i == 0})
     return out
+
+
+# --phases: K4's phase times.  csrc/topk.cu built with MMVC_TOPK_MARKS reads
+# %globaltimer at MARK(0) .. MARK(7) (thread 0 of each block; MARK(7) in the
+# leader only); the times are medians over the blocks since the first block
+# started, each phase ending at the mark of its index + 1.
+PHASE_NAMES = [
+    "phase A: stream, row max and sum",
+    "warp and block combine, cluster exchange",
+    "cluster combine, theta and the filter",
+    "phase B: filter and champions",
+    "warp lists",
+    "block merge, gather, cluster barrier",
+    "leader's merge",
+]
+
+
+def topk_phases() -> list:
+    """``--phases``: build csrc/topk.cu with MMVC_TOPK_MARKS defined (its own
+    library under build/) and time K4 at [40, 128256] with the statistics
+    inside and given, and at [240, 128256] inside, on topk_plan's plans."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from multimodalvc_tpu_torch.ops import kernel_lib
+    from multimodalvc_tpu_torch.ops import topk as tk
+
+    out = REPO / "build" / "topk_phases"
+    out.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kernel_lib.find_nvcc(), *kernel_lib.NVCC_FLAGS, "-DMMVC_TOPK_MARKS",
+                    "-shared", "-o", str(out / "lib.so"), str(kernel_lib.CSRC / "topk.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    entry = lib.mmvc_beam_topk_columns
+    entry.argtypes, entry.restype = kernel_lib.SIGNATURES["mmvc_beam_topk_columns"], ctypes.c_int
+    lib.mmvc_topk_marks.argtypes = [ctypes.c_void_p]
+    g = torch.Generator(device=DEV).manual_seed(21)
+    k, v, n = BEAMS, 128256, 2 * BEAMS
+    rows = []
+    for b, inside in ((BATCH, True), (BATCH, False), (48, True)):
+        x = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+        scores = torch.randn(b, k, generator=g, device=DEV)
+        m, ls = (t.reshape(-1).contiguous() for t in tk.row_stats(x))
+        out_v = torch.empty(b, n, device=DEV)
+        out_f = torch.empty(b, n, dtype=torch.int32, device=DEV)
+        plan = tk.topk_plan(b, k, v, n)
+        args = (x.data_ptr(), None if inside else m.data_ptr(), None if inside else ls.data_ptr(),
+                scores.data_ptr(), None, None, out_v.data_ptr(), out_f.data_ptr(), b, k, v, n,
+                *plan, torch.cuda.current_stream().cuda_stream)
+
+        def call():
+            if entry(*args):
+                raise SmokeFailure("--phases: the marked kernel failed")
+
+        ms = time_ms(call, iters=20)
+        call()
+        torch.cuda.synchronize()
+        marks = (ctypes.c_ulonglong * (2048 * 8))()
+        lib.mmvc_topk_marks(ctypes.addressof(marks))
+        blocks = [[marks[i * 8 + j] for j in range(8)] for i in range(b * plan.cluster)]
+        leaders = blocks[::plan.cluster]
+        t0 = min(t[0] for t in blocks)
+        at = [statistics.median((t[j] - t0) / 1e3 for t in (leaders if j == 7 else blocks))
+              for j in range(8)]
+        phases = {name: at[j + 1] - at[j] for j, name in enumerate(PHASE_NAMES)}
+        phases["launch and drain"] = ms * 1e3 - at[7]
+        name = f"K4/{b * k}x{v}/{'stats_inside' if inside else 'stats_given'}/{tuple(plan)}"
+        print(f"  {name}: {ms * 1e3:.1f} us; " + "; ".join(f"{p} {u:.1f}" for p, u in phases.items()))
+        rows.append({"case": name, "us": ms * 1e3, "phases_us": phases})
+    return rows
 
 
 def main() -> int:
@@ -1682,6 +2021,10 @@ def main() -> int:
         return 0
     if "--plans" in sys.argv[1:]:
         print(json.dumps({"plans": plans_main()}))
+        print(card)
+        return 0
+    if "--phases" in sys.argv[1:]:
+        print(json.dumps({"phases": topk_phases()}))
         print(card)
         return 0
 

@@ -1,5 +1,5 @@
 // K4 · beam_topk_columns and K5 · beam_topk / beam_topk_from_logits: the beam
-// search's top-2K candidates, exact in values and indices.
+// search's top-2K candidates, exact in values and indices, in one launch.
 //
 // Replaces two Pallas kernels of multimodalvc_tpu/ops/topk.py, each together
 // with the gather + (value desc, flat asc) merge its caller runs:
@@ -7,223 +7,859 @@
 //      :189): raw f32 unembed logits with row max m and logsumexp ls, V % 8 == 0;
 //   K5 _run_and_merge (pallas_call at :125, body _block_topk_kernel :58),
 //      entries beam_topk (:303: f32 or bf16 log-probs, m = ls = 0) and
-//      beam_topk_from_logits (:157: as K4, any V).
+//      beam_topk_from_logits (:157: as K4, any V);
+// and, where the caller gives no m and ls, the row statistics the JAX step
+// computes outside its kernel (multimodalvc_tpu/ops/beam_search.py:234-241).
 // The V -> 8 sublane fold of K4 and the column blocks of K5 are TPU tiling;
-// both compute one function, which one kernel family computes here for any V,
-// templated on the input element type.  Per batch element:
+// both compute one function, which one kernel template computes here for any
+// V.  Per batch element:
 //   x[r, c] = max(((logit[r, c] - m[r]) - ls[r]) + s[r], -2.9e38)   (f32)
-// in exactly that order (XLA's and PyTorch's log_softmax order), with a null
-// m / ls pointer meaning 0.0f, so that ((x - 0) - 0) + s is bit-identical to
-// logp + score, the contract of beam_topk; each
-// column's champion is its best row, lowest row on ties; the top-n champion
-// columns are taken by (value desc, flat index asc); the K rows of those n
-// columns are the provable superset of the true top-n, which is then picked
-// by (value desc, flat index asc) with flat = r*V + c.  The result equals a
-// stable descending sort of x over the flat K*V candidates, first n.
-//
-// Design for Hopper.  The TPU version folds V into 8 sublanes and runs the n
-// extraction passes over one VMEM-resident [8, V/8] champion array.  Here:
-// pass 1, one block of 256 threads per (2048-column chunk, batch element)
-// reads the K rows of its chunk once (coalesced), forms the column champions
-// in registers and extracts the chunk's top-n champions with n block-wide
-// arg-best rounds; pass 2, one block per batch element merges the
-// chunks*n candidates, gathers the K*n values of the winning columns and
-// extracts the final top-n.  No fast-math: the values are bit-identical to
-// the plain PyTorch version.
+// in exactly that order (XLA's and PyTorch's log_softmax order), with m = ls
+// = 0 for log-probs, so that ((x - 0) - 0) + s is bit-identical to logp + s;
+// the first n of a stable descending sort of x over the flat K*V candidates,
+// flat = r*V + c.  Without given statistics, m[r] is the exact row max and
+// ls[r] = log(sum(exp(x - m))) in f32 with accurate expf/logf (no fast math).
 //
 // What bounds it on the H100: one read of the [B*K, V] input against 3.35
-// TB/s: 123 MB, ~37 us, at [240, 128256] f32 (K4, and K5 from logits);
-// 10.3 MB, ~3.1 us, at K5's [4, 5, 128256] f32 selftest shape (half of that
-// in bf16).  The n block-wide reductions of pass 1 add latency per block,
-// which the 63 x B blocks hide only partly.
+// TB/s: 20.5 MB, ~6.1 us, at the decode's [40, 128256] f32; 123 MB, ~37 us,
+// at [240, 128256].  What holds it at batch 8: phase A on 64 SMs (~11 us:
+// an accurate expf an element, and the stream), then the combines, the
+// cluster barriers and the merge (~8 us).
+//
+// The design (ops/topk.py: topk_plan chooses the cluster size, the columns a
+// block, the depth of its copy ring and whether the chunks that leave the
+// ring keep their unit maxima, from the shapes alone; the C entries only
+// check that the plan covers V and that its shared memory fits).  The grid
+// is (C, B): the C blocks of one batch element are one thread block cluster,
+// each owning a contiguous range of columns of the element's K rows.  512
+// threads a block, one block an SM.  At batch 8, clusters of 8 (the card
+// runs 15 of them at once, but 7 of 16).
+// - The stream.  A thread owns 16-byte units (4 f32 or 8 bf16 columns) of
+//   the block's range, unit tid + 512 j for j = 0, 1, ...: "chunk j".  It
+//   copies a chunk, all K rows, into its own slots of a shared-memory ring
+//   with cp.async, `stages` chunks ahead (160 KB in flight an SM at batch 8),
+//   and reads back only what it copied itself: the ring needs no barrier.
+//   A chunk that leaves the ring keeps, per row, the max of its unit (the
+//   "unit maxima"), where the plan says so.
+// - Phase A, one pass over the stream: each row's max and (statistics not
+//   given) its online sum of exp(x - max), rescaled without a branch.  Warp,
+//   then block (one warp a row), then cluster: each block pushes its per-row
+//   (max, sum) to every block through distributed shared memory, one cluster
+//   barrier, and every block combines the C parts in block order, so every
+//   block holds the same bits of m and ls.
+// - The filter.  The C*K block row maxima are distinct candidates, so the
+//   n-th largest of their values, theta, bounds the n-th best from below: no
+//   value under theta is among the n.  A row's raw values map under theta
+//   below a per-row threshold (with a margin for the roundings).
+// - Phase B, the selection.  The chunks still in the ring are tested from
+//   their data, the others from their unit maxima (else streamed in again);
+//   only a chunk with a value at its row's threshold computes its columns'
+//   champions: the best row by strict > (the lowest row keeps a tie), in the
+//   contract's op order.  A candidate is one 64-bit key, (order-preserving
+//   bits of the value) << 32 | ~flat, so that the larger key ranks first
+//   under (value desc, flat asc) and an arg-best is a max.  A thread keeps
+//   its best 4 keys at or above theta and the best it dropped; a warp merges
+//   its lanes' lists in rounds of two redux.sync.  If a lane dropped a key
+//   that would have made the warp's n (5 of them among one thread's columns),
+//   the warp recomputes its n exactly.  The block ranks the warps' keys above
+//   the highest warp n-th (a key's rank: the number of larger keys).
+// - Phase C, the merge, in the same launch.  The block sends the K keys of
+//   each of its n columns (from L2) and its n-th key into the cluster
+//   leader's shared memory; one cluster barrier.  The leader ranks the keys
+//   above every block's n-th and theta: the true top n, since a column
+//   holding one of them has a champion among the top n
+//   (multimodalvc_tpu/ops/topk.py:220-225).
+// No global workspace, no counters, no second launch: the grid and the work
+// depend on the shapes alone (the work on the values only through the
+// filter).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+using bf16 = __nv_bfloat16;
+using u64 = unsigned long long;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PER_THREAD = 8;
-constexpr int CHUNK = THREADS * PER_THREAD;  // columns per pass-1 block
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_CLUSTER = 16;  // blocks a cluster; above 8 the non-portable size
+constexpr int MAX_ROWS = 16;     // K
+constexpr int MAX_N = 32;        // n: one list entry a lane
+constexpr int MAX_STAGES = 8;    // ring depth (cp_async_wait takes up to 7 pending)
+constexpr int KT = 4;            // champion keys a thread keeps
+constexpr int TILE_KEYS = 16;    // keys a lane holds in the exact recompute
+constexpr int UNIT = 16;         // bytes a unit
+constexpr int SMEM_MAX = 232448;
 constexpr float kClamp = -2.9e38f;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+struct Args {
+  const void* x;    // [B*K, V] logits (f32) or log-probs (f32, bf16)
+  const float* m;   // [B*K] given row max, or null: computed (STATS) or 0 (log-probs)
+  const float* ls;  // [B*K] given row logsumexp, or null, as m
+  const float* s;   // [B*K] beam scores
+  float* m_out;     // [B*K] or null: the statistics a STATS launch used
+  float* ls_out;
+  float* out_v;     // [B, n]
+  int* out_f;
+  int K, V, n, cols, stages;  // cols: the columns a block owns, a multiple of 8
+  int sum_chunks;  // chunks that leave the ring and keep their unit maxima, or 0
+};
 
-// m and ls may be null: 0.0f
-__device__ __forceinline__ float candidate(float logit, const float* m, const float* ls,
-                                           const float* s, int row) {
-  const float mr = m ? m[row] : 0.0f, lr = ls ? ls[row] : 0.0f;
-  return fmaxf(((logit - mr) - lr) + s[row], kClamp);
+// chip_smoke.py --phases builds this source with MMVC_TOPK_MARKS defined:
+// thread 0 of each block reads %globaltimer at the phase boundaries MARK(0)
+// .. MARK(7) into g_marks, which mmvc_topk_marks copies out.
+#ifdef MMVC_TOPK_MARKS
+constexpr int N_MARKS = 8;
+__device__ unsigned long long g_marks[2048 * N_MARKS];
+#define MARK(i)                                                         \
+  if (threadIdx.x == 0) {                                               \
+    unsigned long long t;                                               \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));               \
+    g_marks[(blockIdx.y * gridDim.x + blockIdx.x) * N_MARKS + (i)] = t; \
+  }
+#else
+#define MARK(i)
+#endif
+
+__host__ __device__ constexpr int align16(int b) { return (b + 15) / 16 * 16; }
+
+// Shared memory of one block (byte offsets), mirrored by ops/topk.py:
+// topk_smem_bytes: per row m, ls, s and the filter's threshold [MAX_ROWS]
+// each, the bound theta [MAX_ROWS] (one used), the values of the blocks'
+// row maxima [MAX_CLUSTER * MAX_ROWS], the block's row statistics (max, sum)
+// [MAX_ROWS], the warps' [WARPS][K] and the cluster's blocks' [C][K]; the
+// warps' lists [WARPS][n] and n-th keys [WARPS]; a merge's candidates
+// [max(WARPS * n, C * n * K)]; the blocks' n-th keys [C] and a merge's output
+// [n], a counter; the K keys of each block's n columns [C][n][K]; the ring
+// [stages][K][THREADS] units and the unit maxima [sum_chunks][K][THREADS].
+struct Smem {
+  int bvals_off, bpart_off, wpart_off, part_off, wlist_off, wth_off, cand_off, bth_off,
+      top_off, counter_off, gather_off, ring_off, sum_off, bytes;
+  __host__ __device__ Smem(int K, int n, int C, int stages, int sum_chunks) {
+    const int merge = WARPS * n > C * n * K ? WARPS * n : C * n * K;
+    bvals_off = 5 * MAX_ROWS * 4;
+    bpart_off = bvals_off + MAX_CLUSTER * MAX_ROWS * 4;
+    wpart_off = bpart_off + MAX_ROWS * 8;
+    part_off = wpart_off + align16(WARPS * K * 8);
+    wlist_off = part_off + align16(C * K * 8);
+    wth_off = wlist_off + align16(WARPS * n * 8);
+    cand_off = wth_off + align16(WARPS * 8);
+    bth_off = cand_off + align16(merge * 8);
+    top_off = bth_off + align16(C * 8);
+    counter_off = top_off + align16(n * 8);
+    gather_off = counter_off + 16;
+    ring_off = gather_off + align16(C * n * K * 8);
+    sum_off = ring_off + stages * K * THREADS * UNIT;
+    bytes = sum_off + sum_chunks * K * THREADS * 4;
+  }
+};
+
+__device__ __forceinline__ float candidate(float x, float m, float ls, float s) {
+  return fmaxf(((x - m) - ls) + s, kClamp);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-column_champions(const T* __restrict__ logits, const float* __restrict__ m,
-                 const float* __restrict__ ls, const float* __restrict__ s,
-                 float* __restrict__ cand_v, int* __restrict__ cand_f, int K, int V, int n,
-                 int nchunks) {
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  const int chunk = blockIdx.x, b = blockIdx.y;
-  float bv[PER_THREAD];
-  int bf[PER_THREAD];
+// order-preserving bits of a float (-0 as +0), and back
+__device__ __forceinline__ unsigned float_ord(float v) {
+  unsigned b = __float_as_uint(v);
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float ord_float(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
+// The candidate's key: the larger key ranks first under (value desc, flat
+// asc); 0 is no candidate.
+__device__ __forceinline__ u64 make_key(float v, int flat) {
+  return (u64(float_ord(v)) << 32) | (0xFFFFFFFFu - unsigned(flat));
+}
+__device__ __forceinline__ float key_value(u64 k) { return ord_float(unsigned(k >> 32)); }
+__device__ __forceinline__ int key_flat(u64 k) { return int(0xFFFFFFFFu - unsigned(k)); }
+__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a > b ? a : b; }
+
+// the warp's largest key, on every lane: two redux.sync
+__device__ __forceinline__ u64 warp_max_key(u64 k) {
+  const unsigned hi = unsigned(k >> 32);
+  const unsigned top = __reduce_max_sync(FULL, hi);
+  const unsigned lo = __reduce_max_sync(FULL, hi == top ? unsigned(k) : 0u);
+  return (u64(top) << 32) | lo;
+}
+
+// The n largest of the warp's keys (L a lane, consumed), largest first: lane
+// j < n returns the j-th (0 where fewer than n keys are nonzero).  n rounds,
+// each a warp max and a knockout on the lane that held the winner.
+template <int L>
+__device__ __forceinline__ u64 warp_top_n(u64 (&keys)[L], int n) {
+  const int lane = threadIdx.x & 31;
+  u64 best = 0, mine = 0;
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int col = chunk * CHUNK + i * THREADS + threadIdx.x;
-    bv[i] = -INFINITY;
-    bf[i] = INT_MAX;
-    if (col < V) {
-      for (int r = 0; r < K; ++r) {
-        const int row = b * K + r;
-        const float x = candidate(to_f32(logits[size_t(row) * V + col]), m, ls, s, row);
-        if (r == 0 || x > bv[i]) {  // strict: the lowest row keeps a tie
-          bv[i] = x;
-          bf[i] = r * V + col;
+  for (int i = 0; i < L; ++i) best = kmax(best, keys[i]);
+  for (int j = 0; j < n; ++j) {
+    const u64 win = warp_max_key(best);
+    if (win == 0) break;  // warp-uniform
+    if (lane == j) mine = win;
+    if (best == win) {  // keys are distinct: one lane
+      best = 0;
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        if (keys[i] == win) keys[i] = 0;
+        best = kmax(best, keys[i]);
+      }
+    }
+  }
+  return mine;
+}
+
+// out[rank] = key for the keys of src[0, count) (distinct) whose rank, the
+// number of larger keys, is below n; every thread of the block takes some.
+__device__ __forceinline__ void rank_into(const u64* src, int count, int n, u64* out) {
+  for (int i = threadIdx.x; i < count; i += THREADS) {
+    const u64 k = src[i];
+    int above = 0;
+#pragma unroll 8
+    for (int j = 0; j < count; ++j) above += src[j] > k;
+    if (above < n) out[above] = k;
+  }
+}
+
+// keep the thread's KT best keys (largest first) and the best it dropped
+__device__ __forceinline__ void offer(u64 (&top)[KT], u64& dropped, u64 k) {
+  if (k > top[KT - 1]) {
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+      const u64 a = top[i];
+      top[i] = a > k ? a : k;
+      k = a > k ? k : a;
+    }
+  }
+  dropped = kmax(dropped, k);
+}
+
+// sum of exp(v[c] - shift), pairwise
+template <int W>
+__device__ __forceinline__ float exp_sum(const float (&v)[W], float shift) {
+  float e[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) e[c] = expf(v[c] - shift);
+#pragma unroll
+  for (int w = W / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int c = 0; c < w; ++c) e[c] += e[c + w];
+  return e[0];
+}
+
+// A row's (max, sum of exp(x - max)) over the parts the warp's lanes hold,
+// on every lane: the max exact, the sum added in a fixed order (the same bits
+// for the same parts in the same lanes).  A part with m = -inf adds nothing.
+__device__ __forceinline__ float2 warp_stats(float m, float s) {
+  const float M = ord_float(__reduce_max_sync(FULL, float_ord(m)));
+  return make_float2(M, mmvc::warp_sum(m == -INFINITY ? 0.0f : s * expf(m - M)));
+}
+
+// W consecutive values as f32 from 16 bytes (shared memory, or aligned global)
+__device__ __forceinline__ void load_unit(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+__device__ __forceinline__ void load_unit(const bf16* p, float (&v)[8]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most `pending` of this thread's commit groups are in flight
+// (more than 7: 7, which waits for more)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+// the cluster's split barrier: arrive (releasing this thread's writes), wait
+// (acquiring the others')
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// T: the input type; STATS: compute m and ls (f32 logits only); COPY: how a
+// unit reaches the ring: 16 (one 16-byte copy: rows 16-byte aligned), 4 (four
+// 4-byte copies, f32), 0 (no ring: loads from global memory, bf16 rows that
+// are not 4-byte aligned); MAXR: rows a batch element, at most (16), or
+// exactly (5: beam 5, every row loop unrolled without a test).
+template <typename T, bool STATS, int COPY, int MAXR>
+__device__ __forceinline__ void beam_topk(const Args& p) {
+  constexpr int W = UNIT / int(sizeof(T));  // columns a unit
+  constexpr bool EXACT = MAXR == 5;
+  static_assert(!STATS || (COPY && sizeof(T) == 4), "statistics from f32 logits, by the ring");
+  static_assert(COPY != 4 || sizeof(T) == 4, "4-byte copies of f32 only");
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, rank = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int K = EXACT ? MAXR : p.K, V = p.V, n = p.n;
+  const Smem L(K, n, C, COPY ? p.stages : 0, p.sum_chunks);
+  float* st_m = reinterpret_cast<float*>(smem);
+  float* st_ls = st_m + MAX_ROWS;
+  float* st_s = st_ls + MAX_ROWS;
+  float* st_t = st_s + MAX_ROWS;  // the filter: a row's values below it are not among the n
+  float* st_theta = st_t + MAX_ROWS;  // [0]: no value below it is among the n
+  float* bvals = reinterpret_cast<float*>(smem + L.bvals_off);
+  float2* bpart = reinterpret_cast<float2*>(smem + L.bpart_off);
+  float2* wpart = reinterpret_cast<float2*>(smem + L.wpart_off);
+  float2* part = reinterpret_cast<float2*>(smem + L.part_off);
+  u64* wlist = reinterpret_cast<u64*>(smem + L.wlist_off);
+  u64* wth = reinterpret_cast<u64*>(smem + L.wth_off);
+  u64* cand = reinterpret_cast<u64*>(smem + L.cand_off);
+  u64* bth = reinterpret_cast<u64*>(smem + L.bth_off);
+  u64* topbuf = reinterpret_cast<u64*>(smem + L.top_off);
+  int* counter = reinterpret_cast<int*>(smem + L.counter_off);
+  u64* gather = reinterpret_cast<u64*>(smem + L.gather_off);
+  unsigned char* ring = smem + L.ring_off;
+  float* summ = reinterpret_cast<float*>(smem + L.sum_off);
+  const int c0 = rank * p.cols, ncols = min(p.cols, V - c0);
+  const int units = (ncols + W - 1) / W, J = (units + THREADS - 1) / THREADS;
+  const int S = COPY ? min(p.stages, J) : 1;  // ring slots in use
+  // the chunks that leave the ring keep their unit maxima, or are streamed again
+  const bool summarized = COPY && p.sum_chunks >= J - S;
+  const T* x = static_cast<const T*>(p.x) + size_t(b) * K * V + c0;  // row r at x + r*V
+
+  cluster_arrive_relaxed();  // every block has started before any writes to another's memory
+  MARK(0);
+
+  // chunk j of this thread: unit j*THREADS + tid, `valid` of its W columns
+  auto valid_of = [&](int j) {
+    const int u = j * THREADS + tid;
+    return j < J && u < units ? min(W, ncols - u * W) : 0;
+  };
+  // one commit group: chunk j, all K rows, into ring slot `slot`
+  auto issue = [&](int j, int slot) {
+    if constexpr (COPY != 0) {
+      const int valid = valid_of(j), u = j * THREADS + tid;
+      for (int r = 0; valid > 0 && r < K; ++r) {
+        unsigned char* dst = ring + ((slot * K + r) * THREADS + tid) * UNIT;
+        const T* src = x + size_t(r) * V + u * W;
+        if constexpr (COPY == 16) {
+          cp_async<16>(dst, src);
+        } else {
+          for (int c = 0; c < valid; ++c) cp_async<4>(dst + 4 * c, src + c);
+        }
+      }
+      cp_async_commit();
+    }
+  };
+  // row r of chunk j: from its ring slot, or (slot < 0) from global memory;
+  // columns past `valid` are -inf
+  auto load = [&](int j, int slot, int r, int valid, float (&v)[W]) {
+    if (COPY != 0 && slot >= 0) {
+      load_unit(reinterpret_cast<const T*>(ring + ((slot * K + r) * THREADS + tid) * UNIT), v);
+    } else {
+      const T* src = x + size_t(r) * V + (j * THREADS + tid) * W;
+      if constexpr (COPY == 16) {
+        load_unit(src, v);
+      } else {
+#pragma unroll
+        for (int c = 0; c < W; ++c) v[c] = c < valid ? to_f32(src[c]) : 0.0f;
+      }
+    }
+    if (valid < W) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) v[c] = c < valid ? v[c] : -INFINITY;
+    }
+  };
+  // the champion keys of chunk j's columns at or above theta, to `take(column, key)`
+  auto champions = [&](int j, int slot, int valid, auto&& take) {
+    float bv[W];
+    int br[W];
+    for (int r = 0; r < K; ++r) {
+      const float mr = st_m[r], lr = st_ls[r], sr = st_s[r];
+      float v[W];
+      load(j, slot, r, valid, v);
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        const float cv = candidate(v[c], mr, lr, sr);
+        if (r == 0 || cv > bv[c]) {  // strict: the lowest row keeps a tie
+          bv[c] = cv;
+          br[c] = r;
         }
       }
     }
-  }
-  const size_t out0 = (size_t(b) * nchunks + chunk) * n;
-  for (int j = 0; j < n; ++j) {
-    float v = -INFINITY;
-    int f = INT_MAX;
+    const int col = c0 + (j * THREADS + tid) * W;
+    const float theta = st_theta[0];
 #pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i)
-      if (mmvc::ranks_before(bv[i], bf[i], v, f)) {
-        v = bv[i];
-        f = bf[i];
+    for (int c = 0; c < W; ++c)
+      if (c < valid && bv[c] >= theta) take(c, make_key(bv[c], br[c] * V + col + c));
+  };
+
+  // ---- phase A: each row's max and (STATS) sum of exp(x - max) ----------------
+  {
+    float m[MAXR], s[MAXR];
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) m[r] = -INFINITY, s[r] = 0.0f;
+    for (int q = 0; q < S; ++q) issue(q, q);
+    for (int j = 0, slot = 0; j < J; ++j) {
+      if (COPY) cp_async_wait(S - 1);  // chunk j has landed
+      const int valid = valid_of(j);
+      if (valid > 0) {
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r) {
+          if (EXACT || r < K) {
+            float v[W];
+            load(j, slot, r, valid, v);
+            float top = v[0];
+#pragma unroll
+            for (int c = 1; c < W; ++c) top = fmaxf(top, v[c]);
+            if (summarized && j < J - S) summ[(j * K + r) * THREADS + tid] = top;
+            const float mx = fmaxf(m[r], top);
+            if constexpr (STATS) {
+              // rescale to the new max (by exp(0) = 1 where it did not move):
+              // no branch
+              s[r] = m[r] == -INFINITY ? 0.0f : s[r] * expf(m[r] - mx);
+              s[r] += exp_sum(v, mx == -INFINITY ? 0.0f : mx);
+            }
+            m[r] = mx;
+          }
+        }
       }
-    mmvc::block_best(v, f, sv, si);
-    if (threadIdx.x == 0) {
-      cand_v[out0 + j] = v;
-      cand_f[out0 + j] = f;
+      if (j + S < J)
+        issue(j + S, slot);  // into the slot just read
+      else if (COPY)
+        cp_async_commit();
+      slot = slot + 1 == S ? 0 : slot + 1;
     }
+    MARK(1);
+    // the warp's statistics a row
 #pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i)
-      if (bf[i] == f) {  // whole-column knockout
-        bv[i] = -INFINITY;
-        bf[i] = INT_MAX;
+    for (int r = 0; r < MAXR; ++r) {
+      if (EXACT || r < K) {
+        const float2 w = warp_stats(m[r], s[r]);
+        if (lane == 0) wpart[warp * K + r] = w;
       }
+    }
+  }
+  __syncthreads();
+  if (warp < K) {  // the block's, over its warps (warp r: row r, lane w: warp w's)
+    const float2 w = lane < WARPS ? wpart[lane * K + warp] : make_float2(-INFINITY, 0.0f);
+    const float2 t = warp_stats(w.x, w.y);
+    if (lane == 0) bpart[warp] = t;
+  }
+  __syncthreads();
+  cluster_wait();
+  if (warp == 0)
+    for (int i = lane; i < C * K; i += 32)
+      cluster.map_shared_rank(part, i / K)[rank * K + i % K] = bpart[i % K];
+  cluster_arrive();
+  cluster_wait();  // every block's statistics have arrived
+  MARK(2);
+  if (warp < K) {  // the cluster's, over its blocks in block order: every block the same bits
+    const int r = warp;
+    const float2 c = lane < C ? part[lane * K + r] : make_float2(-INFINITY, 0.0f);
+    const float2 w = warp_stats(c.x, c.y);
+    if (lane == 0) {
+      const float m = STATS ? w.x : (p.m ? p.m[b * K + r] : 0.0f);
+      const float ls = STATS ? logf(w.y) : (p.ls ? p.ls[b * K + r] : 0.0f);
+      st_m[r] = m;
+      st_ls[r] = ls;
+      st_s[r] = p.s[b * K + r];
+      if (STATS && rank == 0 && p.m_out) {
+        p.m_out[b * K + r] = m;
+        p.ls_out[b * K + r] = ls;
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // Each block's row maxima are C*K distinct candidates, so no value below
+    // the n-th largest of theirs, theta, is among the n.  A row value x maps
+    // below theta where x < theta - s + ls + m by more than the three
+    // roundings of ((x - m) - ls) + s and those of the bound itself: a
+    // margin of 2^-18 of the magnitudes.
+    const int nb = C * K;
+    for (int i = lane; i < nb; i += 32) {
+      const int r = i % K;
+      bvals[i] = part[i].x == -INFINITY ? -INFINITY
+                                        : candidate(part[i].x, st_m[r], st_ls[r], st_s[r]);
+    }
+    __syncwarp();
+    float least = INFINITY;  // the least value with fewer than n larger ones
+    for (int i = lane; i < nb; i += 32) {
+      const float v = bvals[i];
+      int above = 0;
+#pragma unroll 8
+      for (int k = 0; k < nb; ++k) above += bvals[k] > v;
+      if (above < n) least = fminf(least, v);
+    }
+    const float theta = ord_float(__reduce_min_sync(FULL, float_ord(least)));
+    const bool on = nb >= n && theta > kClamp && theta < INFINITY;
+    if (lane < K) {
+      const float m = st_m[lane], ls = st_ls[lane], sr = st_s[lane];
+      const float margin = 0x1p-18f * (fabsf(theta) + fabsf(m) + fabsf(ls) + fabsf(sr));
+      st_t[lane] = on ? ((theta - sr) + ls) + m - margin : -INFINITY;
+    }
+    if (lane == 0) st_theta[0] = on ? theta : -INFINITY;
+  }
+  __syncthreads();
+  MARK(3);
+
+  // ---- phase B: the block's top n champion columns ----------------------------
+  // The chunks still in the ring first, then the others: from their unit
+  // maxima (summarized) or streamed in again.  Sequence q: chunk (q < P ?
+  // J - P + q : q - P), its ring slot (J - P + q) % S; a chunk whose values
+  // all fall below their row's filter holds none of the n.
+  const int P = COPY ? S : 0;
+  u64 top[KT] = {};
+  u64 dropped = 0;
+  auto keep = [&](int, u64 k) { offer(top, dropped, k); };
+  for (int q = 0, slot = (J - P) % S; q < J; ++q) {
+    const bool staged = q < P;
+    const int j = staged ? J - P + q : q - P, valid = valid_of(j);
+    if (COPY && !staged && !summarized) cp_async_wait(S - 1);
+    if (valid > 0) {
+      bool pass = false;
+      if (!staged && summarized) {
+        for (int r = 0; r < K; ++r) pass |= summ[(j * K + r) * THREADS + tid] >= st_t[r];
+        if (pass) champions(j, -1, valid, keep);
+      } else {
+        for (int r = 0; r < K; ++r) {
+          float v[W];
+          load(j, slot, r, valid, v);
+          const float t = st_t[r];
+#pragma unroll
+          for (int c = 0; c < W; ++c) pass |= v[c] >= t;
+        }
+        if (pass) champions(j, slot, valid, keep);
+      }
+    }
+    if (!summarized) {
+      if (q + S < J)
+        issue(q + S - P, slot);  // sequence q + S >= P
+      else if (COPY)
+        cp_async_commit();
+    }
+    slot = slot + 1 == S ? 0 : slot + 1;
+  }
+  MARK(4);
+  // the warp's n best of its lanes' lists
+  u64 list = 0;
+  for (int j = 0; j < n; ++j) {
+    const u64 win = warp_max_key(top[0]);
+    if (win == 0) break;  // warp-uniform
+    if (lane == j) list = win;
+    if (top[0] == win) {
+#pragma unroll
+      for (int i = 0; i + 1 < KT; ++i) top[i] = top[i + 1];
+      top[KT - 1] = 0;
+    }
+  }
+  u64 nth = __shfl_sync(FULL, list, n - 1);
+  if (__any_sync(FULL, dropped > nth)) {
+    // A lane dropped a key that belongs among the warp's n: recompute them
+    // exactly over the chunks that pass the filter, in tiles of TILE_KEYS
+    // keys a lane, the staged chunks from the ring, the others from global
+    // memory.
+    constexpr int CPT = TILE_KEYS / W;  // chunks a tile
+    list = 0;
+    for (int q0 = 0; q0 < J; q0 += CPT) {
+      u64 keys[TILE_KEYS + 1];
+#pragma unroll
+      for (int i = 0; i < TILE_KEYS; ++i) keys[i] = 0;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        const int q = q0 + i, staged = q < P && summarized;
+        const int j = q < P ? J - P + q : q - P, valid = q < J ? valid_of(j) : 0;
+        if (valid == 0) continue;
+        bool pass = false;
+        if (summarized && !staged) {
+          for (int r = 0; r < K; ++r) pass |= summ[(j * K + r) * THREADS + tid] >= st_t[r];
+        } else {
+          for (int r = 0; r < K; ++r) {
+            float v[W];
+            load(j, staged ? (J - P + q) % S : -1, r, valid, v);
+            const float t = st_t[r];
+#pragma unroll
+            for (int c = 0; c < W; ++c) pass |= v[c] >= t;
+          }
+        }
+        if (pass)
+          champions(j, staged ? (J - P + q) % S : -1, valid,
+                    [&](int c, u64 k) { keys[i * W + c] = k; });
+      }
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < TILE_KEYS; ++i) any |= keys[i] != 0;
+      if (__any_sync(FULL, any)) {
+        keys[TILE_KEYS] = list;
+        list = warp_top_n(keys, n);
+      }
+    }
+    nth = __shfl_sync(FULL, list, n - 1);
+  }
+  MARK(5);
+  if (lane < n) wlist[warp * n + lane] = list;
+  if (lane == 0) wth[warp] = nth;
+  if (tid < n) topbuf[tid] = 0;
+  if (tid == 0) *counter = 0;
+  __syncthreads();
+  // The block's n best: only the warps' keys at or above the highest warp
+  // n-th and theta, gathered by every thread, then ranked (a key's rank is
+  // the number of larger ones).
+  const u64 theta_key = st_theta[0] == -INFINITY ? 0 : u64(float_ord(st_theta[0])) << 32;
+  {
+    u64 floor_key = theta_key;
+    for (int w = 0; w < WARPS; ++w) floor_key = kmax(floor_key, wth[w]);
+    if (tid < WARPS * n && wlist[tid] != 0 && wlist[tid] >= floor_key)
+      cand[atomicAdd(counter, 1)] = wlist[tid];
+    __syncthreads();
+    rank_into(cand, *counter, n, topbuf);
+    __syncthreads();
+  }
+  if (warp == 0) {
+    const u64 col_key = lane < n ? topbuf[lane] : 0;
+    // the K keys of the block's n columns, and its n-th key, sent to the
+    // leader: every load issued before the first store
+    constexpr int G = (MAX_N * MAXR + 31) / 32;
+    const int nk = n * K;
+    u64 keys[G];
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      const int i = lane + 32 * t, j = min(i / K, n - 1), r = i - (i / K) * K;
+      const u64 ck = __shfl_sync(FULL, col_key, j);
+      keys[t] = 0;
+      if (i < nk && ck) {
+        const int col = key_flat(ck) % V - c0;
+        keys[t] = make_key(candidate(to_f32(x[size_t(r) * V + col]), st_m[r], st_ls[r], st_s[r]),
+                           r * V + c0 + col);
+      }
+    }
+    u64* dst = cluster.map_shared_rank(gather, 0) + rank * nk;
+#pragma unroll
+    for (int t = 0; t < G; ++t)
+      if (lane + 32 * t < nk) dst[lane + 32 * t] = keys[t];
+    const u64 block_nth = __shfl_sync(FULL, col_key, n - 1);
+    if (lane == 0) cluster.map_shared_rank(bth, 0)[rank] = block_nth;
+  }
+  if (tid == 0) *counter = 0;
+  cluster_arrive();
+  cluster_wait();  // every block's columns have arrived; no one writes to another block again
+  MARK(6);
+  if (rank != 0) return;
+
+  // ---- phase C (the leader): the top n ---------------------------------------
+  // Each block's n-th key and theta bound the cluster's n-th from below, so
+  // only keys at or above the highest of them are candidates; every one of
+  // the n is in some block's n columns.  Every thread gathers, then ranks.
+  u64 floor_key = theta_key;
+  for (int c = 0; c < C; ++c) floor_key = kmax(floor_key, bth[c]);
+  for (int i = tid; i < C * n * K; i += THREADS)
+    if (gather[i] != 0 && gather[i] >= floor_key) cand[atomicAdd(counter, 1)] = gather[i];
+  __syncthreads();
+  const int count = *counter;
+  for (int i = tid; i < count; i += THREADS) {
+    const u64 k = cand[i];
+    int above = 0;
+#pragma unroll 8
+    for (int j = 0; j < count; ++j) above += cand[j] > k;
+    if (above < n) {
+      p.out_v[b * n + above] = key_value(k);
+      p.out_f[b * n + above] = key_flat(k);
+    }
+  }
+  MARK(7);
+  if (tid >= count && tid < n) {  // fewer than n candidates
+    p.out_v[b * n + tid] = -INFINITY;
+    p.out_f[b * n + tid] = INT_MAX;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-merge_champions(const T* __restrict__ logits, const float* __restrict__ m,
-                const float* __restrict__ ls, const float* __restrict__ s,
-                const float* __restrict__ cand_v, const int* __restrict__ cand_f,
-                float* __restrict__ out_v, int* __restrict__ out_f, int K, int V, int n,
-                int nchunks) {
-  extern __shared__ float smem[];
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  const int b = blockIdx.x, total = nchunks * n, kn = K * n;
-  float* pv = smem;                                        // [total]
-  int* pf = reinterpret_cast<int*>(pv + total);            // [total]
-  int* cols = pf + total;                                  // [n]
-  float* gv = reinterpret_cast<float*>(cols + n);          // [K*n]
-  int* gf = reinterpret_cast<int*>(gv + kn);               // [K*n]
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    pv[i] = cand_v[size_t(b) * total + i];
-    pf[i] = cand_f[size_t(b) * total + i];
-  }
-  __syncthreads();
-
-  // global top-n champion columns; each thread only touches its own slots
-  for (int j = 0; j < n; ++j) {
-    float v = -INFINITY;
-    int f = INT_MAX;
-    for (int i = threadIdx.x; i < total; i += THREADS)
-      if (mmvc::ranks_before(pv[i], pf[i], v, f)) {
-        v = pv[i];
-        f = pf[i];
-      }
-    mmvc::block_best(v, f, sv, si);
-    if (threadIdx.x == 0) cols[j] = f == INT_MAX ? 0 : f % V;
-    for (int i = threadIdx.x; i < total; i += THREADS)
-      if (pf[i] == f) {
-        pv[i] = -INFINITY;
-        pf[i] = INT_MAX;
-      }
-  }
-  __syncthreads();
-
-  // every beam row of the champion columns, values recomputed in the same order
-  for (int t = threadIdx.x; t < kn; t += THREADS) {
-    const int r = t / n, col = cols[t % n], row = b * K + r;
-    gv[t] = candidate(to_f32(logits[size_t(row) * V + col]), m, ls, s, row);
-    gf[t] = r * V + col;
-  }
-  __syncthreads();
-
-  for (int j = 0; j < n; ++j) {
-    float v = -INFINITY;
-    int f = INT_MAX;
-    for (int i = threadIdx.x; i < kn; i += THREADS)
-      if (mmvc::ranks_before(gv[i], gf[i], v, f)) {
-        v = gv[i];
-        f = gf[i];
-      }
-    mmvc::block_best(v, f, sv, si);
-    if (threadIdx.x == 0) {
-      out_v[size_t(b) * n + j] = v;
-      out_f[size_t(b) * n + j] = f;
-    }
-    for (int i = threadIdx.x; i < kn; i += THREADS)
-      if (gf[i] == f) {
-        gv[i] = -INFINITY;
-        gf[i] = INT_MAX;
-      }
-  }
+// one __global__ name a TPU kernel, so that a profile tells them apart: K4 and
+// K5 from logits, then K5 from log-probs
+template <bool STATS, int COPY, int MAXR>
+__global__ void __launch_bounds__(THREADS, 1) beam_topk_columns_kernel(Args p) {
+  beam_topk<float, STATS, COPY, MAXR>(p);
 }
 
-template <typename T>
-int launch(const void* logits, const void* m, const void* ls, const void* s, void* cand_v,
-           void* cand_f, void* out_v, void* out_f, int B, int K, int V, int n, void* stream) {
-  if (B <= 0 || K <= 0 || V <= 0 || n <= 0 || n > K * V || B > 65535 ||
-      (long long)K * V >= INT_MAX)
-    return cudaErrorInvalidValue;
-  const int nchunks = (V + CHUNK - 1) / CHUNK;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* lg = static_cast<const T*>(logits);
-  const float* mm = static_cast<const float*>(m);
-  const float* ll = static_cast<const float*>(ls);
-  const float* ss = static_cast<const float*>(s);
-  column_champions<T><<<dim3(nchunks, B), THREADS, 0, st>>>(
-      lg, mm, ll, ss, static_cast<float*>(cand_v), static_cast<int*>(cand_f), K, V, n, nchunks);
-  cudaError_t e = cudaGetLastError();
+template <typename T, int COPY, int MAXR>
+__global__ void __launch_bounds__(THREADS, 1) beam_topk_kernel(Args p) {
+  beam_topk<T, false, COPY, MAXR>(p);
+}
+
+// The shapes and the plan the kernel takes: 1..16 rows a batch element, n <=
+// 32 and <= K*V, K*V < 2^31; `cluster` blocks of `cols` columns (a multiple
+// of 8) that cover V, each with at least one; a ring of 1..8 stages; the unit
+// maxima of none or of all the chunks that leave the ring (`itemsize` bytes a
+// column); the block's shared memory within 227 KB.
+bool plan_ok(int B, int K, int V, int n, int cluster, int cols, int stages, int sum_chunks,
+             int itemsize) {
+  const int chunks = ((cols * itemsize + UNIT - 1) / UNIT + THREADS - 1) / THREADS;
+  return B > 0 && B <= 65535 && K > 0 && K <= MAX_ROWS && V > 0 && n > 0 && n <= MAX_N &&
+         n <= (long long)K * V && (long long)K * V < INT_MAX && cluster >= 1 &&
+         cluster <= MAX_CLUSTER && cols > 0 && cols % 8 == 0 &&
+         (long long)(cluster - 1) * cols < V && (long long)cluster * cols >= V && stages >= 1 &&
+         stages <= MAX_STAGES && (sum_chunks == 0 || sum_chunks == chunks - stages) &&
+         Smem(K, n, cluster, stages, sum_chunks).bytes <= SMEM_MAX;
+}
+
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, int bytes, int cluster) {
+  cudaError_t e = cudaSuccess;
+  if (bytes > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+cudaLaunchConfig_t launch_config(int B, int cluster, int bytes, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const Args& p, int B, int cluster, bool ring, void* stream) {
+  const int bytes = Smem(p.K, p.n, cluster, ring ? p.stages : 0, p.sum_chunks).bytes;
+  cudaError_t e = configure(kernel, bytes, cluster);
   if (e != cudaSuccess) return e;
-  const size_t bytes = size_t(nchunks) * n * 8 + size_t(n) * 4 + size_t(K) * n * 8;
-  if (bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(merge_champions<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(bytes));
-    if (e != cudaSuccess) return e;
-  }
-  merge_champions<T><<<B, THREADS, bytes, st>>>(
-      lg, mm, ll, ss, static_cast<const float*>(cand_v), static_cast<const int*>(cand_f),
-      static_cast<float*>(out_v), static_cast<int*>(out_f), K, V, n, nchunks);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(B, cluster, bytes, static_cast<cudaStream_t>(stream), attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
+
+// The kernel for exactly 5 rows a batch element with 16-byte rows (beam 5,
+// the beam search's default: 5.1 us faster at [40, 128256] than an instance
+// for up to 8 rows, PERF.md), else the kernel for up to 16 rows.
+template <bool STATS, int COPY>
+int launch_columns(const Args& p, int B, int cluster, void* stream) {
+  if constexpr (COPY == 16)
+    if (p.K == 5)
+      return launch(beam_topk_columns_kernel<STATS, COPY, 5>, p, B, cluster, true, stream);
+  return launch(beam_topk_columns_kernel<STATS, COPY, 16>, p, B, cluster, true, stream);
+}
+
+template <typename T, int COPY>
+int launch_logp(const Args& p, int B, int cluster, void* stream) {
+  if constexpr (COPY == 16)
+    if (p.K == 5) return launch(beam_topk_kernel<T, COPY, 5>, p, B, cluster, true, stream);
+  return launch(beam_topk_kernel<T, COPY, 16>, p, B, cluster, COPY != 0, stream);
+}
+
+bool aligned(const void* p, int bytes) { return (reinterpret_cast<uintptr_t>(p) % bytes) == 0; }
 
 }  // namespace
 
-// Columns per pass-1 chunk: the wrappers size their [B, chunks, n] scratch by it.
-extern "C" int mmvc_beam_topk_chunk_columns() { return CHUNK; }
-
-// K4, and K5 from logits: f32 logits [B*K, V] with f32 row statistics m, ls [B*K].
+// K4, and K5 from logits: f32 logits [B*K, V], scores [B*K].  Given row
+// statistics m, ls [B*K] (both, or neither: the kernel computes them, and
+// writes them to m_out, ls_out where those are not null).  Out: values f32
+// and flat indices int32 [B, n].  The plan: `cluster` blocks of `cols`
+// columns a batch element, a copy ring of `stages` chunks, the unit maxima
+// of `sum_chunks` chunks.
 extern "C" int mmvc_beam_topk_columns(const void* logits, const void* m, const void* ls,
-                                      const void* s, void* cand_v, void* cand_f, void* out_v,
-                                      void* out_f, int B, int K, int V, int n, void* stream) {
-  if (m == nullptr || ls == nullptr) return cudaErrorInvalidValue;
-  return launch<float>(logits, m, ls, s, cand_v, cand_f, out_v, out_f, B, K, V, n, stream);
+                                      const void* s, void* m_out, void* ls_out, void* out_v,
+                                      void* out_f, int B, int K, int V, int n, int cluster,
+                                      int cols, int stages, int sum_chunks, void* stream) {
+  const bool stats = m == nullptr;
+  if ((ls == nullptr) != stats || (m_out == nullptr) != (ls_out == nullptr) ||
+      !aligned(logits, 4) || !plan_ok(B, K, V, n, cluster, cols, stages, sum_chunks, 4))
+    return cudaErrorInvalidValue;
+  const Args p{logits, static_cast<const float*>(m), static_cast<const float*>(ls),
+               static_cast<const float*>(s), static_cast<float*>(m_out),
+               static_cast<float*>(ls_out), static_cast<float*>(out_v), static_cast<int*>(out_f),
+               K, V, n, cols, stages, sum_chunks};
+  const bool vec = V % 4 == 0 && aligned(logits, 16);
+  if (stats)
+    return vec ? launch_columns<true, 16>(p, B, cluster, stream)
+               : launch_columns<true, 4>(p, B, cluster, stream);
+  return vec ? launch_columns<false, 16>(p, B, cluster, stream)
+             : launch_columns<false, 4>(p, B, cluster, stream);
 }
 
-// K5 beam_topk: log-probs [B, K, V], f32 (bf16 == 0) or bf16 (bf16 == 1); m = ls = 0.
-extern "C" int mmvc_beam_topk(const void* logp, int bf16, const void* s, void* cand_v,
-                              void* cand_f, void* out_v, void* out_f, int B, int K, int V, int n,
-                              void* stream) {
-  if (bf16)
-    return launch<__nv_bfloat16>(logp, nullptr, nullptr, s, cand_v, cand_f, out_v, out_f, B, K,
-                                 V, n, stream);
-  return launch<float>(logp, nullptr, nullptr, s, cand_v, cand_f, out_v, out_f, B, K, V, n,
-                       stream);
+// K5 beam_topk: log-probs [B, K, V], f32 (bf16 == 0) or bf16 (bf16 == 1); m =
+// ls = 0.  The plan as above (bf16 rows that are not 16-byte aligned take no
+// ring).
+extern "C" int mmvc_beam_topk(const void* logp, int bf16_in, const void* s, void* out_v,
+                              void* out_f, int B, int K, int V, int n, int cluster, int cols,
+                              int stages, int sum_chunks, void* stream) {
+  if (!plan_ok(B, K, V, n, cluster, cols, stages, sum_chunks, bf16_in ? 2 : 4) ||
+      !aligned(logp, bf16_in ? 2 : 4))
+    return cudaErrorInvalidValue;
+  const bool ring = !bf16_in || (V % 8 == 0 && aligned(logp, 16));
+  const Args p{logp, nullptr, nullptr, static_cast<const float*>(s), nullptr, nullptr,
+               static_cast<float*>(out_v), static_cast<int*>(out_f), K, V, n, cols, stages,
+               ring ? sum_chunks : 0};
+  if (bf16_in)
+    return ring ? launch_logp<bf16, 16>(p, B, cluster, stream)
+                : launch_logp<bf16, 0>(p, B, cluster, stream);
+  return V % 4 == 0 && aligned(logp, 16) ? launch_logp<float, 16>(p, B, cluster, stream)
+                                         : launch_logp<float, 4>(p, B, cluster, stream);
 }
+
+// How many clusters of the plan the card runs at once
+// (cudaOccupancyMaxActiveClusters) for the from-logits kernel (stats = 1:
+// computing its statistics) or the f32 log-probs kernel (stats = 0), rows
+// 16-byte aligned.  Written to *out; returns the CUDA error.
+extern "C" int mmvc_beam_topk_max_clusters(int stats, int B, int K, int V, int n, int cluster,
+                                           int cols, int stages, int sum_chunks, int* out) {
+  if (!plan_ok(B, K, V, n, cluster, cols, stages, sum_chunks, 4)) return cudaErrorInvalidValue;
+  const int bytes = Smem(K, n, cluster, stages, sum_chunks).bytes;
+  auto kernel = stats ? (K == 5 ? beam_topk_columns_kernel<true, 16, 5>
+                                : beam_topk_columns_kernel<true, 16, 16>)
+                      : (K == 5 ? beam_topk_kernel<float, 16, 5> : beam_topk_kernel<float, 16, 16>);
+  cudaError_t e = configure(kernel, bytes, cluster);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(B, cluster, bytes, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+#ifdef MMVC_TOPK_MARKS
+extern "C" int mmvc_topk_marks(void* dst) {
+  return cudaMemcpyFromSymbol(dst, g_marks, sizeof(g_marks));
+}
+#endif

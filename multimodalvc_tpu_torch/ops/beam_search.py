@@ -7,7 +7,9 @@ n-gram blocking), ``greedy_search``, ``sample_search``,
 from the device per step.  The dispatch of the candidate top-2K follows the
 JAX package, with a CUDA tensor as "on the accelerator": without n-gram
 blocking the fused kernel on the raw logits (K4 ``beam_topk_columns`` when
-V % 8 == 0, else K5 ``beam_topk_from_logits``), with it ``log_softmax``, the
+V % 8 == 0, else K5 ``beam_topk_from_logits``), which also takes each row's
+max and logsumexp (the JAX step computes them outside its kernel, where XLA
+fuses them; eager PyTorch would not); with it ``log_softmax``, the
 n-gram mask and K5 ``beam_topk``; on the CPU ``log_softmax`` and a flat
 top-k.  Every top-k keeps ``lax.top_k``'s tie order (lowest index first),
 every argsort is stable as ``jnp.argsort``.
@@ -161,10 +163,9 @@ def beam_search(
         # 2K candidates so EOS picks never starve the live set (HF-style)
         lf = logits.float()
         if _on_accelerator(lf) and not no_repeat_ngram_size:
-            row_max = lf.amax(dim=-1, keepdim=True)
-            row_ls = torch.log(torch.exp(lf - row_max).sum(dim=-1, keepdim=True))
+            # the kernel takes each row's max and logsumexp itself
             fused = beam_topk_columns if vocab % 8 == 0 else beam_topk_from_logits
-            top2k_scores, top2k_idx = fused(lf, row_max, row_ls, live_scores, 2 * k)
+            top2k_scores, top2k_idx = fused(lf, None, None, live_scores, 2 * k)
         else:
             logp = log_softmax(lf).reshape(b, k, vocab)
             if no_repeat_ngram_size > 0:

@@ -52,9 +52,10 @@ SIGNATURES = {
         _I, _I, _I, _F, _I, _P,
     ],
     "mmvc_beam_topk_columns": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    "mmvc_beam_topk": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mmvc_beam_topk": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mmvc_beam_topk_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmvc_gather_rows": [_P, _P, _P, _I, _I, _L, _P],
     "mmvc_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmvc_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -80,9 +81,6 @@ class _Library:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _I
-        chunk = lib.mmvc_beam_topk_chunk_columns
-        chunk.argtypes, chunk.restype = [], _I
-        self.topk_chunk_columns = chunk()
 
     def call(self, name: str, *args) -> None:
         """Launch through the C entry point; raise on any CUDA error."""

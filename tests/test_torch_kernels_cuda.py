@@ -37,7 +37,7 @@ def test_kernels_build(smoke):
     from multimodalvc_tpu_torch.ops import kernel_lib
 
     lib = kernel_lib.load()
-    assert lib.path.exists() and lib.topk_chunk_columns > 0
+    assert lib.path.exists() and all(hasattr(lib.lib, name) for name in kernel_lib.SIGNATURES)
 
 
 @pytest.mark.cuda
@@ -66,19 +66,33 @@ def test_ancestry_attention_kernel(smoke):
 
 @pytest.mark.cuda
 def test_beam_topk_columns_kernel(smoke):
+    """K4 at [40, 128256] and [240, 128256], with the row statistics inside
+    the kernel (the max exact, the logsumexp within LS_TOL, the selection
+    bit for bit the plain version's on them) and given, and at beams 8 and
+    12 ([64, 128256], [96, 128256]) inside; two launches give the same
+    bits."""
     results = []
     smoke.check_topk(results)
     _all_ok(results)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["f32", "bf16", "from_logits", "from_logits_v_odd"])
+@pytest.mark.parametrize("case", ["f32", "bf16", "v_odd", "from_logits", "from_logits_v_odd",
+                                  "from_logits_stats", "from_logits_v_odd_stats"])
 def test_beam_topk_kernel(smoke, case):
-    """K5: f32 and bf16 log-probs with ties and bans, and from raw logits at
-    V % 8 == 0 and != 0; indices identical to the plain version."""
+    """K5: f32 and bf16 log-probs with ties and bans (also at V % 8 != 0),
+    and from raw logits at V % 8 == 0 and != 0, with the statistics given
+    and inside; indices identical to the plain version."""
     results = []
     smoke.check_beam_topk(results, only=case)
     _all_ok(results)
+
+
+@pytest.mark.cuda
+def test_topk_plans(smoke):
+    """K4 and K5 under every plan of TOPK_PLAN_CASES: each equal to its plain
+    version, the first plan topk_plan's."""
+    assert smoke.topk_plans()
 
 
 @pytest.mark.cuda

@@ -151,3 +151,164 @@ def test_beam_topk_from_logits_matches_jax_kernel_exactly():
     got_v, got_i = ttopk.beam_topk_from_logits(t(logits), t(row_max), t(row_ls), t(scores), n)
     np.testing.assert_array_equal(np.asarray(want_i), got_i.numpy())
     np.testing.assert_array_equal(np.asarray(want_v), got_v.numpy())
+
+
+# ---- the statistics inside the kernel (None row_max / row_logsumexp) ---------
+
+# the port's row logsumexp against JAX's on the CPU: the two sum in other
+# orders, a few f32 ulps apart; the values inherit that difference plus two
+# roundings of each value
+LS_TOL = 2e-6
+
+
+def _value_tol(ls_err, values):
+    return ls_err + 2 * np.finfo(np.float32).eps * float(np.abs(values).max())
+
+
+@pytest.mark.parametrize("entry, v", [("beam_topk_columns", 4096), ("beam_topk_from_logits", 1001)])
+def test_statistics_inside_match_jax_kernel(entry, v):
+    """None statistics: the port computes each row's max and logsumexp
+    itself.  Against the JAX kernel in interpret mode fed JAX's own
+    statistics: indices equal on the planted ties, the max exact, the
+    logsumexp and the values within LS_TOL."""
+    rng = np.random.default_rng(5)
+    b, k, n = 3, 5, 10
+    logits = (rng.standard_normal((b * k, v)) * 4.0).astype(np.float32)
+    logits[0, 77], logits[2, 77], logits[4, 77] = 40.0, 39.5, 39.0  # 3 winners, 1 column
+    logits[k + 3] = logits[k + 1]  # two beams tie on every candidate
+    logits[2 * k, 5] = logits[2 * k, v - 1] = 25.0  # a tie across columns
+    scores = rng.standard_normal((b, k)).astype(np.float32)
+    scores[1, 3] = scores[1, 1]
+    lf = jnp.asarray(logits)
+    row_max, row_ls = _row_stats(lf)
+    want_v, want_i = getattr(jtopk, entry)(lf, row_max, row_ls, jnp.asarray(scores), n,
+                                           interpret=True)
+    m, ls = torch.empty(b * k), torch.empty(b * k)
+    got_v, got_i = getattr(ttopk, entry)(t(logits), None, None, t(scores), n, stats_out=(m, ls))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(row_max)[:, 0])
+    ls_err = float(np.abs(ls.numpy() - np.asarray(row_ls)[:, 0]).max())
+    assert ls_err <= LS_TOL
+    np.testing.assert_array_equal(np.asarray(want_i), got_i.numpy())
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=0,
+                               atol=_value_tol(ls_err, np.asarray(want_v)))
+
+
+def test_plain_with_none_statistics_equals_plain_given_them():
+    """The plain version with None computes the statistics as the beam step
+    did in PyTorch (``row_stats``): bit for bit the plain version given
+    them, and ``stats_out`` holds them."""
+    rng = np.random.default_rng(6)
+    b, k, v, n = 2, 5, 2048, 10
+    logits = t((rng.standard_normal((b * k, v)) * 3.0).astype(np.float32))
+    scores = t(rng.standard_normal((b, k)).astype(np.float32))
+    row_max = logits.amax(dim=-1, keepdim=True)
+    row_ls = torch.log(torch.exp(logits - row_max).sum(dim=-1, keepdim=True))
+    m, ls = torch.empty(b * k), torch.empty(b * k)
+    got = ttopk.beam_topk_columns_plain(logits, None, None, scores, n, stats_out=(m, ls))
+    want = ttopk.beam_topk_columns_plain(logits, row_max, row_ls, scores, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(m, row_max[:, 0]) and torch.equal(ls, row_ls[:, 0])
+    for fn in (ttopk.beam_topk_columns, ttopk.beam_topk_from_logits):
+        again = fn(logits, None, None, scores, n)
+        assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
+
+
+@pytest.mark.parametrize("batch, beams, vocab, n, itemsize", [
+    (8, 5, 128256, 10, 4), (48, 5, 128256, 10, 4), (8, 5, 128256, 10, 2),
+    (48, 5, 128250, 10, 4), (4, 5, 128256, 10, 4), (1, 5, 1001, 10, 4),
+    (16, 8, 128256, 16, 4), (2, 16, 32000, 32, 4), (3, 2, 7, 14, 4), (200, 5, 128256, 10, 2),
+])
+def test_topk_plan(batch, beams, vocab, n, itemsize):
+    """Every column is owned by exactly one block, the cluster is at most 16
+    (one of the table's sizes, or fewer where V leaves the last blocks no
+    column), the ring is 1-8 chunks and no more than a thread streams, the
+    block within 227 KB of shared memory with the unit maxima the plan
+    carries, phase B reads no chunk twice wherever some cluster size allows
+    it, and the plan depends on the shapes alone."""
+    plan = ttopk.topk_plan(batch, beams, vocab, n, itemsize)
+    assert 1 <= plan.cluster <= ttopk.TOPK_MAX_CLUSTER and plan.cols % 8 == 0
+    assert plan in [ttopk.plan_for(vocab, beams, n, c, itemsize=itemsize)
+                    for c in ttopk.TOPK_CLUSTERS_AT_ONCE]
+    owner = np.zeros(vocab, np.int64)
+    for blk in range(plan.cluster):
+        cols = np.arange(blk * plan.cols, min((blk + 1) * plan.cols, vocab))
+        assert cols.size > 0
+        owner[cols] += 1
+    assert (owner == 1).all()
+    chunks = ttopk.topk_chunks(plan.cols, itemsize)
+    assert 1 <= plan.stages <= min(ttopk.TOPK_MAX_STAGES, chunks)
+    sums = ttopk.topk_summary_chunks(beams, n, plan.cluster, plan.cols, plan.stages, itemsize)
+    assert plan.summary == sums and sums in (0, chunks - plan.stages)
+    assert ttopk.topk_smem_bytes(beams, n, plan.cluster, plan.stages, sums) <= ttopk.TOPK_SMEM_MAX
+    # the whole range staged, or the chunks that leave the ring summarized,
+    # wherever some cluster size allows it
+    if plan.stages < chunks and not sums:
+        for c in ttopk.TOPK_CLUSTERS_AT_ONCE:
+            other = ttopk.plan_for(vocab, beams, n, c, itemsize=itemsize)
+            other_chunks = ttopk.topk_chunks(other.cols, itemsize)
+            if ttopk.topk_smem_bytes(beams, n, other.cluster, other.stages) > \
+                    ttopk.TOPK_SMEM_MAX:
+                continue
+            assert other.stages < other_chunks and not ttopk.topk_summary_chunks(
+                beams, n, other.cluster, other.cols, other.stages, itemsize)
+    ttopk.topk_plan.cache_clear()
+    assert ttopk.topk_plan(batch, beams, vocab, n, itemsize) == plan
+
+
+def test_topk_plan_serving_shapes():
+    """The decode's [40, 128256]: clusters of 8 (64 blocks, one wave: the
+    card holds 15 clusters of 8 but 7 of 16), 4 of a thread's 8 chunks in the
+    ring and the unit maxima of the other 4; batch 48 in clusters of 4 (two
+    waves; 2 a batch element would stream 27 of 32 chunks again); batch 4
+    stages the whole range in clusters of 16; shapes the kernel cannot take
+    raise."""
+    assert ttopk.topk_plan(8, 5, 128256, 10) == ttopk.TopkPlan(8, 16032, 4, 4)
+    assert ttopk.topk_summary_chunks(5, 10, 8, 16032, 4) == 4
+    assert ttopk.topk_plan(48, 5, 128256, 10) == ttopk.TopkPlan(4, 32064, 2, 14)
+    assert ttopk.topk_plan(4, 5, 128256, 10) == ttopk.TopkPlan(16, 8016, 4, 0)
+    assert ttopk.topk_chunks(16032) == 8 and ttopk.topk_chunks(8016) == 4
+    for bad in [(8, 17, 1000, 10), (8, 5, 1000, 33), (0, 5, 1000, 10), (1, 1, 4, 5)]:
+        with pytest.raises(ValueError, match="beam top-k kernel"):
+            ttopk.topk_plan(*bad)
+
+
+def test_beam_step_passes_no_statistics_to_the_kernel(monkeypatch):
+    """On the accelerator, without n-gram blocking, the beam step hands the
+    raw logits to the fused entry with None statistics and computes none in
+    PyTorch; the tokens are those of the CPU path."""
+    rng = np.random.default_rng(7)
+    b, k, vocab, steps, eos, pad = 2, 3, 64, 6, 5, 0
+    table = t((rng.standard_normal((50, vocab)) * 2.0).astype(np.float32))
+    first = t(rng.standard_normal((b, vocab)).astype(np.float32))
+    lens = torch.tensor([9, 4])
+
+    def dec(tokens, positions, c):
+        h = c["h"] * 0.5 + tokens.to(torch.float32) / vocab
+        return table[(tokens[:, 0] * 7 + positions[:, 0]) % 50] + h, {**c, "h": h}
+
+    def run():
+        return tbs.beam_search(dec, {"h": torch.zeros(b * k, 1)}, lens, first, eos_token_id=eos,
+                               pad_token_id=pad, max_new_tokens=steps, num_beams=k)
+
+    want = run()
+    calls = []
+    tbs_log_softmax = tbs.log_softmax
+
+    def fused(logits, row_max, row_logsumexp, scores, n):
+        calls.append((row_max, row_logsumexp, tuple(logits.shape), n))
+        return ttopk.beam_topk_columns_plain(logits, row_max, row_logsumexp, scores, n)
+
+    softmaxes = []
+
+    def counted_log_softmax(x):
+        softmaxes.append(tuple(x.shape))
+        return tbs_log_softmax(x)
+
+    monkeypatch.setattr(tbs, "_on_accelerator", lambda x: True)
+    monkeypatch.setattr(tbs, "beam_topk_columns", fused)
+    got = run()
+    assert calls and all(c == (None, None, (b * k, vocab), 2 * k) for c in calls)
+    assert torch.equal(got[0], want[0]) and torch.allclose(got[1], want[1], atol=1e-5)
+    monkeypatch.setattr(tbs, "log_softmax", counted_log_softmax)
+    assert torch.equal(run()[0], want[0])
+    assert softmaxes == [(b, vocab)]  # the first expansion's only, as in the JAX step
