@@ -15,12 +15,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    K8 with a cold L2, as the decode finds their weights).
 3. Serves batches through the full-width AVSR path (Whisper-medium,
    AV-HuBERT-Large, Q-Former, LLaMA-3.2-3B with random weights from seed 0):
-   batch 8, 16 s, beam 5, in ten phases:
+   batch 8, 16 s, beam 5 (8 and 17 where named), in fourteen phases:
    - bf16 weights, int8 KV with the ancestry decode (16 new tokens), with the
      encoders and one prefill + decode step held against the plain versions;
    - bf16 weights, bf16 KV through ``generate()``'s defaults (the ancestry
      decode on the GPU), and bf16 KV with the gather reorder (16 tokens
      each), with two decode steps from one prefill through both caches;
+   - bf16 weights, int8 KV, the ancestry decode at beam 8 (two 16-row tiles
+     of the decode attention a kv head), its tokens held against the same
+     run with K4 plain and one decode step against the plain versions; then
+     the ancestry decode at beam 17 with int8 KV and at beams 8 and 17 with
+     bf16 KV, each with its launches and output checked;
    - bf16 weights: unordered constraints (16 tokens); the full per-beam
      cache (``generate_beam(share_prompt_kv=False)``); a 32 s clip through
      ``generate_long_form`` (two windows, int8 KV); a two-member ensemble
@@ -43,6 +48,14 @@ back to the CPU.
 serving shapes under other chunk plans than ``decode_plan``'s (PLAN_CASES),
 and K4/K5 under other cluster sizes and rings than ``topk_plan``'s
 (TOPK_PLAN_CASES).
+
+``python3 chip_smoke.py --profile-gather`` profiles the decode steps of the
+bf16-weight system on the gather path (bf16 KV, the gather reorder).
+
+``python3 chip_smoke.py --beam5`` runs only the checks an older tree can
+run too (the decode attention and K4 up to beam 12), with each output's
+digest: copied into an older tree, it holds two builds' bits and times in
+one call.
 
 ``python3 chip_smoke.py --phases`` times K4's phases (``PHASE_NAMES``): it
 builds ``csrc/topk.cu`` with ``MMVC_TOPK_MARKS`` defined, which reads the
@@ -353,16 +366,34 @@ EARLIER_MS = {
 # (valid 1 and 63: its first and last steps), batch 48 the serving batch.
 DECODE_CASES = ((8, SHORT_TOKENS, (SHORT_TOKENS - 1,)), (48, 64, (41, 0)), (8, 64, (1, 63)))
 DECODE_TOL = 5e-2  # the JAX selftest's
+# wider beams: 24 and 51 query rows a kv head (two and four 16-row tiles)
+# at the 16-token phases' shape, where each block holds one chunk and keeps
+# it staged across its tiles, and at the serving batch (48, 64 slots), where
+# a block holds several chunks and stages each again for every tile; and
+# WIDEST_DECODE_BEAMS at the first shape, whose generated chunks are one slot
+# of every source beam (144 key rows, past the other chunks' 128)
+WIDE_DECODE_BEAMS, WIDEST_DECODE_BEAMS = (8, 17), 129
 
 
-def decode_inputs(b, slots, kv, g):
-    """q, the prompt KV (values, scales or None) and mask, the generated KV
-    and anc of one decode case: beam 5, 24 query / 8 kv heads, d=128, 130
-    prompt slots with random left pads, batch element 3 without a valid
-    prompt slot."""
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes: the bits of a kernel's output, to hold
+    one build of it against another in one call."""
     import torch
 
-    beams, h, hkv, d, tp = BEAMS, 24, 8, 128, 130
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def decode_inputs(b, slots, kv, g, beams=BEAMS):
+    """q, the prompt KV (values, scales or None) and mask, the generated KV
+    and anc of one decode case: ``beams`` (5), 24 query / 8 kv heads,
+    d=128, 130 prompt slots with random left pads, batch element 3 without
+    a valid prompt slot."""
+    import torch
+
+    h, hkv, d, tp = 24, 8, 128, 130
 
     def cache(shape):  # (values, scales or None)
         if kv == "int8":
@@ -380,22 +411,41 @@ def decode_inputs(b, slots, kv, g):
 
 
 def _same_bits(name, run, got):
-    """A second launch on the same inputs must give the same bits."""
+    """A second launch on the same inputs must give the same bits; prints
+    their digest, to hold them against another build's."""
     import torch
 
+    got = got if isinstance(got, tuple) else (got,)
     again = run()
-    for a, c in zip(got if isinstance(got, tuple) else (got,),
-                    again if isinstance(again, tuple) else (again,)):
+    for a, c in zip(got, again if isinstance(again, tuple) else (again,)):
         if not torch.equal(a, c):
             raise SmokeFailure(f"{name}: two launches on the same inputs differ")
+    print(f"  {name}: output sha256 {digest(*got)}")
 
 
-def check_decode(results, kv="int8"):
+def decode_cases(cases, wide):
+    """(batch, slots, valid lengths, beams): ``cases`` at beam 5, then (with
+    ``wide``) WIDE_DECODE_BEAMS at DECODE_CASES' first two shapes and
+    WIDEST_DECODE_BEAMS at the first."""
+    out = [(b, slots, valids, BEAMS) for b, slots, valids in cases]
+    if wide:
+        out += [(b, slots, valids, k) for b, slots, valids in DECODE_CASES[:2]
+                for k in WIDE_DECODE_BEAMS]
+        out.append((*DECODE_CASES[0], WIDEST_DECODE_BEAMS))
+    return out
+
+
+def _beam_tag(beams) -> str:
+    return "" if beams == BEAMS else f"beam{beams}/"
+
+
+def check_decode(results, kv="int8", wide=True):
     """K2 and K3 with an int8 (or bf16) KV cache at DECODE_CASES' first two
     shapes: batch 8 (40 query rows, 16 generated slots, valid 15) and batch
-    48 (64 slots, valid 41 and 0).  Tolerance DECODE_TOL on out, m and l; a
-    row with no valid key (K2: batch element 3; K3: valid 0) must be exactly
-    (0, -1e30, 0); two launches must give the same bits."""
+    48 (64 slots, valid 41 and 0); with ``wide``, both at beams 8 and 17
+    (24 and 51 query rows a kv head) and batch 8 at beam 129.  Tolerance DECODE_TOL on out, m and l;
+    a row with no valid key (K2: batch element 3; K3: valid 0) must be
+    exactly (0, -1e30, 0); two launches must give the same bits."""
     import torch
 
     from multimodalvc_tpu_torch.ops.decode_attention import (
@@ -410,16 +460,16 @@ def check_decode(results, kv="int8"):
                 and bool((part[2][rows] == 0).all()))
 
     g = torch.Generator(device=DEV).manual_seed(1 if kv == "int8" else 5)
-    beams, h, d = BEAMS, 24, 128
-    for b, slots, valids in DECODE_CASES[:2]:
+    h, d = 24, 128
+    for b, slots, valids, beams in decode_cases(DECODE_CASES[:2], wide):
         q, ((pk, pks), (pv, pvs)), mask, ((gk, gks), (gv, gvs)), anc = decode_inputs(
-            b, slots, kv, g)
+            b, slots, kv, g, beams)
         hkv = pk.shape[1]
         kw = dict(beams=beams, scale=d ** -0.5, k_scale=pks, v_scale=pvs)
         run = lambda: prompt_attention(q, pk, pv, mask, **kw)  # noqa: E731
         plain = lambda: prompt_attention_plain(q, pk, pv, mask, **kw)  # noqa: E731
         got = run()
-        name = f"prompt_attention/{kv}/{b * beams}x{h}x{d}"
+        name = f"prompt_attention/{kv}/{_beam_tag(beams)}{b * beams}x{h}x{d}"
         err = max(max_err(a, c) for a, c in zip(got, plain()))
         if not empty(got, slice(3 * beams, 4 * beams)):
             raise SmokeFailure(f"{name}: a batch element without a valid slot must give "
@@ -435,7 +485,8 @@ def check_decode(results, kv="int8"):
             run = lambda: gen_attention_ancestor(q, gk, gv, anc, valid, **kw)  # noqa: E731
             plain = lambda: gen_attention_ancestor_plain(q, gk, gv, anc, valid, **kw)  # noqa: E731
             got, want = run(), plain()
-            name = f"gen_attention_ancestor/{kv}/{b * beams}x{slots}x{hkv}x{d}/valid{valid}"
+            name = (f"gen_attention_ancestor/{kv}/{_beam_tag(beams)}{b * beams}x{slots}x{hkv}x{d}"
+                    f"/valid{valid}")
             err = max(max_err(a, c) for a, c in zip(got, want))
             if valid == 0 and not empty(got, slice(None)):
                 raise SmokeFailure(f"{name}: valid_len 0 must give (0, -1e30, 0)")
@@ -444,12 +495,13 @@ def check_decode(results, kv="int8"):
                    earlier_ms=EARLIER_MS.get(name), **gen_bound(q, moved, got, valid, slots))
 
 
-def check_merged(results):
+def check_merged(results, wide=True):
     """The merged entry (int8 KV, bf16 output) at every DECODE_CASES shape
-    against the merge of the plain partials, cast: tolerance DECODE_TOL on
-    the bf16 output and on the f32 output of the same entry; the rows with
-    no valid key in either segment (batch element 3 with valid 0) exactly
-    zero; two launches the same bits.  ``unfused_ms`` is this tree's K2 +
+    (and with ``wide`` at ``decode_cases``' wider beams) against the
+    merge of the plain partials, cast: tolerance DECODE_TOL on the bf16
+    output and on the f32 output of the same entry; the rows with no valid
+    key in either segment (batch element 3 with valid 0) exactly zero; two
+    launches the same bits.  ``unfused_ms`` is this tree's K2 +
     K3 + the PyTorch merge and cast, the decode step's path before the
     merged entry."""
     import torch
@@ -463,10 +515,10 @@ def check_merged(results):
     )
 
     g = torch.Generator(device=DEV).manual_seed(11)
-    beams, h, d = BEAMS, 24, 128
-    for b, slots, valids in DECODE_CASES:
+    h, d = 24, 128
+    for b, slots, valids, beams in decode_cases(DECODE_CASES, wide):
         q, ((pk, pks), (pv, pvs)), mask, ((gk, gks), (gv, gvs)), anc = decode_inputs(
-            b, slots, "int8", g)
+            b, slots, "int8", g, beams)
         for valid in valids:
             kw = dict(beams=beams, scale=d ** -0.5, prompt_k_scale=pks, prompt_v_scale=pvs,
                       gen_k_scale=gks, gen_v_scale=gvs)
@@ -482,7 +534,8 @@ def check_merged(results):
                 return merge_softmax_segments(*part_p, *part_g).to(torch.bfloat16)
 
             got, want = run(), plain()
-            name = f"ancestry_attention/int8/{b * beams}x{slots}x{pk.shape[1]}x{d}/valid{valid}"
+            name = (f"ancestry_attention/int8/{_beam_tag(beams)}{b * beams}x{slots}x{pk.shape[1]}"
+                    f"x{d}/valid{valid}")
             f32 = dict(kw, out_dtype=torch.float32)
             err_f32 = max_err(ancestry_attention(*args, **f32), ancestry_attention_plain(*args, **f32))
             if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got).all()):
@@ -596,18 +649,27 @@ def _k4_inputs(b, k, v, g):
     logits[3 * k, 3] = logits[3 * k, 7] = 50.0  # batch 3: 4-way tie, 2 rows x 2 columns
     logits[3 * k + 1] = logits[3 * k]
     scores[3, 1] = scores[3, 0]
+    if k > 16:  # among more rows a random row's best may pass the tie: lift the tied rows
+        scores[3, :2] = scores[3].amax() + 4.0
     logits[4 * k + 2, FIVE_IN_ONE_THREAD] = 50.0  # batch 4: the best 6 in one thread's columns
     return logits, scores
 
 
-def check_topk(results):
+# beams past the narrow instances' 16 (n = 2K up to 128), then the ceiling,
+# ``topk_max_beams()``: the wide instance
+WIDE_TOPK_BEAMS = (17, 32, 64)
+
+
+def check_topk(results, wide=True):
     """K4 at the serving shapes [8*5, 128256] and [48*5, 128256], n = 2K =
     10, with three winners in one column, rows that tie everywhere, and ties
     across blocks: first with the statistics inside the kernel (the decode
     step's call; see LS_TOL), then given (the JAX contract: indices
     identical, values within 1e-6); then beams 8 and 12 (n = 16, 24: the
     kernel for up to 16 rows a batch element; beam 5 takes its own) at batch
-    8, statistics inside.  ``library_ms`` is
+    8, statistics inside; with ``wide``, beams 17, 32 and 64 (n = 34, 64,
+    128: the wide instance) and the ceiling ``topk_max_beams()`` the same
+    way.  ``library_ms`` is
     ``torch.topk`` on the prebuilt candidate row; ``library_chain_ms`` the
     eager ``log_softmax`` + add + ``torch.topk``."""
     import torch
@@ -617,6 +679,7 @@ def check_topk(results):
         beam_topk_columns,
         beam_topk_columns_plain,
         row_stats,
+        topk_max_beams,
     )
 
     g = torch.Generator(device=DEV).manual_seed(2)
@@ -649,11 +712,13 @@ def check_topk(results):
                library=lambda: torch.topk(cand, n), ms=time_ms(run), ms_planted=ms_planted,
                plain_ms=time_ms(plain, iters=3),
                **topk_bound(logits, (row_max, row_ls, scores), 4, (gv, gi)))
-    for wide in (8, 12):  # the kernel for up to 16 rows, with 16-byte copies
-        logits, scores = _k4_inputs(BATCH, wide, v, g)
-        _topk_stats_case(results, f"beam_topk_columns/beam{wide}/{BATCH * wide}x{v}",
-                         beam_topk_columns, beam_topk_columns_plain, logits, scores, 2 * wide,
+    # the kernel for up to 16 rows, with 16-byte copies; then the wide one
+    for beams in (8, 12) + (WIDE_TOPK_BEAMS + (topk_max_beams(),) if wide else ()):
+        logits, scores = _k4_inputs(BATCH, beams, v, g)
+        _topk_stats_case(results, f"beam_topk_columns/beam{beams}/{BATCH * beams}x{v}",
+                         beam_topk_columns, beam_topk_columns_plain, logits, scores, 2 * beams,
                          ties)
+        del logits, scores
 
 
 def topk_bound(x, small, ops_per_value, out) -> dict:
@@ -687,17 +752,22 @@ def _planted(b, k, v, g, scale=3.0):
 
 
 # K5 cases: (key, name, batch, V, log-prob type or None for raw logits,
-# statistics inside)
+# statistics inside, beams)
 BEAM_TOPK_CASES = [
-    ("f32", "logp/8x5x128256", 8, 128256, "f32", False),
-    ("f32", "logp/4x5x128256", 4, 128256, "f32", False),
-    ("bf16", "logp_bf16/4x5x128256", 4, 128256, "bf16", False),
-    ("v_odd", "logp/4x5x128250", 4, 128250, "f32", False),  # 4-byte copies
-    ("v_odd", "logp_bf16/4x5x128250", 4, 128250, "bf16", False),  # no ring: global loads
-    ("from_logits_stats", "from_logits/240x128256", 48, 128256, None, True),
-    ("from_logits_v_odd_stats", "from_logits/240x128250", 48, 128250, None, True),
-    ("from_logits", "from_logits/stats_given/240x128256", 48, 128256, None, False),
-    ("from_logits_v_odd", "from_logits/stats_given/240x128250", 48, 128250, None, False),
+    ("f32", "logp/8x5x128256", 8, 128256, "f32", False, BEAMS),
+    ("f32", "logp/4x5x128256", 4, 128256, "f32", False, BEAMS),
+    ("bf16", "logp_bf16/4x5x128256", 4, 128256, "bf16", False, BEAMS),
+    ("v_odd", "logp/4x5x128250", 4, 128250, "f32", False, BEAMS),  # 4-byte copies
+    ("v_odd", "logp_bf16/4x5x128250", 4, 128250, "bf16", False, BEAMS),  # no ring: global loads
+    ("from_logits_stats", "from_logits/240x128256", 48, 128256, None, True, BEAMS),
+    ("from_logits_v_odd_stats", "from_logits/240x128250", 48, 128250, None, True, BEAMS),
+    ("from_logits", "from_logits/stats_given/240x128256", 48, 128256, None, False, BEAMS),
+    ("from_logits_v_odd", "from_logits/stats_given/240x128250", 48, 128250, None, False, BEAMS),
+    # the wide instance: the n-gram step's log-probs past 16 beams
+    ("wide", "logp/beam32/8x32x128256", 8, 128256, "f32", False, 32),
+    ("wide", "logp/beam64/8x64x128256", 8, 128256, "f32", False, 64),
+    ("wide", "logp_bf16/beam17/8x17x128250", 8, 128250, "bf16", False, 17),
+    ("wide", "from_logits/beam17/136x128250", 8, 128250, None, True, 17),  # 4-byte loads
 ]
 
 
@@ -706,8 +776,11 @@ def check_beam_topk(results, only=None):
     the JAX selftest's [4, 5, 128256], f32 and bf16 log-probs with planted
     ties and bans (and at V = 128250, whose rows take the unaligned paths);
     from raw logits at [240, 128256] and [240, 128250] (V % 8
-    != 0), with the statistics inside (see LS_TOL) and given; n = 10.
-    Indices must be identical; values within 1e-6 where given.
+    != 0), with the statistics inside (see LS_TOL) and given; n = 10; and
+    the wide instance's log-probs at beams 32 and 64 (f32) and 17 (bf16, V =
+    128250) and its raw logits at beam 17, V = 128250, statistics inside;
+    n = 2K.  Indices must be identical; values within 1e-6 where
+    given.
     ``library_ms`` is ``torch.topk`` on the prebuilt candidate row, without
     the add that K5 fuses."""
     import torch
@@ -722,10 +795,10 @@ def check_beam_topk(results, only=None):
     )
 
     g = torch.Generator(device=DEV).manual_seed(10)
-    k, n = BEAMS, 2 * BEAMS
-    for key, name, b, v, dtype, stats in BEAM_TOPK_CASES:
+    for key, name, b, v, dtype, stats, k in BEAM_TOPK_CASES:
         if only is not None and key != only:
             continue
+        n = 2 * k
         logp, scores = _planted(b, k, v, g)
         if dtype is None:
             x = (logp.reshape(b * k, v) * 0.25).contiguous()  # raw logits
@@ -775,32 +848,73 @@ def check_beam_topk(results, only=None):
 
 
 def check_gather_rows(results):
-    """K6 at the serving phases' leaves, bf16: the gather reorder's
-    generated KV [40, 16, 8, 128] and the full cache [40, 8, 146, 128]; and
-    [B*K, 64, 8, 128] for batch 8 and 48; with repeated and permuted source
-    rows.  Exact."""
+    """K6, bf16, exact: first one decode step's reorder of the gather
+    cache's 56 generated-KV leaves [40, 16, 8, 128] in one launch
+    (``gather_rows_many``, the serving path), and of the full cache's 56
+    [40, 8, 146, 128], by a permutation; then single leaves with repeated
+    and permuted source rows, the gather reorder's and the full cache's leaf
+    and [B*K, 64, 8, 128] for batch 8 and 48.  Times with a cold L2 (``time_cold``): each call reads
+    its own copy of the leaves and writes its own outputs, rotated over at
+    least COLD_BYTES, over a window of TAIL_BYTES.  ``library_ms`` is
+    ``torch.index_select`` a leaf."""
     import torch
 
-    from multimodalvc_tpu_torch.ops.beam_gather import gather_rows, gather_rows_plain
+    from multimodalvc_tpu_torch.ops.beam_gather import (
+        gather_rows,
+        gather_rows_many,
+        gather_rows_many_plain,
+        gather_rows_plain,
+    )
 
     g = torch.Generator(device=DEV).manual_seed(6)
+
+    def source(rows, repeats=True):
+        perm = torch.randperm(rows, generator=g, device=DEV).to(torch.int32)
+        src = perm.clone()
+        if repeats:  # a permuted half, then repeats of it
+            src[rows // 2:] = perm[: rows - rows // 2]
+        return src
+
+    rows = BATCH * BEAMS
+    for leaves, shape in ((56, (SHORT_TOKENS, 8, 128)), (56, (8, 146, 128))):
+        xs = [torch.randn(rows, *shape, generator=g, device=DEV).to(torch.bfloat16)
+              for _ in range(leaves)]
+        src = source(rows, repeats=False)  # every byte read once: the bound of a permutation
+        got, want = gather_rows_many(xs, src), gather_rows_many_plain(xs, src)
+        name = f"gather_rows/step{leaves}x" + "x".join(str(i) for i in (rows, *shape))
+        if not all(torch.equal(a, c) for a, c in zip(got, want)):
+            raise SmokeFailure(f"{name}: rows differ")
+        _same_bits(name, lambda: tuple(gather_rows_many(xs, src)), tuple(got))
+        sets = [xs] + [[x.clone() for x in xs]
+                       for _ in range(math.ceil(COLD_BYTES / nbytes(*xs)) - 1)]
+        run = [functools.partial(gather_rows_many, c, src) for c in sets]
+        plain = [functools.partial(gather_rows_many_plain, c, src) for c in sets]
+        library = [functools.partial(lambda c: [torch.index_select(x, 0, src) for x in c], c)
+                   for c in sets]
+        moved = 2 * nbytes(*got) + nbytes(src)
+        record(results, name, 0.0, 0.0, ms=time_cold(run, moved, True),
+               plain_ms=time_cold(plain, moved, True), library_ms=time_cold(library, moved, True),
+               copies=len(sets), **gather_bound(src, *got))
+        del xs, got, want, sets, run, plain, library
+        torch.cuda.empty_cache()
     for rows, shape in ((8 * BEAMS, (SHORT_TOKENS, 8, 128)), (8 * BEAMS, (8, 146, 128)),
                         (8 * BEAMS, (64, 8, 128)), (48 * BEAMS, (64, 8, 128))):
         x = torch.randn(rows, *shape, generator=g, device=DEV).to(torch.bfloat16)
-        perm = torch.randperm(rows, generator=g, device=DEV).to(torch.int32)
-        src = perm.clone()
-        src[rows // 2:] = perm[: rows - rows // 2]  # a permuted half, then repeats of it
-        run = lambda: gather_rows(x, src)  # noqa: E731
-        plain = lambda: gather_rows_plain(x, src)  # noqa: E731
-        got = run()
+        src = source(rows)
+        got = gather_rows(x, src)
         name = "x".join(str(i) for i in (rows, *shape))
-        if not torch.equal(got, plain()):
+        if not torch.equal(got, gather_rows_plain(x, src)):
             raise SmokeFailure(f"gather_rows [{name}]: rows differ")
-        library = lambda: torch.index_select(x, 0, src)  # noqa: E731
-        # each selected row read once and written once
-        record(results, f"gather_rows/{name}", max_err(got, plain()), 0.0,
-               library=library, ms=time_ms(run), plain_ms=time_ms(plain),
-               **bound(2 * nbytes(got) + nbytes(src)))
+        _same_bits(f"gather_rows/{name}", lambda: gather_rows(x, src), got)
+        copies = [x] + [x.clone() for _ in range(math.ceil(COLD_BYTES / nbytes(x)) - 1)]
+        run = [functools.partial(gather_rows, c, src) for c in copies]
+        plain = [functools.partial(gather_rows_plain, c, src) for c in copies]
+        library = [functools.partial(torch.index_select, c, 0, src) for c in copies]
+        moved = 2 * nbytes(got) + nbytes(src)
+        record(results, f"gather_rows/{name}", 0.0, 0.0, ms=time_cold(run, moved, True),
+               plain_ms=time_cold(plain, moved, True), library_ms=time_cold(library, moved, True),
+               copies=len(copies), **gather_bound(src, got))
+        del x, copies, run, plain, library
 
 
 # A rotation of weight copies at least this large (two 50 MB L2s) finds
@@ -809,10 +923,26 @@ def check_gather_rows(results):
 COLD_BYTES = 100e6
 
 
-def time_cold(calls) -> float:
-    """``time_ms`` of ``calls`` taken in turn, each copy used once a round."""
+# A window that moves at least this many bytes leaves at most 2% of its
+# writes in the L2 (50 MB) when its end is recorded.
+TAIL_BYTES = 2.5e9
+
+
+def time_cold(calls, moved: float = 0.0, keep: bool = False) -> float:
+    """``time_ms`` of ``calls`` taken in turn, each copy used once a round.
+    With ``keep``, each call's output lives until the next call of its copy,
+    so the outputs too rotate over as many buffers as the inputs; with
+    ``moved`` (bytes a call reads and writes), enough calls that the window
+    moves TAIL_BYTES."""
+    import collections
+
     it = itertools.cycle(calls)
-    return time_ms(lambda: next(it)(), iters=max(10, 2 * len(calls)))
+    held = collections.deque(maxlen=len(calls) if keep else 0)
+    iters = max(10, 2 * len(calls), math.ceil(TAIL_BYTES / moved) if moved else 0)
+    # the held outputs are allocated before the window (an allocation inside
+    # it can wait for the device)
+    return time_ms(lambda: held.append(next(it)()), iters=iters,
+                   warmup=len(calls) + 2 if keep else 2)
 
 
 def int8_library(x, w_q, w_s):
@@ -1020,11 +1150,14 @@ EXPECT = {
                    "int8_matmul": ON},
     "int4_weights": {"flash_attention": ON, "ancestry_attention": ON, "beam_topk_columns": ON,
                      "int4_matmul": ON},
+    "beam8_int8_kv": {"flash_attention": ON, "ancestry_attention": ON, "beam_topk_columns": ON},
 }
 # Beyond EXPECT: an ancestry phase launches the merged entry (int8 KV) or K3
 # (bf16 KV) once a layer, decode step and ensemble member, the decode steps
 # counted by the beam candidates' kernel (K4, or K5 with n-gram blocking);
 # the PyTorch merge runs once a layer and step with bf16 KV, never with int8.
+# The gather phases launch K6 once a decode step, for all 56 KV leaves.
+ONCE_A_STEP = {"bf16_kv_gather": "gather_rows", "bf16_full_cache": "gather_rows"}
 
 
 def plain_versions(only=None) -> ExitStack:
@@ -1050,6 +1183,7 @@ def plain_versions(only=None) -> ExitStack:
         (llama, "int8_matmul", int8_matmul.int8_matmul_plain),
         (llama, "int4_matmul", int8_matmul.int4_matmul_plain),
         (beam_gather, "gather_rows", beam_gather.gather_rows_plain),
+        (beam_gather, "gather_rows_many", beam_gather.gather_rows_many_plain),
         (beam_search, "beam_topk_columns", topk.beam_topk_columns_plain),
         (beam_search, "beam_topk", topk.beam_topk_plain),
         (beam_search, "beam_topk_from_logits", topk.beam_topk_from_logits_plain),
@@ -1135,10 +1269,10 @@ def build_system(mode=None, seed=0):
     return system
 
 
-def check_output(name, seqs, scores, vocab, new_tokens):
+def check_output(name, seqs, scores, vocab, new_tokens, beams=BEAMS):
     import torch
 
-    if tuple(seqs.shape) != (BATCH, BEAMS, new_tokens) or tuple(scores.shape) != (BATCH, BEAMS):
+    if tuple(seqs.shape) != (BATCH, beams, new_tokens) or tuple(scores.shape) != (BATCH, beams):
         raise SmokeFailure(f"{name}: output shapes {tuple(seqs.shape)}, {tuple(scores.shape)}")
     if not bool(torch.isfinite(scores).all()):
         raise SmokeFailure(f"{name}: non-finite beam scores")
@@ -1185,6 +1319,10 @@ def run_phase(table, name, call, expect=None, audio_s=BATCH * SECONDS, layers=No
              if not (n > 0 if expect.get(k, 0) == ON else n == expect.get(k, 0))}
     if wrong:
         raise SmokeFailure(f"{name}: launches (got, expected) {wrong}")
+    steps = launches["beam_topk_columns"] + launches["beam_topk"]
+    if name in ONCE_A_STEP and launches[ONCE_A_STEP[name]] != steps:
+        raise SmokeFailure(f"{name}: {launches[ONCE_A_STEP[name]]} {ONCE_A_STEP[name]} launches "
+                           f"in {steps} decode steps (one a step)")
     if layers is not None:
         check_ancestry(name, launches, len(merges), layers, members)
     rtf = audio_s / t_gen
@@ -1194,14 +1332,15 @@ def run_phase(table, name, call, expect=None, audio_s=BATCH * SECONDS, layers=No
             "pytorch_merges": len(merges)}, out
 
 
-def serve(table, system, batch, name, new_tokens, gen_kw, expect=None, members=1) -> tuple:
+def serve(table, system, batch, name, new_tokens, gen_kw, expect=None, members=1,
+          beams=BEAMS) -> tuple:
     """A ``generate`` phase with its output checked: (record, sequences,
     scores)."""
     phase, (seqs, scores) = run_phase(table, name, lambda: system.generate(
-        batch, num_beams=BEAMS, max_new_tokens=new_tokens, **gen_kw), expect,
+        batch, num_beams=beams, max_new_tokens=new_tokens, **gen_kw), expect,
         layers=system.cfg.llama.num_layers, members=members)
-    check_output(name, seqs, scores, system.cfg.llama.vocab_size, new_tokens)
-    phase["new_tokens"] = new_tokens
+    check_output(name, seqs, scores, system.cfg.llama.vocab_size, new_tokens, beams)
+    phase.update(new_tokens=new_tokens, beams=beams)
     return phase, seqs, scores
 
 
@@ -1218,13 +1357,13 @@ def compare(out, name, got, want, tol):
         raise SmokeFailure(f"{name}: the two paths disagree (rel {rel:.3e})")
 
 
-def prefill_and_step(llama, emb, mask, tokens, **cache_kw):
+def prefill_and_step(llama, emb, mask, tokens, beams=BEAMS, **cache_kw):
     """One prefill and one decode step of every beam: (first logits, step logits)."""
     from multimodalvc_tpu_torch.nn.llama import decode_step, prefill_split_cache
 
     first, cache, lens = prefill_split_cache(
-        llama, emb, mask, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS, **cache_kw)
-    logits, _ = decode_step(llama, tokens, lens.repeat_interleave(BEAMS)[:, None], cache)
+        llama, emb, mask, num_beams=beams, max_new_tokens=SHORT_TOKENS, **cache_kw)
+    logits, _ = decode_step(llama, tokens, lens.repeat_interleave(beams)[:, None], cache)
     return first, logits
 
 
@@ -1261,15 +1400,15 @@ def isolate(llama, emb, mask, tokens, logits, names) -> dict:
     return out
 
 
-def layerwise(llama, emb, mask, tokens, name) -> dict:
+def layerwise(llama, emb, mask, tokens, name, beams=BEAMS) -> dict:
     """One decode step, layer by layer: each layer's update (output minus
     input) from the same input and cache, through the kernels and through
     the plain versions, then the final norm and unembed.  Gated at REL_TOL."""
     from multimodalvc_tpu_torch.nn.llama import prefill_split_cache
 
     _, cache, lens = prefill_split_cache(
-        llama, emb, mask, num_beams=BEAMS, max_new_tokens=SHORT_TOKENS, **INT8_KV)
-    pos = lens.repeat_interleave(BEAMS)[:, None]
+        llama, emb, mask, num_beams=beams, max_new_tokens=SHORT_TOKENS, **INT8_KV)
+    pos = lens.repeat_interleave(beams)[:, None]
     x = llama.embed(tokens)
     worst = 0.0
     for layer, c in zip(llama.layers, cache):
@@ -1495,6 +1634,14 @@ def bf16_weight_phases(table, batch) -> tuple:
         bf16_logits = got[2:]
 
         checks.update(reorder_equivalence(llama, emb, mask, tokens))
+    phases["beam8_int8_kv"] = beam8_phase(table, system, batch, emb, mask)
+    # the ancestry decode past beam 5 with both caches: launches and output
+    for beams, kv in WIDE_DECODES:
+        name = f"beam{beams}_{kv}_kv"
+        phases[name], _, _ = serve(table, system, batch, name, SHORT_TOKENS,
+                                   dict(kv_quant="int8") if kv == "int8" else {},
+                                   EXPECT["beam8_int8_kv" if kv == "int8" else "bf16_kv_ancestry"],
+                                   beams=beams)
     flash = phases["bf16_weights"]["launches"]["flash_attention"]
     phases["bf16_constrained"] = constrained_phase(table, system, batch)
     phases["bf16_full_cache"] = full_cache_phase(table, system, emb, mask)
@@ -1503,6 +1650,74 @@ def bf16_weight_phases(table, batch) -> tuple:
     del system, llama, enc
     torch.cuda.empty_cache()
     return phases, checks, (emb, mask), tokens, bf16_logits
+
+
+WIDE_PHASE_BEAMS = 8  # 24 query rows a kv head: two 16-row tiles of the merged entry
+# further ancestry decodes past beam 5, (beams, KV cache): 51 query rows a kv
+# head (four tiles) and K4's wide instance at beam 17; the bf16 cache through
+# generate()'s defaults, K3 on the tiles and the PyTorch merge
+WIDE_DECODES = ((17, "int8"), (8, "bf16"), (17, "bf16"))
+
+
+def beam8_phase(table, system, batch, emb, mask) -> dict:
+    """bf16 weights, int8 KV, the ancestry decode at beam 8 (16 tokens): the
+    merged entry on two row tiles a kv head once a layer and step, K4 at
+    n = 16.  Its tokens must equal the same generate's with K4 plain (the
+    kernel's selection is exact; its statistics are an ulp from PyTorch's);
+    one prefill + decode step at beam 8 is held against the plain versions,
+    its logits at ``logits_gate``'s gate and layer by layer at REL_TOL.  Not
+    gated: the beams whose tokens equal the fully plain path's, from the
+    same prompt embeddings, at beam 8 and at beam 5, which shows how far
+    the chaos of the random-weight model carries the decode's rounding."""
+    import torch
+
+    from multimodalvc_tpu_torch.nn.llama import generate_beam
+    from multimodalvc_tpu_torch.ops import beam_search, topk
+
+    beams, name = WIDE_PHASE_BEAMS, "beam8_int8_kv"
+    kw = dict(num_beams=beams, max_new_tokens=SHORT_TOKENS, kv_quant="int8")
+    phase, (seqs, scores) = run_phase(table, name, lambda: system.generate(batch, **kw),
+                                      layers=system.cfg.llama.num_layers)
+    cfg = system.cfg
+    check_output(name, seqs, scores, cfg.llama.vocab_size, SHORT_TOKENS, beams)
+    with mock.patch.object(beam_search, "beam_topk_columns", topk.beam_topk_columns_plain):
+        p_seqs, p_scores = system.generate(batch, **kw)
+    if not torch.equal(seqs, p_seqs):
+        rows = int((seqs != p_seqs).any(dim=-1).any(dim=-1).sum())
+        raise SmokeFailure(f"{name}: K4 made plain changes the tokens of {rows} rows")
+    phase.update(new_tokens=SHORT_TOKENS, beams=beams, k4_plain_tokens_identical=True,
+                 k4_plain_score_max_abs=max_err(scores, p_scores))
+
+    def decode(k):
+        with torch.inference_mode():
+            return generate_beam(system.llama_module, emb, mask, eos_token_id=cfg.eos_token_id,
+                                 pad_token_id=cfg.pad_token_id, num_beams=k,
+                                 max_new_tokens=SHORT_TOKENS, ancestry_reorder=True,
+                                 kv_quant="int8")[0]
+
+    for k in (beams, BEAMS):
+        got = decode(k)
+        with plain_versions():
+            want = decode(k)
+        phase[f"beam{k}_beams_equal_fully_plain"] = int((got == want).all(dim=-1).sum())
+        phase[f"beam{k}_beams"] = got.shape[0] * got.shape[1]
+    print(f"  {name}: tokens identical with K4 plain (scores max_abs "
+          f"{phase['k4_plain_score_max_abs']:.3e}); beams equal to the fully plain decode of "
+          f"the same prompt: beam {beams} {phase[f'beam{beams}_beams_equal_fully_plain']} of "
+          f"{phase[f'beam{beams}_beams']}, beam {BEAMS} "
+          f"{phase[f'beam{BEAMS}_beams_equal_fully_plain']} of {phase[f'beam{BEAMS}_beams']}")
+    checks = {}
+    with torch.inference_mode():
+        tokens = seqs[:, :, 0].reshape(-1, 1)
+        got = prefill_and_step(system.llama_module, emb, mask, tokens, beams=beams, **INT8_KV)
+        with plain_versions():
+            want = prefill_and_step(system.llama_module, emb, mask, tokens, beams=beams, **INT8_KV)
+        gate = logits_gate(system.llama_module, emb, mask, tokens, got[1], beams=beams, **INT8_KV)
+        compare(checks, f"{name}/step_logits", got[1], want[1], gate["tol_rel_l2"])
+        checks[f"{name}/step_logits"]["noise_floor_rel_l2"] = gate["noise_floor_rel_l2"]
+        checks.update(layerwise(system.llama_module, emb, mask, tokens, name, beams))
+    phase["step_check"] = checks
+    return phase
 
 
 def ngram_phase(table, system, batch) -> dict:
@@ -1617,13 +1832,18 @@ def quantized_phase(table, batch, mode, new_tokens, prompt, tokens, bf16_logits)
     return out
 
 
-def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict:
+INT8_KV_GEN = dict(kv_quant="int8")
+GATHER_GEN = dict(ancestry_reorder=False)  # bf16 KV, the gather reorder: K6 once a step
+
+
+def profile_decode(table, system, batch, steps: int = 10, top: int = 12,
+                   gen_kw=INT8_KV_GEN) -> dict:
     """Where a decode step's time goes, at the serving batch with the int8
-    KV cache: generate() with 1 + ``steps`` new tokens against generate()
-    with 1 (the prefill's token, no decode step), unprofiled (the median of
-    three walls) and under torch.profiler (device time of every kernel,
-    copy and memset); the differences over ``steps`` are the decode steps'
-    share, without the encoders and the prefill."""
+    KV cache (or ``gen_kw``'s): generate() with 1 + ``steps`` new tokens
+    against generate() with 1 (the prefill's token, no decode step),
+    unprofiled (the median of three walls) and under torch.profiler (device
+    time of every kernel, copy and memset); the differences over ``steps``
+    are the decode steps' share, without the encoders and the prefill."""
     import statistics
     from collections import Counter
 
@@ -1632,7 +1852,7 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
     from torch.profiler import ProfilerActivity, profile
 
     def gen(n):
-        return system.generate(batch, num_beams=BEAMS, max_new_tokens=n, kv_quant="int8")
+        return system.generate(batch, num_beams=BEAMS, max_new_tokens=n, **gen_kw)
 
     def unprofiled(n):
         return statistics.median(wall(lambda: gen(n))[1] for _ in range(3))
@@ -1649,7 +1869,8 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
 
     reset_counts(table)
     gen(1 + steps)
-    n = read_counts(table)["ancestry_attention"] // system.cfg.llama.num_layers
+    counts = read_counts(table)
+    n = counts["beam_topk_columns"] + counts["beam_topk"]  # one candidate launch a step
     if n != steps:
         raise SmokeFailure(f"profile: {n} decode steps, expected {steps}")
     wall_ms = (unprofiled(1 + steps) - unprofiled(1)) / steps * 1e3
@@ -1670,7 +1891,7 @@ def profile_decode(table, system, batch, steps: int = 10, top: int = 12) -> dict
         "kernel_ms_per_step": {name: sum(v for k, v in per_step.items() if f"{name}_kernel" in k)
                                for name in ("int8_matmul", "int4_matmul", "prompt_attention",
                                             "gen_attention", "ancestry_attention",
-                                            "beam_topk_columns", "beam_topk")},
+                                            "beam_topk_columns", "beam_topk", "gather_rows")},
     }
     print(f"  decode {wall_ms:.2f} ms/step ({prof_wall_ms:.2f} profiled), device "
           f"{device_ms:.3f} ms/step, idle share {out['idle_share_unprofiled']:.3f} "
@@ -1760,6 +1981,22 @@ def candidate_stage() -> dict:
     print(f"  candidate stage [40, 128256]: statistics in PyTorch + K4 "
           f"{out['stats_outside_ms']:.4f} ms, K4 with the statistics inside "
           f"{out['stats_inside_ms']}")
+    return out
+
+
+def profile_gather(table, batch) -> dict:
+    """``--profile-gather``: the decode profile of the bf16-weight system on
+    the gather path (bf16 KV, ``ancestry_reorder=False``), K6's launches
+    among the device ops a step.  It runs on an older tree too (this file
+    copied in), to hold two trees' steps in one call."""
+    import torch
+
+    system = build_system()
+    system.generate(batch, num_beams=BEAMS, max_new_tokens=4, **GATHER_GEN)  # warm-up
+    with torch.inference_mode():
+        out = profile_decode(table, system, batch, gen_kw=GATHER_GEN)
+    del system
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1936,7 +2173,9 @@ PHASE_NAMES = [
 def topk_phases() -> list:
     """``--phases``: build csrc/topk.cu with MMVC_TOPK_MARKS defined (its own
     library under build/) and time K4 at [40, 128256] with the statistics
-    inside and given, and at [240, 128256] inside, on topk_plan's plans."""
+    inside and given, at [240, 128256] inside, and at batch 8 inside at
+    beam 64 and at the ceiling ``topk_max_beams()`` (the wide instance), on
+    topk_plan's plans."""
     import ctypes
     import statistics
 
@@ -1955,9 +2194,11 @@ def topk_phases() -> list:
     entry.argtypes, entry.restype = kernel_lib.SIGNATURES["mmvc_beam_topk_columns"], ctypes.c_int
     lib.mmvc_topk_marks.argtypes = [ctypes.c_void_p]
     g = torch.Generator(device=DEV).manual_seed(21)
-    k, v, n = BEAMS, 128256, 2 * BEAMS
+    v = 128256
     rows = []
-    for b, inside in ((BATCH, True), (BATCH, False), (48, True)):
+    for b, k, inside in ((BATCH, BEAMS, True), (BATCH, BEAMS, False), (48, BEAMS, True),
+                         (BATCH, 64, True), (BATCH, tk.topk_max_beams(), True)):
+        n = 2 * k
         x = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
         scores = torch.randn(b, k, generator=g, device=DEV)
         m, ls = (t.reshape(-1).contiguous() for t in tk.row_stats(x))
@@ -1990,6 +2231,13 @@ def topk_phases() -> list:
     return rows
 
 
+def gather_bound(src, *outs) -> dict:
+    """K6: each distinct source row read once (a beam reorder repeats some),
+    each output row written once, and src."""
+    distinct = len(set(src.tolist())) / src.shape[0]
+    return bound(nbytes(*outs) * (1 + distinct) + nbytes(src))
+
+
 def main() -> int:
     try:
         import torch
@@ -2015,6 +2263,10 @@ def main() -> int:
     print(f"kernels built in {lib.build_s:.1f} s -> {lib.path.name}")
     print(lib.log.strip())
 
+    if "--profile-gather" in sys.argv[1:]:
+        print(json.dumps({"profile_gather": profile_gather(kernels(), make_batch())}))
+        print(card)
+        return 0
     if "--profile" in sys.argv[1:]:
         print(json.dumps({"profile": profile_main(kernels(), make_batch())}))
         print(card)
@@ -2025,6 +2277,15 @@ def main() -> int:
         return 0
     if "--phases" in sys.argv[1:]:
         print(json.dumps({"phases": topk_phases()}))
+        print(card)
+        return 0
+    if "--beam5" in sys.argv[1:]:
+        results = []  # the cases an older tree has too: beam 5, K4 to beam 12
+        check_decode(results, wide=False)
+        check_decode(results, "bf16", wide=False)
+        check_merged(results, wide=False)
+        check_topk(results, wide=False)
+        print(json.dumps({"cases": results}))
         print(card)
         return 0
 

@@ -31,10 +31,17 @@
 //   one (batch element, kv head) form a thread block cluster; block r takes
 //   chunks r, r + splits, ... in order, with an online softmax across them
 //   (at batch 8: 7 chunks and blocks a pair, 448 blocks, where one block a
-//   pair gave 64 on 132 SMs; at batch 48, 6 chunks over 3 blocks a pair).  A
-//   block serves the K * rep <= 16 query rows that share its kv head, padded
-//   to one m16 tile.  The grid depends on (B, g, Tp, L) only, never on
-//   valid_len: a generated chunk at or past valid_len is skipped unread.
+//   pair gave 64 on 132 SMs; at batch 48, 6 chunks over 3 blocks a pair).  The
+//   grid depends on (B, g, Tp, L) only, never on valid_len: a generated chunk
+//   at or past valid_len is skipped unread.
+// - row tiles.  A block serves the K * rep query rows that share its kv
+//   head in m16 tiles (the last one padded), one tile after another: its
+//   chunks, then the tile's combine.  The scores [16, keys], the running m
+//   and l and the combine's buffers serve every tile, so shared memory does
+//   not grow with the beams.  A block with one chunk stages it once and
+//   keeps it for every tile (each K/V byte read once; batch 8 at every beam
+//   width); a block with more re-stages its chunks for each tile, from L2.
+//   Beam 5 at rep 3 (15 rows) is one tile, the loop's one pass.
 // - whole rows by cp.async.  A chunk's key rows and value rows (128 bytes
 //   each in int8, 8 lanes a row) go to shared memory in two commit groups,
 //   keys (with the scales, the mask or anc) first, so the scores run while
@@ -84,8 +91,9 @@ namespace {
 
 constexpr int D = 128;            // head dim
 constexpr int THREADS = 128;      // 4 warps
-constexpr int ROWS = 16;          // query rows a block: K * rep, padded to one m16 tile
-constexpr int MAX_KEYS = 128;     // key rows a chunk
+constexpr int ROWS = 16;          // query rows a tile: K * rep in m16 tiles, the last padded
+constexpr int MAX_KEYS = 128;     // key rows a chunk (a generated chunk of one slot: K)
+constexpr int SMEM_MAX = 232448;  // 227 KB a block
 constexpr int MAX_SPLITS = 8;     // blocks a cluster (the portable cluster size)
 constexpr int BLOCKS_PER_SM = 5;  // registers for 5 blocks an SM (<= 102 a thread)
 constexpr int UNITS = ROWS * D / 4;  // combine units: (query row, 4 columns)
@@ -115,6 +123,7 @@ struct Args {
   unsigned long long cg_m, rep_m;  // magic(cg), magic(h / g): see div_by
   int out_f32;
   float scale;
+  int tiles;            // m16 tiles of the K * rep query rows (set by the launch)
 };
 
 // Shared memory of one block (byte offsets) for chunks of at most `keys`
@@ -247,7 +256,10 @@ __device__ __forceinline__ unsigned value_bits(int8_t v) {
 }
 __device__ __forceinline__ unsigned value_bits(bf16 v) { return __bfloat16_as_ushort(v); }
 
-template <typename T, int MODE>
+// TILES: more than one 16-row tile of query rows (K * rep > 16); the
+// instance for one tile compiles the loop away, with the registers of a
+// kernel without it
+template <typename T, int MODE, bool TILES>
 __device__ __forceinline__ void decode_attention(const Args& p) {
   using L = Smem<T>;
   const L lay(p.keys, MODE == MERGED);
@@ -272,332 +284,359 @@ __device__ __forceinline__ void decode_attention(const Args& p) {
   float* l_run = m_run + ROWS;
   float* alpha = l_run + ROWS;  // the rescale of the running o by the last chunk
 
-  // this thread's query rows gq and gq + 8: (row x, its beam), and q, once
-  // a block, straight into the mma A fragments: elements 4t .. 4t + 3 of each
-  // 16-wide step of the head dim (the permuted k order), zeros for the
-  // padding rows
-  int beam_of[2];
-  unsigned qa[D / 16][4];
   float* qf = reinterpret_cast<float*>(smem + lay.qf_off);
-#pragma unroll
-  for (int h8 = 0; h8 < 2; ++h8) {
-    const int x = gq + 8 * h8;
-    beam_of[h8] = div_by(x, p.rep_m);
-    const uint2* qrow = reinterpret_cast<const uint2*>(
-        p.q + (size_t(b * K + beam_of[h8]) * p.h + gi * rep + x - beam_of[h8] * rep) * D + 4 * t);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint2 v = x < X ? __ldg(qrow + kk * 4) : make_uint2(0u, 0u);
-      if constexpr (MODE == MERGED) {  // q in f32: elements 16kk + 4t .. + 3 of row x
-        float* dst = qf + x * Q_PITCH + kk * 16 + 4 * t;
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xFFFF0000u),
-                        __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xFFFF0000u));
-      } else {
-        qa[kk][h8] = v.x;
-        qa[kk][2 + h8] = v.y;
-      }
-    }
-  }
-  if (tid < ROWS) {
-    m_run[tid] = -INFINITY;
-    l_run[tid] = 0.f;
-  }
-  float o[D / 32][4];  // the running P.V: rows gq, gq + 8 of columns 32w + 8j + 2t, +1
-#pragma unroll
-  for (int j = 0; j < D / 32; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  for (int c = r; c < p.p_chunks + p.g_chunks; c += splits) {
-    const bool prompt = c < p.p_chunks;
-    // generated chunk: slots l0 .. l0 + cg - 1 of every source row
-    const int l0 = prompt ? 0 : (c - p.p_chunks) * p.cg;
-    if (!prompt && l0 >= p.valid) break;  // no valid slot here or in a later chunk
-    const int n_keys = prompt ? p.cp : (K * p.cg + 15) / 16 * 16;
-    const unsigned char* kv_k = static_cast<const unsigned char*>(prompt ? p.pk : p.gk);
-    const unsigned char* kv_v = static_cast<const unsigned char*>(prompt ? p.pv : p.gv);
-    const float* ksrc = prompt ? p.pks : p.gks;
-    const float* vsrc = prompt ? p.pvs : p.gvs;
-    // key row n of the chunk: its row in the cache and whether it is read
-    auto key_row = [&](int n, size_t& row, bool& ok) {
-      if (prompt) {
-        const int slot = c * p.cp + n;
-        ok = slot < p.Tp;
-        row = size_t(pair) * p.Tp + (ok ? slot : 0);
-      } else {
-        const int s = div_by(n, p.cg_m), l = l0 + n - s * p.cg;
-        ok = n < K * p.cg && l < p.valid;
-        row = ok ? (size_t(b * K + s) * p.L + l) * g + gi : 0;
-      }
-    };
-
-    __syncthreads();  // the previous chunk's tiles are no longer read
-    // group 0: the keys, the key and value scales and what decides validity
-    // (the prompt mask, or the generated chunk's source rows [beam][slot -
-    // l0]); group 1: the values.  No thread waits on a load of its own.
-    constexpr int PIECES = D * sizeof(T) / 16;
-    for (int i = tid; i < n_keys * PIECES; i += THREADS) {
-      const int n = i / PIECES, piece = i % PIECES;
-      size_t row;
-      bool ok;
-      key_row(n, row, ok);
-      cp_async16(smem_addr(smem + lay.k_off + n * L::K_PITCH + piece * 16),
-                 kv_k + row * D * sizeof(T) + piece * 16, ok ? 16 : 0);
-    }
-    for (int n = tid; n < n_keys; n += THREADS) {
-      size_t row;
-      bool ok;
-      key_row(n, row, ok);
-      if (ksrc) {
-        cp_async4(smem_addr(ksc + n), ksrc + row, ok ? 4 : 0);
-        cp_async4(smem_addr(vsc + n), vsrc + row, ok ? 4 : 0);
-      } else {
-        ksc[n] = vsc[n] = 1.f;
-      }
-      if (prompt) {
-        const int slot = min(c * p.cp + n, p.Tp - 1);
-        cp_async4(smem_addr(pred + n), p.mask + size_t(b) * p.Tp + slot, ok ? 4 : 0);
-      }
-    }
-    if (!prompt) {
-      for (int i = tid; i < K * p.cg; i += THREADS) {
-        const int beam = div_by(i, p.cg_m), l = min(l0 + i - beam * p.cg, p.L - 1);
-        cp_async4(smem_addr(pred + i), p.anc + size_t(b * K + beam) * p.L + l, 4);
-      }
-    }
-    cp_async_commit();
-    for (int i = tid; i < n_keys * PIECES; i += THREADS) {
-      const int n = i / PIECES, piece = i % PIECES;
-      size_t row;
-      bool ok;
-      key_row(n, row, ok);
-      cp_async16(smem_addr(smem + lay.v_off + n * L::V_PITCH + piece * 16),
-                 kv_v + row * D * sizeof(T) + piece * 16, ok ? 16 : 0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // whether key n of the chunk counts for query row x (with x's beam)
-    auto valid = [&](int x, int beam, int n) {
-      if (x >= X) return false;
-      if (prompt) return pred[n] != 0;
-      // slot l0 + j of source row s: the row's beam's ancestor there?
-      const int s = div_by(n, p.cg_m), j = n - s * p.cg;
-      return n < K * p.cg && l0 + j < p.valid &&
-             min(max(pred[beam * p.cg + j], 0), K - 1) == s;
-    };
-    if constexpr (MODE == MERGED) {
-      // f32 FMAs over the head dim in order, on keys dequantized as k * ks
-      // rounded to f32, as the plain version sums them (see the note at the
-      // top); a thread takes 4 query rows x 2 keys
-      for (int i = tid; i < 4 * (n_keys / 2); i += THREADS) {
-        const int x0 = 4 * (i & 3), n0 = 2 * (i >> 2);
-        const unsigned char* k0 = smem + lay.k_off + n0 * L::K_PITCH;
-        const float ks0 = ksc[n0], ks1 = ksc[n0 + 1];
-        float acc[4][2] = {};
-        for (int d0 = 0; d0 < D; d0 += 4) {
-          const float4 c0 = int8x4_to_f32(*reinterpret_cast<const unsigned*>(k0 + d0));
-          const float4 c1 = int8x4_to_f32(*reinterpret_cast<const unsigned*>(k0 + L::K_PITCH + d0));
-          const float kv[2][4] = {{c0.x * ks0, c0.y * ks0, c0.z * ks0, c0.w * ks0},
-                                  {c1.x * ks1, c1.y * ks1, c1.z * ks1, c1.w * ks1}};
-#pragma unroll
-          for (int r4 = 0; r4 < 4; ++r4) {
-            const float4 qv = *reinterpret_cast<const float4*>(qf + (x0 + r4) * Q_PITCH + d0);
-            const float qs[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int c = 0; c < 2; ++c) acc[r4][c] = fmaf(qs[j], kv[c][j], acc[r4][c]);
-          }
-        }
-#pragma unroll
-        for (int r4 = 0; r4 < 4; ++r4)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int x = x0 + r4, n = n0 + c;
-            S[x * lay.s_pitch + n] =
-                valid(x, div_by(x, p.rep_m), n) ? acc[r4][c] * p.scale : -INFINITY;
-          }
-      }
-    } else {
-      // tensor cores: warp w takes key tiles w, w + 4, ...
-      for (int nt = warp; nt < n_keys / 8; nt += 4) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        const T* krow = reinterpret_cast<const T*>(smem + lay.k_off + (nt * 8 + gq) * L::K_PITCH);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          unsigned b0, b1;
-          key_pairs(krow + kk * 16 + 4 * t, b0, b1);
-          mma(acc, qa[kk], b0, b1);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int x = gq + 8 * (e >> 1), n = nt * 8 + 2 * t + (e & 1);
-          S[x * lay.s_pitch + n] =
-              valid(x, beam_of[e >> 1], n) ? acc[e] * ksc[n] * p.scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    // the online softmax, 8 threads a query row: the new running max, the
-    // rescale of what came before, P = exp(s - m) times the value scale
-    {
-      const int x = tid >> 3, sub = tid & 7;
-      float* srow = S + x * lay.s_pitch;
-      float mx = m_run[x];
-      for (int n = sub; n < n_keys; n += 8) mx = fmaxf(mx, srow[n]);
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float sum = 0.f;
-      for (int n = sub; n < n_keys; n += 8) {
-        const float s = srow[n];
-        const float e = s == -INFINITY ? 0.f : expf(s - mx);
-        sum += e;
-        srow[n] = e * vsc[n];
-      }
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (sub == 0) {
-        // nothing to rescale while no key was valid (the running o and l are 0)
-        const float a = m_run[x] == -INFINITY ? 0.f : expf(m_run[x] - mx);
-        alpha[x] = a;
-        l_run[x] = l_run[x] * a + sum;
-        m_run[x] = mx;
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // P.V into the running o: warp w owns columns 32w .. 32w + 31 (four n8
-    // tiles), the keys in 16-wide steps in the permuted order: thread (gq, t)
-    // takes keys 4t .. 4t + 3 of the step
-    {
-      const float a0 = alpha[gq], a1 = alpha[gq + 8];
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) {
-        o[j][0] *= a0, o[j][1] *= a0, o[j][2] *= a1, o[j][3] *= a1;
-      }
-    }
-    for (int kb = 0; kb < n_keys; kb += 16) {
-      const float4 p0 = *reinterpret_cast<const float4*>(S + gq * lay.s_pitch + kb + 4 * t);
-      const float4 p1 = *reinterpret_cast<const float4*>(S + (gq + 8) * lay.s_pitch + kb + 4 * t);
-      unsigned part[4][3], a[3][4];  // A fragment register r of term i: a[i][r]
-      split_bf16(p0.x, p0.y, part[0]);
-      split_bf16(p1.x, p1.y, part[1]);
-      split_bf16(p0.z, p0.w, part[2]);
-      split_bf16(p1.z, p1.w, part[3]);
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int r4 = 0; r4 < 4; ++r4) a[i][r4] = part[r4][i];
-      const T* vrow = reinterpret_cast<const T*>(smem + lay.v_off + (kb + 4 * t) * L::V_PITCH);
-      constexpr int VP = L::V_PITCH / sizeof(T);
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) {
-        const int col = warp * (D / 4) + j * 8 + gq;
-        const unsigned b0 = value_bits(vrow[col]) | value_bits(vrow[VP + col]) << 16;
-        const unsigned b1 = value_bits(vrow[2 * VP + col]) | value_bits(vrow[3 * VP + col]) << 16;
-        // each term's product from a zero accumulator, added in f32
-        float c[3][4] = {};
-#pragma unroll
-        for (int i = 0; i < 3; ++i) mma(c[i], a[i], b0, b1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] += c[2][e] + c[1][e] + c[0][e];
-      }
-    }
-  }
-  __syncthreads();  // the running m and l are final
-  cluster_wait();
-
-  // the combine, pushed: unit u = (query row x, columns 4c .. 4c + 3) is
-  // owned by block u % splits; every block writes its (m, l) to every block
-  // and its o of each unit to the unit's owner, [u / splits][this block]
-  const int owned = (UNITS + splits - 1) / splits;
-  if (tid < ROWS * splits) {
-    const int x = tid % ROWS, k = tid / ROWS;
-    float* dst = cluster.map_shared_rank(rml, k) + r * 2 * ROWS;
-    dst[x] = m_run[x] == -INFINITY ? mmvc::kNeg : m_run[x];
-    dst[ROWS + x] = l_run[x];
-  }
-#pragma unroll
-  for (int j = 0; j < D / 32; ++j) {
-    const int col = warp * (D / 4) + j * 8 + 2 * t;
+  // a block with one chunk stages it once and keeps it for every row tile
+  const bool keep = r + splits >= p.p_chunks + p.g_chunks;
+  for (int tile = 0; tile < (TILES ? p.tiles : 1); ++tile) {
+    const int row0 = tile * ROWS;  // the tile's first query row
+    // this thread's query rows row0 + gq and row0 + gq + 8: (row x, its beam),
+    // and q, once a tile, straight into the mma A fragments: elements 4t .. 4t
+    // + 3 of each 16-wide step of the head dim (the permuted k order), zeros
+    // for the padding rows
+    int beam_of[2];
+    unsigned qa[D / 16][4];
 #pragma unroll
     for (int h8 = 0; h8 < 2; ++h8) {
-      const int x = gq + 8 * h8;
-      if (x < X) {
-        const int u = x * (D / 4) + col / 4;
-        float4* slot = cluster.map_shared_rank(ro, u % splits) + (u / splits) * splits + r;
-        reinterpret_cast<float2*>(slot)[(col / 2) & 1] = make_float2(o[j][2 * h8], o[j][2 * h8 + 1]);
+      const int x = row0 + gq + 8 * h8;
+      beam_of[h8] = div_by(x, p.rep_m);
+      const size_t q_row = size_t(b * K + beam_of[h8]) * p.h + gi * rep + x - beam_of[h8] * rep;
+      const uint2* qrow = reinterpret_cast<const uint2*>(p.q + q_row * D + 4 * t);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint2 v = x < X ? __ldg(qrow + kk * 4) : make_uint2(0u, 0u);
+        if constexpr (MODE == MERGED) {  // q in f32: elements 16kk + 4t .. + 3 of row x
+          float* dst = qf + (gq + 8 * h8) * Q_PITCH + kk * 16 + 4 * t;
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xFFFF0000u),
+                          __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xFFFF0000u));
+        } else {
+          qa[kk][h8] = v.x;
+          qa[kk][2 + h8] = v.y;
+        }
       }
     }
-  }
-  cluster_arrive();
-  cluster_wait();  // every block's partial has arrived; no one touches this block's memory again
+    if (tid < ROWS) {
+      m_run[tid] = -INFINITY;
+      l_run[tid] = 0.f;
+    }
+    float o[D / 32][4];  // the running P.V: rows gq, gq + 8 of columns 32w + 8j + 2t, +1
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
-  // this block's units: every block's partial in block order
-  for (int i = tid; i < owned; i += THREADS) {
-    const int u = i * splits + r, x = u / (D / 4), col = (u % (D / 4)) * 4;
-    if (x >= X) continue;
-    float M = mmvc::kNeg;
-    for (int k = 0; k < splits; ++k) M = fmaxf(M, rml[k * 2 * ROWS + x]);
-    // a block without a valid key adds exact zeros (o = 0, l = 0)
-    float den = 0.f;
-    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < splits; ++k) {
-      const float w = expf(rml[k * 2 * ROWS + x] - M);
-      const float4 v = ro[i * splits + k];
-      den += rml[k * 2 * ROWS + ROWS + x] * w;
-      num.x += v.x * w;
-      num.y += v.y * w;
-      num.z += v.z * w;
-      num.w += v.w * w;
-    }
-    const int beam = div_by(x, p.rep_m);
-    const size_t orow = size_t(b * K + beam) * p.h + gi * rep + x - beam * rep;
-    if constexpr (MODE == MERGED) {
-      const float dd = fmaxf(den, 1e-30f);
-      const float4 y = make_float4(num.x / dd, num.y / dd, num.z / dd, num.w / dd);
-      if (p.out_f32) {
-        *reinterpret_cast<float4*>(static_cast<float*>(p.out) + orow * D + col) = y;
+    for (int c = r; c < p.p_chunks + p.g_chunks; c += splits) {
+      const bool prompt = c < p.p_chunks;
+      // generated chunk: slots l0 .. l0 + cg - 1 of every source row
+      const int l0 = prompt ? 0 : (c - p.p_chunks) * p.cg;
+      if (!prompt && l0 >= p.valid) break;  // no valid slot here or in a later chunk
+      const int n_keys = prompt ? p.cp : (K * p.cg + 15) / 16 * 16;
+      const unsigned char* kv_k = static_cast<const unsigned char*>(prompt ? p.pk : p.gk);
+      const unsigned char* kv_v = static_cast<const unsigned char*>(prompt ? p.pv : p.gv);
+      const float* ksrc = prompt ? p.pks : p.gks;
+      const float* vsrc = prompt ? p.pvs : p.gvs;
+      // key row n of the chunk: its row in the cache and whether it is read
+      auto key_row = [&](int n, size_t& row, bool& ok) {
+        if (prompt) {
+          const int slot = c * p.cp + n;
+          ok = slot < p.Tp;
+          row = size_t(pair) * p.Tp + (ok ? slot : 0);
+        } else {
+          const int s = div_by(n, p.cg_m), l = l0 + n - s * p.cg;
+          ok = n < K * p.cg && l < p.valid;
+          row = ok ? (size_t(b * K + s) * p.L + l) * g + gi : 0;
+        }
+      };
+
+      __syncthreads();  // the previous chunk's tiles are no longer read
+      // group 0: the keys, the key and value scales and what decides validity
+      // (the prompt mask, or the generated chunk's source rows [beam][slot -
+      // l0]); group 1: the values.  No thread waits on a load of its own.
+      // staged for this tile, or (one chunk) still there from the first
+      if (tile == 0 || !keep) {
+        constexpr int PIECES = D * sizeof(T) / 16;
+        for (int i = tid; i < n_keys * PIECES; i += THREADS) {
+          const int n = i / PIECES, piece = i % PIECES;
+          size_t row;
+          bool ok;
+          key_row(n, row, ok);
+          cp_async16(smem_addr(smem + lay.k_off + n * L::K_PITCH + piece * 16),
+                     kv_k + row * D * sizeof(T) + piece * 16, ok ? 16 : 0);
+        }
+        for (int n = tid; n < n_keys; n += THREADS) {
+          size_t row;
+          bool ok;
+          key_row(n, row, ok);
+          if (ksrc) {
+            cp_async4(smem_addr(ksc + n), ksrc + row, ok ? 4 : 0);
+            cp_async4(smem_addr(vsc + n), vsrc + row, ok ? 4 : 0);
+          } else {
+            ksc[n] = vsc[n] = 1.f;
+          }
+          if (prompt) {
+            const int slot = min(c * p.cp + n, p.Tp - 1);
+            cp_async4(smem_addr(pred + n), p.mask + size_t(b) * p.Tp + slot, ok ? 4 : 0);
+          }
+        }
+        if (!prompt) {
+          for (int i = tid; i < K * p.cg; i += THREADS) {
+            const int beam = div_by(i, p.cg_m), l = min(l0 + i - beam * p.cg, p.L - 1);
+            cp_async4(smem_addr(pred + i), p.anc + size_t(b * K + beam) * p.L + l, 4);
+          }
+        }
+        cp_async_commit();
+        for (int i = tid; i < n_keys * PIECES; i += THREADS) {
+          const int n = i / PIECES, piece = i % PIECES;
+          size_t row;
+          bool ok;
+          key_row(n, row, ok);
+          cp_async16(smem_addr(smem + lay.v_off + n * L::V_PITCH + piece * 16),
+                     kv_v + row * D * sizeof(T) + piece * 16, ok ? 16 : 0);
+        }
+        cp_async_commit();
+      }
+      cp_async_wait<1>();
+      __syncthreads();
+
+      // whether key n of the chunk counts for query row x (with x's beam)
+      auto valid = [&](int x, int beam, int n) {
+        if (x >= X) return false;
+        if (prompt) return pred[n] != 0;
+        // slot l0 + j of source row s: the row's beam's ancestor there?
+        const int s = div_by(n, p.cg_m), j = n - s * p.cg;
+        return n < K * p.cg && l0 + j < p.valid &&
+               min(max(pred[beam * p.cg + j], 0), K - 1) == s;
+      };
+      if constexpr (MODE == MERGED) {
+        // f32 FMAs over the head dim in order, on keys dequantized as k * ks
+        // rounded to f32, as the plain version sums them (see the note at the
+        // top); a thread takes 4 query rows x 2 keys
+        for (int i = tid; i < 4 * (n_keys / 2); i += THREADS) {
+          const int x0 = 4 * (i & 3), n0 = 2 * (i >> 2);
+          const unsigned char* k0 = smem + lay.k_off + n0 * L::K_PITCH;
+          const float ks0 = ksc[n0], ks1 = ksc[n0 + 1];
+          float acc[4][2] = {};
+          for (int d0 = 0; d0 < D; d0 += 4) {
+            const float4 c0 = int8x4_to_f32(*reinterpret_cast<const unsigned*>(k0 + d0));
+            const float4 c1 =
+                int8x4_to_f32(*reinterpret_cast<const unsigned*>(k0 + L::K_PITCH + d0));
+            const float kv[2][4] = {{c0.x * ks0, c0.y * ks0, c0.z * ks0, c0.w * ks0},
+                                    {c1.x * ks1, c1.y * ks1, c1.z * ks1, c1.w * ks1}};
+#pragma unroll
+            for (int r4 = 0; r4 < 4; ++r4) {
+              const float4 qv = *reinterpret_cast<const float4*>(qf + (x0 + r4) * Q_PITCH + d0);
+              const float qs[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) acc[r4][c] = fmaf(qs[j], kv[c][j], acc[r4][c]);
+            }
+          }
+#pragma unroll
+          for (int r4 = 0; r4 < 4; ++r4)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int x = x0 + r4, n = n0 + c, xg = row0 + x;
+              S[x * lay.s_pitch + n] =
+                  valid(xg, div_by(xg, p.rep_m), n) ? acc[r4][c] * p.scale : -INFINITY;
+            }
+        }
       } else {
-        uint2 w2;
-        w2.x = pack_bf16(y.x, y.y);
-        w2.y = pack_bf16(y.z, y.w);
-        *reinterpret_cast<uint2*>(static_cast<bf16*>(p.out) + orow * D + col) = w2;
+        // tensor cores: warp w takes key tiles w, w + 4, ...
+        for (int nt = warp; nt < n_keys / 8; nt += 4) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          const T* krow = reinterpret_cast<const T*>(smem + lay.k_off + (nt * 8 + gq) * L::K_PITCH);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            unsigned b0, b1;
+            key_pairs(krow + kk * 16 + 4 * t, b0, b1);
+            mma(acc, qa[kk], b0, b1);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = gq + 8 * (e >> 1), n = nt * 8 + 2 * t + (e & 1);
+            S[x * lay.s_pitch + n] =
+                valid(row0 + x, beam_of[e >> 1], n) ? acc[e] * ksc[n] * p.scale : -INFINITY;
+          }
+        }
       }
-    } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + orow * D + col) = num;
-      if (col == 0) {
-        p.m_out[orow] = M;
-        p.l_out[orow] = den;
+      __syncthreads();
+
+      // the online softmax, 8 threads a query row: the new running max, the
+      // rescale of what came before, P = exp(s - m) times the value scale
+      {
+        const int x = tid >> 3, sub = tid & 7;
+        float* srow = S + x * lay.s_pitch;
+        float mx = m_run[x];
+        for (int n = sub; n < n_keys; n += 8) mx = fmaxf(mx, srow[n]);
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        float sum = 0.f;
+        for (int n = sub; n < n_keys; n += 8) {
+          const float s = srow[n];
+          const float e = s == -INFINITY ? 0.f : expf(s - mx);
+          sum += e;
+          srow[n] = e * vsc[n];
+        }
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (sub == 0) {
+          // nothing to rescale while no key was valid (the running o and l are 0)
+          const float a = m_run[x] == -INFINITY ? 0.f : expf(m_run[x] - mx);
+          alpha[x] = a;
+          l_run[x] = l_run[x] * a + sum;
+          m_run[x] = mx;
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // P.V into the running o: warp w owns columns 32w .. 32w + 31 (four n8
+      // tiles), the keys in 16-wide steps in the permuted order: thread (gq, t)
+      // takes keys 4t .. 4t + 3 of the step
+      {
+        const float a0 = alpha[gq], a1 = alpha[gq + 8];
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) {
+          o[j][0] *= a0, o[j][1] *= a0, o[j][2] *= a1, o[j][3] *= a1;
+        }
+      }
+      for (int kb = 0; kb < n_keys; kb += 16) {
+        const float4 p0 = *reinterpret_cast<const float4*>(S + gq * lay.s_pitch + kb + 4 * t);
+        const float4 p1 = *reinterpret_cast<const float4*>(S + (gq + 8) * lay.s_pitch + kb + 4 * t);
+        unsigned part[4][3], a[3][4];  // A fragment register r of term i: a[i][r]
+        split_bf16(p0.x, p0.y, part[0]);
+        split_bf16(p1.x, p1.y, part[1]);
+        split_bf16(p0.z, p0.w, part[2]);
+        split_bf16(p1.z, p1.w, part[3]);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int r4 = 0; r4 < 4; ++r4) a[i][r4] = part[r4][i];
+        const T* vrow = reinterpret_cast<const T*>(smem + lay.v_off + (kb + 4 * t) * L::V_PITCH);
+        constexpr int VP = L::V_PITCH / sizeof(T);
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) {
+          const int col = warp * (D / 4) + j * 8 + gq;
+          const unsigned b0 = value_bits(vrow[col]) | value_bits(vrow[VP + col]) << 16;
+          const unsigned b1 = value_bits(vrow[2 * VP + col]) | value_bits(vrow[3 * VP + col]) << 16;
+          // each term's product from a zero accumulator, added in f32
+          float c[3][4] = {};
+#pragma unroll
+          for (int i = 0; i < 3; ++i) mma(c[i], a[i], b0, b1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][e] += c[2][e] + c[1][e] + c[0][e];
+        }
       }
     }
+    __syncthreads();  // the running m and l are final
+    cluster_wait();
+
+    // the combine, pushed: unit u = (query row x, columns 4c .. 4c + 3) is
+    // owned by block u % splits; every block writes its (m, l) to every block
+    // and its o of each unit to the unit's owner, [u / splits][this block]
+    const int owned = (UNITS + splits - 1) / splits;
+    if (tid < ROWS * splits) {
+      const int x = tid % ROWS, k = tid / ROWS;
+      float* dst = cluster.map_shared_rank(rml, k) + r * 2 * ROWS;
+      dst[x] = m_run[x] == -INFINITY ? mmvc::kNeg : m_run[x];
+      dst[ROWS + x] = l_run[x];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) {
+      const int col = warp * (D / 4) + j * 8 + 2 * t;
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int x = gq + 8 * h8;
+        if (row0 + x < X) {
+          const int u = x * (D / 4) + col / 4;
+          float4* slot = cluster.map_shared_rank(ro, u % splits) + (u / splits) * splits + r;
+          reinterpret_cast<float2*>(slot)[(col / 2) & 1] =
+              make_float2(o[j][2 * h8], o[j][2 * h8 + 1]);
+        }
+      }
+    }
+    cluster_arrive();
+    // every block's partial has arrived; no one writes to this block's memory
+    // again before this tile's combine is done
+    cluster_wait();
+
+    // this block's units: every block's partial in block order
+    for (int i = tid; i < owned; i += THREADS) {
+      const int u = i * splits + r, x = u / (D / 4), col = (u % (D / 4)) * 4;
+      const int xg = row0 + x;  // the query row
+      if (xg >= X) continue;
+      float M = mmvc::kNeg;
+      for (int k = 0; k < splits; ++k) M = fmaxf(M, rml[k * 2 * ROWS + x]);
+      // a block without a valid key adds exact zeros (o = 0, l = 0)
+      float den = 0.f;
+      float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = 0; k < splits; ++k) {
+        const float w = expf(rml[k * 2 * ROWS + x] - M);
+        const float4 v = ro[i * splits + k];
+        den += rml[k * 2 * ROWS + ROWS + x] * w;
+        num.x += v.x * w;
+        num.y += v.y * w;
+        num.z += v.z * w;
+        num.w += v.w * w;
+      }
+      const int beam = div_by(xg, p.rep_m);
+      const size_t orow = size_t(b * K + beam) * p.h + gi * rep + xg - beam * rep;
+      if constexpr (MODE == MERGED) {
+        const float dd = fmaxf(den, 1e-30f);
+        const float4 y = make_float4(num.x / dd, num.y / dd, num.z / dd, num.w / dd);
+        if (p.out_f32) {
+          *reinterpret_cast<float4*>(static_cast<float*>(p.out) + orow * D + col) = y;
+        } else {
+          uint2 w2;
+          w2.x = pack_bf16(y.x, y.y);
+          w2.y = pack_bf16(y.z, y.w);
+          *reinterpret_cast<uint2*>(static_cast<bf16*>(p.out) + orow * D + col) = w2;
+        }
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(p.out) + orow * D + col) = num;
+        if (col == 0) {
+          p.m_out[orow] = M;
+          p.l_out[orow] = den;
+        }
+      }
+    }
+    // this block has read its combine buffers: the others may write the
+    // next tile's into them (the wait before the next push)
+    if (TILES && tile + 1 < p.tiles) cluster_arrive();
   }
 }
 
 // one __global__ name an entry, so that a profile tells them apart
-template <typename T>
+template <typename T, bool TILES>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) prompt_attention_kernel(Args p) {
-  decode_attention<T, PROMPT_PARTIALS>(p);
+  decode_attention<T, PROMPT_PARTIALS, TILES>(p);
 }
 
-template <typename T>
+template <typename T, bool TILES>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) gen_attention_kernel(Args p) {
-  decode_attention<T, GEN_PARTIALS>(p);
+  decode_attention<T, GEN_PARTIALS, TILES>(p);
 }
 
+template <bool TILES>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ancestry_attention_kernel(Args p) {
-  decode_attention<int8_t, MERGED>(p);
+  decode_attention<int8_t, MERGED, TILES>(p);
 }
 
-template <typename T>
-int launch(void (*kernel)(Args), Args p, int B, int splits, cudaStream_t stream) {
+// the instance for one query-row tile or for several
+template <typename T, int MODE>
+int launch(Args p, int B, int splits, cudaStream_t stream) {
   p.keys = max(p.p_chunks ? p.cp : 0, p.g_chunks ? (p.K * p.cg + 15) / 16 * 16 : 0);
+  p.tiles = (p.K * (p.h / p.g) + ROWS - 1) / ROWS;
   p.cg_m = magic(max(p.cg, 1));
   p.rep_m = magic(p.h / p.g);
-  const int bytes = Smem<T>(p.keys, kernel == ancestry_attention_kernel).bytes;
+  void (*kernel)(Args);
+  if constexpr (MODE == MERGED)
+    kernel = p.tiles > 1 ? ancestry_attention_kernel<true> : ancestry_attention_kernel<false>;
+  else if constexpr (MODE == GEN_PARTIALS)
+    kernel = p.tiles > 1 ? gen_attention_kernel<T, true> : gen_attention_kernel<T, false>;
+  else
+    kernel = p.tiles > 1 ? prompt_attention_kernel<T, true> : prompt_attention_kernel<T, false>;
+  const int bytes = Smem<T>(p.keys, MODE == MERGED).bytes;
+  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -619,18 +658,19 @@ int launch(void (*kernel)(Args), Args p, int B, int splits, cudaStream_t stream)
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The shapes and the plan the kernel takes: d = 128, K * rep <= 16 query
-// rows a kv head; prompt chunks of cp slots (a multiple of 16, <= 128) that
-// cover Tp; generated chunks of cg slots, K * cg <= 128 key rows, that cover
-// L; 1..8 splits, no more than the chunks.
+// The shapes and the plan the kernel takes: d = 128, any K * rep < 2^16
+// query rows a kv head; prompt chunks of cp slots (a multiple of 16, <= 128)
+// that cover Tp; generated chunks of cg slots, K * cg <= 128 key rows (or one
+// slot of K > 128 rows), that cover L; 1..8 splits, no more than the chunks.
+// The launch also refuses a plan whose shared memory passes 227 KB.
 bool plan_ok(const Args& p, int B, int d, int splits) {
   const bool dims = B > 0 && B <= 65535 && p.K > 0 && p.g > 0 && p.g <= 65535 && p.h > 0 &&
-                    p.h % p.g == 0 && p.K * (p.h / p.g) <= ROWS && d == D;
+                    p.h % p.g == 0 && p.K * (p.h / p.g) < 65536 && d == D;
   const bool prompt = p.p_chunks == 0 ||
                       (p.cp > 0 && p.cp % 16 == 0 && p.cp <= MAX_KEYS &&
                        (p.p_chunks - 1) * p.cp < p.Tp && p.p_chunks * p.cp >= p.Tp);
   const bool gen = p.g_chunks == 0 ||
-                   (p.cg > 0 && (p.K * p.cg + 15) / 16 * 16 <= MAX_KEYS &&
+                   (p.cg > 0 && ((p.K * p.cg + 15) / 16 * 16 <= MAX_KEYS || p.cg == 1) &&
                     (p.g_chunks - 1) * p.cg < p.L && p.g_chunks * p.cg >= p.L);
   return dims && prompt && gen && splits >= 1 && splits <= MAX_SPLITS &&
          splits <= p.p_chunks + p.g_chunks;
@@ -655,8 +695,8 @@ extern "C" int mmvc_prompt_attention(const void* q, const void* pk, const void* 
     return cudaErrorInvalidValue;
   if (kv_bf16) p.pks = p.pvs = nullptr;
   auto st = static_cast<cudaStream_t>(stream);
-  return kv_bf16 ? launch<bf16>(prompt_attention_kernel<bf16>, p, B, splits, st)
-                 : launch<int8_t>(prompt_attention_kernel<int8_t>, p, B, splits, st);
+  return kv_bf16 ? launch<bf16, PROMPT_PARTIALS>(p, B, splits, st)
+                 : launch<int8_t, PROMPT_PARTIALS>(p, B, splits, st);
 }
 
 // K3.  kv as K2's; K/V [B*K, L, g, d], scales [B*K, L, g]; anc int32 [B*K, L]
@@ -676,8 +716,8 @@ extern "C" int mmvc_gen_attention_ancestor(const void* q, const void* gk, const 
     return cudaErrorInvalidValue;
   if (kv_bf16) p.gks = p.gvs = nullptr;
   auto st = static_cast<cudaStream_t>(stream);
-  return kv_bf16 ? launch<bf16>(gen_attention_kernel<bf16>, p, B, splits, st)
-                 : launch<int8_t>(gen_attention_kernel<int8_t>, p, B, splits, st);
+  return kv_bf16 ? launch<bf16, GEN_PARTIALS>(p, B, splits, st)
+                 : launch<int8_t, GEN_PARTIALS>(p, B, splits, st);
 }
 
 // The merged entry: K2's and K3's int8 operands (both scales required), both
@@ -698,6 +738,6 @@ extern "C" int mmvc_ancestry_attention(const void* q, const void* pk, const void
   if (!plan_ok(p, B, d, splits) || p_chunks < 1 || g_chunks < 1 || !pks || !pvs || !gks ||
       !gvs)
     return cudaErrorInvalidValue;
-  return launch<int8_t>(ancestry_attention_kernel, p, B, splits,
+  return launch<int8_t, MERGED>(p, B, splits,
                         static_cast<cudaStream_t>(stream));
 }

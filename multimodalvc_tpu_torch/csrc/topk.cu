@@ -72,6 +72,14 @@
 // No global workspace, no counters, no second launch: the grid and the work
 // depend on the shapes alone (the work on the values only through the
 // filter).
+// - More than 16 beams, or n > 32: the wide instance (MAXR = 0) takes any K
+//   and n <= 256.  A ring chunk of K rows would pass shared memory from
+//   about 20 rows, so it streams from global memory: phase A in groups of 16
+//   rows (each value read once, 16 rows' statistics in registers), phase B
+//   over every row.  A lane keeps up to 8 list entries (n / 32).  Phase C
+//   ranks the K keys of each of the block's n columns in the block itself,
+//   and sends the leader only the block's n best at or above theta (the
+//   n x K keys of every block would not fit the leader's shared memory).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -85,8 +93,10 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_CLUSTER = 16;  // blocks a cluster; above 8 the non-portable size
-constexpr int MAX_ROWS = 16;     // K
-constexpr int MAX_N = 32;        // n: one list entry a lane
+constexpr int MAX_ROWS = 16;     // K of the narrow instances
+constexpr int MAX_N = 32;        // n of the narrow instances: one list entry a lane
+constexpr int WIDE_MAX_N = 256;  // n of the wide instance: up to 8 list entries a lane
+constexpr int GROUP = 16;        // rows a phase-A pass of the wide instance
 constexpr int MAX_STAGES = 8;    // ring depth (cp_async_wait takes up to 7 pending)
 constexpr int KT = 4;            // champion keys a thread keeps
 constexpr int TILE_KEYS = 16;    // keys a lane holds in the exact recompute
@@ -126,23 +136,37 @@ __device__ unsigned long long g_marks[2048 * N_MARKS];
 
 __host__ __device__ constexpr int align16(int b) { return (b + 15) / 16 * 16; }
 
+// the shapes the wide instance (MAXR = 0) takes, and only it
+__host__ __device__ constexpr bool wide_shape(int K, int n) { return K > MAX_ROWS || n > MAX_N; }
+
+// entries of the per-row arrays: at least 16, a multiple of 4 (16-byte offsets after them)
+__host__ __device__ constexpr int rows_of(int K) {
+  return K > MAX_ROWS ? (K + 3) / 4 * 4 : MAX_ROWS;
+}
+
 // Shared memory of one block (byte offsets), mirrored by ops/topk.py:
-// topk_smem_bytes: per row m, ls, s and the filter's threshold [MAX_ROWS]
-// each, the bound theta [MAX_ROWS] (one used), the values of the blocks'
-// row maxima [MAX_CLUSTER * MAX_ROWS], the block's row statistics (max, sum)
-// [MAX_ROWS], the warps' [WARPS][K] and the cluster's blocks' [C][K]; the
+// topk_smem_bytes: per row m, ls, s and the filter's threshold [R] each
+// (R = rows_of(K)), the bound theta [R] (one used), the values of the
+// blocks' row maxima [MAX_CLUSTER * R], the block's row statistics (max,
+// sum) [R], the warps' [WARPS][K] and the cluster's blocks' [C][K]; the
 // warps' lists [WARPS][n] and n-th keys [WARPS]; a merge's candidates
-// [max(WARPS * n, C * n * K)]; the blocks' n-th keys [C] and a merge's output
-// [n], a counter; the K keys of each block's n columns [C][n][K]; the ring
-// [stages][K][THREADS] units and the unit maxima [sum_chunks][K][THREADS].
+// [max(WARPS * n, C * n * G)] (wide: and the block's n * K); the blocks' n-th
+// keys [C] and a merge's output [n], a counter; what the blocks send the
+// leader, the K keys of each of their n columns (wide: their n best)
+// [C][n][G]; the ring [stages][K][THREADS] units and the unit maxima
+// [sum_chunks][K][THREADS] (wide: neither).
 struct Smem {
   int bvals_off, bpart_off, wpart_off, part_off, wlist_off, wth_off, cand_off, bth_off,
       top_off, counter_off, gather_off, ring_off, sum_off, bytes;
   __host__ __device__ Smem(int K, int n, int C, int stages, int sum_chunks) {
-    const int merge = WARPS * n > C * n * K ? WARPS * n : C * n * K;
-    bvals_off = 5 * MAX_ROWS * 4;
-    bpart_off = bvals_off + MAX_CLUSTER * MAX_ROWS * 4;
-    wpart_off = bpart_off + MAX_ROWS * 8;
+    const bool wide = wide_shape(K, n);
+    const int R = rows_of(K), G = wide ? 1 : K;
+    int merge = WARPS * n > C * n * G ? WARPS * n : C * n * G;
+    if (wide && n * K > merge) merge = n * K;
+    if (wide) stages = sum_chunks = 0;
+    bvals_off = 5 * R * 4;
+    bpart_off = bvals_off + MAX_CLUSTER * R * 4;
+    wpart_off = bpart_off + R * 8;
     part_off = wpart_off + align16(WARPS * K * 8);
     wlist_off = part_off + align16(C * K * 8);
     wth_off = wlist_off + align16(WARPS * n * 8);
@@ -151,7 +175,7 @@ struct Smem {
     top_off = bth_off + align16(C * 8);
     counter_off = top_off + align16(n * 8);
     gather_off = counter_off + 16;
-    ring_off = gather_off + align16(C * n * K * 8);
+    ring_off = gather_off + align16(C * n * G * 8);
     sum_off = ring_off + stages * K * THREADS * UNIT;
     bytes = sum_off + sum_chunks * K * THREADS * 4;
   }
@@ -188,19 +212,50 @@ __device__ __forceinline__ u64 warp_max_key(u64 k) {
   return (u64(top) << 32) | lo;
 }
 
-// The n largest of the warp's keys (L a lane, consumed), largest first: lane
-// j < n returns the j-th (0 where fewer than n keys are nonzero).  n rounds,
-// each a warp max and a knockout on the lane that held the winner.
-template <int L>
-__device__ __forceinline__ u64 warp_top_n(u64 (&keys)[L], int n) {
+// f(i) for i = first, first + step, ... below end.  The narrow instances'
+// shapes give at most one (first < end), which they take without a loop.
+template <bool LOOP, typename F>
+__device__ __forceinline__ void strided(int first, int end, int step, F&& f) {
+  if constexpr (LOOP) {
+    for (int i = first; i < end; i += step) f(i);
+  } else if (first < end) {
+    f(first);
+  }
+}
+
+// A warp's list of n keys, largest first: entry j in lane j % 32, slot j / 32.
+template <int NL>
+__device__ __forceinline__ void list_set(u64 (&list)[NL], int j, u64 k) {
   const int lane = threadIdx.x & 31;
-  u64 best = 0, mine = 0;
+#pragma unroll
+  for (int e = 0; e < NL; ++e)
+    if (lane + 32 * e == j) list[e] = k;
+}
+
+// entry j of the list, on every lane
+template <int NL>
+__device__ __forceinline__ u64 list_at(const u64 (&list)[NL], int j) {
+  u64 v = list[0];
+#pragma unroll
+  for (int e = 1; e < NL; ++e)
+    if (j / 32 == e) v = list[e];
+  return __shfl_sync(FULL, v, j % 32);
+}
+
+// The n largest of the warp's keys (L a lane, consumed) into `out`, largest
+// first (0 where fewer than n keys are nonzero).  n rounds, each a warp max
+// and a knockout on the lane that held the winner.
+template <int L, int NL>
+__device__ __forceinline__ void warp_top_n(u64 (&keys)[L], int n, u64 (&out)[NL]) {
+  u64 best = 0;
+#pragma unroll
+  for (int e = 0; e < NL; ++e) out[e] = 0;
 #pragma unroll
   for (int i = 0; i < L; ++i) best = kmax(best, keys[i]);
   for (int j = 0; j < n; ++j) {
     const u64 win = warp_max_key(best);
     if (win == 0) break;  // warp-uniform
-    if (lane == j) mine = win;
+    list_set(out, j, win);
     if (best == win) {  // keys are distinct: one lane
       best = 0;
 #pragma unroll
@@ -210,7 +265,6 @@ __device__ __forceinline__ u64 warp_top_n(u64 (&keys)[L], int n) {
       }
     }
   }
-  return mine;
 }
 
 // out[rank] = key for the keys of src[0, count) (distinct) whose rank, the
@@ -321,24 +375,28 @@ __device__ __forceinline__ void cluster_wait() {
 // unit reaches the ring: 16 (one 16-byte copy: rows 16-byte aligned), 4 (four
 // 4-byte copies, f32), 0 (no ring: loads from global memory, bf16 rows that
 // are not 4-byte aligned); MAXR: rows a batch element, at most (16), or
-// exactly (5: beam 5, every row loop unrolled without a test).
+// exactly (5: beam 5, every row loop unrolled without a test), or 0: the
+// wide instance, any K and n <= 256, no ring (16-byte or 4-byte loads from
+// global memory by COPY).
 template <typename T, bool STATS, int COPY, int MAXR>
 __device__ __forceinline__ void beam_topk(const Args& p) {
   constexpr int W = UNIT / int(sizeof(T));  // columns a unit
-  constexpr bool EXACT = MAXR == 5;
+  constexpr bool EXACT = MAXR == 5, WIDE = MAXR == 0, RING = COPY != 0 && !WIDE;
+  constexpr int AR = WIDE ? GROUP : MAXR;       // rows a phase-A pass
+  constexpr int NL = WIDE ? WIDE_MAX_N / 32 : 1;  // list entries a lane
   static_assert(!STATS || (COPY && sizeof(T) == 4), "statistics from f32 logits, by the ring");
   static_assert(COPY != 4 || sizeof(T) == 4, "4-byte copies of f32 only");
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = gridDim.x, rank = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = EXACT ? MAXR : p.K, V = p.V, n = p.n;
-  const Smem L(K, n, C, COPY ? p.stages : 0, p.sum_chunks);
+  const int K = EXACT ? MAXR : p.K, V = p.V, n = p.n, R = WIDE ? rows_of(K) : MAX_ROWS;
+  const Smem L(K, n, C, RING ? p.stages : 0, p.sum_chunks);
   float* st_m = reinterpret_cast<float*>(smem);
-  float* st_ls = st_m + MAX_ROWS;
-  float* st_s = st_ls + MAX_ROWS;
-  float* st_t = st_s + MAX_ROWS;  // the filter: a row's values below it are not among the n
-  float* st_theta = st_t + MAX_ROWS;  // [0]: no value below it is among the n
+  float* st_ls = st_m + R;
+  float* st_s = st_ls + R;
+  float* st_t = st_s + R;  // the filter: a row's values below it are not among the n
+  float* st_theta = st_t + R;  // [0]: no value below it is among the n
   float* bvals = reinterpret_cast<float*>(smem + L.bvals_off);
   float2* bpart = reinterpret_cast<float2*>(smem + L.bpart_off);
   float2* wpart = reinterpret_cast<float2*>(smem + L.wpart_off);
@@ -354,9 +412,9 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   float* summ = reinterpret_cast<float*>(smem + L.sum_off);
   const int c0 = rank * p.cols, ncols = min(p.cols, V - c0);
   const int units = (ncols + W - 1) / W, J = (units + THREADS - 1) / THREADS;
-  const int S = COPY ? min(p.stages, J) : 1;  // ring slots in use
+  const int S = RING ? min(p.stages, J) : 1;  // ring slots in use
   // the chunks that leave the ring keep their unit maxima, or are streamed again
-  const bool summarized = COPY && p.sum_chunks >= J - S;
+  const bool summarized = RING && p.sum_chunks >= J - S;
   const T* x = static_cast<const T*>(p.x) + size_t(b) * K * V + c0;  // row r at x + r*V
 
   cluster_arrive_relaxed();  // every block has started before any writes to another's memory
@@ -369,7 +427,7 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   };
   // one commit group: chunk j, all K rows, into ring slot `slot`
   auto issue = [&](int j, int slot) {
-    if constexpr (COPY != 0) {
+    if constexpr (RING) {
       const int valid = valid_of(j), u = j * THREADS + tid;
       for (int r = 0; valid > 0 && r < K; ++r) {
         unsigned char* dst = ring + ((slot * K + r) * THREADS + tid) * UNIT;
@@ -386,7 +444,7 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   // row r of chunk j: from its ring slot, or (slot < 0) from global memory;
   // columns past `valid` are -inf
   auto load = [&](int j, int slot, int r, int valid, float (&v)[W]) {
-    if (COPY != 0 && slot >= 0) {
+    if (RING && slot >= 0) {
       load_unit(reinterpret_cast<const T*>(ring + ((slot * K + r) * THREADS + tid) * UNIT), v);
     } else {
       const T* src = x + size_t(r) * V + (j * THREADS + tid) * W;
@@ -427,17 +485,19 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   };
 
   // ---- phase A: each row's max and (STATS) sum of exp(x - max) ----------------
-  {
-    float m[MAXR], s[MAXR];
+  // (the wide instance: AR rows a pass over the stream, every row once)
+  strided<WIDE>(0, K, AR, [&](int r0) {
+    float m[AR], s[AR];
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r) m[r] = -INFINITY, s[r] = 0.0f;
+    for (int i = 0; i < AR; ++i) m[i] = -INFINITY, s[i] = 0.0f;
     for (int q = 0; q < S; ++q) issue(q, q);
     for (int j = 0, slot = 0; j < J; ++j) {
-      if (COPY) cp_async_wait(S - 1);  // chunk j has landed
+      if (RING) cp_async_wait(S - 1);  // chunk j has landed
       const int valid = valid_of(j);
       if (valid > 0) {
 #pragma unroll
-        for (int r = 0; r < MAXR; ++r) {
+        for (int i = 0; i < AR; ++i) {
+          const int r = r0 + i;
           if (EXACT || r < K) {
             float v[W];
             load(j, slot, r, valid, v);
@@ -445,39 +505,40 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
 #pragma unroll
             for (int c = 1; c < W; ++c) top = fmaxf(top, v[c]);
             if (summarized && j < J - S) summ[(j * K + r) * THREADS + tid] = top;
-            const float mx = fmaxf(m[r], top);
+            const float mx = fmaxf(m[i], top);
             if constexpr (STATS) {
               // rescale to the new max (by exp(0) = 1 where it did not move):
               // no branch
-              s[r] = m[r] == -INFINITY ? 0.0f : s[r] * expf(m[r] - mx);
-              s[r] += exp_sum(v, mx == -INFINITY ? 0.0f : mx);
+              s[i] = m[i] == -INFINITY ? 0.0f : s[i] * expf(m[i] - mx);
+              s[i] += exp_sum(v, mx == -INFINITY ? 0.0f : mx);
             }
-            m[r] = mx;
+            m[i] = mx;
           }
         }
       }
       if (j + S < J)
         issue(j + S, slot);  // into the slot just read
-      else if (COPY)
+      else if (RING)
         cp_async_commit();
       slot = slot + 1 == S ? 0 : slot + 1;
     }
     MARK(1);
     // the warp's statistics a row
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
+    for (int i = 0; i < AR; ++i) {
+      const int r = r0 + i;
       if (EXACT || r < K) {
-        const float2 w = warp_stats(m[r], s[r]);
+        const float2 w = warp_stats(m[i], s[i]);
         if (lane == 0) wpart[warp * K + r] = w;
       }
     }
-  }
+  });
   __syncthreads();
-  if (warp < K) {  // the block's, over its warps (warp r: row r, lane w: warp w's)
-    const float2 w = lane < WARPS ? wpart[lane * K + warp] : make_float2(-INFINITY, 0.0f);
+  strided<WIDE>(warp, K, WARPS, [&](int r) {  // the block's, over its warps (lane w: warp w's)
+    const float2 w = lane < WARPS ? wpart[lane * K + r] : make_float2(-INFINITY, 0.0f);
     const float2 t = warp_stats(w.x, w.y);
-    if (lane == 0) bpart[warp] = t;
-  }
+    if (lane == 0) bpart[r] = t;
+  });
   __syncthreads();
   cluster_wait();
   if (warp == 0)
@@ -486,8 +547,8 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   cluster_arrive();
   cluster_wait();  // every block's statistics have arrived
   MARK(2);
-  if (warp < K) {  // the cluster's, over its blocks in block order: every block the same bits
-    const int r = warp;
+  // the cluster's, over its blocks in block order: every block the same bits
+  strided<WIDE>(warp, K, WARPS, [&](int r) {
     const float2 c = lane < C ? part[lane * K + r] : make_float2(-INFINITY, 0.0f);
     const float2 w = warp_stats(c.x, c.y);
     if (lane == 0) {
@@ -501,7 +562,7 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
         p.ls_out[b * K + r] = ls;
       }
     }
-  }
+  });
   __syncthreads();
   if (warp == 0) {
     // Each block's row maxima are C*K distinct candidates, so no value below
@@ -526,11 +587,11 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
     }
     const float theta = ord_float(__reduce_min_sync(FULL, float_ord(least)));
     const bool on = nb >= n && theta > kClamp && theta < INFINITY;
-    if (lane < K) {
-      const float m = st_m[lane], ls = st_ls[lane], sr = st_s[lane];
+    strided<WIDE>(lane, K, 32, [&](int r) {
+      const float m = st_m[r], ls = st_ls[r], sr = st_s[r];
       const float margin = 0x1p-18f * (fabsf(theta) + fabsf(m) + fabsf(ls) + fabsf(sr));
-      st_t[lane] = on ? ((theta - sr) + ls) + m - margin : -INFINITY;
-    }
+      st_t[r] = on ? ((theta - sr) + ls) + m - margin : -INFINITY;
+    });
     if (lane == 0) st_theta[0] = on ? theta : -INFINITY;
   }
   __syncthreads();
@@ -541,14 +602,14 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   // maxima (summarized) or streamed in again.  Sequence q: chunk (q < P ?
   // J - P + q : q - P), its ring slot (J - P + q) % S; a chunk whose values
   // all fall below their row's filter holds none of the n.
-  const int P = COPY ? S : 0;
+  const int P = RING ? S : 0;
   u64 top[KT] = {};
   u64 dropped = 0;
   auto keep = [&](int, u64 k) { offer(top, dropped, k); };
   for (int q = 0, slot = (J - P) % S; q < J; ++q) {
     const bool staged = q < P;
     const int j = staged ? J - P + q : q - P, valid = valid_of(j);
-    if (COPY && !staged && !summarized) cp_async_wait(S - 1);
+    if (RING && !staged && !summarized) cp_async_wait(S - 1);
     if (valid > 0) {
       bool pass = false;
       if (!staged && summarized) {
@@ -568,34 +629,35 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
     if (!summarized) {
       if (q + S < J)
         issue(q + S - P, slot);  // sequence q + S >= P
-      else if (COPY)
+      else if (RING)
         cp_async_commit();
     }
     slot = slot + 1 == S ? 0 : slot + 1;
   }
   MARK(4);
   // the warp's n best of its lanes' lists
-  u64 list = 0;
+  u64 list[NL] = {};
   for (int j = 0; j < n; ++j) {
     const u64 win = warp_max_key(top[0]);
     if (win == 0) break;  // warp-uniform
-    if (lane == j) list = win;
+    list_set(list, j, win);
     if (top[0] == win) {
 #pragma unroll
       for (int i = 0; i + 1 < KT; ++i) top[i] = top[i + 1];
       top[KT - 1] = 0;
     }
   }
-  u64 nth = __shfl_sync(FULL, list, n - 1);
+  u64 nth = list_at(list, n - 1);
   if (__any_sync(FULL, dropped > nth)) {
     // A lane dropped a key that belongs among the warp's n: recompute them
     // exactly over the chunks that pass the filter, in tiles of TILE_KEYS
     // keys a lane, the staged chunks from the ring, the others from global
     // memory.
     constexpr int CPT = TILE_KEYS / W;  // chunks a tile
-    list = 0;
+#pragma unroll
+    for (int e = 0; e < NL; ++e) list[e] = 0;
     for (int q0 = 0; q0 < J; q0 += CPT) {
-      u64 keys[TILE_KEYS + 1];
+      u64 keys[TILE_KEYS + NL];
 #pragma unroll
       for (int i = 0; i < TILE_KEYS; ++i) keys[i] = 0;
 #pragma unroll
@@ -623,14 +685,17 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
 #pragma unroll
       for (int i = 0; i < TILE_KEYS; ++i) any |= keys[i] != 0;
       if (__any_sync(FULL, any)) {
-        keys[TILE_KEYS] = list;
-        list = warp_top_n(keys, n);
+#pragma unroll
+        for (int e = 0; e < NL; ++e) keys[TILE_KEYS + e] = list[e];
+        warp_top_n(keys, n, list);
       }
     }
-    nth = __shfl_sync(FULL, list, n - 1);
+    nth = list_at(list, n - 1);
   }
   MARK(5);
-  if (lane < n) wlist[warp * n + lane] = list;
+#pragma unroll
+  for (int e = 0; e < NL; ++e)
+    if (lane + 32 * e < n) wlist[warp * n + lane + 32 * e] = list[e];
   if (lane == 0) wth[warp] = nth;
   if (tid < n) topbuf[tid] = 0;
   if (tid == 0) *counter = 0;
@@ -642,13 +707,38 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   {
     u64 floor_key = theta_key;
     for (int w = 0; w < WARPS; ++w) floor_key = kmax(floor_key, wth[w]);
-    if (tid < WARPS * n && wlist[tid] != 0 && wlist[tid] >= floor_key)
-      cand[atomicAdd(counter, 1)] = wlist[tid];
+    strided<WIDE>(tid, WARPS * n, THREADS, [&](int i) {
+      if (wlist[i] != 0 && wlist[i] >= floor_key) cand[atomicAdd(counter, 1)] = wlist[i];
+    });
     __syncthreads();
     rank_into(cand, *counter, n, topbuf);
     __syncthreads();
   }
-  if (warp == 0) {
+  if constexpr (WIDE) {
+    // The block's n best at or above theta (each in one of its n champion
+    // columns, and at or above the n-th champion): every row of those
+    // columns from L2, ranked here, sent to the leader with the block's n-th.
+    const u64 floor_key = kmax(theta_key, topbuf[n - 1]);
+    if (tid == 0) *counter = 0;
+    __syncthreads();
+    for (int i = tid; i < n * K; i += THREADS) {
+      const u64 ck = topbuf[i / K];
+      const int r = i % K, col = ck ? key_flat(ck) % V - c0 : 0;
+      if (ck == 0) continue;
+      const u64 k = make_key(candidate(to_f32(x[size_t(r) * V + col]), st_m[r], st_ls[r], st_s[r]),
+                             r * V + c0 + col);
+      if (k >= floor_key) cand[atomicAdd(counter, 1)] = k;
+    }
+    __syncthreads();
+    const int count = *counter;
+    if (tid < n) topbuf[tid] = 0;
+    __syncthreads();
+    rank_into(cand, count, n, topbuf);
+    __syncthreads();
+    u64* dst = cluster.map_shared_rank(gather, 0) + rank * n;
+    for (int i = tid; i < n; i += THREADS) dst[i] = topbuf[i];
+    if (tid == 0) cluster.map_shared_rank(bth, 0)[rank] = topbuf[n - 1];
+  } else if (warp == 0) {
     const u64 col_key = lane < n ? topbuf[lane] : 0;
     // the K keys of the block's n columns, and its n-th key, sent to the
     // leader: every load issued before the first store
@@ -685,7 +775,7 @@ __device__ __forceinline__ void beam_topk(const Args& p) {
   // the n is in some block's n columns.  Every thread gathers, then ranks.
   u64 floor_key = theta_key;
   for (int c = 0; c < C; ++c) floor_key = kmax(floor_key, bth[c]);
-  for (int i = tid; i < C * n * K; i += THREADS)
+  for (int i = tid; i < C * n * (WIDE ? 1 : K); i += THREADS)
     if (gather[i] != 0 && gather[i] >= floor_key) cand[atomicAdd(counter, 1)] = gather[i];
   __syncthreads();
   const int count = *counter;
@@ -718,19 +808,22 @@ __global__ void __launch_bounds__(THREADS, 1) beam_topk_kernel(Args p) {
   beam_topk<T, false, COPY, MAXR>(p);
 }
 
-// The shapes and the plan the kernel takes: 1..16 rows a batch element, n <=
-// 32 and <= K*V, K*V < 2^31; `cluster` blocks of `cols` columns (a multiple
-// of 8) that cover V, each with at least one; a ring of 1..8 stages; the unit
-// maxima of none or of all the chunks that leave the ring (`itemsize` bytes a
-// column); the block's shared memory within 227 KB.
+// The shapes and the plan the kernel takes: K rows a batch element, n <= K*V,
+// K*V < 2^31, n <= 32 and K <= 16 (the narrow instances) or n <= 256 (the
+// wide one, which takes no ring and no unit maxima); `cluster` blocks of
+// `cols` columns (a multiple of 8) that cover V, each with at least one; a
+// ring of 1..8 stages; the unit maxima of none or of all the chunks that
+// leave the ring (`itemsize` bytes a column); the block's shared memory
+// within 227 KB.
 bool plan_ok(int B, int K, int V, int n, int cluster, int cols, int stages, int sum_chunks,
              int itemsize) {
   const int chunks = ((cols * itemsize + UNIT - 1) / UNIT + THREADS - 1) / THREADS;
-  return B > 0 && B <= 65535 && K > 0 && K <= MAX_ROWS && V > 0 && n > 0 && n <= MAX_N &&
+  const bool wide = wide_shape(K, n);
+  return B > 0 && B <= 65535 && K > 0 && V > 0 && n > 0 && n <= (wide ? WIDE_MAX_N : MAX_N) &&
          n <= (long long)K * V && (long long)K * V < INT_MAX && cluster >= 1 &&
          cluster <= MAX_CLUSTER && cols > 0 && cols % 8 == 0 &&
          (long long)(cluster - 1) * cols < V && (long long)cluster * cols >= V && stages >= 1 &&
-         stages <= MAX_STAGES && (sum_chunks == 0 || sum_chunks == chunks - stages) &&
+         stages <= MAX_STAGES && (sum_chunks == 0 || (!wide && sum_chunks == chunks - stages)) &&
          Smem(K, n, cluster, stages, sum_chunks).bytes <= SMEM_MAX;
 }
 
@@ -774,17 +867,23 @@ int launch(Kernel kernel, const Args& p, int B, int cluster, bool ring, void* st
 
 // The kernel for exactly 5 rows a batch element with 16-byte rows (beam 5,
 // the beam search's default: 5.1 us faster at [40, 128256] than an instance
-// for up to 8 rows, PERF.md), else the kernel for up to 16 rows.
+// for up to 8 rows, PERF.md), else the kernel for up to 16 rows and n <= 32,
+// else the wide one.
 template <bool STATS, int COPY>
 int launch_columns(const Args& p, int B, int cluster, void* stream) {
+  if (wide_shape(p.K, p.n))
+    return launch(beam_topk_columns_kernel<STATS, COPY, 0>, p, B, cluster, false, stream);
   if constexpr (COPY == 16)
     if (p.K == 5)
       return launch(beam_topk_columns_kernel<STATS, COPY, 5>, p, B, cluster, true, stream);
   return launch(beam_topk_columns_kernel<STATS, COPY, 16>, p, B, cluster, true, stream);
 }
 
+// (the wide bf16 instance loads every row 2 bytes at a time, aligned or not)
 template <typename T, int COPY>
 int launch_logp(const Args& p, int B, int cluster, void* stream) {
+  if (wide_shape(p.K, p.n))
+    return launch(beam_topk_kernel<T, sizeof(T) == 2 ? 0 : COPY, 0>, p, B, cluster, false, stream);
   if constexpr (COPY == 16)
     if (p.K == 5) return launch(beam_topk_kernel<T, COPY, 5>, p, B, cluster, true, stream);
   return launch(beam_topk_kernel<T, COPY, 16>, p, B, cluster, COPY != 0, stream);
@@ -848,9 +947,13 @@ extern "C" int mmvc_beam_topk_max_clusters(int stats, int B, int K, int V, int n
                                            int cols, int stages, int sum_chunks, int* out) {
   if (!plan_ok(B, K, V, n, cluster, cols, stages, sum_chunks, 4)) return cudaErrorInvalidValue;
   const int bytes = Smem(K, n, cluster, stages, sum_chunks).bytes;
-  auto kernel = stats ? (K == 5 ? beam_topk_columns_kernel<true, 16, 5>
-                                : beam_topk_columns_kernel<true, 16, 16>)
-                      : (K == 5 ? beam_topk_kernel<float, 16, 5> : beam_topk_kernel<float, 16, 16>);
+  const bool wide = wide_shape(K, n);
+  auto kernel = stats ? (wide     ? beam_topk_columns_kernel<true, 16, 0>
+                         : K == 5 ? beam_topk_columns_kernel<true, 16, 5>
+                                  : beam_topk_columns_kernel<true, 16, 16>)
+                      : (wide     ? beam_topk_kernel<float, 16, 0>
+                         : K == 5 ? beam_topk_kernel<float, 16, 5>
+                                  : beam_topk_kernel<float, 16, 16>);
   cudaError_t e = configure(kernel, bytes, cluster);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];

@@ -22,7 +22,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from . import constraints as C
-from .beam_gather import gather_beams_rows
+from . import beam_gather
 from .topk import beam_topk, beam_topk_columns, beam_topk_from_logits, top_k
 
 NEG_INF = -1.0e7
@@ -48,32 +48,40 @@ def _gather_beams(tree: Any, indices: torch.Tensor, b: int, k: int) -> Any:
     generated KV; only its small ``anc`` map moves), as do scalars and
     leaves of another leading size.  Large leaves on CUDA (the gather
     cache's generated KV) take K6 under the JAX gate: ndim >= 3, at least
-    2**18 elements, a last dim that is a multiple of 128.  The rest take
-    ``take_along_axis`` semantics.  The JAX package's one-hot einsum branch
-    for k >= 8 is an XLA lowering workaround that selects exactly the same
-    rows; it has no counterpart here."""
+    2**18 elements, a last dim that is a multiple of 128; all of them in one
+    launch (``gather_rows_many``), from one flat source index.  The rest
+    take ``take_along_axis`` semantics.  The JAX package's one-hot einsum
+    branch for k >= 8 is an XLA lowering workaround that selects exactly the
+    same rows; it has no counterpart here."""
+
+    def moves(x) -> bool:
+        return torch.is_tensor(x) and x.ndim > 0 and x.shape[0] == b * k
+
+    def k6(x) -> bool:
+        return (_on_accelerator(x) and x.ndim >= 3 and x.numel() >= _K6_MIN_SIZE
+                and x.shape[-1] % 128 == 0)
+
+    def walk(node, leaf):
+        if isinstance(node, dict):
+            return {key: val if str(key).startswith("fixed_") else walk(val, leaf)
+                    for key, val in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v, leaf) for v in node)
+        return leaf(node) if moves(node) else node
+
+    eligible = []
+    walk(tree, lambda x: eligible.append(x) if k6(x) else None)
+    reordered = iter(beam_gather.gather_rows_many(eligible, beam_gather.beam_src(indices, b, k))
+                     if eligible else ())
 
     def gather(x):
-        if not torch.is_tensor(x) or x.ndim == 0 or x.shape[0] != b * k:
-            return x
-        if (_on_accelerator(x) and x.ndim >= 3 and x.numel() >= _K6_MIN_SIZE
-                and x.shape[-1] % 128 == 0):
-            return gather_beams_rows(x, indices, b, k)
+        if k6(x):
+            return next(reordered)
         xb = x.reshape((b, k) + x.shape[1:])
         idx = indices.reshape((b, k) + (1,) * (xb.ndim - 2)).expand_as(xb)
         return torch.gather(xb, 1, idx).reshape(x.shape)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {
-                key: val if str(key).startswith("fixed_") else walk(val)
-                for key, val in node.items()
-            }
-        if isinstance(node, (tuple, list)):
-            return type(node)(walk(v) for v in node)
-        return gather(node)
-
-    return walk(tree)
+    return walk(tree, gather)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

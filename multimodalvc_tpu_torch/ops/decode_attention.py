@@ -122,10 +122,11 @@ def ancestry_attention_plain(
 # ---- the kernel's schedule -----------------------------------------------------
 
 # csrc/decode_attention.cu: head dim 128; the K * rep query rows of one kv
-# head padded to one 16-row tile; at most 128 key rows a chunk (prompt slots,
-# or K sources x generated slots rounded up to 16); the blocks of one (batch
-# element, kv head) form one cluster of at most 8, block r taking chunks r,
-# r + splits, ...  The plan, timed on the H100 by ``chip_smoke.py --plans``
+# head in 16-row tiles, one after another in the block; at most 128 key rows
+# a chunk (prompt slots, or K sources x generated slots rounded up to 16; one
+# slot of every source past 128 beams); the blocks of one (batch element, kv
+# head) form one cluster of at most 8, block r taking chunks r, r + splits,
+# ...  The plan, timed on the H100 by ``chip_smoke.py --plans``
 # (PERF.md): while the grid is small, the smallest chunks of the options
 # below that number at most 7 (a cluster of 8 ran slower than one of 7): K3
 # alone at batch 8 takes 6 chunks of 15 keys, the merged entry 3 prompt
@@ -134,6 +135,7 @@ def ancestry_attention_plain(
 # DECODE_TARGET_BLOCKS (at batch 48, 3 blocks for 6 chunks).
 DECODE_HEAD_DIM, DECODE_ROWS, DECODE_MAX_KEYS, DECODE_MAX_SPLITS = 128, 16, 128, 7
 DECODE_TARGET_BLOCKS = 8 * 132
+DECODE_SMEM_MAX = 232448  # 227 KB a block
 # (prompt slots, generated keys) a chunk at most, smallest first; the first
 # two serve small grids only
 _CHUNK_OPTIONS = ((48, 15), (48, 40), (80, 80), (128, 128))
@@ -155,6 +157,19 @@ class DecodePlan(NamedTuple):
         return self.prompt_chunks + self.gen_chunks
 
 
+def decode_smem_bytes(keys: int, kv_bytes: int, merged: bool) -> int:
+    """Shared memory of one block (``Smem`` in ``csrc/decode_attention.cu``)
+    for chunks of at most ``keys`` key rows of ``kv_bytes``-byte elements:
+    the running statistics and the combine's buffers, the key and value
+    tiles, the scores of one 16-row tile, the scales and validity, and the
+    merged entry's f32 q."""
+    d, rows, splits = DECODE_HEAD_DIM, DECODE_ROWS, DECODE_MAX_SPLITS + 1
+    s_pitch = _cdiv(keys, 32) * 32 + 16
+    fixed = 4 * rows * 4 + splits * 2 * rows * 4 + (rows * d // 4 + splits) * 16
+    tiles = keys * ((d + 16) * kv_bytes + d * kv_bytes + 16) + rows * s_pitch * 4 + keys * 12
+    return fixed + tiles + (rows * (d + 4) * 4 if merged else 0)
+
+
 def _balanced(slots: int, most: int, step: int) -> Tuple[int, int]:
     """(slots a chunk, chunks): the fewest chunks of at most ``most`` slots,
     sized evenly and rounded up to ``step``; (0, 0) for no slots."""
@@ -170,16 +185,21 @@ def decode_plan(batch: int, beams: int, heads: int, kv_heads: int, head_dim: int
     """The chunks and splits of the split-KV kernel for a decode step of
     ``batch`` x ``beams`` rows against ``prompt_slots`` shared prompt slots
     and ``gen_slots`` generated slots (either 0 for the K3 or the K2 entry
-    alone).  It depends on the shapes only, never on ``valid_len``, so one
-    grid serves every step.  Raises ValueError for what the kernel cannot
-    take."""
+    alone), for any number of query rows a kv head (the kernel takes them in
+    16-row tiles).  It depends on the shapes only, never on ``valid_len``,
+    so one grid serves every step.  Raises ValueError for what the kernel
+    cannot take."""
     rep = heads // kv_heads if kv_heads > 0 else 0
+    gen_keys = _cdiv(max(beams, 1), 16) * 16  # a generated chunk of one slot
     why = None
     if head_dim != DECODE_HEAD_DIM:
         why = f"head dim {head_dim} (the kernel takes {DECODE_HEAD_DIM})"
-    elif kv_heads <= 0 or heads % kv_heads or beams <= 0 or beams * rep > DECODE_ROWS:
-        why = (f"{beams} beams x {heads}/{kv_heads} heads: more than {DECODE_ROWS} query rows "
-               "a kv head")
+    elif kv_heads <= 0 or heads % kv_heads or beams <= 0 or beams * rep >= 2 ** 16:
+        why = f"{beams} beams x {heads}/{kv_heads} heads"
+    elif gen_slots and decode_smem_bytes(max(gen_keys, DECODE_MAX_KEYS), 2, False) > \
+            DECODE_SMEM_MAX:
+        why = (f"{beams} beams: a generated chunk of {gen_keys} key rows passes the 227 KB of "
+               f"shared memory (at most {decode_max_beams()} beams)")
     elif batch <= 0 or batch > 65535 or kv_heads > 65535:
         why = f"batch {batch} x {kv_heads} kv heads (at most 65535 each)"
     elif prompt_slots < 0 or gen_slots < 0 or prompt_slots + gen_slots == 0:
@@ -196,6 +216,15 @@ def decode_plan(batch: int, beams: int, heads: int, kv_heads: int, head_dim: int
             break
     splits = min(pc + gc, DECODE_MAX_SPLITS, _cdiv(DECODE_TARGET_BLOCKS, pairs))
     return DecodePlan(cp, pc, cg, gc, splits)
+
+
+def decode_max_beams() -> int:
+    """The most beams a generated chunk of one slot fits for (bf16 KV, the
+    largest elements): its K key rows, rounded up to 16, in 227 KB."""
+    keys = DECODE_MAX_KEYS
+    while decode_smem_bytes(keys + 16, 2, False) <= DECODE_SMEM_MAX:
+        keys += 16
+    return keys
 
 
 # ---- the kernel wrappers -----------------------------------------------------

@@ -37,7 +37,6 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 # C signatures of csrc/*.cu; every function returns a cudaError_t
 SIGNATURES = {
     "mmvc_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -56,7 +55,7 @@ SIGNATURES = {
     ],
     "mmvc_beam_topk": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmvc_beam_topk_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "mmvc_gather_rows": [_P, _P, _P, _I, _I, _L, _P],
+    "mmvc_gather_rows_many": [_I, _P, _P, _P, _P, _P, _I, _P],
     "mmvc_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmvc_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }

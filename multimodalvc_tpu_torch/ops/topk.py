@@ -39,8 +39,9 @@ _CLAMP = -2.9e38  # inputs clamp here, as in the JAX package
 TOPK_THREADS = 512
 TOPK_WARPS = TOPK_THREADS // 32
 TOPK_MAX_CLUSTER = 16  # blocks a cluster (above 8 the non-portable size)
-TOPK_MAX_ROWS = 16  # beams a batch element
-TOPK_MAX_N = 32
+TOPK_MAX_ROWS = 16  # beams a batch element of the narrow instances
+TOPK_MAX_N = 32  # n of the narrow instances (one list entry a lane)
+TOPK_WIDE_MAX_N = 256  # n of the wide instance (past 16 beams or n = 32)
 TOPK_MAX_STAGES = 8  # chunks in the copy ring
 TOPK_UNIT = 16  # bytes a thread copies a row and chunk
 TOPK_SMEM_MAX = 232448  # 227 KB a block
@@ -65,17 +66,29 @@ def _align16(b: int) -> int:
     return _cdiv(b, 16) * 16
 
 
+def topk_wide(beams: int, n: int) -> bool:
+    """Whether the shapes take the wide instance of the kernel (any beams,
+    n <= 256, no ring), rather than a narrow one (<= 16 beams, n <= 32)."""
+    return beams > TOPK_MAX_ROWS or n > TOPK_MAX_N
+
+
 def topk_smem_bytes(beams: int, n: int, cluster: int, stages: int, summary_chunks: int = 0) -> int:
     """Shared memory of one block of the top-k kernel (``Smem`` in
     ``csrc/topk.cu``, which launches with its own count and refuses a plan
     that does not fit): statistics, partials, lists, merge buffers, the
     leader's gather, a copy ring of ``stages`` chunks of [beams, 512]
-    16-byte units, and the f32 unit maxima of ``summary_chunks`` chunks."""
-    merge = max(TOPK_WARPS * n, cluster * n * beams)
-    small = (5 * TOPK_MAX_ROWS * 4 + TOPK_MAX_CLUSTER * TOPK_MAX_ROWS * 4 + TOPK_MAX_ROWS * 8
+    16-byte units, and the f32 unit maxima of ``summary_chunks`` chunks.
+    The wide instance has no ring and no unit maxima, ranks its block's
+    n x beams keys itself and sends the leader n of them."""
+    wide = topk_wide(beams, n)
+    rows, sent = max(_cdiv(beams, 4) * 4, TOPK_MAX_ROWS), 1 if wide else beams
+    merge = max(TOPK_WARPS * n, cluster * n * sent, n * beams if wide else 0)
+    if wide:
+        stages = summary_chunks = 0
+    small = (5 * rows * 4 + TOPK_MAX_CLUSTER * rows * 4 + rows * 8
              + _align16(TOPK_WARPS * beams * 8) + _align16(cluster * beams * 8)
              + _align16(TOPK_WARPS * n * 8) + _align16(TOPK_WARPS * 8) + _align16(merge * 8)
-             + _align16(cluster * 8) + _align16(n * 8) + 16 + _align16(cluster * n * beams * 8))
+             + _align16(cluster * 8) + _align16(n * 8) + 16 + _align16(cluster * n * sent * 8))
     return (small + stages * beams * TOPK_THREADS * TOPK_UNIT
             + summary_chunks * beams * TOPK_THREADS * 4)
 
@@ -125,18 +138,24 @@ def topk_plan(batch: int, beams: int, vocab: int, n: int, itemsize: int = 4) -> 
     it), in the fewest waves of clusters the card runs at once, the largest
     such: at batch 8 and V = 128256, 8 blocks of 16032
     columns, 4 of a thread's 8 chunks in the ring and the unit maxima of the
-    other 4.  Raises ValueError for what the kernel cannot take."""
+    other 4.  More than 16 beams, or n > 32, take the wide instance: no
+    ring, the cluster size of the fewest waves, the largest such, whose
+    shared memory fits (up to ``topk_max_beams()`` beams at n = 2 x beams).
+    Raises ValueError for what the kernel cannot take."""
     why = None
+    wide = topk_wide(beams, n)
     if batch <= 0 or batch > 65535:
         why = f"batch {batch}"
-    elif beams <= 0 or beams > TOPK_MAX_ROWS:
-        why = f"{beams} beams (at most {TOPK_MAX_ROWS})"
+    elif beams <= 0:
+        why = f"{beams} beams"
     elif vocab <= 0 or beams * vocab >= 2 ** 31:
         why = f"{beams} x {vocab} candidates"
-    elif n <= 0 or n > TOPK_MAX_N or n > beams * vocab:
-        why = f"n = {n} (at most {TOPK_MAX_N} and the candidates)"
+    elif n <= 0 or n > TOPK_WIDE_MAX_N or n > beams * vocab:
+        why = f"n = {n} (at most {TOPK_WIDE_MAX_N} and the candidates)"
     if why is not None:
         raise ValueError(f"beam top-k kernel: {why}")
+    if wide:
+        return _wide_plan(batch, beams, vocab, n)
     plans = []
     for cluster, at_once in TOPK_CLUSTERS_AT_ONCE.items():
         plan = plan_for(vocab, beams, n, cluster, itemsize=itemsize)
@@ -147,6 +166,30 @@ def topk_plan(batch: int, beams: int, vocab: int, n: int, itemsize: int = 4) -> 
     if not plans:
         raise ValueError(f"beam top-k kernel: {beams} beams and n = {n} leave no room for a ring")
     return min(plans)[-1]
+
+
+def _wide_plan(batch: int, beams: int, vocab: int, n: int) -> TopkPlan:
+    plans = []
+    for cluster, at_once in TOPK_CLUSTERS_AT_ONCE.items():
+        cols = _cdiv(_cdiv(vocab, cluster), 8) * 8
+        blocks = _cdiv(vocab, cols)
+        if topk_smem_bytes(beams, n, blocks, 1) <= TOPK_SMEM_MAX:
+            plans.append((_cdiv(batch, at_once), -blocks, TopkPlan(blocks, cols, 1, 0)))
+    if not plans:
+        raise ValueError(f"beam top-k kernel: {beams} beams and n = {n} pass the 227 KB of shared "
+                         f"memory (at most {topk_max_beams()} beams at n = 2 x beams)")
+    return min(plans)[-1]
+
+
+def topk_max_beams() -> int:
+    """The most beams the kernel takes with n = 2 x beams (the beam
+    search's candidates): the wide instance's shared memory at its smallest
+    cluster, or n's limit."""
+    beams = TOPK_MAX_ROWS
+    while (2 * (beams + 1) <= TOPK_WIDE_MAX_N and topk_smem_bytes(
+            beams + 1, 2 * (beams + 1), min(TOPK_CLUSTERS_AT_ONCE), 1) <= TOPK_SMEM_MAX):
+        beams += 1
+    return beams
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -197,10 +197,10 @@ def test_decode_plan_at_the_serving_shapes(key):
 
 REFUSED = {
     "head_dim_64": (8, 5, 24, 8, 64, 130, 16),
-    "18_rows_a_kv_head": (8, 6, 24, 8, 128, 130, 16),
     "heads_not_a_multiple": (8, 5, 24, 7, 128, 130, 16),
     "batch_65536": (65536, 5, 24, 8, 128, 130, 16),
     "no_slots": (8, 5, 24, 8, 128, 0, 0),
+    "past_the_shared_memory": (8, tda.decode_max_beams() + 1, 24, 8, 128, 130, 16),
 }
 
 
@@ -210,11 +210,49 @@ def test_decode_plan_refuses_what_the_kernel_cannot_take(name):
         tda.decode_plan(*REFUSED[name])
 
 
+# wide beams at LLaMA-3.2-3B's rep 3 (24 query / 8 kv heads): 18 to 192
+# query rows a kv head, in 16-row tiles, at batch 8 and 48, 16 and 64
+# generated slots
+WIDE_BEAMS = [6, 8, 16, 17, 64]
+
+
+@pytest.mark.parametrize("beams", WIDE_BEAMS)
+@pytest.mark.parametrize("batch, slots", [(8, 16), (48, 64)], ids=["b8_L16", "b48_L64"])
+def test_decode_plan_takes_every_beam_width(beams, batch, slots):
+    """More than 16 query rows a kv head is a plan like any other: every
+    slot in one chunk, K x generated slots within 128 key rows, the block's
+    shared memory within 227 KB; the plan is the one decode_plan gives the
+    shapes, at every valid_len."""
+    plan = tda.decode_plan(batch, beams, 24, 8, 128, 130, slots)
+    for size, chunks, total in ((plan.prompt_slots, plan.prompt_chunks, 130),
+                                (plan.gen_slots, plan.gen_chunks, slots)):
+        assert size * chunks >= total > size * (chunks - 1)
+    keys = max(plan.prompt_slots, math.ceil(beams * plan.gen_slots / 16) * 16)
+    assert keys <= tda.DECODE_MAX_KEYS
+    for kv_bytes, merged in ((1, True), (2, False)):
+        assert tda.decode_smem_bytes(keys, kv_bytes, merged) <= tda.DECODE_SMEM_MAX
+    assert 1 <= plan.splits <= min(plan.chunks, tda.DECODE_MAX_SPLITS)
+
+
+def test_decode_plan_past_128_beams_takes_one_slot_a_chunk():
+    """Past 128 beams a generated chunk is one slot of every source row
+    (K key rows), up to the beams whose chunk fits 227 KB with bf16 KV."""
+    most = tda.decode_max_beams()
+    assert most >= 256
+    for beams in (129, most):
+        plan = tda.decode_plan(8, beams, 24, 8, 128, 130, 16)
+        assert plan.gen_slots == 1 and plan.gen_chunks == 16
+        assert tda.decode_smem_bytes(math.ceil(beams / 16) * 16, 2, False) <= tda.DECODE_SMEM_MAX
+    assert tda.decode_smem_bytes(math.ceil((most + 1) / 16) * 16, 2, False) > tda.DECODE_SMEM_MAX
+
+
+@pytest.mark.parametrize("beams", [5, 8])
 @pytest.mark.parametrize("entry", ["prompt", "gen", "merged"])
-def test_wrappers_launch_one_grid_for_every_valid_len(monkeypatch, entry):
+def test_wrappers_launch_one_grid_for_every_valid_len(monkeypatch, entry, beams):
     """The kernel path (meta tensors, a recording stand-in for the library):
     the plan passed to the C entry is the same at every valid_len, and is
-    decode_plan's for the shapes."""
+    decode_plan's for the shapes; at beam 5 (15 query rows a kv head, one
+    tile) and beam 8 (24 rows, two)."""
     calls = []
 
     class Lib:
@@ -224,7 +262,7 @@ def test_wrappers_launch_one_grid_for_every_valid_len(monkeypatch, entry):
     monkeypatch.setattr(kernel_lib, "load", lambda: Lib())
     monkeypatch.setattr(kernel_lib, "check", lambda *a, **kw: None)
     monkeypatch.setattr(kernel_lib, "stream_ptr", lambda t: 0)
-    b, beams, h, g, d, tp, slots = 8, 5, 24, 8, 128, 130, 16
+    b, h, g, d, tp, slots = 8, 24, 8, 128, 130, 16
     meta = dict(device="meta")
     q = torch.empty(b * beams, h, d, dtype=torch.bfloat16, **meta)
     pk = torch.empty(b, g, tp, d, dtype=torch.int8, **meta)

@@ -113,6 +113,30 @@ def test_generate_float_kv_matches_jax(systems, reorder):
     np.testing.assert_allclose(np.asarray(want_scores), got_scores.numpy(), atol=1e-5)
 
 
+# wide beams: 9 beams make 18 query rows a kv head at the tiny LLaMA's rep 2
+# (two 16-row tiles of the decode attention on the card), 17 pass the old
+# 16-beam limit of the top-k kernel; the int8 KV cache with the ancestry
+# decode, and the float KV cache with the gather reorder (f32 here, as the
+# other float-KV tests: a bf16 cache rounds at other points in the two
+# frameworks and moves the scores by ~4e-4 with the same tokens)
+WIDE_GEN = {
+    "ancestry_int8": (dict(kv_quant="int8"), 1e-4),
+    "gather_float": (dict(ancestry_reorder=False), 1e-5),
+}
+
+
+@pytest.mark.parametrize("beams", [9, 17])
+@pytest.mark.parametrize("mode", list(WIDE_GEN))
+def test_generate_wide_beams_matches_jax(systems, mode, beams):
+    jsys, variables, tsys, batch = systems
+    extra, atol = WIDE_GEN[mode]
+    kw = dict(num_beams=beams, max_new_tokens=6, **extra)
+    want = jsys.generate(variables, batch, cache_dtype=jnp.float32, **kw)
+    got = tsys.generate(_tb(batch), cache_dtype=torch.float32, **kw)
+    assert tuple(got[0].shape) == (2, beams, 6)
+    _assert_same(want, got, atol)
+
+
 def test_default_reorder_resolves_as_the_jax_package(systems, monkeypatch):
     """``ancestry_reorder=None`` gives the ancestry decode on the accelerator,
     as in the JAX package (models/avsr.py:516-517), and the gather reorder on

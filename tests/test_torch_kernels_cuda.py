@@ -49,6 +49,9 @@ def test_flash_attention_kernel(smoke):
 
 @pytest.mark.cuda
 def test_decode_attention_kernels(smoke):
+    """K2 and K3 (int8 KV) at beam 5, and at beams 8 and 17 (24 and 51
+    query rows a kv head, in 16-row tiles) at batch 8 and 48, and at beam
+    129 (generated chunks of one slot)."""
     results = []
     smoke.check_decode(results)
     _all_ok(results)
@@ -56,9 +59,9 @@ def test_decode_attention_kernels(smoke):
 
 @pytest.mark.cuda
 def test_ancestry_attention_kernel(smoke):
-    """The merged K2 + K3 entry at the decode shapes against the merge of
-    the plain partials; exact zeros where no key is valid; the same bits
-    from two launches."""
+    """The merged K2 + K3 entry at the decode shapes, at beams 8 and 17 at
+    batch 8 and 48, and at beam 129, against the merge of the plain partials; exact zeros where no key is
+    valid; the same bits from two launches."""
     results = []
     smoke.check_merged(results)
     _all_ok(results)
@@ -69,8 +72,9 @@ def test_beam_topk_columns_kernel(smoke):
     """K4 at [40, 128256] and [240, 128256], with the row statistics inside
     the kernel (the max exact, the logsumexp within LS_TOL, the selection
     bit for bit the plain version's on them) and given, and at beams 8 and
-    12 ([64, 128256], [96, 128256]) inside; two launches give the same
-    bits."""
+    12 ([64, 128256], [96, 128256]) inside, and at beams 17, 32, 64 and the
+    ceiling ``topk_max_beams()`` (the wide instance) inside; two launches
+    give the same bits."""
     results = []
     smoke.check_topk(results)
     _all_ok(results)
@@ -78,11 +82,12 @@ def test_beam_topk_columns_kernel(smoke):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["f32", "bf16", "v_odd", "from_logits", "from_logits_v_odd",
-                                  "from_logits_stats", "from_logits_v_odd_stats"])
+                                  "from_logits_stats", "from_logits_v_odd_stats", "wide"])
 def test_beam_topk_kernel(smoke, case):
     """K5: f32 and bf16 log-probs with ties and bans (also at V % 8 != 0),
     and from raw logits at V % 8 == 0 and != 0, with the statistics given
-    and inside; indices identical to the plain version."""
+    and inside; the wide instance's log-probs at beams 17, 32 and 64; indices
+    identical to the plain version."""
     results = []
     smoke.check_beam_topk(results, only=case)
     _all_ok(results)
@@ -104,6 +109,8 @@ def test_decode_attention_bf16_kernels(smoke):
 
 @pytest.mark.cuda
 def test_gather_rows_kernel(smoke):
+    """K6: a decode step's 56 leaves in one launch (the gather cache's and
+    the full cache's) and single leaves, exact, timed with a cold L2."""
     results = []
     smoke.check_gather_rows(results)
     _all_ok(results)

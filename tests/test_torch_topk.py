@@ -267,9 +267,42 @@ def test_topk_plan_serving_shapes():
     assert ttopk.topk_plan(48, 5, 128256, 10) == ttopk.TopkPlan(4, 32064, 2, 14)
     assert ttopk.topk_plan(4, 5, 128256, 10) == ttopk.TopkPlan(16, 8016, 4, 0)
     assert ttopk.topk_chunks(16032) == 8 and ttopk.topk_chunks(8016) == 4
-    for bad in [(8, 17, 1000, 10), (8, 5, 1000, 33), (0, 5, 1000, 10), (1, 1, 4, 5)]:
+    over = ttopk.topk_max_beams() + 1  # past the wide instance's shared memory
+    for bad in [(8, over, 1000, 2 * over), (8, 5, 1000, 257), (0, 5, 1000, 10), (1, 1, 4, 5)]:
         with pytest.raises(ValueError, match="beam top-k kernel"):
             ttopk.topk_plan(*bad)
+
+
+@pytest.mark.parametrize("batch", [8, 48])
+@pytest.mark.parametrize("beams", [17, 32, 64])
+def test_topk_plan_past_16_beams(batch, beams):
+    """More than 16 beams (n = 2 x beams, up to 128) take the wide
+    instance: no ring and no unit maxima, columns owned once each, the
+    cluster of the fewest waves (the largest such) whose block fits 227 KB;
+    the narrow instances keep their plans."""
+    n, vocab = 2 * beams, 128256
+    assert ttopk.topk_wide(beams, n) and not ttopk.topk_wide(16, 32)
+    plan = ttopk.topk_plan(batch, beams, vocab, n)
+    assert (plan.stages, plan.summary) == (1, 0) and plan.cols % 8 == 0
+    assert (plan.cluster - 1) * plan.cols < vocab <= plan.cluster * plan.cols
+    assert ttopk.topk_smem_bytes(beams, n, plan.cluster, 1) <= ttopk.TOPK_SMEM_MAX
+    waves = {c: -(-batch // at_once) for c, at_once in ttopk.TOPK_CLUSTERS_AT_ONCE.items()
+             if ttopk.topk_smem_bytes(beams, n, c, 1) <= ttopk.TOPK_SMEM_MAX}
+    assert plan.cluster == max(c for c, w in waves.items() if w == min(waves.values()))
+    # the wide block has no ring: its shared memory does not hold a chunk of rows
+    assert ttopk.topk_smem_bytes(beams, n, plan.cluster, 8) == \
+        ttopk.topk_smem_bytes(beams, n, plan.cluster, 1)
+
+
+def test_topk_ceiling_is_at_least_64_beams():
+    """The kernel takes at least 64 beams (n = 128); above its ceiling the
+    plan raises and names it, so no beam width passes silently to a
+    library top-k on the card."""
+    most = ttopk.topk_max_beams()
+    assert most >= 64
+    ttopk.topk_plan(8, most, 128256, 2 * most)
+    with pytest.raises(ValueError, match=f"at most {most} beams"):
+        ttopk.topk_plan(8, most + 1, 128256, 2 * (most + 1))
 
 
 def test_beam_step_passes_no_statistics_to_the_kernel(monkeypatch):
