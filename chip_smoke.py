@@ -5,7 +5,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the CUDA
    kernels from ``multimodalvc_tpu_torch/csrc`` with nvcc.
-2. Holds each kernel (K1 flash_attention, K2 prompt_attention and K3
+2. Holds each kernel (K1 flash_attention, also with its gradient, K2
+   prompt_attention and K3
    gen_attention_ancestor with int8 and bf16 KV, their merged entry
    ancestry_attention, K4 beam_topk_columns, K5 beam_topk /
    beam_topk_from_logits, K6 gather_rows, K7 int8_matmul, K8 int4_matmul)
@@ -37,12 +38,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    Each phase checks its output and the launches of every kernel (which
    must run, how often, which must not); the quantized phases hold one
    prefill + decode step against the plain versions.
+4. Trains the same full-width model (``AVSRTask`` -> ``Trainer``, the
+   conf/mms-llama.yaml optimizer with a short warmup) for six steps on one
+   batch of 8 x 16 s clips with 64 label tokens, in two phases:
+   ``train_avsr`` (the trunk attention plain at this prompt length) and
+   ``train_avsr_flash`` (``use_flash_prefill=True``: K1 with its
+   gradient), each with its loss, frozen and trainable leaves, K1
+   launches, a checkpoint round trip, the step wall, tokens/s and peak
+   memory; the flash phase also holds its step-1 gradients against K1's
+   plain version (``check_flash_grad`` holds K1's gradient alone).
 
 Prints JSON lines with the kernel checks and the phases, then the
 ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Needs a CUDA device and the repository around it; it does not fall
 back to the CPU.
+
+``python3 chip_smoke.py --train`` runs only ``check_flash_grad`` and the two
+training phases.
 
 ``python3 chip_smoke.py --plans`` times the decode-attention entries at the
 serving shapes under other chunk plans than ``decode_plan``'s (PLAN_CASES),
@@ -86,6 +99,7 @@ REPO = Path(__file__).resolve().parent
 DEV = "cuda"
 BATCH, SECONDS, BEAMS, INSTRUCTION = 8, 16, 5, 10
 NEW_TOKENS, SHORT_TOKENS = 64, 16  # the int8-weight phase, the other phases
+TRAIN_LABELS, TRAIN_STEPS, TRAIN_WARMUP = 64, 6, 2  # the train_avsr phases
 REL_TOL = 2e-2  # relative L2 between two paths (bf16 activations), layer by layer
 # End-to-end decode logits of two paths that round differently are gated
 # against the noise floor that the same run measures on the same weights and
@@ -315,6 +329,87 @@ def check_flash(results):
                library=library, **extra)
 
 
+# K1 with a gradient (ops/attention.py: FlashAttentionGrad) at the LLaMA
+# training shape: [8, 24, T, 128] bf16, causal, left-pad key windows, at the
+# train_avsr phases' prompt length and at T = 512.  out against the plain
+# version at FLASH_TOL / FLASH_REL_TOL (the forward is K1).  The backward is
+# the plain version's own (the Function recomputes the plain forward under
+# autograd from the saved q, k, v and takes its gradient with the same
+# cotangent), so dq, dk, dv must equal the plain version's bit for bit: the
+# check holds the Function's wiring (saved inputs, order, kv_lens and
+# kv_starts passed through), not the kernel.
+
+
+def train_prompt_len() -> int:
+    """The train_avsr phases' prompt: instruction + the query slots + labels."""
+    from multimodalvc_tpu_torch.models.avsr import AVSRConfig
+
+    return INSTRUCTION + AVSRConfig().max_queries + TRAIN_LABELS
+
+
+def check_flash_grad(results):
+    """K1 through its autograd Function against the plain version under
+    autograd: out and dq, dk, dv.  ``ms`` is K1's forward (inputs saved),
+    ``plain_ms`` the plain forward under autograd, ``bound_ms`` the
+    forward's; ``bwd_ms`` the backward (the plain recompute), ``step_ms``
+    forward + backward beside ``plain_step_ms`` and ``step_bound_ms``, and
+    ``library_ms`` SDPA's forward + backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodalvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=DEV).manual_seed(13)
+    for t in (train_prompt_len(), 512):
+        b, h, d = BATCH, 24, 128
+        starts = torch.randint(0, t // 3, (b,), generator=g, device=DEV).to(torch.int32)
+        starts[0] = 0
+        lens = torch.full((b,), t, dtype=torch.int32, device=DEV)
+        q, k, v, cot = (torch.randn(b, h, t, d, generator=g, device=DEV).to(torch.bfloat16)
+                        for _ in range(4))
+        col = torch.arange(t, device=DEV)
+        allowed = ((col[None, None, :] >= starts[:, None, None])
+                   & (col[None, None, :] <= col[None, :, None]))
+
+        def run(fn, backward=True):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = fn(*leaves)
+            if not backward:
+                return out
+            dq, dk, dv = torch.autograd.grad(out, leaves, cot)
+            return out, dq, dk, dv
+
+        kernel = lambda *a: flash_attention(*a, lens, True, None, starts)  # noqa: E731
+        plain = lambda *a: flash_attention_plain(*a, lens, True, None, starts)  # noqa: E731
+        sdpa = lambda *a: F.scaled_dot_product_attention(*a, attn_mask=allowed[:, None])  # noqa: E731
+        got, want = run(kernel), run(plain)
+        torch.cuda.synchronize()
+        rel_out = rel_l2(got[0], want[0])
+        name = f"flash_attention/grad/{b}x{h}x{t}x{d}"
+        if not rel_out <= FLASH_REL_TOL or max_err(got[0], want[0]) > FLASH_TOL:
+            raise SmokeFailure(f"{name}: out rel_l2 {rel_out:.3e}")
+        for which, a, c in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            if not torch.equal(a, c):
+                raise SmokeFailure(f"{name}: {which} differs from the plain version's "
+                                   f"(rel_l2 {rel_l2(a, c):.3e}); it must be the same recompute")
+        if not all(bool(torch.isfinite(x).all()) for x in got):
+            raise SmokeFailure(f"{name}: non-finite output or gradient")
+        # the forward: QK^T and PV, 4 h d flops a key pair, q k v read and out
+        # written once; forward + backward adds the recompute's forward and
+        # backward (QK^T, PV; dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T
+        # Q): 4 + 12 h d flops a pair, dO read and dq dk dv written
+        pairs = int(allowed.sum())
+        fwd_moved = nbytes(q, k, v, lens, starts) + nbytes(q)
+        step = bound(fwd_moved + nbytes(cot) + 3 * nbytes(q), (4 + 12) * h * d * pairs)
+        fwd_ms = time_ms(lambda: run(kernel, backward=False))
+        step_ms = time_ms(lambda: run(kernel))
+        record(results, name, max_err(got[0], want[0]), FLASH_TOL, ms=fwd_ms,
+               plain_ms=time_ms(lambda: run(plain, backward=False)), bwd_ms=step_ms - fwd_ms,
+               step_ms=step_ms, plain_step_ms=time_ms(lambda: run(plain)),
+               step_bound_ms=step["bound_ms"], library_ms=time_ms(lambda: run(sdpa)),
+               out_rel_l2=rel_out, **bound(fwd_moved, 4 * h * d * pairs))
+
+
 def _int8_kv(shape, g):
     import torch
 
@@ -371,7 +466,9 @@ DECODE_TOL = 5e-2  # the JAX selftest's
 # it staged across its tiles, and at the serving batch (48, 64 slots), where
 # a block holds several chunks and stages each again for every tile; and
 # WIDEST_DECODE_BEAMS at the first shape, whose generated chunks are one slot
-# of every source beam (144 key rows, past the other chunks' 128)
+# of every source beam (144 key rows, past the other chunks' 128); and, at the
+# first shape, one beam past ``decode_max_beams()`` (337), whose slots are
+# read in pieces of the source beams (``gen_chunk_beams``)
 WIDE_DECODE_BEAMS, WIDEST_DECODE_BEAMS = (8, 17), 129
 
 
@@ -427,11 +524,14 @@ def decode_cases(cases, wide):
     """(batch, slots, valid lengths, beams): ``cases`` at beam 5, then (with
     ``wide``) WIDE_DECODE_BEAMS at DECODE_CASES' first two shapes and
     WIDEST_DECODE_BEAMS at the first."""
+    from multimodalvc_tpu_torch.ops.decode_attention import decode_max_beams
+
     out = [(b, slots, valids, BEAMS) for b, slots, valids in cases]
     if wide:
         out += [(b, slots, valids, k) for b, slots, valids in DECODE_CASES[:2]
                 for k in WIDE_DECODE_BEAMS]
         out.append((*DECODE_CASES[0], WIDEST_DECODE_BEAMS))
+        out.append((*DECODE_CASES[0], decode_max_beams() + 1))
     return out
 
 
@@ -553,9 +653,13 @@ def check_merged(results, wide=True):
 # K4/K5 with the statistics inside the kernel: m must equal torch.amax, ls
 # (summed in another order than PyTorch's) within LS_TOL of
 # log(sum(exp(x - m))), and the selection must equal the plain version's on
-# the kernel's own m and ls bit for bit.  Against the fully plain chain the
-# indices must agree on the planted cases, and each value within the ls
-# difference plus 2 ulps of the largest value (two f32 roundings).
+# the kernel's own m and ls bit for bit.  Against the fully plain chain each
+# value must agree within the ls difference plus 2 ulps of the largest value
+# (two f32 roundings), and the indices must agree except among candidates
+# whose plain-chain values lie within that tolerance of each other: two rows'
+# statistics an ulp apart may order such a near tie either way (beam 100 of
+# random logits holds one in 200 candidates).  The planted ties must come out
+# in flat order.
 LS_TOL = 2e-6
 TOPK_OPS_STATS = 8  # f32 ops a value with the statistics inside: max, sub, exp, add; sub, sub, add, max
 
@@ -589,17 +693,26 @@ def _topk_stats_case(results, name, fn, plain, x, scores, n, check_ties):
         bad = int(((gi != wi) | (gv != wv)).any(dim=1).nonzero()[0])
         raise SmokeFailure(f"{name}: selection differs from the plain version on the kernel's "
                            f"statistics at batch {bad}: {gi[bad].tolist()} vs {wi[bad].tolist()}")
-    fv, fi = plain(x, None, None, scores, n)  # the fully plain chain
-    if not torch.equal(gi, fi):
-        bad = int((gi != fi).any(dim=1).nonzero()[0])
-        raise SmokeFailure(f"{name}: indices differ from the plain chain at batch {bad}: "
-                           f"{gi[bad].tolist()} vs {fi[bad].tolist()}")
+    # the fully plain chain, one candidate past n to see a near tie at the cut
+    wide_v, wide_i = plain(x, None, None, scores, min(n + 1, x.numel() // b))
+    fv, fi = wide_v[:, :n], wide_i[:, :n]
     chain_err = max_err(gv, fv)
     chain_tol = ls_err + 2 * torch.finfo(torch.float32).eps * float(fv.abs().max())
     if not chain_err <= chain_tol:
         raise SmokeFailure(f"{name}: values {chain_err:.3e} from the plain chain "
                            f"(tol {chain_tol:.3e})")
+    close = (wide_v[:, :-1] - wide_v[:, 1:]) <= chain_tol  # a gap within the tolerance
+    near = torch.zeros_like(wide_i, dtype=torch.bool)
+    near[:, :-1] |= close
+    near[:, 1:] |= close
+    differ = gi != fi
+    among = (gi[:, :, None] == wide_i[:, None, :]).any(dim=2)
+    if (differ & ~(near[:, :n] & among)).any():
+        bad = int((differ & ~(near[:, :n] & among)).any(dim=1).nonzero()[0])
+        raise SmokeFailure(f"{name}: indices differ from the plain chain at batch {bad}: "
+                           f"{gi[bad].tolist()} vs {fi[bad].tolist()}")
     check_ties(fi)
+    check_ties(gi)
     _same_bits(name, run, got)
     ms_planted = time_ms(lambda: fn(x, None, None, scores, n))
     x, scores = _unplanted(x, scores)
@@ -611,6 +724,7 @@ def _topk_stats_case(results, name, fn, plain, x, scores, n, check_ties):
            ms=time_ms(lambda: fn(x, None, None, scores, n)), ms_planted=ms_planted,
            plain_ms=time_ms(lambda: plain(x, None, None, scores, n), iters=3),
            library_chain_ms=time_ms(chain), ls_err=ls_err, chain_err=chain_err,
+           chain_near_ties_reordered=int(differ.sum()),
            **topk_bound(x, (scores,), TOPK_OPS_STATS, (gv, gi)))
 
 
@@ -656,8 +770,10 @@ def _k4_inputs(b, k, v, g):
 
 
 # beams past the narrow instances' 16 (n = 2K up to 128), then the ceiling,
-# ``topk_max_beams()``: the wide instance
-WIDE_TOPK_BEAMS = (17, 32, 64)
+# ``topk_max_beams()``: the wide instance; then past it (the ceiling + 1
+# too), the select form.  Every width up to the ceiling (8 and 12 too) is
+# also timed on the select form (``select_ms``)
+WIDE_TOPK_BEAMS, SELECT_TOPK_BEAMS = (17, 32, 64), (128, 200)
 
 
 def check_topk(results, wide=True):
@@ -669,11 +785,13 @@ def check_topk(results, wide=True):
     kernel for up to 16 rows a batch element; beam 5 takes its own) at batch
     8, statistics inside; with ``wide``, beams 17, 32 and 64 (n = 34, 64,
     128: the wide instance) and the ceiling ``topk_max_beams()`` the same
-    way.  ``library_ms`` is
+    way, then the select form's ceiling + 1, 128 and 200; each width up to
+    the ceiling also on the select form.  ``library_ms`` is
     ``torch.topk`` on the prebuilt candidate row; ``library_chain_ms`` the
     eager ``log_softmax`` + add + ``torch.topk``."""
     import torch
 
+    from multimodalvc_tpu_torch.ops import topk as tk
     from multimodalvc_tpu_torch.ops.topk import (
         _candidates,
         beam_topk_columns,
@@ -713,12 +831,36 @@ def check_topk(results, wide=True):
                plain_ms=time_ms(plain, iters=3),
                **topk_bound(logits, (row_max, row_ls, scores), 4, (gv, gi)))
     # the kernel for up to 16 rows, with 16-byte copies; then the wide one
-    for beams in (8, 12) + (WIDE_TOPK_BEAMS + (topk_max_beams(),) if wide else ()):
+    for beams in (8, 12) + (WIDE_TOPK_BEAMS + (topk_max_beams(), topk_max_beams() + 1)
+                            + SELECT_TOPK_BEAMS if wide else ()):
         logits, scores = _k4_inputs(BATCH, beams, v, g)
         _topk_stats_case(results, f"beam_topk_columns/beam{beams}/{BATCH * beams}x{v}",
                          beam_topk_columns, beam_topk_columns_plain, logits, scores, 2 * beams,
                          ties)
+        if beams <= topk_max_beams():  # the same on the select form
+            results[-1]["select_ms"] = _form_ms(logits, scores, 2 * beams,
+                                                tk.select_plan(BATCH, beams, v))
+            print(f"  the same on the select form: ms={results[-1]['select_ms']:.4f}")
         del logits, scores
+
+
+def _form_ms(logits, scores, n, plan, iters=None) -> float:
+    """K4 (statistics inside) on ``plan`` in place of ``topk_plan``'s: its
+    selection equal to the plain version's on its own statistics, and its
+    ms."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import topk as tk
+
+    r = logits.shape[0]
+    m, ls = torch.empty(r, device=DEV), torch.empty(r, device=DEV)
+    with mock.patch.object(tk, "topk_plan", lambda *a: plan):
+        got = tk.beam_topk_columns(logits, None, None, scores, n, stats_out=(m, ls))
+        want = tk.beam_topk_columns_plain(logits, m, ls, scores, n)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise SmokeFailure(f"beam_topk_columns on {plan}: differs from plain")
+        kw = {} if iters is None else {"iters": iters}
+        return time_ms(lambda: tk.beam_topk_columns(logits, None, None, scores, n), **kw)
 
 
 def topk_bound(x, small, ops_per_value, out) -> dict:
@@ -768,6 +910,12 @@ BEAM_TOPK_CASES = [
     ("wide", "logp/beam64/8x64x128256", 8, 128256, "f32", False, 64),
     ("wide", "logp_bf16/beam17/8x17x128250", 8, 128250, "bf16", False, 17),
     ("wide", "from_logits/beam17/136x128250", 8, 128250, None, True, 17),  # 4-byte loads
+    # the select form (past the wide instance): f32 and bf16 log-probs, raw
+    # logits with the statistics inside and given
+    ("select", "logp/beam128/8x128x128256", 8, 128256, "f32", False, 128),
+    ("select", "logp_bf16/beam128/8x128x128250", 8, 128250, "bf16", False, 128),
+    ("select", "from_logits/beam128/1024x128250", 8, 128250, None, True, 128),
+    ("select", "from_logits/stats_given/beam128/1024x128256", 8, 128256, None, False, 128),
 ]
 
 
@@ -1152,6 +1300,12 @@ EXPECT = {
                      "int4_matmul": ON},
     "beam8_int8_kv": {"flash_attention": ON, "ancestry_attention": ON, "beam_topk_columns": ON},
 }
+# the training phases: K1 48 times a step in the encoders (24 Whisper and 24
+# AV-HuBERT layers), and with use_flash_prefill 28 more in the trunk, each
+# through its autograd Function
+ENCODER_FLASH, TRUNK_FLASH = 48, 28
+EXPECT["train_avsr"] = {"flash_attention": ENCODER_FLASH * TRAIN_STEPS}
+EXPECT["train_avsr_flash"] = {"flash_attention": (ENCODER_FLASH + TRUNK_FLASH) * TRAIN_STEPS}
 # Beyond EXPECT: an ancestry phase launches the merged entry (int8 KV) or K3
 # (bf16 KV) once a layer, decode step and ensemble member, the decode steps
 # counted by the beam candidates' kernel (K4, or K5 with n-gram blocking);
@@ -1267,6 +1421,187 @@ def build_system(mode=None, seed=0):
     print(f"system: {mode or 'bf16'} weights (seed {seed}), built in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     return system
+
+
+def make_train_batch():
+    """The serving batch with TRAIN_LABELS label tokens a clip (random from
+    seed 6; lengths TRAIN_LABELS down to TRAIN_LABELS - 35)."""
+    import torch
+
+    from multimodalvc_tpu_torch.models.avsr import AVSRConfig
+
+    batch = make_batch()
+    g = torch.Generator(device=DEV).manual_seed(6)
+    vocab = AVSRConfig().llama.vocab_size
+    batch["labels"] = torch.randint(1, vocab, (BATCH, TRAIN_LABELS), generator=g, device=DEV)
+    batch["label_lengths"] = torch.tensor([TRAIN_LABELS - 5 * i for i in range(BATCH)],
+                                          dtype=torch.int32, device=DEV)
+    return batch
+
+
+def build_trainer(flash: bool):
+    """The training slice's entry points at full width: ``AVSRTask`` (bf16
+    random weights from seed 0, ``use_flash_prefill`` as given), its loss
+    and frozen patterns into ``Trainer`` with the conf/mms-llama.yaml
+    optimizer (AdamW, betas (0.9, 0.98), weight decay 0.01, clip 1.0,
+    cosine) and a warmup of TRAIN_WARMUP updates."""
+    import torch
+
+    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.models.avsr import AVSRConfig
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+    from multimodalvc_tpu_torch.tasks import AVSRTask, AVSRTaskConfig
+
+    cfg = AVSRConfig()
+    cfg.max_video_frames = SECONDS * 25
+    cfg.llama.use_flash_prefill = True if flash else None
+    t0 = time.perf_counter()
+    task = AVSRTask(AVSRTaskConfig(), cfg, dtype=torch.bfloat16, device=DEV)
+    task.system.init_random(seed=0)
+    opt = OptimizationConfig(lr=1e-4, optimizer="adamw", adam_betas=(0.9, 0.98),
+                             weight_decay=0.01, clip_norm=1.0, lr_scheduler="cosine",
+                             warmup_updates=TRAIN_WARMUP, max_update=30000)
+    trainer = Trainer(task.make_loss_fn(), task.system.module, opt, task.frozen_patterns())
+    torch.cuda.synchronize()
+    print(f"trainer: {'flash' if flash else 'plain'} trunk attention, built in "
+          f"{time.perf_counter() - t0:.1f} s, {sum(p.numel() for p in trainer.master.values())} "
+          f"trainable of {sum(p.numel() for p in task.system.module.parameters())} parameters")
+    return task, trainer
+
+
+def step_gradients(trainer, batch, seed=9):
+    """The trainable leaves' gradients of one training loss on ``batch``,
+    its dropout from a generator seeded ``seed``, as one f32 vector."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    loss, _ = trainer.loss_fn(batch, gen)
+    grads = torch.autograd.grad(loss, list(trainer.params.values()), allow_unused=True)
+    return torch.cat([(torch.zeros_like(p) if g is None else g).float().reshape(-1)
+                      for g, p in zip(grads, trainer.params.values())])
+
+
+def gradient_gate(trainer, batch) -> dict:
+    """The flash trunk's step-1 gradients against the same step with K1's
+    plain version (``plain_versions()``), gated at the noise floor this run
+    measures: the relative L2 by which one bf16 ulp on every 9973rd audio
+    feature moves them, times FLOOR_MARGIN, and at least REL_TOL."""
+    nudged = dict(batch)
+    nudged["audio_feats"] = batch["audio_feats"].clone()
+    flat = nudged["audio_feats"].view(-1)
+    flat[::9973] = flat[::9973] * (1 + 2 ** -7)
+    kernel = step_gradients(trainer, batch)
+    floor = rel_l2(step_gradients(trainer, nudged), kernel)
+    with plain_versions():
+        plain = step_gradients(trainer, batch)
+    rel, tol = rel_l2(kernel, plain), max(REL_TOL, FLOOR_MARGIN * floor)
+    print(f"    step-1 gradients, K1 vs plain: rel_l2={rel:.3e}; noise floor (one bf16 ulp on "
+          f"0.01% of the audio features) {floor:.3e}, gate {tol:.3e}")
+    if not rel <= tol:
+        raise SmokeFailure(f"train_avsr_flash: step-1 gradients {rel:.3e} from plain K1 "
+                           f"(gate {tol:.3e})")
+    return {"grad_rel_l2": rel, "noise_floor_rel_l2": floor, "tol_rel_l2": tol}
+
+
+def train_phase(table, name: str, flash: bool) -> dict:
+    """TRAIN_STEPS training steps on one repeated batch (make_train_batch)
+    through ``Trainer.train_step``, with every launch count set to 0 before
+    the first and read after the last (EXPECT[name]).  Checks: every loss
+    finite and the last below the first; every frozen leaf (and buffer)
+    bitwise unchanged; every trainable leaf's f32 master moved (but those
+    the loss does not depend on); after step 3
+    a save and restore (``CheckpointManager``) gives back every trainable
+    leaf, Adam moment, counter and the generator state bit for bit, and the
+    run goes on from the restored state.  Prints the step wall (the mean of
+    steps 2..), label and sequence tokens/s and the peak GiB allocated.
+    With ``flash``, first the step-1 gradient gate (``gradient_gate``)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    task, trainer = build_trainer(flash)
+    batch = task.prepare_batch(make_train_batch())
+    record = {}
+    if flash:
+        record.update(gradient_gate(trainer, batch))
+    frozen = {n: x.clone() for n, x in trainer.module.state_dict().items()
+              if n not in trainer.master}
+    start = {n: x.clone() for n, x in trainer.master.items()}
+    ckpt_dir = REPO / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    manager = CheckpointManager(str(ckpt_dir))
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = [], []
+    reset_counts(table)
+    for step in range(TRAIN_STEPS):
+        m, t_step = wall(lambda: trainer.train_step(batch))
+        metrics.append(m)
+        walls.append(t_step)
+        print(f"    step {step + 1}: loss {m['loss']:.4f} gnorm {m['gnorm']:.3e} accuracy "
+              f"{m['accuracy']:.4f} tokens {m['n_tokens']} {1e3 * t_step:.1f} ms")
+        if step == 2:
+            saved = trainer.state_dict(include_frozen=False)
+            manager.save(saved, trainer.step)
+            back = manager.restore(map_location=DEV)
+            _same_state("train checkpoint", saved, back)
+            trainer.load_state_dict(back)
+    launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    expect = EXPECT[name]
+    wrong = {k: (n, expect.get(k, 0)) for k, n in launches.items() if n != expect.get(k, 0)}
+    if wrong:
+        raise SmokeFailure(f"{name}: launches (got, expected) {wrong}")
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"{name}: losses {losses} (finite, the last below the first)")
+    changed = [n for n, x in trainer.module.state_dict().items()
+               if n in frozen and not torch.equal(x, frozen[n])]
+    if changed:
+        raise SmokeFailure(f"{name}: frozen leaves changed: {changed[:5]}")
+    # the loss does not depend on the attention key biases (softmax is
+    # shift-invariant: their gradient is rounding noise, or 0), nor on a bridge
+    # before the speech-rate predictor (narrow configurations only)
+    still = [n for n, x in trainer.master.items() if torch.equal(x, start[n])]
+    if [n for n in still if not (n.endswith("k_proj.bias") or n.startswith("encoder.sr_bridge."))]:
+        raise SmokeFailure(f"{name}: trainable leaves that did not move: {still[:5]}")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    b, t = batch["instruction"].shape[0], INSTRUCTION + task.model_cfg.max_queries + TRAIN_LABELS
+    labels = sum(m["n_tokens"] for m in metrics[1:]) / len(metrics[1:])
+    record.update(losses=losses, step_ms=[1e3 * x for x in walls], mean_step_ms=1e3 * step_s,
+                  label_tokens_per_s=labels / step_s, seq_tokens_per_s=b * t / step_s,
+                  audio_realtime_factor=BATCH * SECONDS / step_s, peak_gib=peak,
+                  launches=launches, unmoved_key_biases=len(still), frozen_leaves=len(frozen),
+                  trainable_leaves=len(trainer.master))
+    print(f"  phase {name}: {1e3 * step_s:.1f} ms a step (steps 2-{TRAIN_STEPS}), "
+          f"{labels / step_s:.0f} label tokens/s, {b * t / step_s:.0f} sequence tokens/s, "
+          f"{BATCH * SECONDS / step_s:.1f}x realtime, peak {peak:.2f} GiB, launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    del task, trainer, frozen, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def _same_state(name, a, b) -> None:
+    """Nested states equal: tensors bit for bit, everything else by ==."""
+    import torch
+
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise SmokeFailure(f"{name}: keys differ")
+        for k in a:
+            _same_state(f"{name}/{k}", a[k], b[k])
+    elif isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or not torch.equal(a.to(b.device), b):
+            raise SmokeFailure(f"{name}: not bitwise equal after the round trip")
+    elif a != b:
+        raise SmokeFailure(f"{name}: {a} != {b}")
 
 
 def check_output(name, seqs, scores, vocab, new_tokens, beams=BEAMS):
@@ -2082,7 +2417,7 @@ def plans_main() -> list:
                 raise SmokeFailure(f"--plans {name}: max_err {err:.3e}")
             out.append({"case": name, "ms": ms, "max_abs_err": err,
                         "decode_plan": (cp, cg, splits) == plans[0]})
-    return out + topk_plans()
+    return out + topk_plans() + topk_forms()
 
 
 # --plans, the top-k kernel: (entry, batch, V, statistics inside, [(cluster,
@@ -2152,6 +2487,42 @@ def topk_plans() -> list:
                   + (" (topk_plan's)" if i == 0 else ""))
             out.append({"case": name, "ms": ms, "max_active_clusters": clusters.value,
                         "topk_plan": i == 0})
+    return out
+
+
+# --plans, K4's two forms past 16 beams (statistics inside, n = 2K): the
+# wide instance on ``_wide_plan``'s cluster, where its block fits one, and
+# the select form, at (batch, beams)
+TOPK_FORM_CASES = ([(BATCH, k) for k in (17, 32, 48, 64, 80, 96, 100, 101, 102, 103, 104, 128)]
+                   + [(48, 17), (48, 64)])
+
+
+def topk_forms() -> list:
+    """Time K4 on the wide instance and on the select form at
+    TOPK_FORM_CASES, each equal to the plain version on its own statistics,
+    and name the form ``topk_plan`` takes: where the two cross."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import topk as tk
+
+    g = torch.Generator(device=DEV).manual_seed(14)
+    v, out = 128256, []
+    for b, k in TOPK_FORM_CASES:
+        n = 2 * k
+        x = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+        scores = torch.randn(b, k, generator=g, device=DEV)
+        forms = {"select": tk.select_plan(b, k, v)}
+        if tk.topk_smem_bytes(k, n, min(tk.TOPK_CLUSTERS_AT_ONCE), 1) <= tk.TOPK_SMEM_MAX:
+            forms["wide"] = tk._wide_plan(b, k, v, n)
+        taken = tk.topk_plan(b, k, v, n)
+        row = {"case": f"topk_forms/b{b}/beam{k}", "taken": type(taken).__name__}
+        for form, plan in forms.items():
+            row[f"{form}_ms"] = _form_ms(x, scores, n, plan, iters=20)
+            row[f"{form}_plan"] = list(plan)
+        print(f"  {row['case']}: " + " ".join(f"{f}={row[f + '_ms']:.4f} ms {forms[f]}"
+                                               for f in forms) + f"; topk_plan takes {taken}")
+        out.append(row)
+        del x
     return out
 
 
@@ -2279,6 +2650,15 @@ def main() -> int:
         print(json.dumps({"phases": topk_phases()}))
         print(card)
         return 0
+    if "--train" in sys.argv[1:]:
+        results = []
+        check_flash_grad(results)
+        table = kernels()
+        phases = {name: train_phase(table, name, flash)
+                  for name, flash in (("train_avsr", False), ("train_avsr_flash", True))}
+        print(json.dumps({"cases": results, "phases": phases}))
+        print(card)
+        return 0
     if "--beam5" in sys.argv[1:]:
         results = []  # the cases an older tree has too: beam 5, K4 to beam 12
         check_decode(results, wide=False)
@@ -2291,8 +2671,9 @@ def main() -> int:
 
     results = []
     print("kernel checks (kernel vs plain PyTorch, same inputs, CUDA-event ms):")
-    for check in (check_flash, check_decode, lambda r: check_decode(r, "bf16"), check_merged,
-                  check_topk, check_beam_topk, check_gather_rows, check_int8_matmul, check_int4_matmul):
+    for check in (check_flash, check_flash_grad, check_decode, lambda r: check_decode(r, "bf16"),
+                  check_merged, check_topk, check_beam_topk, check_gather_rows,
+                  check_int8_matmul, check_int4_matmul):
         check(results)
         torch.cuda.empty_cache()
     failed = [r["name"] for r in results if not r["ok"]]
@@ -2306,6 +2687,10 @@ def main() -> int:
     phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
     phases.update(quantized_phase(table, batch, "int8", NEW_TOKENS, prompt, tokens, bf16_logits))
     phases.update(quantized_phase(table, batch, "int4", SHORT_TOKENS, prompt, tokens, bf16_logits))
+    print(f"training: AVSRConfig() full width, batch {BATCH} x {SECONDS} s, {TRAIN_LABELS} label "
+          f"tokens, {TRAIN_STEPS} steps on one batch")
+    for name, flash in (("train_avsr", False), ("train_avsr_flash", True)):
+        phases[name] = train_phase(table, name, flash)
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():

@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of multimodalvc_tpu for NVIDIA Hopper.
 
 The JAX package ``multimodalvc_tpu`` is the reference.  This package mirrors
-its layout (``nn/``, ``ops/``, ``models/``, ``interop/``) and serves the
-AVSR beam-search path; the Pallas kernels on that path are hand-written
+its layout (``nn/``, ``ops/``, ``models/``, ``interop/``, ``runtime/``,
+``config/``, ``criterions/``, ``utils/``, ``tasks.py``), serves the AVSR
+beam-search path and trains the AVSR model (the LM loss with LoRA, masked
+AdamW, checkpoints); the Pallas kernels on those paths are hand-written
 CUDA kernels under ``csrc/``, built by nvcc at first use
 (``ops/kernel_lib.py``).
 """

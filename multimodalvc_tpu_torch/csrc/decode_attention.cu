@@ -48,7 +48,11 @@
 //   the values are in flight; no thread waits on a load of its own.  A
 //   generated chunk reads its slots from all K source rows of its batch
 //   element, each row once, as the TPU kernel's one-hot select does; slots
-//   at or past valid_len are zero-filled without a read.
+//   at or past valid_len are zero-filled without a read.  Past 336 beams
+//   (a slot of every source row would pass shared memory) a chunk holds one
+//   slot of a piece of the source rows (`kb` of them, ops/decode_attention.py:
+//   gen_chunk_beams), and the online softmax merges the pieces as it merges
+//   chunks (the PIECES instances).
 // - scores.  K2 and K3 use the tensor cores: S = Q K^T by
 //   mma.sync.m16n8k16 with bf16 inputs, q held in registers, int8 keys
 //   converted to bf16 exactly, the key scale and the softmax scale applied
@@ -124,6 +128,8 @@ struct Args {
   int out_f32;
   float scale;
   int tiles;            // m16 tiles of the K * rep query rows (set by the launch)
+  int kb;               // source beams a generated chunk: K, or fewer in pieces
+  int pieces;           // generated chunks a slot range: ceil(K / kb) (set by the launch)
 };
 
 // Shared memory of one block (byte offsets) for chunks of at most `keys`
@@ -132,7 +138,8 @@ struct Args {
 // this one for the combine: each block's (m, l) [MAX_SPLITS][2][ROWS] and
 // the o of the units this block owns, [owned unit][sending block] float4;
 // then the key and value tiles, the scores [ROWS, s_pitch] f32, the key and
-// value scales and what decides validity; for the merged entry, q in f32
+// value scales and what decides validity (at least `preds` entries: a
+// generated chunk's anc of every query beam); for the merged entry, q in f32
 // [ROWS, Q_PITCH].
 template <typename T>
 struct Smem {
@@ -140,7 +147,7 @@ struct Smem {
   static constexpr int V_PITCH = D * sizeof(T) + 16;
   int s_pitch;  // floats, 16 mod 32: conflict-free float4 loads
   int ml_off, rml_off, ro_off, k_off, v_off, s_off, ks_off, vs_off, pred_off, qf_off, bytes;
-  __host__ __device__ Smem(int keys, bool merged) {
+  __host__ __device__ Smem(int keys, bool merged, int preds) {
     s_pitch = (keys + 31) / 32 * 32 + 16;
     ml_off = 0;
     rml_off = ml_off + 4 * ROWS * 4;
@@ -151,7 +158,7 @@ struct Smem {
     ks_off = s_off + ROWS * s_pitch * 4;
     vs_off = ks_off + keys * 4;
     pred_off = vs_off + keys * 4;
-    qf_off = pred_off + keys * 4;
+    qf_off = pred_off + (preds > keys ? (preds + 3) / 4 * 4 : keys) * 4;  // 16-byte aligned
     bytes = qf_off + (merged ? ROWS * Q_PITCH * 4 : 0);
   }
 };
@@ -258,11 +265,17 @@ __device__ __forceinline__ unsigned value_bits(bf16 v) { return __bfloat16_as_us
 
 // TILES: more than one 16-row tile of query rows (K * rep > 16); the
 // instance for one tile compiles the loop away, with the registers of a
-// kernel without it
-template <typename T, int MODE, bool TILES>
+// kernel without it.  PIECES: a generated chunk holds the slots of kb < K
+// source beams (a slot of all K would pass shared memory), so a slot range
+// is read in ceil(K / kb) chunks, one a piece of the source beams; a query
+// row's key of a slot is in the piece of its ancestor there, and the
+// online softmax across chunks merges the pieces as it merges slot ranges.
+template <typename T, int MODE, bool TILES, bool PIECES = false>
 __device__ __forceinline__ void decode_attention(const Args& p) {
   using L = Smem<T>;
-  const L lay(p.keys, MODE == MERGED);
+  // (without PIECES every chunk's key rows hold its ancestor entries: the
+  // layout of an instance without pieces)
+  const L lay(p.keys, MODE == MERGED, PIECES ? p.K * p.cg : p.keys);
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   // every block of the cluster has started before any writes to another's
@@ -325,10 +338,19 @@ __device__ __forceinline__ void decode_attention(const Args& p) {
 
     for (int c = r; c < p.p_chunks + p.g_chunks; c += splits) {
       const bool prompt = c < p.p_chunks;
-      // generated chunk: slots l0 .. l0 + cg - 1 of every source row
-      const int l0 = prompt ? 0 : (c - p.p_chunks) * p.cg;
+      // generated chunk: slots l0 .. l0 + cg - 1 of source rows s0 .. s0 + kb - 1
+      // (every source row, s0 = 0 and kb = K, but with PIECES)
+      int l0 = prompt ? 0 : (c - p.p_chunks) * p.cg, s0 = 0, kb = K;
+      if constexpr (PIECES) {
+        if (!prompt) {
+          const int range = (c - p.p_chunks) / p.pieces;
+          s0 = (c - p.p_chunks - range * p.pieces) * p.kb;
+          kb = min(p.kb, K - s0);
+          l0 = range * p.cg;
+        }
+      }
       if (!prompt && l0 >= p.valid) break;  // no valid slot here or in a later chunk
-      const int n_keys = prompt ? p.cp : (K * p.cg + 15) / 16 * 16;
+      const int n_keys = prompt ? p.cp : (kb * p.cg + 15) / 16 * 16;
       const unsigned char* kv_k = static_cast<const unsigned char*>(prompt ? p.pk : p.gk);
       const unsigned char* kv_v = static_cast<const unsigned char*>(prompt ? p.pv : p.gv);
       const float* ksrc = prompt ? p.pks : p.gks;
@@ -341,8 +363,8 @@ __device__ __forceinline__ void decode_attention(const Args& p) {
           row = size_t(pair) * p.Tp + (ok ? slot : 0);
         } else {
           const int s = div_by(n, p.cg_m), l = l0 + n - s * p.cg;
-          ok = n < K * p.cg && l < p.valid;
-          row = ok ? (size_t(b * K + s) * p.L + l) * g + gi : 0;
+          ok = n < kb * p.cg && l < p.valid;
+          row = ok ? (size_t(b * K + s0 + s) * p.L + l) * g + gi : 0;
         }
       };
 
@@ -400,10 +422,10 @@ __device__ __forceinline__ void decode_attention(const Args& p) {
       auto valid = [&](int x, int beam, int n) {
         if (x >= X) return false;
         if (prompt) return pred[n] != 0;
-        // slot l0 + j of source row s: the row's beam's ancestor there?
+        // slot l0 + j of source row s0 + s: the row's beam's ancestor there?
         const int s = div_by(n, p.cg_m), j = n - s * p.cg;
-        return n < K * p.cg && l0 + j < p.valid &&
-               min(max(pred[beam * p.cg + j], 0), K - 1) == s;
+        return n < kb * p.cg && l0 + j < p.valid &&
+               min(max(pred[beam * p.cg + j], 0), K - 1) == s0 + s;
       };
       if constexpr (MODE == MERGED) {
         // f32 FMAs over the head dim in order, on keys dequantized as k * ks
@@ -611,31 +633,41 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) prompt_attention_kerne
   decode_attention<T, PROMPT_PARTIALS, TILES>(p);
 }
 
-template <typename T, bool TILES>
+template <typename T, bool TILES, bool PIECES>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) gen_attention_kernel(Args p) {
-  decode_attention<T, GEN_PARTIALS, TILES>(p);
+  decode_attention<T, GEN_PARTIALS, TILES, PIECES>(p);
 }
 
-template <bool TILES>
+template <bool TILES, bool PIECES>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ancestry_attention_kernel(Args p) {
-  decode_attention<int8_t, MERGED, TILES>(p);
+  decode_attention<int8_t, MERGED, TILES, PIECES>(p);
 }
 
-// the instance for one query-row tile or for several
+// the instance for one query-row tile or for several, and for generated
+// chunks of every source beam or in pieces (pieces only come with tiles:
+// more beams than a slot's chunk fits)
 template <typename T, int MODE>
 int launch(Args p, int B, int splits, cudaStream_t stream) {
-  p.keys = max(p.p_chunks ? p.cp : 0, p.g_chunks ? (p.K * p.cg + 15) / 16 * 16 : 0);
+  p.kb = p.g_chunks ? p.kb : p.K;
+  p.pieces = (p.K + p.kb - 1) / p.kb;
+  p.keys = max(p.p_chunks ? p.cp : 0, p.g_chunks ? (p.kb * p.cg + 15) / 16 * 16 : 0);
   p.tiles = (p.K * (p.h / p.g) + ROWS - 1) / ROWS;
   p.cg_m = magic(max(p.cg, 1));
   p.rep_m = magic(p.h / p.g);
+  const bool pieces = p.pieces > 1;
+  if (pieces && p.tiles == 1) return cudaErrorInvalidValue;
   void (*kernel)(Args);
   if constexpr (MODE == MERGED)
-    kernel = p.tiles > 1 ? ancestry_attention_kernel<true> : ancestry_attention_kernel<false>;
+    kernel = pieces ? ancestry_attention_kernel<true, true>
+                    : p.tiles > 1 ? ancestry_attention_kernel<true, false>
+                                  : ancestry_attention_kernel<false, false>;
   else if constexpr (MODE == GEN_PARTIALS)
-    kernel = p.tiles > 1 ? gen_attention_kernel<T, true> : gen_attention_kernel<T, false>;
+    kernel = pieces ? gen_attention_kernel<T, true, true>
+                    : p.tiles > 1 ? gen_attention_kernel<T, true, false>
+                                  : gen_attention_kernel<T, false, false>;
   else
     kernel = p.tiles > 1 ? prompt_attention_kernel<T, true> : prompt_attention_kernel<T, false>;
-  const int bytes = Smem<T>(p.keys, MODE == MERGED).bytes;
+  const int bytes = Smem<T>(p.keys, MODE == MERGED, pieces ? p.K * p.cg : p.keys).bytes;
   if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t err =
@@ -660,18 +692,22 @@ int launch(Args p, int B, int splits, cudaStream_t stream) {
 
 // The shapes and the plan the kernel takes: d = 128, any K * rep < 2^16
 // query rows a kv head; prompt chunks of cp slots (a multiple of 16, <= 128)
-// that cover Tp; generated chunks of cg slots, K * cg <= 128 key rows (or one
-// slot of K > 128 rows), that cover L; 1..8 splits, no more than the chunks.
-// The launch also refuses a plan whose shared memory passes 227 KB.
+// that cover Tp; generated chunks of cg slots of kb source beams, kb * cg <=
+// 128 key rows (or one slot of kb > 128 rows), ceil(K / kb) chunks a slot
+// range (kb < K: one slot a chunk), that cover L; 1..8 splits, no more than
+// the chunks.  The launch also refuses a plan whose shared memory passes 227
+// KB.
 bool plan_ok(const Args& p, int B, int d, int splits) {
   const bool dims = B > 0 && B <= 65535 && p.K > 0 && p.g > 0 && p.g <= 65535 && p.h > 0 &&
                     p.h % p.g == 0 && p.K * (p.h / p.g) < 65536 && d == D;
   const bool prompt = p.p_chunks == 0 ||
                       (p.cp > 0 && p.cp % 16 == 0 && p.cp <= MAX_KEYS &&
                        (p.p_chunks - 1) * p.cp < p.Tp && p.p_chunks * p.cp >= p.Tp);
+  const int pieces = p.kb > 0 ? (p.K + p.kb - 1) / p.kb : 0, ranges = pieces ? p.g_chunks / pieces : 0;
   const bool gen = p.g_chunks == 0 ||
-                   (p.cg > 0 && ((p.K * p.cg + 15) / 16 * 16 <= MAX_KEYS || p.cg == 1) &&
-                    (p.g_chunks - 1) * p.cg < p.L && p.g_chunks * p.cg >= p.L);
+                   (p.cg > 0 && p.kb > 0 && p.kb <= p.K && (pieces == 1 || p.cg == 1) &&
+                    ((p.kb * p.cg + 15) / 16 * 16 <= MAX_KEYS || p.cg == 1) &&
+                    p.g_chunks % pieces == 0 && (ranges - 1) * p.cg < p.L && ranges * p.cg >= p.L);
   return dims && prompt && gen && splits >= 1 && splits <= MAX_SPLITS &&
          splits <= p.p_chunks + p.g_chunks;
 }
@@ -701,17 +737,17 @@ extern "C" int mmvc_prompt_attention(const void* q, const void* pk, const void* 
 
 // K3.  kv as K2's; K/V [B*K, L, g, d], scales [B*K, L, g]; anc int32 [B*K, L]
 // (clamped to 0..K-1); valid_len clamped to 0..L.  Partials as K2's.  The
-// plan: g_chunks chunks of cg slots over `splits` blocks.
+// plan: g_chunks chunks of cg slots of kb source beams over `splits` blocks.
 extern "C" int mmvc_gen_attention_ancestor(const void* q, const void* gk, const void* gv,
                                            const void* gks, const void* gvs, const void* anc,
                                            int valid, void* out, void* m, void* l, int B, int K,
                                            int h, int g, int L, int d, int cg, int g_chunks,
-                                           int splits, float scale, int kv_bf16,
+                                           int splits, int kb, float scale, int kv_bf16,
                                            void* stream) {
   Args p{static_cast<const bf16*>(q), nullptr, nullptr, nullptr, nullptr, nullptr, gk, gv,
          static_cast<const float*>(gks), static_cast<const float*>(gvs),
          static_cast<const int*>(anc), out, static_cast<float*>(m), static_cast<float*>(l), K,
-         h, g, 0, L, min(max(valid, 0), L), 0, 0, cg, g_chunks, 0, 0, 0, 0, scale};
+         h, g, 0, L, min(max(valid, 0), L), 0, 0, cg, g_chunks, 0, 0, 0, 0, scale, 0, kb};
   if (!plan_ok(p, B, d, splits) || g_chunks < 1 || (!kv_bf16 && (!gks || !gvs)))
     return cudaErrorInvalidValue;
   if (kv_bf16) p.gks = p.gvs = nullptr;
@@ -722,19 +758,21 @@ extern "C" int mmvc_gen_attention_ancestor(const void* q, const void* gk, const 
 
 // The merged entry: K2's and K3's int8 operands (both scales required), both
 // segments combined and normalised into out [B*K, h, d], f32 if out_f32 else
-// bf16.  The plan: p_chunks + g_chunks chunks over `splits` blocks.
+// bf16.  The plan: p_chunks + g_chunks chunks (generated: of kb source
+// beams) over `splits` blocks.
 extern "C" int mmvc_ancestry_attention(const void* q, const void* pk, const void* pv,
                                        const void* pks, const void* pvs, const void* mask,
                                        const void* gk, const void* gv, const void* gks,
                                        const void* gvs, const void* anc, int valid, void* out,
                                        int B, int K, int h, int g, int Tp, int L, int d, int cp,
-                                       int p_chunks, int cg, int g_chunks, int splits,
+                                       int p_chunks, int cg, int g_chunks, int splits, int kb,
                                        float scale, int out_f32, void* stream) {
   const Args p{static_cast<const bf16*>(q), pk, pv, static_cast<const float*>(pks),
                static_cast<const float*>(pvs), static_cast<const int*>(mask), gk, gv,
                static_cast<const float*>(gks), static_cast<const float*>(gvs),
                static_cast<const int*>(anc), out, nullptr, nullptr, K, h, g, Tp, L,
-               min(max(valid, 0), L), cp, p_chunks, cg, g_chunks, 0, 0, 0, out_f32, scale};
+               min(max(valid, 0), L), cp, p_chunks, cg, g_chunks, 0, 0, 0, out_f32, scale, 0,
+               kb};
   if (!plan_ok(p, B, d, splits) || p_chunks < 1 || g_chunks < 1 || !pks || !pvs || !gks ||
       !gvs)
     return cudaErrorInvalidValue;

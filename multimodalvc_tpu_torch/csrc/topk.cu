@@ -80,6 +80,10 @@
 //   ranks the K keys of each of the block's n columns in the block itself,
 //   and sends the leader only the block's n best at or above theta (the
 //   n x K keys of every block would not fit the leader's shared memory).
+//   ops/topk.py gives it the shapes whose block fits a cluster
+//   (topk_max_beams(): 104 beams at n = 2K).
+// - Past that, any K and n: the select form at the end of this file, a
+//   radix select over the candidates' order bits in a few launches.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -891,6 +895,261 @@ int launch_logp(const Args& p, int B, int cluster, void* stream) {
 
 bool aligned(const void* p, int bytes) { return (reinterpret_cast<uintptr_t>(p) % bytes) == 0; }
 
+// ---- the select form: any K and n ----------------------------------------------
+// Past the wide instance (its block's n x K keys and the warps' lists would
+// pass shared memory; ops/topk.py: topk_plan takes it where the wide block
+// does not fit a cluster of 16), the same function by a radix select over
+// the candidates' order-preserving bits, in a few launches with a zeroed
+// global workspace.  The grid of the streaming kernels is (G, B): block g of
+// batch element b owns the flat range [g span, (g + 1) span) of its K*V
+// candidates, row by row.
+//  1. the row statistics (computed: exact max; sum of exp(x - max) in
+//     double, a fixed order; given; or 0 for log-probs), one block a row;
+//  2. three passes of 11, 11 and 10 bits: each block counts the candidates
+//     whose higher bits equal the prefix chosen so far into a shared
+//     histogram, added to the batch element's global one; one block a batch
+//     element then finds the bin that holds the n-th largest and narrows the
+//     prefix, so that after the third pass the prefix is the n-th largest
+//     value's bits t and `need` the candidates equal to t among the n;
+//  3. each block counts its candidates equal to t;
+//  4. each block writes its candidates above t to the batch element's n
+//     slots (an atomic counter) and its candidates equal to t whose rank in
+//     flat order (the counts of the blocks before it, then a block scan)
+//     is below `need`: the lowest flat indices win a tie, as the contract
+//     says;
+//  5. the n keys ranked among themselves (the number of larger keys) into
+//     the outputs.
+constexpr int SEL_THREADS = 512;
+constexpr int SEL_BINS = 2048;
+constexpr int SEL_SCAN_THREADS = SEL_BINS / 2;
+
+struct Sel {
+  const void* x;      // [B*K, V] f32 logits or log-probs, or bf16 log-probs
+  const float* m;     // [B*K] given statistics, or null
+  const float* ls;
+  const float* s;     // [B*K] beam scores
+  float* m_out;       // [B*K] or null: the statistics computed
+  float* ls_out;
+  float* out_v;       // [B, n]
+  int* out_f;
+  float2* st;         // [B*K] the statistics used (workspace)
+  unsigned* hist;     // [B][SEL_BINS] (workspace, zeroed)
+  unsigned* state;    // [B][4]: prefix, need, candidates written above t (workspace)
+  unsigned* ties;     // [B][G] candidates equal to t a block (workspace)
+  u64* keys;          // [B][n] (workspace)
+  int K, V, n, G, stats;
+};
+
+template <typename T>
+__device__ __forceinline__ float sel_load(const Sel& p, size_t i) {
+  return to_f32(static_cast<const T*>(p.x)[i]);
+}
+
+// f(r, c) over the candidates of block g of batch element b, in flat order;
+// each tile of SEL_THREADS consecutive columns of a row, one a thread, with
+// `tile(valid)` called by every thread of the block before its elements
+template <typename F>
+__device__ __forceinline__ void sel_range(const Sel& p, int g, F&& f) {
+  const long long N = (long long)p.K * p.V, span = (N + p.G - 1) / p.G;
+  const long long f0 = min(N, g * span), f1 = min(N, f0 + span);
+  for (long long r = f0 / p.V; r < p.K && r * p.V < f1; ++r) {
+    const int c0 = int(max(f0 - r * p.V, 0ll)), c1 = int(min(f1 - r * p.V, (long long)p.V));
+    for (int t0 = c0; t0 < c1; t0 += SEL_THREADS) f(int(r), t0 + threadIdx.x, t0 + threadIdx.x < c1);
+  }
+}
+
+// the candidate's value (the contract's op order) and its order bits
+template <typename T>
+__device__ __forceinline__ float sel_value(const Sel& p, int b, int r, int c) {
+  const float2 st = p.st[b * p.K + r];
+  return candidate(sel_load<T>(p, (size_t(b) * p.K + r) * p.V + c), st.x, st.y, p.s[b * p.K + r]);
+}
+
+// 1. row statistics, one block a row
+template <typename T>
+__global__ void __launch_bounds__(SEL_THREADS) beam_topk_select_stats_kernel(Sel p) {
+  __shared__ double red[SEL_THREADS / 32];
+  __shared__ float mred[SEL_THREADS / 32];
+  const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float m = 0.0f, ls = 0.0f;
+  if (p.stats) {
+    const size_t base = size_t(row) * p.V;
+    float mx = -INFINITY;
+    for (int c = tid; c < p.V; c += SEL_THREADS) mx = fmaxf(mx, sel_load<T>(p, base + c));
+    mx = mmvc::warp_max(mx);
+    if (lane == 0) mred[warp] = mx;
+    __syncthreads();
+    m = mred[0];
+    for (int w = 1; w < SEL_THREADS / 32; ++w) m = fmaxf(m, mred[w]);
+    double sum = 0.0;
+    for (int c = tid; c < p.V; c += SEL_THREADS) sum += double(expf(sel_load<T>(p, base + c) - m));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
+    if (lane == 0) red[warp] = sum;
+    __syncthreads();
+    double total = 0.0;
+    for (int w = 0; w < SEL_THREADS / 32; ++w) total += red[w];
+    ls = logf(float(total));
+  } else if (p.m) {
+    m = p.m[row];
+    ls = p.ls[row];
+  }
+  if (tid == 0) {
+    p.st[row] = make_float2(m, ls);
+    if (p.stats && p.m_out) {
+      p.m_out[row] = m;
+      p.ls_out[row] = ls;
+    }
+  }
+}
+
+// 2a. one radix pass: the histogram of bits [shift, shift + bits) of the
+// candidates whose bits above them equal the prefix
+template <typename T>
+__global__ void __launch_bounds__(SEL_THREADS) beam_topk_select_hist_kernel(Sel p, int shift,
+                                                                             int bits) {
+  __shared__ unsigned h[SEL_BINS];
+  const int g = blockIdx.x, b = blockIdx.y;
+  for (int i = threadIdx.x; i < SEL_BINS; i += SEL_THREADS) h[i] = 0;
+  __syncthreads();
+  const unsigned prefix = p.state[b * 4], top = shift + bits, mask = (1u << bits) - 1u;
+  sel_range(p, g, [&](int r, int c, bool ok) {
+    if (!ok) return;
+    const unsigned o = float_ord(sel_value<T>(p, b, r, c));
+    if (top == 32 || (o >> top) == prefix) atomicAdd(&h[(o >> shift) & mask], 1u);
+  });
+  __syncthreads();
+  for (int i = threadIdx.x; i < SEL_BINS; i += SEL_THREADS)
+    if (h[i]) atomicAdd(&p.hist[b * SEL_BINS + i], h[i]);
+}
+
+// 2b. the bin of the n-th largest, from the top: the prefix grows by its
+// `bits`, `need` loses the candidates of the bins above it; the histogram is
+// cleared for the next pass
+__global__ void __launch_bounds__(SEL_SCAN_THREADS) beam_topk_select_scan_kernel(Sel p, int bits,
+                                                                                int first) {
+  __shared__ unsigned wsum[SEL_SCAN_THREADS / 32];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned* hist = p.hist + b * SEL_BINS;
+  const unsigned need = first ? unsigned(p.n) : p.state[b * 4 + 1];
+  const int nb = 1 << bits;
+  // thread t: bins nb - 1 - 2t and nb - 2 - 2t (descending order)
+  const int hi = nb - 1 - 2 * tid;
+  const unsigned c0 = hi >= 0 ? hist[hi] : 0u, c1 = hi >= 1 ? hist[hi - 1] : 0u;
+  unsigned incl = c0 + c1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned v = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  unsigned before = 0;
+  for (int w = 0; w < warp; ++w) before += wsum[w];
+  const unsigned excl = before + incl - (c0 + c1);  // candidates in the bins above hi
+  const unsigned prefix = first ? 0u : p.state[b * 4];
+  __syncthreads();  // every thread has read the state
+  if (hi >= 0 && excl < need && need <= excl + c0) {
+    p.state[b * 4] = (prefix << bits) | unsigned(hi);
+    p.state[b * 4 + 1] = need - excl;
+  } else if (hi >= 1 && excl + c0 < need && need <= excl + c0 + c1) {
+    p.state[b * 4] = (prefix << bits) | unsigned(hi - 1);
+    p.state[b * 4 + 1] = need - excl - c0;
+  }
+  if (hi >= 0) hist[hi] = 0;
+  if (hi >= 1) hist[hi - 1] = 0;
+}
+
+// 3. the candidates equal to t a block
+template <typename T>
+__global__ void __launch_bounds__(SEL_THREADS) beam_topk_select_ties_kernel(Sel p) {
+  __shared__ unsigned count;
+  const int g = blockIdx.x, b = blockIdx.y;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  const unsigned t = p.state[b * 4];
+  unsigned mine = 0;
+  sel_range(p, g, [&](int r, int c, bool ok) {
+    mine += ok && float_ord(sel_value<T>(p, b, r, c)) == t;
+  });
+  mine = __reduce_add_sync(FULL, mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&count, mine);
+  __syncthreads();
+  if (threadIdx.x == 0) p.ties[b * p.G + g] = count;
+}
+
+// 4. the n keys of batch element b into its slots
+template <typename T>
+__global__ void __launch_bounds__(SEL_THREADS) beam_topk_select_write_kernel(Sel p) {
+  __shared__ unsigned wcount[SEL_THREADS / 32];
+  __shared__ unsigned base_sh;
+  const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) base_sh = 0;
+  __syncthreads();
+  unsigned before = 0;  // ties in the blocks before this one
+  for (int i = tid; i < g; i += SEL_THREADS) before += p.ties[b * p.G + i];
+  before = __reduce_add_sync(FULL, before);
+  if (lane == 0 && before) atomicAdd(&base_sh, before);
+  __syncthreads();
+  const unsigned t = p.state[b * 4], need = p.state[b * 4 + 1], above = unsigned(p.n) - need;
+  unsigned rank0 = base_sh;  // the rank in flat order of this tile's first tie
+  u64* keys = p.keys + size_t(b) * p.n;
+  sel_range(p, g, [&](int r, int c, bool ok) {
+    const float v = ok ? sel_value<T>(p, b, r, c) : 0.0f;
+    const unsigned o = ok ? float_ord(v) : 0u;
+    const int flat = r * p.V + c;
+    if (ok && o > t) keys[atomicAdd(&p.state[b * 4 + 2], 1u)] = make_key(v, flat);
+    const bool tie = ok && o == t;
+    if (!__syncthreads_or(tie)) return;  // block-uniform
+    const unsigned ball = __ballot_sync(FULL, tie);
+    if (lane == 0) wcount[warp] = __popc(ball);
+    __syncthreads();
+    unsigned rank = rank0 + __popc(ball & ((1u << lane) - 1u)), total = 0;
+    for (int w = 0; w < SEL_THREADS / 32; ++w) {
+      rank += w < warp ? wcount[w] : 0u;
+      total += wcount[w];
+    }
+    if (tie && rank < need) keys[above + rank] = make_key(v, flat);
+    rank0 += total;
+    __syncthreads();  // wcount is read before the next tile writes it
+  });
+}
+
+// 5. the n keys ranked among themselves (distinct keys: ranks 0 .. n - 1)
+__global__ void __launch_bounds__(256) beam_topk_select_rank_kernel(Sel p) {
+  __shared__ u64 tile[256];
+  const int b = blockIdx.y, i = blockIdx.x * 256 + threadIdx.x;
+  const u64* keys = p.keys + size_t(b) * p.n;
+  const u64 k = i < p.n ? keys[i] : 0;
+  int above = 0;
+  for (int j0 = 0; j0 < p.n; j0 += 256) {
+    __syncthreads();
+    tile[threadIdx.x] = j0 + threadIdx.x < p.n ? keys[j0 + threadIdx.x] : 0;
+    __syncthreads();
+    const int len = min(256, p.n - j0);
+    for (int j = 0; j < len; ++j) above += tile[j] > k;
+  }
+  if (i < p.n) {
+    p.out_v[size_t(b) * p.n + above] = key_value(k);
+    p.out_f[size_t(b) * p.n + above] = key_flat(k);
+  }
+}
+
+template <typename T>
+int launch_select(const Sel& p, int B, cudaStream_t stream) {
+  beam_topk_select_stats_kernel<T><<<B * p.K, SEL_THREADS, 0, stream>>>(p);
+  const int shifts[3] = {21, 10, 0}, bits[3] = {11, 11, 10};
+  for (int pass = 0; pass < 3; ++pass) {
+    beam_topk_select_hist_kernel<T>
+        <<<dim3(p.G, B), SEL_THREADS, 0, stream>>>(p, shifts[pass], bits[pass]);
+    beam_topk_select_scan_kernel<<<B, SEL_SCAN_THREADS, 0, stream>>>(p, bits[pass], pass == 0);
+  }
+  beam_topk_select_ties_kernel<T><<<dim3(p.G, B), SEL_THREADS, 0, stream>>>(p);
+  beam_topk_select_write_kernel<T><<<dim3(p.G, B), SEL_THREADS, 0, stream>>>(p);
+  beam_topk_select_rank_kernel<<<dim3((p.n + 255) / 256, B), 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K4, and K5 from logits: f32 logits [B*K, V], scores [B*K].  Given row
@@ -966,3 +1225,45 @@ extern "C" int mmvc_topk_marks(void* dst) {
   return cudaMemcpyFromSymbol(dst, g_marks, sizeof(g_marks));
 }
 #endif
+
+// The select form (K4, K5 from logits or from log-probs) for any K and n <=
+// K*V < 2^31: x [B*K, V], f32 (kind 0: logits; 1: log-probs) or bf16 log-probs
+// (kind 2); statistics as mmvc_beam_topk_columns (log-probs: none); G blocks
+// a batch element; `ws` a zeroed workspace, 16-byte aligned, of 8 B K (the
+// statistics) + 8 B n (the keys) + 4 B 2048 (the histograms) + 16 B (the
+// state) + 4 B G (the ties) bytes (ops/topk.py: select_workspace_bytes).
+
+extern "C" int mmvc_beam_topk_select(const void* x, int kind, const void* m, const void* ls,
+                                     const void* s, void* m_out, void* ls_out, void* out_v,
+                                     void* out_f, void* ws, int B, int K, int V, int n, int G,
+                                     void* stream) {
+  const bool stats = kind == 0 && m == nullptr;
+  if (B <= 0 || B > 65535 || K <= 0 || V <= 0 || n <= 0 || G <= 0 || G > 65535 ||
+      (long long)K * V >= INT_MAX || n > (long long)K * V || kind < 0 || kind > 2 ||
+      (kind != 0 && (m || ls || m_out || ls_out)) || (m == nullptr) != (ls == nullptr) ||
+      (m_out == nullptr) != (ls_out == nullptr) || (m_out && !stats) || !ws ||
+      !aligned(ws, 16) || !aligned(x, kind == 2 ? 2 : 4))
+    return cudaErrorInvalidValue;
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  Sel p{};
+  p.x = x;
+  p.m = static_cast<const float*>(m);
+  p.ls = static_cast<const float*>(ls);
+  p.s = static_cast<const float*>(s);
+  p.m_out = static_cast<float*>(m_out);
+  p.ls_out = static_cast<float*>(ls_out);
+  p.out_v = static_cast<float*>(out_v);
+  p.out_f = static_cast<int*>(out_f);
+  p.st = reinterpret_cast<float2*>(w);
+  w += size_t(B) * K * 8;
+  p.keys = reinterpret_cast<u64*>(w);
+  w += size_t(B) * n * 8;
+  p.hist = reinterpret_cast<unsigned*>(w);
+  w += size_t(B) * SEL_BINS * 4;
+  p.state = reinterpret_cast<unsigned*>(w);
+  w += size_t(B) * 16;
+  p.ties = reinterpret_cast<unsigned*>(w);
+  p.K = K, p.V = V, p.n = n, p.G = G, p.stats = stats;
+  auto st = static_cast<cudaStream_t>(stream);
+  return kind == 2 ? launch_select<bf16>(p, B, st) : launch_select<float>(p, B, st);
+}

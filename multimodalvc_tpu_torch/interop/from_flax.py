@@ -1,4 +1,5 @@
-"""Weight bridge: a flax variables tree (numpy leaves) -> a torch state_dict.
+"""Weight bridge between a flax variables tree (numpy leaves) and a torch
+state_dict, in both directions (``flax_to_state_dict``, ``state_dict_to_flax``).
 
 The port's modules carry the flax module names, so a tree path maps to a
 state_dict key by joining with dots; only the leaf names and layouts change:
@@ -77,3 +78,29 @@ def load_flax_variables(module: torch.nn.Module, variables: Mapping[str, Any],
     """Load a flax variables tree into ``module``, strictly: every parameter
     and buffer must be covered and every leaf used."""
     module.load_state_dict(flax_to_state_dict(variables, prefix), strict=True)
+
+
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
+                       template: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``flax_to_state_dict``: the ``params`` of the flax tree
+    ``template`` (its nested names and leaf names; ``params`` only) with each
+    leaf taken from ``sd`` and put back in the flax layout, as numpy f32 (or
+    the tensor's own numpy type)."""
+
+    def leaf(path, like):
+        name = path[-1]
+        key = ".".join(path[:-1] + (_convert(name, np.asarray(like))[0],))
+        x = sd[key].detach().cpu()
+        x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        if name == "kernel":
+            x = x.T if x.ndim == 2 else x.transpose(2, 1, 0) if x.ndim == 3 else \
+                x.transpose(2, 3, 1, 0)
+        return x
+
+    def walk(tree, prefix):
+        return {k: walk(v, prefix + (str(k),)) if isinstance(v, Mapping) else
+                leaf(prefix + (str(k),), v) for k, v in tree.items()}
+
+    return walk(template, ())

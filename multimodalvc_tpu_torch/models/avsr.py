@@ -7,7 +7,16 @@ split cache (ancestry decode with an int8 or bf16 KV cache, or the gather
 reorder), with float, int8 or int4 weights (``enable_quantized_decode``),
 n-gram blocking, lexical constraints and ensembles of systems;
 ``generate_long_form`` decodes clips longer than one window in chunks.
-Training and the other fusion modes are not ported yet.
+
+Training: ``AVSRModel.forward(batch, train)`` is the LM-loss forward (the
+frozen encoders and the speech-rate predictor under ``torch.no_grad()``, as
+the JAX package stops their gradient; dropout in the Q-Former and the LoRA
+adapters drawn from an explicit generator), ``AVSRSystem.loss_fn`` /
+``make_trainer_loss_fn`` feed ``runtime/trainer.py``, and
+``FROZEN_PATTERNS`` names what the trainer freezes.  The modules stay in
+eval mode throughout (the ResNet's BatchNorm on its running statistics):
+dropout follows the generator passed in, not the module mode.  The other
+fusion modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..criterions.lm import lm_metrics
 from ..nn.avhubert import AVHubertConfig, AVHubertModel
-from ..nn.llama import LlamaConfig, LlamaModel, RMSNorm, generate_beam, quantize_llama_
+from ..nn.llama import (
+    LlamaConfig,
+    LlamaModel,
+    RMSNorm,
+    cross_entropy_lm_loss,
+    generate_beam,
+    quantize_llama_,
+)
 from ..nn.modules import Projector, SpeechRatePredictor
 from ..nn.qformer import QFormer, QFormerConfig
 from ..nn.whisper import WhisperEncoder, WhisperEncoderConfig
@@ -35,6 +52,7 @@ from ..ops.interpolate import linear_resize_batched
 
 LLAMA3_EOS = 128001  # <|end_of_text|>
 LLAMA3_PAD = 128004  # <|finetune_right_pad_id|>
+IGNORE_INDEX = -100
 
 
 @dataclass
@@ -107,22 +125,27 @@ class AVSREncoder(nn.Module):
         )
 
     def forward(self, audio_feats: torch.Tensor, video: torch.Tensor,
-                video_lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                video_lengths: torch.Tensor,
+                dropout_rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """audio_feats [B, n_mels, 2F], video [B, T_v, H, W, 1], video_lengths
-        [B] -> (queries [B, Q, llama_dim], query_lens [B])."""
+        [B] -> (queries [B, Q, llama_dim], query_lens [B]).  The frozen
+        encoders and the speech-rate predictor run without a gradient;
+        ``dropout_rng`` (training) draws the Q-Former's dropout."""
         cfg = self.cfg
         t_v = video.shape[1]
-        whisper_out = self.whisper(audio_feats)
-        av_out = self.avhubert(video=video, lengths=video_lengths)
+        with torch.no_grad():
+            whisper_out = self.whisper(audio_feats)
+            av_out = self.avhubert(video=video, lengths=video_lengths)
         if hasattr(self, "avhubert_bridge"):
             av_out = self.avhubert_bridge(av_out)
 
         # speech-rate-aware query budget
         base_queries = video_lengths.float() / 25.0 * cfg.queries_per_sec
-        sr_in = whisper_out[:, : 2 * t_v : 4, :]  # 50 Hz -> 12.5 Hz view
-        if hasattr(self, "sr_bridge"):
-            sr_in = self.sr_bridge(sr_in)
-        factor = torch.clamp(self.sr_predictor(sr_in)[:, 0], 1.0, 2.0)
+        with torch.no_grad():
+            sr_in = whisper_out[:, : 2 * t_v : 4, :]  # 50 Hz -> 12.5 Hz view
+            if hasattr(self, "sr_bridge"):
+                sr_in = self.sr_bridge(sr_in)
+            factor = torch.clamp(self.sr_predictor(sr_in)[:, 0], 1.0, 2.0)
         query_lens = torch.clamp((base_queries * factor).to(torch.int32), min=cfg.queries_per_sec)
         query_lens = torch.clamp(query_lens, max=cfg.max_queries)
         resized_lens = torch.clamp((factor * video_lengths.float()).to(torch.int32), min=1)
@@ -132,7 +155,8 @@ class AVSREncoder(nn.Module):
         av_feat = linear_resize_batched(
             torch.cat([a, av_out], dim=-1), video_lengths, resized_lens, 2 * t_v
         )
-        queries = self.qformer(av_feat, query_lens=query_lens, enc_lens=resized_lens)
+        queries = self.qformer(av_feat, query_lens=query_lens, enc_lens=resized_lens,
+                               dropout_rng=dropout_rng)
         return self.avfeat_to_llm(queries), query_lens
 
 
@@ -141,23 +165,40 @@ def assemble_left_padded(
     inst_emb: torch.Tensor,  # [B, Ti, D]
     queries: torch.Tensor,  # [B, Q, D]
     query_lens: torch.Tensor,  # [B]
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Vectorized [pad.. | instruction | queries] left-pad assembly (the
-    generation form; labels are a training input, not ported yet).  Returns
-    (embeds [B, L, D], attn_mask [B, L] int32)."""
+    label_emb: Optional[torch.Tensor] = None,  # [B, Tl, D]
+    label_tokens: Optional[torch.Tensor] = None,  # [B, Tl] (pad entries ignored)
+    label_lens: Optional[torch.Tensor] = None,  # [B]
+):
+    """Vectorized [pad.. | instruction | queries | labels] left-pad assembly:
+    output slot j of row i holds content index j - (L - c_i), routed to the
+    instruction, the queries or the labels by range, else the pad
+    embedding.  Returns (embeds [B, L, D], attn_mask [B, L] int32), and with
+    labels also the slot labels [B, L] (the label tokens on their slots,
+    ``IGNORE_INDEX`` elsewhere)."""
     b, ti, d = inst_emb.shape
     q = queries.shape[1]
-    l_total = ti + q
+    tl = label_emb.shape[1] if label_emb is not None else 0
+    l_total = ti + q + tl
     dev = inst_emb.device
-    content_len = ti + query_lens.long()  # [B]
+    q_lens = query_lens.long()
+    lab_lens = label_lens.long() if label_lens is not None else torch.zeros_like(q_lens)
+    content_len = ti + q_lens + lab_lens  # [B]
     j = torch.arange(l_total, device=dev)[None, :]
     ci = j - (l_total - content_len[:, None])  # content index per slot
     in_inst = (ci >= 0) & (ci < ti)
-    in_query = (ci >= ti) & (ci < ti + query_lens.long()[:, None])
+    in_query = (ci >= ti) & (ci < ti + q_lens[:, None])
     gather = lambda src, i: torch.gather(src, 1, i[..., None].expand(-1, -1, d))  # noqa: E731
     out = torch.where(in_inst[..., None], gather(inst_emb, ci.clamp(0, ti - 1)), pad_emb[None, None, :])
     out = torch.where(in_query[..., None], gather(queries, (ci - ti).clamp(0, q - 1)), out)
-    return out, (ci >= 0).to(torch.int32)
+    mask = (ci >= 0).to(torch.int32)
+    if label_emb is None:
+        return out, mask
+    in_label = ci >= ti + q_lens[:, None]
+    lab_idx = (ci - ti - q_lens[:, None]).clamp(0, tl - 1)
+    out = torch.where(in_label[..., None], gather(label_emb, lab_idx), out)
+    labels = torch.where(in_label, torch.gather(label_tokens.long(), 1, lab_idx),
+                         torch.full_like(lab_idx, IGNORE_INDEX))
+    return out, mask, labels
 
 
 class AVSRModel(nn.Module):
@@ -169,18 +210,56 @@ class AVSRModel(nn.Module):
         self.encoder = AVSREncoder(cfg, device=device, dtype=dtype)
         self.llama = LlamaModel(cfg.llama, device=device, dtype=dtype)
 
-    def encode_queries(self, batch: Dict[str, torch.Tensor]):
-        return self.encoder(batch["audio_feats"], batch["video"], batch["video_lengths"])
+    def encode_queries(self, batch: Dict[str, torch.Tensor],
+                       dropout_rng: Optional[torch.Generator] = None):
+        return self.encoder(batch["audio_feats"], batch["video"], batch["video_lengths"],
+                            dropout_rng)
 
-    def build_prompt(self, queries, query_lens, batch):
+    def build_prompt(self, queries, query_lens, batch, with_labels: bool = False):
         dev = queries.device
         pad_emb = self.llama.embed(torch.tensor(self.cfg.pad_token_id, device=dev))
         inst_emb = self.llama.embed(batch["instruction"].long())
-        return assemble_left_padded(pad_emb, inst_emb, queries.to(inst_emb.dtype), query_lens)
+        queries = queries.to(inst_emb.dtype)
+        if not with_labels:
+            return assemble_left_padded(pad_emb, inst_emb, queries, query_lens)
+        labels = batch["labels"].long()
+        return assemble_left_padded(pad_emb, inst_emb, queries, query_lens,
+                                    self.llama.embed(labels.clamp(min=0)), labels,
+                                    batch["label_lengths"])
+
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """The training / validation forward: (loss, aux) with the LM loss
+        over the label slots and aux's logits, labels, hidden, attn_mask,
+        query_lens, n_correct, n_valid.  ``train`` draws the dropout (the
+        Q-Former's and LoRA's) from ``generator``."""
+        rng = self._dropout_rng(train, generator)
+        queries, query_lens = self.encode_queries(batch, rng)
+        emb, attn_mask, labels = self.build_prompt(queries, query_lens, batch, with_labels=True)
+        out = self.llama(inputs_embeds=emb, attn_mask=attn_mask, dropout_rng=rng,
+                         return_hidden=True)
+        loss, n_correct, n_valid = cross_entropy_lm_loss(out["logits"], labels)
+        return loss, {"logits": out["logits"], "labels": labels, "hidden": out["hidden"],
+                      "attn_mask": attn_mask, "query_lens": query_lens,
+                      "n_correct": n_correct, "n_valid": n_valid}
+
+    def prompt_for_training(self, batch: Dict[str, torch.Tensor], train: bool = True,
+                            generator: Optional[torch.Generator] = None):
+        """Encoders + prompt assembly with the labels: (embeds, attn_mask,
+        slot labels), the front half of ``forward``, for a caller that runs
+        the LLaMA trunk itself (the JAX package's pipelined loss)."""
+        queries, query_lens = self.encode_queries(batch, self._dropout_rng(train, generator))
+        return self.build_prompt(queries, query_lens, batch, with_labels=True)
 
     def prompt_for_generation(self, batch: Dict[str, torch.Tensor]):
         queries, query_lens = self.encode_queries(batch)
         return self.build_prompt(queries, query_lens, batch)
+
+    @staticmethod
+    def _dropout_rng(train: bool, generator: Optional[torch.Generator]):
+        if train and generator is None:
+            raise ValueError("a training forward draws its dropout from a torch.Generator")
+        return generator if train else None
 
 
 def merge_token_rows(rows, eos_token_id: int, pad_token_id: int, dedup: bool = True) -> np.ndarray:
@@ -224,13 +303,44 @@ def resolve_ancestry_reorder(kv_quant: Optional[str], device: torch.device | str
 
 
 class AVSRSystem:
-    """Bundles the module with generation (HF-generate-equivalent decode)."""
+    """Bundles the module with generation (HF-generate-equivalent decode) and
+    the training loss."""
+
+    # frozen in training, matched against the state_dict names joined by "/"
+    # (runtime/trainer.py: trainable_mask); the LoRA adapters of the LLaMA
+    # always train
+    FROZEN_PATTERNS = [
+        r"encoder/whisper/",
+        r"encoder/avhubert/",
+        r"encoder/sr_predictor/",
+        r"^llama/",
+    ]
 
     def __init__(self, cfg: AVSRConfig, dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.module = AVSRModel(cfg, device=device, dtype=dtype).eval()
         self.llama_module = self.module.llama
+
+    def frozen_patterns(self):
+        return list(self.FROZEN_PATTERNS)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """(loss, aux) of the module's training forward: the JAX
+        ``AVSRSystem.loss_fn``, kept under its name for callers ported from
+        the JAX package."""
+        return self.module(batch, train=train, generator=generator)
+
+    def make_trainer_loss_fn(self):
+        """(batch, generator) -> (loss, metrics) for ``Trainer``: the training
+        forward with dropout, and the criterion's metrics (``lm_metrics``)."""
+
+        def loss_fn(batch, generator):
+            loss, aux = self.module(batch, train=True, generator=generator)
+            return loss, lm_metrics(loss, aux)
+
+        return loss_fn
 
     @torch.no_grad()
     def init_random(self, seed: int = 0) -> None:

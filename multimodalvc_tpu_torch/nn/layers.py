@@ -34,6 +34,17 @@ def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element kept with probability 1 - ``rate``
+    and scaled by 1 / (1 - rate), else zero; the mask is drawn from ``rng``
+    (a generator on x's device).  No ``rng`` (evaluation) or a zero rate is
+    the identity."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def add_layers(module: nn.Module, layers) -> list:
     """Register ``layers`` as ``layers_0``, ``layers_1``, ... (flax names)."""
     for i, layer in enumerate(layers):
@@ -42,12 +53,14 @@ def add_layers(module: nn.Module, layers) -> list:
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with self/cross support and key-length masks."""
+    """MHA with self/cross support and key-length masks; ``dropout`` on the
+    attention output before ``out_proj`` in training (a ``dropout_rng``)."""
 
     def __init__(self, d_model: int, num_heads: int, kv_dim: Optional[int] = None,
-                 device=None, dtype=None):
+                 dropout: float = 0.0, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.dropout = dropout
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
         self.q_proj = nn.Linear(d_model, d_model, **kw)
@@ -55,7 +68,7 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(kv_dim or d_model, d_model, **kw)
         self.out_proj = nn.Linear(d_model, d_model, **kw)
 
-    def forward(self, x, kv=None, *, kv_lens=None):
+    def forward(self, x, kv=None, *, kv_lens=None, dropout_rng=None):
         kv = x if kv is None else kv
         b, tq = x.shape[:2]
         tk = kv.shape[1]
@@ -71,7 +84,8 @@ class MultiHeadAttention(nn.Module):
             if kv_lens is not None:
                 mask = torch.arange(tk, device=x.device)[None, None, None, :] < kv_lens[:, None, None, None]
             out = dot_product_attention(q, k, v, mask=mask)
-        return self.out_proj(out.transpose(1, 2).reshape(b, tq, -1))
+        out = dropout(out.transpose(1, 2).reshape(b, tq, -1), self.dropout, dropout_rng)
+        return self.out_proj(out)
 
 
 class FeedForward(nn.Module):

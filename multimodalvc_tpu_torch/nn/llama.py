@@ -26,6 +26,12 @@ It also serves ensembles and constrained decoding.  K4 (or K5 with n-gram
 blocking) picks the beam candidates in every step.  Prefill attention at serving
 prompt lengths stays plain tensor code, as the JAX package leaves it to XLA
 (``_flash_prefill_ok``).
+
+Training: ``LlamaModel.forward(..., dropout_rng=, return_hidden=)`` is the
+training forward (LoRA dropout drawn from an explicit generator), and
+``cross_entropy_lm_loss`` its loss.  The flash path carries a gradient
+(``ops/attention.py: FlashAttentionGrad``), and so does the tied unembed's
+bf16 product with f32 logits (``TiedUnembed``).
 """
 from __future__ import annotations
 
@@ -56,14 +62,16 @@ from ..ops.int8_matmul import (
     quantize_kernel,
     quantize_kernel_int4,
 )
-from .layers import add_layers
+from .layers import add_layers, dropout
 
 NEG = -1e30
+
 
 @dataclass
 class LoraConfig:
     rank: int = 16
     alpha: int = 32
+    dropout: float = 0.05  # on the adapter's input, in training
     targets: Tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "o_proj")
 
 
@@ -200,7 +208,8 @@ class LoraDense(nn.Module):
     """Dense with an additive low-rank adapter: y = xW + s*(x A) B.  The
     adapter factors keep the flax layout: lora_a [in, r], lora_b [r, out].
     With ``quant`` the base is a ``QuantDense`` named ``base_q``; the adapter
-    stays float and is added after the base product."""
+    stays float and is added after the base product.  In training (a
+    ``dropout_rng``) the adapter's input takes the LoRA dropout."""
 
     def __init__(self, d_in: int, features: int, lora: Optional[LoraConfig],
                  quant: Optional[str] = None, device=None, dtype=None):
@@ -212,6 +221,7 @@ class LoraDense(nn.Module):
         else:
             self.base = nn.Linear(d_in, features, bias=False, **kw)
         self.scale = 0.0
+        self.dropout = lora.dropout if lora is not None else 0.0
         if lora is not None and lora.rank > 0:
             self.lora_a = nn.Parameter(torch.zeros(d_in, lora.rank, **kw))
             self.lora_b = nn.Parameter(torch.zeros(lora.rank, features, **kw))
@@ -223,10 +233,11 @@ class LoraDense(nn.Module):
         del self.base
         self.quant = mode
 
-    def forward(self, x):
+    def forward(self, x, dropout_rng: Optional[torch.Generator] = None):
         y = self.base_q(x) if self.quant else self.base(x)
         if self.scale:
-            y = y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype) * self.scale
+            h = dropout(x, self.dropout, dropout_rng)
+            y = y + (h @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype) * self.scale
         return y
 
 
@@ -385,13 +396,14 @@ class LlamaAttention(nn.Module):
         out = (out_p + out_g).transpose(1, 2).reshape(b, t, h * hd)
         return self.o_proj(out), new_cache
 
-    def forward(self, x, positions, attn_mask, cache=None, cache_positions=None):
+    def forward(self, x, positions, attn_mask, cache=None, cache_positions=None,
+                dropout_rng=None):
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(b, t, h, hd).transpose(1, 2)
-        k = self.k_proj(x).reshape(b, t, hkv, hd).transpose(1, 2)
-        v = self.v_proj(x).reshape(b, t, hkv, hd).transpose(1, 2)
+        q = self.q_proj(x, dropout_rng).reshape(b, t, h, hd).transpose(1, 2)
+        k = self.k_proj(x, dropout_rng).reshape(b, t, hkv, hd).transpose(1, 2)
+        v = self.v_proj(x, dropout_rng).reshape(b, t, hkv, hd).transpose(1, 2)
         q = apply_rope(q, positions, self.inv_freq)
         k = apply_rope(k, positions, self.inv_freq)
 
@@ -414,8 +426,10 @@ class LlamaAttention(nn.Module):
                 return self.o_proj(out.transpose(1, 2).reshape(b, t, h * hd)), new_cache
             k, v = ck, cv
         elif cache_positions is None and self._flash_prefill_ok(t, k.shape[2], hd, batch=b):
+            # the training forward (arange positions: slot causality is row
+            # causality), the left-pad mask as a per-row key window
             out = self._flash_self(q, k, v, attn_mask, rep)
-            return self.o_proj(out.transpose(1, 2).reshape(b, t, h * hd)), new_cache
+            return self.o_proj(out.transpose(1, 2).reshape(b, t, h * hd), dropout_rng), new_cache
         tkv = k.shape[2]
         # causal over cache SLOT indices (left-padded rows have RoPE
         # position < slot id, so positions must not drive causality here)
@@ -432,7 +446,7 @@ class LlamaAttention(nn.Module):
         out_dtype = torch.promote_types(self.dtype, v.dtype)
         out = torch.einsum("bgrtl,bgld->bgrtd", w.to(out_dtype), v.to(out_dtype))
         out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
-        return self.o_proj(out.to(self.dtype)), new_cache
+        return self.o_proj(out.to(self.dtype), dropout_rng), new_cache
 
 
 class LlamaMLP(nn.Module):
@@ -460,9 +474,10 @@ class LlamaLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(cfg, **kw)
 
-    def forward(self, x, positions, attn_mask, cache=None, cache_positions=None):
+    def forward(self, x, positions, attn_mask, cache=None, cache_positions=None,
+                dropout_rng=None):
         attn_out, new_cache = self.self_attn(
-            self.input_layernorm(x), positions, attn_mask, cache, cache_positions
+            self.input_layernorm(x), positions, attn_mask, cache, cache_positions, dropout_rng
         )
         x = x + attn_out
         return x + self.mlp(self.post_attention_layernorm(x)), new_cache
@@ -503,7 +518,7 @@ class LlamaModel(nn.Module):
         # bf16 on the card: f32 accumulate and f32 out, without an f32 copy
         # of the [V, D] table
         flat = hidden.reshape(-1, hidden.shape[-1])
-        return torch.mm(flat, emb.T, out_dtype=torch.float32).reshape(*hidden.shape[:-1], -1)
+        return TiedUnembed.apply(flat, emb).reshape(*hidden.shape[:-1], -1)
 
     def forward(
         self,
@@ -514,6 +529,8 @@ class LlamaModel(nn.Module):
         cache: Optional[Tuple] = None,  # per-layer caches
         cache_positions: Optional[torch.Tensor] = None,
         logits_last_only: bool = False,
+        dropout_rng: Optional[torch.Generator] = None,  # training: the LoRA dropout's
+        return_hidden: bool = False,
     ) -> Dict[str, Any]:
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
@@ -523,13 +540,15 @@ class LlamaModel(nn.Module):
             positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
         new_caches = []
         for i, layer in enumerate(self.layers):
-            x, new_c = layer(
-                x, positions, attn_mask, cache[i] if cache is not None else None, cache_positions
-            )
+            x, new_c = layer(x, positions, attn_mask, cache[i] if cache is not None else None,
+                             cache_positions, dropout_rng)
             new_caches.append(new_c)
         x = self.norm(x)
         logits = self.unembed(x[:, -1:] if logits_last_only else x)
-        return {"logits": logits, "cache": tuple(new_caches) if cache is not None else None}
+        out = {"logits": logits, "cache": tuple(new_caches) if cache is not None else None}
+        if return_hidden:
+            out["hidden"] = x
+        return out
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> Tuple:
         cfg = self.cfg
@@ -540,6 +559,46 @@ class LlamaModel(nn.Module):
              "v": torch.zeros(shape, dtype=dtype, device=dev), "index": 0}
             for _ in range(cfg.num_layers)
         )
+
+
+class TiedUnembed(torch.autograd.Function):
+    """The tied unembed's bf16 product with f32 accumulation and f32 logits
+    (``torch.mm(..., out_dtype=torch.float32)``, which has no derivative of
+    its own): flat [N, D] @ emb [V, D]^T -> [N, V] f32.  The gradient: d flat
+    = g @ emb and d emb = g^T @ flat, each with g rounded to the operands'
+    type, f32 accumulation, in the operand's type."""
+
+    @staticmethod
+    def forward(ctx, flat, emb):
+        ctx.save_for_backward(flat, emb)
+        return torch.mm(flat, emb.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, emb = ctx.saved_tensors
+        g = g.to(emb.dtype)
+        d_flat = torch.mm(g, emb, out_dtype=torch.float32).to(flat.dtype) \
+            if ctx.needs_input_grad[0] else None
+        d_emb = torch.mm(g.T, flat, out_dtype=torch.float32).to(emb.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return d_flat, d_emb
+
+
+def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_index: int = -100):
+    """HF-style causal LM loss: shift by one, the mean of -log p over the
+    label tokens that are not ``ignore_index`` (the softmax in f32).  Returns
+    (loss, n_correct, n_valid): argmax hits and the count of valid tokens."""
+    shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
+    valid = shift_labels != ignore_index
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    token_logp = logp.gather(-1, safe[..., None])[..., 0]
+    n_valid = valid.sum()
+    nll = -torch.where(valid, token_logp, torch.zeros_like(token_logp)).sum()
+    loss = nll / n_valid.clamp(min=1)
+    n_correct = ((shift_logits.argmax(dim=-1) == shift_labels) & valid).sum()
+    return loss, n_correct, n_valid
 
 
 def prefill_split_cache(

@@ -4,6 +4,12 @@ Port of ``multimodalvc_tpu/ops/attention.py``.  ``flash_attention`` keeps the
 JAX signature and masking contract; for CUDA tensors it launches the
 hand-written Hopper kernel ``csrc/flash_attention.cu`` and for CPU tensors
 it runs ``_windowed_reference_attention``, its plain version.
+
+K1 has a gradient as the JAX kernel's custom VJP gives it one: where grad
+mode is on and q, k or v requires a gradient, the launch runs inside
+``FlashAttentionGrad``, whose backward recomputes through the plain
+windowed attention under autograd (the JAX ``_flash_attention_bwd``; no
+backward kernel).
 """
 from __future__ import annotations
 
@@ -121,15 +127,47 @@ def flash_attention(
         kernel_lib.check(t, name, torch.bfloat16, shape)
     kernel_lib.check(kv_lens, "kv_lens", torch.int32, (b,))
     kernel_lib.check(kv_starts, "kv_starts", torch.int32, (b,))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionGrad.apply(q, k, v, kv_lens, kv_starts, causal, scale)
+    return _launch(q, k, v, kv_lens, kv_starts, causal, scale)
+
+
+def _launch(q, k, v, kv_lens, kv_starts, causal: bool, scale: float) -> torch.Tensor:
+    """One K1 launch on checked operands (the scale folded here)."""
+    b, h, tq, d = q.shape
     q, scale = fold_scale(q, scale)
     out = torch.empty_like(q)
     kernel_lib.load().call(
         "mmvc_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_lens.data_ptr(), kv_starts.data_ptr(), out.data_ptr(),
-        b, h, tq, tk, d, int(causal), float(scale), kernel_lib.stream_ptr(q),
+        b, h, tq, k.shape[2], d, int(causal), float(scale), kernel_lib.stream_ptr(q),
     )
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionGrad(torch.autograd.Function):
+    """K1 with a gradient: the forward launches the kernel and saves q, k, v,
+    ``kv_lens`` and ``kv_starts``; the backward recomputes the attention
+    through ``_windowed_reference_attention`` under autograd and returns its
+    vector-Jacobian product for q, k and v (the JAX custom VJP,
+    multimodalvc_tpu/ops/attention.py:282-291, cotangent cast to q's type)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, kv_starts, causal, scale):
+        ctx.save_for_backward(q, k, v, kv_lens, kv_starts)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, kv_lens, kv_starts, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_lens, kv_starts = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _windowed_reference_attention(*leaves, kv_lens, kv_starts, ctx.causal,
+                                                ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, leaves, g.to(q.dtype))
+        return dq, dk, dv, None, None, None, None

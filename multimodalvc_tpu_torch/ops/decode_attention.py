@@ -124,9 +124,10 @@ def ancestry_attention_plain(
 # csrc/decode_attention.cu: head dim 128; the K * rep query rows of one kv
 # head in 16-row tiles, one after another in the block; at most 128 key rows
 # a chunk (prompt slots, or K sources x generated slots rounded up to 16; one
-# slot of every source past 128 beams); the blocks of one (batch element, kv
-# head) form one cluster of at most 8, block r taking chunks r, r + splits,
-# ...  The plan, timed on the H100 by ``chip_smoke.py --plans``
+# slot of every source past 128 beams, and past ``decode_max_beams()`` one
+# slot of a piece of the sources, ``gen_chunk_beams``); the blocks of one
+# (batch element, kv head) form one cluster of at most 8, block r taking
+# chunks r, r + splits, ...  The plan, timed on the H100 by ``chip_smoke.py --plans``
 # (PERF.md): while the grid is small, the smallest chunks of the options
 # below that number at most 7 (a cluster of 8 ran slower than one of 7): K3
 # alone at batch 8 takes 6 chunks of 15 keys, the merged entry 3 prompt
@@ -157,16 +158,18 @@ class DecodePlan(NamedTuple):
         return self.prompt_chunks + self.gen_chunks
 
 
-def decode_smem_bytes(keys: int, kv_bytes: int, merged: bool) -> int:
+def decode_smem_bytes(keys: int, kv_bytes: int, merged: bool, preds: int = 0) -> int:
     """Shared memory of one block (``Smem`` in ``csrc/decode_attention.cu``)
     for chunks of at most ``keys`` key rows of ``kv_bytes``-byte elements:
     the running statistics and the combine's buffers, the key and value
-    tiles, the scores of one 16-row tile, the scales and validity, and the
-    merged entry's f32 q."""
+    tiles, the scores of one 16-row tile, the scales and the validity
+    entries (at least ``preds``: a generated chunk's ancestor of every query
+    beam), and the merged entry's f32 q."""
     d, rows, splits = DECODE_HEAD_DIM, DECODE_ROWS, DECODE_MAX_SPLITS + 1
     s_pitch = _cdiv(keys, 32) * 32 + 16
     fixed = 4 * rows * 4 + splits * 2 * rows * 4 + (rows * d // 4 + splits) * 16
-    tiles = keys * ((d + 16) * kv_bytes + d * kv_bytes + 16) + rows * s_pitch * 4 + keys * 12
+    tiles = (keys * ((d + 16) * kv_bytes + d * kv_bytes + 16) + rows * s_pitch * 4 + keys * 8
+             + max(keys, _cdiv(preds, 4) * 4) * 4)
     return fixed + tiles + (rows * (d + 4) * 4 if merged else 0)
 
 
@@ -190,16 +193,11 @@ def decode_plan(batch: int, beams: int, heads: int, kv_heads: int, head_dim: int
     so one grid serves every step.  Raises ValueError for what the kernel
     cannot take."""
     rep = heads // kv_heads if kv_heads > 0 else 0
-    gen_keys = _cdiv(max(beams, 1), 16) * 16  # a generated chunk of one slot
     why = None
     if head_dim != DECODE_HEAD_DIM:
         why = f"head dim {head_dim} (the kernel takes {DECODE_HEAD_DIM})"
     elif kv_heads <= 0 or heads % kv_heads or beams <= 0 or beams * rep >= 2 ** 16:
         why = f"{beams} beams x {heads}/{kv_heads} heads"
-    elif gen_slots and decode_smem_bytes(max(gen_keys, DECODE_MAX_KEYS), 2, False) > \
-            DECODE_SMEM_MAX:
-        why = (f"{beams} beams: a generated chunk of {gen_keys} key rows passes the 227 KB of "
-               f"shared memory (at most {decode_max_beams()} beams)")
     elif batch <= 0 or batch > 65535 or kv_heads > 65535:
         why = f"batch {batch} x {kv_heads} kv heads (at most 65535 each)"
     elif prompt_slots < 0 or gen_slots < 0 or prompt_slots + gen_slots == 0:
@@ -207,24 +205,45 @@ def decode_plan(batch: int, beams: int, heads: int, kv_heads: int, head_dim: int
     if why is not None:
         raise ValueError(f"decode attention kernel: {why}")
     pairs = batch * kv_heads
+    pieces = _cdiv(beams, gen_chunk_beams(beams))  # generated chunks a slot range
     options = _CHUNK_OPTIONS if pairs * DECODE_MAX_SPLITS <= DECODE_TARGET_BLOCKS else \
         _CHUNK_OPTIONS[2:]
     for most_p, most_keys in options:
         cp, pc = _balanced(prompt_slots, most_p, 16)
         cg, gc = _balanced(gen_slots, max(1, most_keys // beams), 1)
+        gc *= pieces
         if pc + gc <= DECODE_MAX_SPLITS:
             break
     splits = min(pc + gc, DECODE_MAX_SPLITS, _cdiv(DECODE_TARGET_BLOCKS, pairs))
     return DecodePlan(cp, pc, cg, gc, splits)
 
 
+@functools.lru_cache(maxsize=None)
 def decode_max_beams() -> int:
-    """The most beams a generated chunk of one slot fits for (bf16 KV, the
-    largest elements): its K key rows, rounded up to 16, in 227 KB."""
+    """The most beams whose generated chunk of one slot holds every source
+    beam (bf16 KV, the largest elements): its K key rows, rounded up to 16,
+    in 227 KB.  Past it a slot's sources are read in pieces
+    (``gen_chunk_beams``)."""
     keys = DECODE_MAX_KEYS
     while decode_smem_bytes(keys + 16, 2, False) <= DECODE_SMEM_MAX:
         keys += 16
     return keys
+
+
+@functools.lru_cache(maxsize=None)
+def gen_chunk_beams(beams: int) -> int:
+    """The source beams of a generated chunk: all ``beams`` up to
+    ``decode_max_beams()``; past it one slot of a piece of them, the pieces
+    even and rounded up to 16, each chunk's key rows with the ancestors of
+    every query beam within 227 KB in both KV types (``decode_plan``'s
+    generated chunks then number ceil(beams / pieces) a slot)."""
+    if beams <= decode_max_beams():
+        return beams
+    most = 16
+    while all(decode_smem_bytes(most + 16, kv_bytes, merged, beams) <= DECODE_SMEM_MAX
+              for kv_bytes, merged in ((2, False), (1, True))):
+        most += 16
+    return _cdiv(_cdiv(beams, _cdiv(beams, most)), 16) * 16
 
 
 # ---- the kernel wrappers -----------------------------------------------------
@@ -342,7 +361,8 @@ def gen_attention_ancestor(
         "mmvc_gen_attention_ancestor", q.data_ptr(), gen_k.data_ptr(), gen_v.data_ptr(),
         _ptr(k_scale), _ptr(v_scale), anc.data_ptr(), int(valid_len), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), rows // beams, beams, h, g, slots, d, plan.gen_slots,
-        plan.gen_chunks, plan.splits, float(scale), int(bf16), kernel_lib.stream_ptr(q),
+        plan.gen_chunks, plan.splits, gen_chunk_beams(beams), float(scale), int(bf16),
+        kernel_lib.stream_ptr(q),
     )
     if bf16:
         gen_attention_ancestor.launches_bf16 += 1
@@ -412,7 +432,8 @@ def ancestry_attention(
         gen_k.data_ptr(), gen_v.data_ptr(), gen_k_scale.data_ptr(), gen_v_scale.data_ptr(),
         anc.data_ptr(), int(valid_len), out.data_ptr(), b, beams, h, g, tp, slots, d,
         plan.prompt_slots, plan.prompt_chunks, plan.gen_slots, plan.gen_chunks, plan.splits,
-        float(scale), int(out_dtype == torch.float32), kernel_lib.stream_ptr(q),
+        gen_chunk_beams(beams), float(scale), int(out_dtype == torch.float32),
+        kernel_lib.stream_ptr(q),
     )
     ancestry_attention.launches += 1
     return out

@@ -44,17 +44,19 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
     "mmvc_gen_attention_ancestor": [
-        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _P,
     ],
     "mmvc_ancestry_attention": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _F, _I, _P,
+        _I, _I, _I, _I, _F, _I, _P,
     ],
     "mmvc_beam_topk_columns": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     "mmvc_beam_topk": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmvc_beam_topk_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mmvc_beam_topk_select": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mmvc_gather_rows_many": [_I, _P, _P, _P, _P, _P, _I, _P],
     "mmvc_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmvc_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -14,7 +14,8 @@ the flat [B, K*V] candidates:
 
 For CUDA tensors they launch ``csrc/topk.cu``, one kernel template for K4
 and K5 (the JAX package's V -> 8 fold and column blocks are TPU tiling),
-once a call, on the plan ``topk_plan`` takes from the shapes; for CPU
+once a call, on the plan ``topk_plan`` takes from the shapes (past the wide
+instance, the select form: a radix select in a few launches); for CPU
 tensors they run the plain version, a stable descending sort over the flat
 candidates, which is the contract the kernel must meet bit for bit: values
 ``max(((x - m) - ls) + score, -2.9e38)`` in f32, ties broken by the lowest
@@ -27,7 +28,7 @@ launch counter, ``beam_topk.launches``.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -49,6 +50,13 @@ TOPK_SMEM_MAX = 232448  # 227 KB a block
 # H100 SXM runs at once (cudaOccupancyMaxActiveClusters for the kernel, one
 # block an SM, as ``chip_smoke.py --plans`` prints it on an H100 80GB HBM3).
 TOPK_CLUSTERS_AT_ONCE = {16: 7, 8: 15, 4: 30, 2: 66}
+# The wide instance takes a shape only where its block's shared memory fits a
+# cluster of this size; past it, the select form.  The crossover measured on
+# an H100 80GB HBM3 (``chip_smoke.py --plans``, TOPK_FORM_CASES, batch 8, n =
+# 2K): on clusters of 8 (beams 17-100) the wide instance takes 0.35-0.49 of
+# the select form's time; on clusters of 4 (beams 101-103) 0.76, 1.04 and
+# 0.76; on a cluster of 2 (beam 104) 2.99.
+TOPK_WIDE_MIN_CLUSTER = 4
 
 
 class TopkPlan(NamedTuple):
@@ -56,6 +64,19 @@ class TopkPlan(NamedTuple):
     cols: int  # columns a block owns, a multiple of 8
     stages: int  # chunks of the copy ring; the whole range is staged if it holds all
     summary: int  # chunks that leave the ring and keep their unit maxima (0: none)
+
+
+class SelectPlan(NamedTuple):
+    """The select form (``csrc/topk.cu``, past the wide instance): a radix
+    select over the candidates' order bits in a few launches."""
+
+    blocks: int  # blocks a batch element, each a contiguous range of its K*V candidates
+
+
+# the select form's grid: about 4 blocks an SM of an H100 SXM over the batch,
+# each at least SELECT_MIN_RANGE candidates
+SELECT_TARGET_BLOCKS, SELECT_MIN_RANGE = 4 * 132, 16384
+SELECT_BINS = 2048  # the radix passes' histogram
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -126,8 +147,22 @@ def plan_for(vocab: int, beams: int, n: int, cluster: int, stages: Optional[int]
                     topk_summary_chunks(beams, n, cluster, cols, stages, itemsize))
 
 
+def select_plan(batch: int, beams: int, vocab: int) -> SelectPlan:
+    """The select form's grid for ``batch`` x ``beams`` rows of ``vocab``."""
+    blocks = min(_cdiv(beams * vocab, SELECT_MIN_RANGE), _cdiv(SELECT_TARGET_BLOCKS, batch))
+    return SelectPlan(max(blocks, 1))
+
+
+def select_workspace_bytes(batch: int, beams: int, n: int, blocks: int) -> int:
+    """The select form's zeroed workspace (``mmvc_beam_topk_select``): the
+    row statistics, the n keys, the histograms, the state and the ties of
+    each batch element."""
+    return batch * (8 * beams + 8 * n + 4 * SELECT_BINS + 16 + 4 * blocks) + 16
+
+
 @functools.lru_cache(maxsize=None)
-def topk_plan(batch: int, beams: int, vocab: int, n: int, itemsize: int = 4) -> TopkPlan:
+def topk_plan(batch: int, beams: int, vocab: int, n: int,
+              itemsize: int = 4) -> Union[TopkPlan, SelectPlan]:
     """The cluster size, columns a block and ring depth of the top-k kernel
     for ``batch`` x ``beams`` rows of ``vocab`` columns (``itemsize`` bytes
     each).  It depends on the shapes alone, never on the values, so one grid
@@ -138,9 +173,12 @@ def topk_plan(batch: int, beams: int, vocab: int, n: int, itemsize: int = 4) -> 
     it), in the fewest waves of clusters the card runs at once, the largest
     such: at batch 8 and V = 128256, 8 blocks of 16032
     columns, 4 of a thread's 8 chunks in the ring and the unit maxima of the
-    other 4.  More than 16 beams, or n > 32, take the wide instance: no
-    ring, the cluster size of the fewest waves, the largest such, whose
-    shared memory fits (up to ``topk_max_beams()`` beams at n = 2 x beams).
+    other 4.  More than 16 beams, or n > 32, take the wide instance where
+    its block fits a cluster of TOPK_WIDE_MIN_CLUSTER (up to
+    ``topk_max_beams()`` beams at n = 2 x beams, and n <= 256): no ring,
+    the cluster size of the fewest waves, the largest such, whose shared
+    memory fits; past it the select form, for any beams and n up to the
+    candidates (``SelectPlan``).
     Raises ValueError for what the kernel cannot take."""
     why = None
     wide = topk_wide(beams, n)
@@ -150,10 +188,12 @@ def topk_plan(batch: int, beams: int, vocab: int, n: int, itemsize: int = 4) -> 
         why = f"{beams} beams"
     elif vocab <= 0 or beams * vocab >= 2 ** 31:
         why = f"{beams} x {vocab} candidates"
-    elif n <= 0 or n > TOPK_WIDE_MAX_N or n > beams * vocab:
-        why = f"n = {n} (at most {TOPK_WIDE_MAX_N} and the candidates)"
+    elif n <= 0 or n > beams * vocab:
+        why = f"n = {n} (at most the candidates)"
     if why is not None:
         raise ValueError(f"beam top-k kernel: {why}")
+    if wide and not _wide_fits(beams, n):
+        return select_plan(batch, beams, vocab)
     if wide:
         return _wide_plan(batch, beams, vocab, n)
     plans = []
@@ -168,6 +208,13 @@ def topk_plan(batch: int, beams: int, vocab: int, n: int, itemsize: int = 4) -> 
     return min(plans)[-1]
 
 
+def _wide_fits(beams: int, n: int) -> bool:
+    """Whether the wide instance takes ``beams`` rows and ``n``: n <= 256 and
+    its block's shared memory fits a cluster of TOPK_WIDE_MIN_CLUSTER."""
+    return n <= TOPK_WIDE_MAX_N and topk_smem_bytes(
+        beams, n, TOPK_WIDE_MIN_CLUSTER, 1) <= TOPK_SMEM_MAX
+
+
 def _wide_plan(batch: int, beams: int, vocab: int, n: int) -> TopkPlan:
     plans = []
     for cluster, at_once in TOPK_CLUSTERS_AT_ONCE.items():
@@ -175,19 +222,16 @@ def _wide_plan(batch: int, beams: int, vocab: int, n: int) -> TopkPlan:
         blocks = _cdiv(vocab, cols)
         if topk_smem_bytes(beams, n, blocks, 1) <= TOPK_SMEM_MAX:
             plans.append((_cdiv(batch, at_once), -blocks, TopkPlan(blocks, cols, 1, 0)))
-    if not plans:
-        raise ValueError(f"beam top-k kernel: {beams} beams and n = {n} pass the 227 KB of shared "
-                         f"memory (at most {topk_max_beams()} beams at n = 2 x beams)")
     return min(plans)[-1]
 
 
+@functools.lru_cache(maxsize=None)
 def topk_max_beams() -> int:
-    """The most beams the kernel takes with n = 2 x beams (the beam
-    search's candidates): the wide instance's shared memory at its smallest
-    cluster, or n's limit."""
+    """The most beams the wide (cluster) instance takes with n = 2 x beams
+    (the beam search's candidates), ``_wide_fits``'s limit.  Past it the
+    select form takes every width."""
     beams = TOPK_MAX_ROWS
-    while (2 * (beams + 1) <= TOPK_WIDE_MAX_N and topk_smem_bytes(
-            beams + 1, 2 * (beams + 1), min(TOPK_CLUSTERS_AT_ONCE), 1) <= TOPK_SMEM_MAX):
+    while _wide_fits(beams + 1, 2 * (beams + 1)):
         beams += 1
     return beams
 
@@ -273,11 +317,27 @@ def _from_logits(logits, row_max, row_logsumexp, scores, n, stats_out):
         kernel_lib.check(ls_out, "stats_out[1]", torch.float32, (r,))
     plan = topk_plan(b, k, v, n)
     out_v, out_f = _outputs(logits, b, n)
+    if isinstance(plan, SelectPlan):
+        _select(logits, 0, row_max, row_logsumexp, scores, m_out, ls_out, out_v, out_f, b, k, n,
+                plan)
+        return out_v, out_f
     kernel_lib.load().call(
         "mmvc_beam_topk_columns", logits.data_ptr(), _ptr(row_max), _ptr(row_logsumexp),
         scores.data_ptr(), _ptr(m_out), _ptr(ls_out), out_v.data_ptr(), out_f.data_ptr(), b, k,
         v, n, *plan, kernel_lib.stream_ptr(logits))
     return out_v, out_f
+
+
+def _select(x, kind, row_max, row_logsumexp, scores, m_out, ls_out, out_v, out_f, b, k, n,
+            plan: SelectPlan) -> None:
+    """Launch the select form on its zeroed workspace (``kind``: 0 f32
+    logits, 1 f32 log-probs, 2 bf16 log-probs)."""
+    ws = torch.zeros(select_workspace_bytes(b, k, n, plan.blocks), dtype=torch.uint8,
+                     device=x.device)
+    kernel_lib.load().call(
+        "mmvc_beam_topk_select", x.data_ptr(), kind, _ptr(row_max), _ptr(row_logsumexp),
+        scores.data_ptr(), _ptr(m_out), _ptr(ls_out), out_v.data_ptr(), out_f.data_ptr(),
+        ws.data_ptr(), b, k, x.shape[-1], n, plan.blocks, kernel_lib.stream_ptr(x))
 
 
 def beam_topk_columns(
@@ -340,6 +400,11 @@ def beam_topk(
     kernel_lib.check(scores, "scores", torch.float32, (b, k))
     plan = topk_plan(b, k, v, n, logp.element_size())
     out_v, out_f = _outputs(logp, b, n)
+    if isinstance(plan, SelectPlan):
+        _select(logp, 2 if logp.dtype == torch.bfloat16 else 1, None, None, scores, None, None,
+                out_v, out_f, b, k, n, plan)
+        beam_topk.launches += 1
+        return out_v, out_f
     kernel_lib.load().call(
         "mmvc_beam_topk", logp.data_ptr(), int(logp.dtype == torch.bfloat16), scores.data_ptr(),
         out_v.data_ptr(), out_f.data_ptr(), b, k, v, n, *plan, kernel_lib.stream_ptr(logp))

@@ -200,7 +200,7 @@ REFUSED = {
     "heads_not_a_multiple": (8, 5, 24, 7, 128, 130, 16),
     "batch_65536": (65536, 5, 24, 8, 128, 130, 16),
     "no_slots": (8, 5, 24, 8, 128, 0, 0),
-    "past_the_shared_memory": (8, tda.decode_max_beams() + 1, 24, 8, 128, 130, 16),
+    "past_the_query_rows": (8, 2 ** 16 // 3 + 1, 24, 8, 128, 130, 16),
 }
 
 
@@ -244,6 +244,26 @@ def test_decode_plan_past_128_beams_takes_one_slot_a_chunk():
         assert plan.gen_slots == 1 and plan.gen_chunks == 16
         assert tda.decode_smem_bytes(math.ceil(beams / 16) * 16, 2, False) <= tda.DECODE_SMEM_MAX
     assert tda.decode_smem_bytes(math.ceil((most + 1) / 16) * 16, 2, False) > tda.DECODE_SMEM_MAX
+
+
+@pytest.mark.parametrize("beams", [337, 500, 4096])
+@pytest.mark.parametrize("slots", [16, 64])
+def test_decode_plan_past_336_beams_reads_slots_in_pieces(beams, slots):
+    """Past ``decode_max_beams()`` a generated chunk is one slot of a piece
+    of the source beams (``gen_chunk_beams``, a multiple of 16): every slot
+    in ceil(beams / piece) chunks, each chunk's keys and the ancestors of
+    every query beam within 227 KB in both KV types."""
+    most = tda.decode_max_beams()
+    assert most == 336 and tda.gen_chunk_beams(most) == most
+    piece = tda.gen_chunk_beams(beams)
+    pieces = math.ceil(beams / piece)
+    assert piece % 16 == 0 and piece < beams and pieces >= 2
+    assert piece * (pieces - 1) < beams <= piece * pieces
+    plan = tda.decode_plan(8, beams, 24, 8, 128, 130, slots)
+    assert plan.gen_slots == 1 and plan.gen_chunks == slots * pieces
+    for kv_bytes, merged in ((2, False), (1, True)):
+        assert tda.decode_smem_bytes(piece, kv_bytes, merged, beams) <= tda.DECODE_SMEM_MAX
+    assert 1 <= plan.splits <= tda.DECODE_MAX_SPLITS
 
 
 @pytest.mark.parametrize("beams", [5, 8])

@@ -137,6 +137,19 @@ def test_generate_wide_beams_matches_jax(systems, mode, beams):
     _assert_same(want, got, atol)
 
 
+def test_generate_beam_105_matches_jax(systems):
+    """Past the top-k kernel's old ceiling of 104 beams (on the card: the
+    select form): the int8-KV ancestry decode at beam 105 returns the JAX
+    generate's tokens and scores."""
+    jsys, variables, tsys, batch = systems
+    extra, atol = WIDE_GEN["ancestry_int8"]
+    kw = dict(num_beams=105, max_new_tokens=4, **extra)
+    want = jsys.generate(variables, batch, cache_dtype=jnp.float32, **kw)
+    got = tsys.generate(_tb(batch), cache_dtype=torch.float32, **kw)
+    assert tuple(got[0].shape) == (2, 105, 4)
+    _assert_same(want, got, atol)
+
+
 def test_default_reorder_resolves_as_the_jax_package(systems, monkeypatch):
     """``ancestry_reorder=None`` gives the ancestry decode on the accelerator,
     as in the JAX package (models/avsr.py:516-517), and the gather reorder on

@@ -48,10 +48,21 @@ def test_flash_attention_kernel(smoke):
 
 
 @pytest.mark.cuda
+def test_flash_attention_grad(smoke):
+    """K1 through its autograd Function at the LLaMA training shape [8, 24,
+    T, 128], causal with left-pad key windows: out, dq, dk, dv against the
+    plain version under autograd."""
+    results = []
+    smoke.check_flash_grad(results)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
 def test_decode_attention_kernels(smoke):
     """K2 and K3 (int8 KV) at beam 5, and at beams 8 and 17 (24 and 51
-    query rows a kv head, in 16-row tiles) at batch 8 and 48, and at beam
-    129 (generated chunks of one slot)."""
+    query rows a kv head, in 16-row tiles) at batch 8 and 48, at beam 129
+    (generated chunks of one slot) and at beam 337 (a slot's source beams
+    in pieces)."""
     results = []
     smoke.check_decode(results)
     _all_ok(results)
@@ -60,8 +71,9 @@ def test_decode_attention_kernels(smoke):
 @pytest.mark.cuda
 def test_ancestry_attention_kernel(smoke):
     """The merged K2 + K3 entry at the decode shapes, at beams 8 and 17 at
-    batch 8 and 48, and at beam 129, against the merge of the plain partials; exact zeros where no key is
-    valid; the same bits from two launches."""
+    batch 8 and 48, and at beams 129 and 337, against the merge of the plain
+    partials; exact zeros where no key is valid; the same bits from two
+    launches."""
     results = []
     smoke.check_merged(results)
     _all_ok(results)
@@ -72,9 +84,10 @@ def test_beam_topk_columns_kernel(smoke):
     """K4 at [40, 128256] and [240, 128256], with the row statistics inside
     the kernel (the max exact, the logsumexp within LS_TOL, the selection
     bit for bit the plain version's on them) and given, and at beams 8 and
-    12 ([64, 128256], [96, 128256]) inside, and at beams 17, 32, 64 and the
-    ceiling ``topk_max_beams()`` (the wide instance) inside; two launches
-    give the same bits."""
+    12 ([64, 128256], [96, 128256]) inside, at beams 17, 32, 64 and the
+    ceiling ``topk_max_beams()`` (the wide instance, each also timed on the
+    select form) inside, and at the ceiling + 1, 128 and 200 (the select
+    form); two launches give the same bits."""
     results = []
     smoke.check_topk(results)
     _all_ok(results)
@@ -82,12 +95,14 @@ def test_beam_topk_columns_kernel(smoke):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["f32", "bf16", "v_odd", "from_logits", "from_logits_v_odd",
-                                  "from_logits_stats", "from_logits_v_odd_stats", "wide"])
+                                  "from_logits_stats", "from_logits_v_odd_stats", "wide",
+                                  "select"])
 def test_beam_topk_kernel(smoke, case):
     """K5: f32 and bf16 log-probs with ties and bans (also at V % 8 != 0),
     and from raw logits at V % 8 == 0 and != 0, with the statistics given
-    and inside; the wide instance's log-probs at beams 17, 32 and 64; indices
-    identical to the plain version."""
+    and inside; the wide instance's log-probs at beams 17, 32 and 64; the
+    select form's at beam 128 (f32, bf16, from logits); indices identical
+    to the plain version."""
     results = []
     smoke.check_beam_topk(results, only=case)
     _all_ok(results)

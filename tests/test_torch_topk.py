@@ -260,15 +260,18 @@ def test_topk_plan_serving_shapes():
     card holds 15 clusters of 8 but 7 of 16), 4 of a thread's 8 chunks in the
     ring and the unit maxima of the other 4; batch 48 in clusters of 4 (two
     waves; 2 a batch element would stream 27 of 32 chunks again); batch 4
-    stages the whole range in clusters of 16; shapes the kernel cannot take
-    raise."""
+    stages the whole range in clusters of 16; past the wide instance's
+    shared memory, and past n = 256, the select form takes the shapes;
+    shapes no kernel can take raise."""
     assert ttopk.topk_plan(8, 5, 128256, 10) == ttopk.TopkPlan(8, 16032, 4, 4)
     assert ttopk.topk_summary_chunks(5, 10, 8, 16032, 4) == 4
     assert ttopk.topk_plan(48, 5, 128256, 10) == ttopk.TopkPlan(4, 32064, 2, 14)
     assert ttopk.topk_plan(4, 5, 128256, 10) == ttopk.TopkPlan(16, 8016, 4, 0)
     assert ttopk.topk_chunks(16032) == 8 and ttopk.topk_chunks(8016) == 4
     over = ttopk.topk_max_beams() + 1  # past the wide instance's shared memory
-    for bad in [(8, over, 1000, 2 * over), (8, 5, 1000, 257), (0, 5, 1000, 10), (1, 1, 4, 5)]:
+    for wide in [(8, over, 1000, 2 * over), (8, 5, 1000, 257)]:
+        assert isinstance(ttopk.topk_plan(*wide), ttopk.SelectPlan)
+    for bad in [(0, 5, 1000, 10), (1, 1, 4, 5), (8, 5, 1000, 5001)]:
         with pytest.raises(ValueError, match="beam top-k kernel"):
             ttopk.topk_plan(*bad)
 
@@ -295,14 +298,27 @@ def test_topk_plan_past_16_beams(batch, beams):
 
 
 def test_topk_ceiling_is_at_least_64_beams():
-    """The kernel takes at least 64 beams (n = 128); above its ceiling the
-    plan raises and names it, so no beam width passes silently to a
-    library top-k on the card."""
-    most = ttopk.topk_max_beams()
+    """The wide instance takes at least 64 beams (n = 128), up to where its
+    block no longer fits a cluster of 4 (the measured crossover: past it the
+    select form is faster than the wide instance on a cluster of 2, which
+    would still fit); above its ceiling the select form takes every width
+    the JAX beam search takes (104, 128, 337 beams and more), so
+    no beam width passes to a library top-k on the card; its workspace is
+    the statistics, keys, histograms, state and ties of each batch
+    element."""
+    most, smem, limit = ttopk.topk_max_beams(), ttopk.topk_smem_bytes, ttopk.TOPK_SMEM_MAX
     assert most >= 64
-    ttopk.topk_plan(8, most, 128256, 2 * most)
-    with pytest.raises(ValueError, match=f"at most {most} beams"):
-        ttopk.topk_plan(8, most + 1, 128256, 2 * (most + 1))
+    assert ttopk.TOPK_WIDE_MIN_CLUSTER == 4
+    assert smem(most, 2 * most, 4, 1) <= limit < smem(most + 1, 2 * most + 2, 4, 1)
+    assert smem(most + 1, 2 * most + 2, 2, 1) <= limit
+    assert isinstance(ttopk.topk_plan(8, most, 128256, 2 * most), ttopk.TopkPlan)
+    for beams in (most + 1, 104, 105, 128, 337, 2000):
+        for batch in (1, 8, 48):
+            plan = ttopk.topk_plan(batch, beams, 128256, 2 * beams)
+            assert isinstance(plan, ttopk.SelectPlan)
+            assert 1 <= plan.blocks <= -(-ttopk.SELECT_TARGET_BLOCKS // batch)
+    assert ttopk.select_workspace_bytes(8, 128, 256, 66) == \
+        8 * (8 * 128 + 8 * 256 + 4 * 2048 + 16 + 4 * 66) + 16
 
 
 def test_beam_step_passes_no_statistics_to_the_kernel(monkeypatch):
