@@ -47,15 +47,47 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    launches, a checkpoint round trip, the step wall, tokens/s and peak
    memory; the flash phase also holds its step-1 gradients against K1's
    plain version (``check_flash_grad`` holds K1's gradient alone).
+5. Synthesizes speech with ``SpeechConfig()`` at full width (the same
+   encoders, the Q-Former, proj1 3072->768, proj2 768->512, Conformer-L
+   12x512 with 8 heads, the 128-band mel head; HiFi-GAN), modality dropout
+   on, random weights from seed 0, the same batch with 16 s of audio a clip,
+   bf16, in five phases, each with its wall, realtime factor (128 audio s /
+   wall) and peak GiB:
+   - ``speech_nollm``: the mel [8, 2400, 128] in modality modes 0, 1 and 2,
+     K1 60 times a forward (24 Whisper, 24 AV-HuBERT, 12 Conformer layers);
+     mode 0 against K1 plain at the noise floor of the features; modes 1
+     and 2 move the mel;
+   - ``vocoder``: ``VocoderModel.generate`` in f32 on that mel's valid
+     frames, timed with cuDNN's default TF32 convs and with TF32 off, a 1 s
+     slice of one row (TF32 off) against the same module on the CPU;
+   - ``speech_llm``: LLaMA-3.2-3B hidden states (no unembed) into the mel
+     head, K1 60 times (the trunk's 130 slots stay plain), against K1
+     plain;
+   - ``speech_e2e``: the waveform [8, 384000, 1], K1 60 times, |w| <= 1 and
+     tanh(conv_post's bias) past each row's frames, against K1 plain;
+   - ``fusion_modes``: the AVSR encoder with the "add" and "cross-att"
+     fusions and no speech-rate predictor, K1 48 and 50 times, against K1
+     plain.
+   ``check_flash`` holds K1 at the Conformer-L and cross-attention shapes
+   too (``SPEECH_FLASH_CASES``).
 
-Prints JSON lines with the kernel checks and the phases, then the
-``{"kernels": [...]}`` summary, then the card line, then, as the last line,
+Prints JSON lines with the kernel checks and the phases, the smoke's own
+wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Needs a CUDA device and the repository around it; it does not fall
 back to the CPU.
 
 ``python3 chip_smoke.py --train`` runs only ``check_flash_grad`` and the two
 training phases.
+
+``python3 chip_smoke.py --speech`` runs only K1's speech cases and the five
+speech phases.
+
+``python3 chip_smoke.py --digests`` runs only the AVSR serving phases and
+prints their output digests as one JSON line: copied into an older tree
+(``git archive`` of it under ``build/``, this file put beside its
+``multimodalvc_tpu_torch``), it gives that tree's digests to hold against
+this tree's in the same call.
 
 ``python3 chip_smoke.py --plans`` times the decode-attention entries at the
 serving shapes under other chunk plans than ``decode_plan``'s (PLAN_CASES),
@@ -201,6 +233,14 @@ FLASH_CASES = [
     ("whisper_scale0", (8, 16, 1536, 64), [1500] * 8, None, False, 0.0),
     ("whisper_scale_neg", (8, 16, 1536, 64), [1500] * 8, None, False, -0.125),
 ]
+# K1 on the speech-synthesis path: the Conformer-L self-attention (8 heads of
+# 64 over the 2400-frame mel buffer, keys to the 1600 frames of 16 s: a third
+# of the query rows past kv_len) and the cross-attention fusion (8 heads of
+# 128, video queries against the audio frames)
+SPEECH_FLASH_CASES = [
+    ("conformer_l", (8, 8, 2400, 64), [1600] * 8, None, False, None),
+    ("cross_att_fusion", (8, 8, 400, 128), [400] * 8, None, False, None),
+]
 # K1 against its plain version: at most 3e-2 absolute on bf16 outputs (the
 # JAX selftest's) and at most 1e-2 relative L2.  The absolute bound alone is
 # about a typical output value at Whisper (1500 keys average the values down
@@ -280,8 +320,8 @@ def prefill_layer(starts, g) -> dict:
     return {"layer_plain_ms": ms[False], "layer_flash_ms": ms[True], "layer_rel_l2": rel}
 
 
-def check_flash(results):
-    """K1 at FLASH_CASES against its plain version, at FLASH_TOL and
+def check_flash(results, cases=None):
+    """K1 at ``cases`` (FLASH_CASES) against its plain version, at FLASH_TOL and
     FLASH_REL_TOL, with exact zeros on every row with no valid key; the
     reading of the same check on the plain version with each window's last
     key tile dropped must fail it.  Each case reports the kernel's TFLOP/s
@@ -293,7 +333,7 @@ def check_flash(results):
     from multimodalvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 
     g = torch.Generator(device=DEV).manual_seed(0)
-    for case in FLASH_CASES:
+    for case in FLASH_CASES if cases is None else cases:
         name, shape, _, _, causal, scale = case
         q, k, v, kv_lens, kv_starts, allowed = flash_inputs(case, g)
         run = lambda: flash_attention(q, k, v, kv_lens, causal, scale, kv_starts)  # noqa: E731
@@ -1604,6 +1644,289 @@ def _same_state(name, a, b) -> None:
         raise SmokeFailure(f"{name}: {a} != {b}")
 
 
+# ---- speech synthesis ----------------------------------------------------------
+
+
+# K1 launches a speech forward: the encoders' 48 and the 12 Conformer-L
+# blocks; the cross-attention fusion adds 2
+CONFORMER_FLASH, FUSION_FLASH = 12, 2
+SPEECH_FLASH = ENCODER_FLASH + CONFORMER_FLASH
+SPEECH_SEED, VOCODER_SEED = 0, 2
+# the vocoder on the card (f32, TF32 off) against the same module on the CPU,
+# by relative L2: the two sum in other orders (~1e-6); a layout fault is O(1)
+VOCODER_CPU_FRAMES, VOCODER_CPU_TOL = 100, 1e-3
+
+
+def speech_config():
+    """SpeechConfig() at full width with modality dropout (the NoLLM recipe,
+    conf/mms-speech-nollm.yaml), the serving batch's 400 video frames."""
+    from multimodalvc_tpu_torch.models.speech import SpeechConfig
+
+    cfg = SpeechConfig(modality_dropout=True)
+    cfg.max_video_frames = SECONDS * 25
+    return cfg
+
+
+def make_speech_batch(mode: int = 0):
+    """The serving batch with SECONDS s of audio a clip (1600 mel frames)
+    and a modality mode."""
+    import torch
+
+    batch = make_batch()
+    batch["audio_lengths"] = torch.full((BATCH,), SECONDS * 16000, dtype=torch.int32, device=DEV)
+    batch["modality_mode"] = torch.tensor(mode, dtype=torch.int32, device=DEV)
+    return batch
+
+
+def nudged_features(batch):
+    return {**batch, "audio_feats": nudge(batch["audio_feats"]), "video": nudge(batch["video"])}
+
+
+def valid_rows(x, lens, per_frame: int = 1):
+    """Each row's valid prefix (``lens[i] * per_frame`` steps), concatenated."""
+    import torch
+
+    return torch.cat([x[i, : int(n) * per_frame] for i, n in enumerate(lens.tolist())])
+
+
+def build_speech(cls):
+    """A speech system of ``speech_config()``, bf16 random weights from SPEECH_SEED."""
+    import torch
+
+    t0 = time.perf_counter()
+    system = cls(speech_config(), dtype=torch.bfloat16, device=DEV)
+    system.init_random(SPEECH_SEED)
+    torch.cuda.synchronize()
+    print(f"{cls.__name__}: bf16 random weights (seed {SPEECH_SEED}), built in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated")
+    return system
+
+
+def speech_run(table, name, call, flash: int) -> tuple:
+    """``run_phase`` for one synthesis forward after a warm-up call: K1
+    ``flash`` times and no other kernel; with the peak GiB allocated."""
+    import torch
+
+    call()  # warm-up: cuDNN's algorithm choice, the allocator
+    torch.cuda.reset_peak_memory_stats()
+    record, out = run_phase(table, name, call, {"flash_attention": flash} if flash else {})
+    record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"    {name}: peak {record['peak_gib']:.2f} GiB")
+    return record, out
+
+
+def gate_against_plain(checks, name, call, got, select):
+    """``got`` (``select`` picks its valid steps) against the same forward
+    with K1 plain, gated at the noise floor of the same forward on features
+    nudged by one bf16 ulp on 0.01% of their values."""
+    with plain_versions(only=["flash_attention"]):
+        want = select(call(False))
+    gate = noise_gate(rel_l2(select(call(True)), got), name, "the features")
+    compare(checks, name, got, want, gate["tol_rel_l2"])
+    checks[name].update(gate)
+    return gate
+
+
+def finite_shape(name, x, shape) -> None:
+    import torch
+
+    if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+        raise SmokeFailure(f"{name}: shape {tuple(x.shape)} (want {shape}) or non-finite values")
+
+
+def speech_nollm_phase(table, checks) -> tuple:
+    """SpeechNoLLMSystem in modes 0, 1 and 2: the mel [B, 2400, 128], K1 60
+    times a forward; mode 0 against K1 plain; modes 1 and 2 differ from 0.
+    Returns (record, the mode-0 mel's valid frames [B, 1600, 128])."""
+    import torch
+
+    from multimodalvc_tpu_torch.models.speech import SpeechNoLLMSystem
+
+    system = build_speech(SpeechNoLLMSystem)
+    cfg, record, mels = system.cfg, {}, {}
+    for mode in (0, 1, 2):
+        batch = make_speech_batch(mode)
+        record[f"mode{mode}"], out = speech_run(table, f"speech_nollm/mode{mode}",
+                                                lambda: system(batch), SPEECH_FLASH)
+        finite_shape(f"speech_nollm/mode{mode}", out["melspec"],
+                     (BATCH, cfg.max_mel_frames, 128))
+        mels[mode], lens = out["melspec"], out["mel_lengths"]
+    record["mel_lengths"] = lens.tolist()
+    # the stages apart: the encoders with the Q-Former and the projector, then
+    # the head (proj1, resize, proj2, Conformer-L, mel head).  The
+    # speech-rate factor (clamped to [1, 2]) sets the query count and the
+    # resize: a last-bit move would show in query_lens
+    module = system.module
+    with torch.inference_mode():
+        (queries, q_lens), enc_s = wall(lambda: module.encoder(
+            batch["audio_feats"], batch["video"], batch["video_lengths"],
+            modality_mode=batch["modality_mode"]))
+        _, head_s = wall(lambda: module.head(queries, q_lens, lens))
+    record.update(query_lens=q_lens.tolist(), encoder_s=enc_s, head_s=head_s)
+    print(f"    speech_nollm stages: encoders + Q-Former {enc_s:.4f} s, head {head_s:.4f} s")
+    got = valid_rows(mels[0], lens)
+    batch = make_speech_batch(0)
+    gate = gate_against_plain(checks, "speech_nollm/mel", lambda nudged: system(
+        nudged_features(batch) if nudged else batch)["melspec"], got,
+        lambda m: valid_rows(m, lens))
+    # a mode moves the mel by more than rounding does (FLOOR_MARGIN times the
+    # noise floor): the mask embedding took the place of a stream
+    least = FLOOR_MARGIN * gate["noise_floor_rel_l2"]
+    for mode in (1, 2):
+        moved = rel_l2(valid_rows(mels[mode], lens), got)
+        record[f"mode{mode}_rel_l2_from_mode0"] = moved
+        if not moved > least:
+            raise SmokeFailure(f"speech_nollm: mode {mode} moves the mel by {moved:.3e}, "
+                               f"within rounding ({least:.3e})")
+    mel = torch.stack([mels[0][i, : int(n)] for i, n in enumerate(lens.tolist())])
+    del system
+    return record, mel
+
+
+def speech_llm_phase(table, checks) -> dict:
+    """SpeechLLMSystem (LLaMA-3.2-3B hidden states, no unembed): the mel,
+    K1 60 times (the trunk's 130 slots stay plain), its valid frames against
+    K1 plain."""
+    from multimodalvc_tpu_torch.models.speech import SpeechLLMSystem
+
+    system = build_speech(SpeechLLMSystem)
+    batch = make_speech_batch()
+
+    def no_unembed(*args):
+        raise SmokeFailure("speech_llm: the LLaMA unembed ran")
+
+    with mock.patch.object(system.module.llama, "unembed", no_unembed):
+        record, out = speech_run(table, "speech_llm", lambda: system(batch), SPEECH_FLASH)
+        mel, lens = out["melspec"], out["mel_lengths"]
+        finite_shape("speech_llm", mel, (BATCH, system.cfg.max_mel_frames, 128))
+        gate_against_plain(checks, "speech_llm/mel", lambda nudged: system(
+            nudged_features(batch) if nudged else batch)["melspec"], valid_rows(mel, lens),
+            lambda m: valid_rows(m, lens))
+    del system
+    return record
+
+
+def speech_e2e_phase(table, checks) -> dict:
+    """SpeechE2ESystem: the waveform [B, 2400 * 160, 1], K1 60 times, |w| <=
+    1, tanh(conv_post's bias) from mel_len * 160 + 3 on in every row (the
+    generator's input is masked to zero there), the valid samples against
+    K1 plain."""
+    import torch
+
+    from multimodalvc_tpu_torch.models.speech import SpeechE2ESystem
+
+    system = build_speech(SpeechE2ESystem)
+    batch = make_speech_batch()
+    record, out = speech_run(table, "speech_e2e", lambda: system(batch), SPEECH_FLASH)
+    wav, lens = out["waveform"], out["mel_lengths"]
+    finite_shape("speech_e2e", wav, (BATCH, system.cfg.max_mel_frames * 160, 1))
+    wav = wav[..., 0]
+    if not float(wav.abs().max()) <= 1.0:
+        raise SmokeFailure("speech_e2e: |waveform| > 1")
+    bias = torch.tanh(system.module.generator.conv_post.bias)
+    for i, n in enumerate(lens.tolist()):
+        if not bool((wav[i, n * 160 + 3:] == bias).all()):
+            raise SmokeFailure(f"speech_e2e: row {i} past its {n} frames is not tanh(bias)")
+    module = system.module
+    with torch.inference_mode():
+        features, trunk_s = wall(lambda: module.trunk(batch)["features"])
+        _, gen_s = wall(lambda: module.generator(features, lengths=lens))
+    print(f"    speech_e2e stages: trunk {trunk_s:.4f} s, generator {gen_s:.4f} s")
+    record.update(mel_lengths=lens.tolist(), abs_max=float(wav.abs().max()),
+                  valid_rms=float(valid_rows(wav, lens, 160).float().pow(2).mean().sqrt()),
+                  trunk_s=trunk_s, generator_s=gen_s)
+    gate_against_plain(checks, "speech_e2e/waveform", lambda nudged: system(
+        nudged_features(batch) if nudged else batch)["waveform"][..., 0],
+        valid_rows(wav, lens, 160), lambda w: valid_rows(w, lens, 160))
+    del system
+    return record
+
+
+def vocoder_phase(table, mel, checks) -> dict:
+    """VocoderModel.generate in f32 on the NoLLM mel's valid frames; a 1-row
+    slice of VOCODER_CPU_FRAMES frames against the same module on the CPU."""
+    import torch
+
+    from multimodalvc_tpu_torch.models.vocoder import VocoderConfig, VocoderModel
+
+    voc = VocoderModel(VocoderConfig(), device=DEV)
+    voc.init_random(VOCODER_SEED)
+    # timed with cuDNN's default (TF32 convs), as a caller of generate runs
+    # it; the comparison with the CPU, and the wall beside it, with TF32 off
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        record, wav = speech_run(table, "vocoder", lambda: voc.generate(mel), 0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    finite_shape("vocoder", wav, (mel.shape[0], mel.shape[1] * 160))
+    voc.generate(mel)  # warm-up: cuDNN's algorithm choice without TF32
+    _, record["tf32_off_s"] = wall(lambda: voc.generate(mel))
+    print(f"    vocoder with TF32 off: {record['tf32_off_s']:.4f} s")
+    cpu = VocoderModel(VocoderConfig(), device="cpu")
+    cpu.generator.load_state_dict({k: x.cpu() for k, x in voc.generator.state_dict().items()})
+    piece = mel[:1, :VOCODER_CPU_FRAMES]
+    got, want = voc.generate(piece).cpu(), cpu.generate(piece.cpu())
+    record.update(abs_max=float(wav.abs().max()), rms=float(wav.pow(2).mean().sqrt()))
+    compare(checks, "vocoder/cpu", got, want, VOCODER_CPU_TOL)
+    del voc, cpu
+    return record
+
+
+def fusion_phase(table, checks) -> dict:
+    """AVSREncoder with the "add" and "cross-att" fusions and no speech-rate
+    predictor: the queries, K1 48 and 50 times, against K1 plain."""
+    import torch
+
+    from multimodalvc_tpu_torch.models.avsr import AVSRConfig, AVSREncoder
+    from multimodalvc_tpu_torch.nn.init import init_random_
+
+    batch, record = make_batch(), {}
+    for fuse, flash in (("add", ENCODER_FLASH), ("cross-att", ENCODER_FLASH + FUSION_FLASH)):
+        cfg = AVSRConfig(modality_fuse=fuse, use_sr_predictor=False)
+        enc = AVSREncoder(cfg, device=DEV, dtype=torch.bfloat16).eval()
+        init_random_(enc, SPEECH_SEED)
+
+        def call(nudged=False, enc=enc):
+            b = nudged_features(batch) if nudged else batch
+            with torch.inference_mode():
+                return enc(b["audio_feats"], b["video"], b["video_lengths"])
+
+        name = f"fusion_{fuse}"
+        record[fuse], (queries, lens) = speech_run(table, name, call, flash)
+        finite_shape(name, queries, (BATCH, cfg.max_queries, cfg.llama.hidden_size))
+        record[fuse]["query_lens"] = lens.tolist()
+        gate_against_plain(checks, f"{name}/queries", lambda nudged: call(nudged)[0],
+                           valid_rows(queries, lens), lambda q: valid_rows(q, lens))
+        del enc
+    return record
+
+
+def speech_phases(table, checks) -> dict:
+    """The five speech phases, each model freed before the next is built."""
+    import gc
+
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    phases = {}
+    phases["speech_nollm"], mel = speech_nollm_phase(table, checks)
+    free()
+    phases["vocoder"] = vocoder_phase(table, mel, checks)
+    del mel
+    free()
+    phases["speech_llm"] = speech_llm_phase(table, checks)
+    free()
+    phases["speech_e2e"] = speech_e2e_phase(table, checks)
+    free()
+    phases["fusion_modes"] = fusion_phase(table, checks)
+    free()
+    return phases
+
+
 def check_output(name, seqs, scores, vocab, new_tokens, beams=BEAMS):
     import torch
 
@@ -1676,7 +1999,15 @@ def serve(table, system, batch, name, new_tokens, gen_kw, expect=None, members=1
         layers=system.cfg.llama.num_layers, members=members)
     check_output(name, seqs, scores, system.cfg.llama.vocab_size, new_tokens, beams)
     phase.update(new_tokens=new_tokens, beams=beams)
+    output_digest(phase, name, seqs, scores)
     return phase, seqs, scores
+
+
+def output_digest(phase, name, *tensors) -> None:
+    """The phase's output bits (``digest``), to hold them against another
+    tree's in one call."""
+    phase["output_sha256"] = digest(*tensors)
+    print(f"    {name}: output sha256 {phase['output_sha256']}")
 
 
 def rel_l2(a, b) -> float:
@@ -1711,13 +2042,25 @@ def logits_gate(llama, emb, mask, tokens, logits, **cache_kw) -> dict:
     9973rd prompt-embedding value moves ``logits`` (what rounding alone does
     here), times FLOOR_MARGIN, and at least REL_TOL.  Fails if the floor
     exceeds FLOOR_MAX."""
-    nudged = emb.clone()
-    flat = nudged.view(-1)
+    floor = rel_l2(prefill_and_step(llama, nudge(emb), mask, tokens, **cache_kw)[1], logits)
+    return noise_gate(floor, "logits", "the prompt")
+
+
+def nudge(x):
+    """x with one bf16 ulp (x (1 + 2^-7)) on every 9973rd value."""
+    out = x.clone()
+    flat = out.view(-1)
     flat[::9973] = flat[::9973] * (1 + 2 ** -7)
-    floor = rel_l2(prefill_and_step(llama, nudged, mask, tokens, **cache_kw)[1], logits)
+    return out
+
+
+def noise_gate(floor: float, what: str, where: str) -> dict:
+    """The gate of an end-to-end output (``what``) from the noise floor that
+    one bf16 ulp on 0.01% of ``where`` gives it: FLOOR_MARGIN times the
+    floor, and at least REL_TOL; fails if the floor exceeds FLOOR_MAX."""
     tol = max(REL_TOL, FLOOR_MARGIN * floor)
-    print(f"    noise floor (one bf16 ulp on 0.01% of the prompt): rel_l2={floor:.3e}, "
-          f"logits gate {tol:.3e} (floor limit {FLOOR_MAX:g})")
+    print(f"    noise floor (one bf16 ulp on 0.01% of {where}): rel_l2={floor:.3e}, "
+          f"{what} gate {tol:.3e} (floor limit {FLOOR_MAX:g})")
     if not floor <= FLOOR_MAX:
         raise SmokeFailure(f"the noise floor {floor:.3e} exceeds {FLOOR_MAX:g}")
     return {"noise_floor_rel_l2": floor, "tol_rel_l2": tol}
@@ -1874,6 +2217,7 @@ def full_cache_phase(table, system, emb, mask) -> dict:
     phase, (seqs, scores) = run_phase(table, "bf16_full_cache", call)
     check_output("bf16_full_cache", seqs, scores, cfg.llama.vocab_size, SHORT_TOKENS)
     phase["new_tokens"] = SHORT_TOKENS
+    output_digest(phase, "bf16_full_cache", seqs, scores)
     return phase
 
 
@@ -1882,6 +2226,7 @@ def long_form_phase(table, system, flash_per_generate: int) -> dict:
     mel [8, 80, 3200]), int8 KV: two ``generate`` calls, K1 twice as often as
     one, and one merged token row per sample."""
     import numpy as np
+    import torch
 
     long_batch = make_long_batch()
     calls = []
@@ -1904,6 +2249,7 @@ def long_form_phase(table, system, flash_per_generate: int) -> dict:
                                      and (r >= 0).all() and (r < vocab).all() for r in rows):
         raise SmokeFailure(f"long_form: expected {BATCH} merged token rows")
     phase.update(generate_calls=len(calls), merged_lengths=[len(r) for r in rows])
+    output_digest(phase, "long_form", *(torch.from_numpy(np.ascontiguousarray(r)) for r in rows))
     return phase
 
 
@@ -2015,6 +2361,7 @@ def beam8_phase(table, system, batch, emb, mask) -> dict:
                                       layers=system.cfg.llama.num_layers)
     cfg = system.cfg
     check_output(name, seqs, scores, cfg.llama.vocab_size, SHORT_TOKENS, beams)
+    output_digest(phase, name, seqs, scores)
     with mock.patch.object(beam_search, "beam_topk_columns", topk.beam_topk_columns_plain):
         p_seqs, p_scores = system.generate(batch, **kw)
     if not torch.equal(seqs, p_seqs):
@@ -2609,7 +2956,16 @@ def gather_bound(src, *outs) -> dict:
     return bound(nbytes(*outs) * (1 + distinct) + nbytes(src))
 
 
+def serving_phases(table, batch) -> tuple:
+    """The AVSR serving phases: bf16 weights, then int8 and int4 weights."""
+    phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
+    phases.update(quantized_phase(table, batch, "int8", NEW_TOKENS, prompt, tokens, bf16_logits))
+    phases.update(quantized_phase(table, batch, "int4", SHORT_TOKENS, prompt, tokens, bf16_logits))
+    return phases, checks
+
+
 def main() -> int:
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2659,6 +3015,19 @@ def main() -> int:
         print(json.dumps({"cases": results, "phases": phases}))
         print(card)
         return 0
+    if "--speech" in sys.argv[1:]:
+        results, checks = [], {}
+        check_flash(results, SPEECH_FLASH_CASES)
+        phases = speech_phases(kernels(), checks)
+        print(json.dumps({"cases": results, "phases": phases, "checks": checks}))
+        print(card)
+        return 0
+    if "--digests" in sys.argv[1:]:
+        phases, _ = serving_phases(kernels(), make_batch())
+        print(json.dumps({"digests": {name: p["output_sha256"] for name, p in phases.items()
+                                      if "output_sha256" in p}}))
+        print(card)
+        return 0
     if "--beam5" in sys.argv[1:]:
         results = []  # the cases an older tree has too: beam 5, K4 to beam 12
         check_decode(results, wide=False)
@@ -2671,7 +3040,8 @@ def main() -> int:
 
     results = []
     print("kernel checks (kernel vs plain PyTorch, same inputs, CUDA-event ms):")
-    for check in (check_flash, check_flash_grad, check_decode, lambda r: check_decode(r, "bf16"),
+    for check in (check_flash, lambda r: check_flash(r, SPEECH_FLASH_CASES), check_flash_grad,
+                  check_decode, lambda r: check_decode(r, "bf16"),
                   check_merged, check_topk, check_beam_topk, check_gather_rows,
                   check_int8_matmul, check_int4_matmul):
         check(results)
@@ -2684,13 +3054,14 @@ def main() -> int:
     batch = make_batch()
     print(f"serving: AVSRConfig() full width, random weights (seed 0), batch {BATCH}, "
           f"{SECONDS} s, beam {BEAMS}")
-    phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
-    phases.update(quantized_phase(table, batch, "int8", NEW_TOKENS, prompt, tokens, bf16_logits))
-    phases.update(quantized_phase(table, batch, "int4", SHORT_TOKENS, prompt, tokens, bf16_logits))
+    phases, checks = serving_phases(table, batch)
     print(f"training: AVSRConfig() full width, batch {BATCH} x {SECONDS} s, {TRAIN_LABELS} label "
           f"tokens, {TRAIN_STEPS} steps on one batch")
     for name, flash in (("train_avsr", False), ("train_avsr_flash", True)):
         phases[name] = train_phase(table, name, flash)
+    print(f"speech synthesis: SpeechConfig() full width (Conformer-L, HiFi-GAN), random weights "
+          f"(seed {SPEECH_SEED}), batch {BATCH} x {SECONDS} s, bf16")
+    phases.update(speech_phases(table, checks))
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():
@@ -2700,12 +3071,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"multimodalvc_tpu_torch/{src}",
             "replaces": replaces, "phase": phase, "on_path": on_path,
             "launches": phases[phase]["launches"][name],
+            "speech_launches": phases["speech_nollm"]["mode0"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "case": mine[0]["name"],
         })
     print(json.dumps({"cases": results}))
     print(json.dumps({"phases": phases, "checks": checks}))
+    print(f"smoke: {time.perf_counter() - start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,13 @@ state_dict key by joining with dots; only the leaf names and layouts change:
 - BatchNorm running statistics (``batch_stats`` ``mean`` / ``var``)
                                           -> ``running_mean`` / ``running_var``
                                              (+ ``num_batches_tracked`` = 0)
-- LoRA ``lora_a`` [in, r] / ``lora_b`` [r, out], ``sr_token`` and
-  ``query_tokens`` keep their names and layouts.
+- Weight-normalized conv ``v`` (and only a leaf named ``v``, always of rank
+  3): Conv1d [K, I/g, O] -> [O, I/g, K], ConvTranspose1d [K, O, I] ->
+  [I, O, K] (one transpose for both); its ``g`` keeps its layout.
+- LoRA ``lora_a`` [in, r] / ``lora_b`` [r, out], ``sr_token``,
+  ``query_tokens``, ``light_weights`` [H, K], ``audio_mask_emb``,
+  ``video_mask_emb`` and the generator's ``lut`` keep their names and
+  layouts.
 - The quantized leaves of ``QuantDense`` (``w_q``, ``w_packed``,
   ``w_scale``) cross untransposed, in the flax [d_in, d_out] layout and
   their packed formats, so both packages serve from one checkpoint byte for
@@ -42,6 +47,10 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
 
 
 def _convert(name: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name == "v":
+        if x.ndim != 3:
+            raise ValueError(f"weight-norm v of rank {x.ndim} (only 1-D convs are ported)")
+        return "v", x.transpose(2, 1, 0)
     if name == "kernel":
         if x.ndim == 2:
             return "weight", x.T
@@ -80,8 +89,6 @@ def load_flax_variables(module: torch.nn.Module, variables: Mapping[str, Any],
     module.load_state_dict(flax_to_state_dict(variables, prefix), strict=True)
 
 
-
-
 def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
                        template: Mapping[str, Any]) -> Dict[str, Any]:
     """The inverse of ``flax_to_state_dict``: the ``params`` of the flax tree
@@ -97,6 +104,8 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
         if name == "kernel":
             x = x.T if x.ndim == 2 else x.transpose(2, 1, 0) if x.ndim == 3 else \
                 x.transpose(2, 3, 1, 0)
+        elif name == "v":
+            x = x.transpose(2, 1, 0)
         return x
 
     def walk(tree, prefix):
@@ -104,3 +113,19 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
                 leaf(prefix + (str(k),), v) for k, v in tree.items()}
 
     return walk(template, ())
+
+
+def state_dict_to_flax_variables(sd: Mapping[str, torch.Tensor],
+                                 template: Mapping[str, Any]) -> Dict[str, Any]:
+    """``state_dict_to_flax`` for a whole variables tree: ``{"params": ...}``
+    and, where ``template`` has them, the BatchNorm ``batch_stats`` (``mean``
+    / ``var`` from ``running_mean`` / ``running_var``)."""
+    out = {"params": state_dict_to_flax(sd, template["params"])}
+    if "batch_stats" in template:
+        def walk(tree, prefix):
+            return {k: walk(v, prefix + (str(k),)) if isinstance(v, Mapping) else
+                    sd[".".join(prefix + (_STATS[str(k)],))].detach().cpu().numpy()
+                    for k, v in tree.items()}
+
+        out["batch_stats"] = walk(template["batch_stats"], ())
+    return out

@@ -15,8 +15,13 @@ adapters drawn from an explicit generator), ``AVSRSystem.loss_fn`` /
 ``make_trainer_loss_fn`` feed ``runtime/trainer.py``, and
 ``FROZEN_PATTERNS`` names what the trainer freezes.  The modules stay in
 eval mode throughout (the ResNet's BatchNorm on its running statistics):
-dropout follows the generator passed in, not the module mode.  The other
-fusion modes are not ported yet.
+dropout follows the generator passed in, not the module mode.
+
+``AVSRConfig`` carries the JAX package's encoder configurations: the
+fusion (``modality_fuse`` "concat", "add" or "cross-att"), the speech-rate
+predictor (``use_sr_predictor``) and batch-level modality dropout
+(``modality_dropout``, the mode taken from the batch), which the speech
+heads (``models/speech.py``) build on.
 """
 from __future__ import annotations
 
@@ -30,15 +35,15 @@ from torch import nn
 
 from ..criterions.lm import lm_metrics
 from ..nn.avhubert import AVHubertConfig, AVHubertModel
+from ..nn.init import init_random_
 from ..nn.llama import (
     LlamaConfig,
     LlamaModel,
-    RMSNorm,
     cross_entropy_lm_loss,
     generate_beam,
     quantize_llama_,
 )
-from ..nn.modules import Projector, SpeechRatePredictor
+from ..nn.modules import MultimodalAttention, Projector, SpeechRatePredictor
 from ..nn.qformer import QFormer, QFormerConfig
 from ..nn.whisper import WhisperEncoder, WhisperEncoderConfig
 from ..ops.constraints import (
@@ -62,16 +67,28 @@ class AVSRConfig:
     llama: LlamaConfig = field(default_factory=LlamaConfig)
     qformer_layers: int = 2
     qformer_dim: int = 1024
+    modality_fuse: str = "concat"  # concat | add | cross-att
+    use_qformer: bool = True  # carried for the config files; the Q-Former always runs, as in JAX
     queries_per_sec: int = 3
+    use_sr_predictor: bool = True
     sr_predictor_layers: int = 2
     max_video_frames: int = 500  # 20 s at 25 Hz
     eos_token_id: int = LLAMA3_EOS
     pad_token_id: int = LLAMA3_PAD
+    # learned mask embeddings that replace a whole encoder stream, the
+    # stream chosen by the batch's modality_mode (0 both, 1 video only,
+    # 2 audio only)
+    modality_dropout: bool = False
 
     @property
     def max_queries(self) -> int:
         # queries_per_sec * 20 s, doubled for the speech-rate predictor's range
-        return int(self.queries_per_sec * 20 * 2)
+        return int(self.queries_per_sec * 20 * (2 if self.use_sr_predictor else 1))
+
+    @property
+    def fused_dim(self) -> int:
+        """The fused width of the full-width encoders (1024 each)."""
+        return 2 * 1024 if self.modality_fuse == "concat" else 1024
 
     @classmethod
     def tiny(cls):
@@ -83,38 +100,52 @@ class AVSRConfig:
             llama=LlamaConfig.tiny(vocab_size=512),
             qformer_dim=32,
             queries_per_sec=2,
+            use_sr_predictor=True,
             max_video_frames=16,
             eos_token_id=2,
             pad_token_id=0,
         )
 
 
+FUSE_MODES = ("concat", "add", "cross-att")
+
+
 class AVSREncoder(nn.Module):
-    """Everything before the LLM: acoustic/visual encoders -> fused queries,
-    in the default configuration (concat fuse, Q-Former, speech-rate
-    predictor, no modality dropout)."""
+    """Everything before the LLM: acoustic/visual encoders -> fused queries.
+    The audio stream (Whisper, halved to the video rate) and the video
+    stream (AV-HuBERT) are concatenated, added, or fused by
+    ``MultimodalAttention``; with ``modality_dropout`` the batch's mode
+    swaps one stream for its mask embedding first."""
 
     def __init__(self, cfg: AVSRConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
+        if cfg.modality_fuse not in FUSE_MODES:
+            raise ValueError(f"modality_fuse {cfg.modality_fuse!r} not in {FUSE_MODES}")
         wd, ad = cfg.whisper.d_model, cfg.avhubert.encoder_embed_dim
         self.fused_a = 1024 if wd == 1024 else wd
+        if cfg.modality_dropout:
+            self.audio_mask_emb = nn.Parameter(torch.zeros(self.fused_a, **kw))
+            self.video_mask_emb = nn.Parameter(torch.zeros(self.fused_a, **kw))
         self.whisper = WhisperEncoder(cfg.whisper, **kw)
         self.avhubert = AVHubertModel(cfg.avhubert, **kw)
         if ad != self.fused_a:
             self.avhubert_bridge = nn.Linear(ad, self.fused_a, **kw)
-        if wd != 1024:
-            self.sr_bridge = nn.Linear(wd, 1024, **kw)
-        self.sr_predictor = SpeechRatePredictor(1024, cfg.sr_predictor_layers, **kw)
+        if cfg.use_sr_predictor:
+            if wd != 1024:
+                self.sr_bridge = nn.Linear(wd, 1024, **kw)
+            self.sr_predictor = SpeechRatePredictor(1024, cfg.sr_predictor_layers, **kw)
         self.afeat_1d_conv = nn.Conv1d(wd, self.fused_a, 2, stride=2, **kw)
+        if cfg.modality_fuse == "cross-att":
+            self.fusion = MultimodalAttention(self.fused_a, num_heads=8, **kw)
         self.qformer = QFormer(
             QFormerConfig(
                 num_layers=cfg.qformer_layers,
                 hidden_size=cfg.qformer_dim,
                 num_heads=max(cfg.qformer_dim // 64, 1),
                 intermediate_size=cfg.qformer_dim * 4,
-                encoder_width=2 * self.fused_a,
+                encoder_width=(2 if cfg.modality_fuse == "concat" else 1) * self.fused_a,
                 max_queries=cfg.max_queries,
             ),
             **kw,
@@ -126,11 +157,15 @@ class AVSREncoder(nn.Module):
 
     def forward(self, audio_feats: torch.Tensor, video: torch.Tensor,
                 video_lengths: torch.Tensor,
-                dropout_rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                dropout_rng: Optional[torch.Generator] = None,
+                modality_mode=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """audio_feats [B, n_mels, 2F], video [B, T_v, H, W, 1], video_lengths
         [B] -> (queries [B, Q, llama_dim], query_lens [B]).  The frozen
         encoders and the speech-rate predictor run without a gradient;
-        ``dropout_rng`` (training) draws the Q-Former's dropout."""
+        ``dropout_rng`` (training) draws the Q-Former's dropout.
+        ``modality_mode`` (a scalar for the whole batch: 0 both streams, 1
+        video only, 2 audio only; None is 0) takes effect with
+        ``modality_dropout``; both encoders run in every mode."""
         cfg = self.cfg
         t_v = video.shape[1]
         with torch.no_grad():
@@ -141,20 +176,33 @@ class AVSREncoder(nn.Module):
 
         # speech-rate-aware query budget
         base_queries = video_lengths.float() / 25.0 * cfg.queries_per_sec
-        with torch.no_grad():
-            sr_in = whisper_out[:, : 2 * t_v : 4, :]  # 50 Hz -> 12.5 Hz view
-            if hasattr(self, "sr_bridge"):
-                sr_in = self.sr_bridge(sr_in)
-            factor = torch.clamp(self.sr_predictor(sr_in)[:, 0], 1.0, 2.0)
+        if cfg.use_sr_predictor:
+            with torch.no_grad():
+                sr_in = whisper_out[:, : 2 * t_v : 4, :]  # 50 Hz -> 12.5 Hz view
+                if hasattr(self, "sr_bridge"):
+                    sr_in = self.sr_bridge(sr_in)
+                factor = torch.clamp(self.sr_predictor(sr_in)[:, 0], 1.0, 2.0)
+        else:
+            factor = torch.ones_like(base_queries)
         query_lens = torch.clamp((base_queries * factor).to(torch.int32), min=cfg.queries_per_sec)
         query_lens = torch.clamp(query_lens, max=cfg.max_queries)
         resized_lens = torch.clamp((factor * video_lengths.float()).to(torch.int32), min=1)
 
         # 50 Hz -> 25 Hz audio conv, then align to the video frames
         a = self.afeat_1d_conv(whisper_out.transpose(1, 2)).transpose(1, 2)[:, :t_v]
-        av_feat = linear_resize_batched(
-            torch.cat([a, av_out], dim=-1), video_lengths, resized_lens, 2 * t_v
-        )
+        if cfg.modality_dropout:
+            mode = torch.as_tensor(0 if modality_mode is None else modality_mode,
+                                   device=a.device)
+            a = torch.where(mode == 1, self.audio_mask_emb.to(a.dtype).expand_as(a), a)
+            av_out = torch.where(mode == 2, self.video_mask_emb.to(av_out.dtype)
+                                 .expand_as(av_out), av_out)
+        if cfg.modality_fuse == "concat":
+            av_feat = torch.cat([a, av_out], dim=-1)
+        elif cfg.modality_fuse == "add":
+            av_feat = a + av_out
+        else:
+            av_feat = self.fusion(a, av_out, kv_lens=video_lengths)
+        av_feat = linear_resize_batched(av_feat, video_lengths, resized_lens, 2 * t_v)
         queries = self.qformer(av_feat, query_lens=query_lens, enc_lens=resized_lens,
                                dropout_rng=dropout_rng)
         return self.avfeat_to_llm(queries), query_lens
@@ -342,26 +390,9 @@ class AVSRSystem:
 
         return loss_fn
 
-    @torch.no_grad()
     def init_random(self, seed: int = 0) -> None:
-        """Random weights from ``seed``, drawn on the module's device: matrices,
-        convs, embeddings and learned tokens N(0, 0.02); LoRA ``lora_a``
-        N(0, 0.01) and ``lora_b`` zero (as the JAX init); norms one, biases
-        zero, PReLU 0.25, BatchNorm running statistics (0, 1)."""
-        dev = next(self.module.parameters()).device
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        for mod in self.module.modules():
-            for name, p in mod.named_parameters(recurse=False):
-                if isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d, RMSNorm)):
-                    p.fill_(1.0 if name == "weight" else 0.0)
-                elif isinstance(mod, nn.PReLU):
-                    p.fill_(0.25)
-                elif name == "bias" or name == "lora_b":
-                    p.zero_()
-                else:
-                    p.normal_(0.0, 0.01 if name == "lora_a" else 0.02, generator=gen)
-            if isinstance(mod, nn.BatchNorm2d):
-                mod.reset_running_stats()
+        """Random weights from ``seed`` (``init_random_``)."""
+        init_random_(self.module, seed)
 
     def enable_quantized_decode(self, mode: str = "int8") -> None:
         """Serve the LLaMA with weight-only quantized weights: quantize the

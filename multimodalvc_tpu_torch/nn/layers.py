@@ -45,10 +45,11 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> tor
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def add_layers(module: nn.Module, layers) -> list:
-    """Register ``layers`` as ``layers_0``, ``layers_1``, ... (flax names)."""
+def add_layers(module: nn.Module, layers, prefix: str = "layers") -> list:
+    """Register ``layers`` as ``layers_0``, ``layers_1``, ... (flax names;
+    ``prefix`` replaces ``layers``)."""
     for i, layer in enumerate(layers):
-        module.add_module(f"layers_{i}", layer)
+        module.add_module(f"{prefix}_{i}", layer)
     return list(layers)
 
 

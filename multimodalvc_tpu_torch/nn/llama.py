@@ -531,6 +531,7 @@ class LlamaModel(nn.Module):
         logits_last_only: bool = False,
         dropout_rng: Optional[torch.Generator] = None,  # training: the LoRA dropout's
         return_hidden: bool = False,
+        compute_logits: bool = True,  # False: no unembed (logits None), for hidden states only
     ) -> Dict[str, Any]:
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
@@ -544,7 +545,9 @@ class LlamaModel(nn.Module):
                              cache_positions, dropout_rng)
             new_caches.append(new_c)
         x = self.norm(x)
-        logits = self.unembed(x[:, -1:] if logits_last_only else x)
+        logits = None
+        if compute_logits:
+            logits = self.unembed(x[:, -1:] if logits_last_only else x)
         out = {"logits": logits, "cache": tuple(new_caches) if cache is not None else None}
         if return_hidden:
             out["hidden"] = x

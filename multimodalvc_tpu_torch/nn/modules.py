@@ -1,8 +1,7 @@
-"""Small sub-modules of the AVSR encoder: projector and speech-rate predictor.
+"""Small sub-modules of the AVSR encoder: projector, cross-attention fusion
+and speech-rate predictor.
 
-Port of ``multimodalvc_tpu/nn/modules.py`` (``MultimodalAttention`` serves
-the cross-attention fuse, which the default concat configuration does not
-run, and is not ported yet).
+Port of ``multimodalvc_tpu/nn/modules.py``.
 """
 from __future__ import annotations
 
@@ -10,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import TransformerEncoder
+from .layers import MultiHeadAttention, TransformerEncoder
 
 
 class Projector(nn.Module):
@@ -24,6 +23,23 @@ class Projector(nn.Module):
 
     def forward(self, x):
         return self.layers_1(self.layers_0(x))
+
+
+class MultimodalAttention(nn.Module):
+    """The "cross-att" fusion: video queries attend to the audio twice, the
+    first attention with the audio added and LayerNorm'd (eps 1e-5), the
+    second added after.  ``kv_lens`` masks the audio frames."""
+
+    def __init__(self, d_model: int, num_heads: int = 8, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.mha0 = MultiHeadAttention(d_model, num_heads, **kw)
+        self.layer_norm = nn.LayerNorm(d_model, eps=1e-5, **kw)
+        self.mha1 = MultiHeadAttention(d_model, num_heads, **kw)
+
+    def forward(self, audio, video, *, kv_lens=None):
+        x = self.layer_norm(self.mha0(video, audio, kv_lens=kv_lens) + audio)
+        return x + self.mha1(video, audio, kv_lens=kv_lens)
 
 
 class SpeechRatePredictor(nn.Module):

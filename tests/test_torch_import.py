@@ -23,18 +23,25 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch",
     "multimodalvc_tpu_torch.interop.from_flax",
     "multimodalvc_tpu_torch.models.avsr",
+    "multimodalvc_tpu_torch.models.speech",
+    "multimodalvc_tpu_torch.models.vocoder",
     "multimodalvc_tpu_torch.nn.avhubert",
+    "multimodalvc_tpu_torch.nn.conformer",
+    "multimodalvc_tpu_torch.nn.hifigan",
+    "multimodalvc_tpu_torch.nn.init",
     "multimodalvc_tpu_torch.nn.layers",
     "multimodalvc_tpu_torch.nn.llama",
     "multimodalvc_tpu_torch.nn.modules",
     "multimodalvc_tpu_torch.nn.qformer",
     "multimodalvc_tpu_torch.nn.resnet",
     "multimodalvc_tpu_torch.nn.whisper",
+    "multimodalvc_tpu_torch.nn.wn_conv",
     "multimodalvc_tpu_torch.ops.attention",
     "multimodalvc_tpu_torch.ops.beam_gather",
     "multimodalvc_tpu_torch.ops.beam_search",
     "multimodalvc_tpu_torch.ops.constraints",
     "multimodalvc_tpu_torch.ops.decode_attention",
+    "multimodalvc_tpu_torch.ops.dynamic_conv",
     "multimodalvc_tpu_torch.ops.int8_matmul",
     "multimodalvc_tpu_torch.ops.interpolate",
     "multimodalvc_tpu_torch.ops.kernel_lib",

@@ -48,6 +48,16 @@ def test_flash_attention_kernel(smoke):
 
 
 @pytest.mark.cuda
+def test_flash_attention_speech_shapes(smoke):
+    """K1 at the speech path's shapes: the Conformer-L self-attention [8, 8,
+    2400, 64] with keys to 1600 frames (rows past kv_len), and the
+    cross-attention fusion [8, 8, 400, 128]."""
+    results = []
+    smoke.check_flash(results, smoke.SPEECH_FLASH_CASES)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
 def test_flash_attention_grad(smoke):
     """K1 through its autograd Function at the LLaMA training shape [8, 24,
     T, 128], causal with left-pad key windows: out, dq, dk, dv against the
