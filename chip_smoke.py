@@ -70,6 +70,23 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
      plain.
    ``check_flash`` holds K1 at the Conformer-L and cross-attention shapes
    too (``SPEECH_FLASH_CASES``).
+6. Trains the speech heads and the vocoder at full width (random weights
+   from seed 0, dropout on, TF32 off), each phase with its step wall,
+   audio seconds trained a second, peak GiB and K1 launches a step:
+   - ``train_speech_nollm`` / ``train_speech_llm``: ``SpeechTask`` ->
+     ``Trainer`` (conf/mms-speech-nollm.yaml's optimizer, warmup cut to 2),
+     6 steps at batch 8 x 16 s (bf16) with target mels; the step-1
+     gradients against K1 plain at the run's noise floor, the frozen
+     leaves bit for bit, the Conformer's running statistics moved, K1 60
+     a step (12 through ``FlashAttentionGrad``), the mel L1 falling, and
+     one step timed by stage (``step_split``);
+   - ``train_e2e_gan``: ``E2EGanTask`` at batch 4 (the trunk bf16; the
+     generator, the discriminators and the STFT f32), 3 steps of stage 1
+     (the trunk frozen bit for bit, K1 without a gradient) and 2 of stage
+     2 (K1 12 times with a gradient), the five losses a step;
+   - ``train_vocoder``: ``VocoderModel.train_step`` at 64 x 8320 samples,
+     6 steps, the EMA moved; one step at batch 2 against the CPU (1e-4).
+   ``check_flash_grad`` holds K1's gradient at Conformer-L too.
 
 Prints JSON lines with the kernel checks and the phases, the smoke's own
 wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
@@ -82,6 +99,9 @@ training phases.
 
 ``python3 chip_smoke.py --speech`` runs only K1's speech cases and the five
 speech phases.
+
+``python3 chip_smoke.py --speech-train`` runs only K1's Conformer-L
+gradient case and the four speech training phases.
 
 ``python3 chip_smoke.py --digests`` runs only the AVSR serving phases and
 prints their output digests as one JSON line: copied into an older tree
@@ -387,29 +407,52 @@ def train_prompt_len() -> int:
     return INSTRUCTION + AVSRConfig().max_queries + TRAIN_LABELS
 
 
-def check_flash_grad(results):
+def flash_grad_cases() -> list:
+    """K1 with its gradient at the training shapes: (name, [B, H, T, D],
+    causal).  The LLaMA trunk's prompt in ``train_avsr_flash`` (left pads,
+    causal) and at 512 slots; the Conformer-L self-attention of the speech
+    training phases (keys to the 1600 frames of 16 s in the 2400-frame
+    buffer, no causal mask)."""
+    return [("trunk", (BATCH, 24, train_prompt_len(), 128), True),
+            ("trunk", (BATCH, 24, 512, 128), True),
+            (CONFORMER_GRAD, (BATCH, 8, 2400, 64), False)]
+
+
+CONFORMER_GRAD = "conformer_l"
+
+
+def check_flash_grad(results, only=None):
     """K1 through its autograd Function against the plain version under
-    autograd: out and dq, dk, dv.  ``ms`` is K1's forward (inputs saved),
-    ``plain_ms`` the plain forward under autograd, ``bound_ms`` the
-    forward's; ``bwd_ms`` the backward (the plain recompute), ``step_ms``
-    forward + backward beside ``plain_step_ms`` and ``step_bound_ms``, and
-    ``library_ms`` SDPA's forward + backward."""
+    autograd, at ``flash_grad_cases()`` (those named ``only``): out and dq,
+    dk, dv.  ``ms`` is K1's forward (inputs saved), ``plain_ms`` the plain
+    forward under autograd, ``bound_ms`` the forward's; ``bwd_ms`` the
+    backward (the plain recompute), ``step_ms`` forward + backward beside
+    ``plain_step_ms`` and ``step_bound_ms``, ``library_ms`` SDPA's forward +
+    backward, and ``recompute_peak_gib`` the memory forward + backward
+    allocate above their inputs."""
     import torch
     import torch.nn.functional as F
 
     from multimodalvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 
     g = torch.Generator(device=DEV).manual_seed(13)
-    for t in (train_prompt_len(), 512):
-        b, h, d = BATCH, 24, 128
-        starts = torch.randint(0, t // 3, (b,), generator=g, device=DEV).to(torch.int32)
-        starts[0] = 0
-        lens = torch.full((b,), t, dtype=torch.int32, device=DEV)
+    for case, (b, h, t, d), causal in flash_grad_cases():
+        if only is not None and case not in only:
+            continue
+        if causal:
+            starts = torch.randint(0, t // 3, (b,), generator=g, device=DEV).to(torch.int32)
+            starts[0] = 0
+            lens = torch.full((b,), t, dtype=torch.int32, device=DEV)
+        else:
+            starts = torch.zeros((b,), dtype=torch.int32, device=DEV)
+            lens = torch.full((b,), 2 * t // 3, dtype=torch.int32, device=DEV)
         q, k, v, cot = (torch.randn(b, h, t, d, generator=g, device=DEV).to(torch.bfloat16)
                         for _ in range(4))
         col = torch.arange(t, device=DEV)
         allowed = ((col[None, None, :] >= starts[:, None, None])
-                   & (col[None, None, :] <= col[None, :, None]))
+                   & (col[None, None, :] < lens[:, None, None])).expand(-1, t, -1)
+        if causal:
+            allowed = allowed & (col[None, None, :] <= col[None, :, None])
 
         def run(fn, backward=True):
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -419,10 +462,16 @@ def check_flash_grad(results):
             dq, dk, dv = torch.autograd.grad(out, leaves, cot)
             return out, dq, dk, dv
 
-        kernel = lambda *a: flash_attention(*a, lens, True, None, starts)  # noqa: E731
-        plain = lambda *a: flash_attention_plain(*a, lens, True, None, starts)  # noqa: E731
+        kernel = lambda *a: flash_attention(*a, lens, causal, None, starts)  # noqa: E731
+        plain = lambda *a: flash_attention_plain(*a, lens, causal, None, starts)  # noqa: E731
         sdpa = lambda *a: F.scaled_dot_product_attention(*a, attn_mask=allowed[:, None])  # noqa: E731
-        got, want = run(kernel), run(plain)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = run(kernel)
+        torch.cuda.synchronize()
+        recompute_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        want = run(plain)
         torch.cuda.synchronize()
         rel_out = rel_l2(got[0], want[0])
         name = f"flash_attention/grad/{b}x{h}x{t}x{d}"
@@ -434,6 +483,8 @@ def check_flash_grad(results):
                                    f"(rel_l2 {rel_l2(a, c):.3e}); it must be the same recompute")
         if not all(bool(torch.isfinite(x).all()) for x in got):
             raise SmokeFailure(f"{name}: non-finite output or gradient")
+        err = max_err(got[0], want[0])
+        del got, want
         # the forward: QK^T and PV, 4 h d flops a key pair, q k v read and out
         # written once; forward + backward adds the recompute's forward and
         # backward (QK^T, PV; dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T
@@ -443,11 +494,12 @@ def check_flash_grad(results):
         step = bound(fwd_moved + nbytes(cot) + 3 * nbytes(q), (4 + 12) * h * d * pairs)
         fwd_ms = time_ms(lambda: run(kernel, backward=False))
         step_ms = time_ms(lambda: run(kernel))
-        record(results, name, max_err(got[0], want[0]), FLASH_TOL, ms=fwd_ms,
-               plain_ms=time_ms(lambda: run(plain, backward=False)), bwd_ms=step_ms - fwd_ms,
-               step_ms=step_ms, plain_step_ms=time_ms(lambda: run(plain)),
+        record(results, name, err, FLASH_TOL, ms=fwd_ms, plain_ms=time_ms(lambda: run(plain, backward=False)),
+               bwd_ms=step_ms - fwd_ms, step_ms=step_ms, plain_step_ms=time_ms(lambda: run(plain)),
                step_bound_ms=step["bound_ms"], library_ms=time_ms(lambda: run(sdpa)),
-               out_rel_l2=rel_out, **bound(fwd_moved, 4 * h * d * pairs))
+               out_rel_l2=rel_out, recompute_peak_gib=recompute_peak,
+               **bound(fwd_moved, 4 * h * d * pairs))
+        torch.cuda.empty_cache()
 
 
 def _int8_kv(shape, g):
@@ -1521,11 +1573,11 @@ def step_gradients(trainer, batch, seed=9):
                       for g, p in zip(grads, trainer.params.values())])
 
 
-def gradient_gate(trainer, batch) -> dict:
-    """The flash trunk's step-1 gradients against the same step with K1's
-    plain version (``plain_versions()``), gated at the noise floor this run
-    measures: the relative L2 by which one bf16 ulp on every 9973rd audio
-    feature moves them, times FLOOR_MARGIN, and at least REL_TOL."""
+def gradient_gate(trainer, batch, name: str = "train_avsr_flash") -> dict:
+    """The step-1 gradients against the same step with K1's plain version
+    (``plain_versions()``), gated at the noise floor this run measures: the
+    relative L2 by which one bf16 ulp on every 9973rd audio feature moves
+    them, times FLOOR_MARGIN, and at least REL_TOL."""
     nudged = dict(batch)
     nudged["audio_feats"] = batch["audio_feats"].clone()
     flat = nudged["audio_feats"].view(-1)
@@ -1538,8 +1590,7 @@ def gradient_gate(trainer, batch) -> dict:
     print(f"    step-1 gradients, K1 vs plain: rel_l2={rel:.3e}; noise floor (one bf16 ulp on "
           f"0.01% of the audio features) {floor:.3e}, gate {tol:.3e}")
     if not rel <= tol:
-        raise SmokeFailure(f"train_avsr_flash: step-1 gradients {rel:.3e} from plain K1 "
-                           f"(gate {tol:.3e})")
+        raise SmokeFailure(f"{name}: step-1 gradients {rel:.3e} from plain K1 (gate {tol:.3e})")
     return {"grad_rel_l2": rel, "noise_floor_rel_l2": floor, "tol_rel_l2": tol}
 
 
@@ -1927,6 +1978,391 @@ def speech_phases(table, checks) -> dict:
     return phases
 
 
+# ---- speech training -------------------------------------------------------------
+
+
+# The speech training phases: the NoLLM and LLM-conditioned heads through
+# Trainer (conf/mms-speech-nollm.yaml's and conf/mms-llama-speech.yaml's
+# optimizer, warmup cut to TRAIN_WARMUP), the E2E GAN trainer
+# (conf/mms-speech-nollm-e2e.yaml: batch 4, stage 1 then stage 2) and the
+# vocoder's GAN step (conf/hifigan-vocoder.yaml: batch 64 x 8320 samples).
+SPEECH_TRAIN_STEPS, E2E_BATCH, E2E_STAGE_STEPS = 6, 4, (3, 2)
+VOCODER_BATCH, VOCODER_STEPS, VOCODER_CPU_BATCH, VOCODER_CPU_TOL = 64, 6, 2, 1e-4
+# K1 a training step: 48 forward-only launches in the frozen encoders, 12
+# through FlashAttentionGrad in the Conformer-L (none in stage 1 of the E2E
+# GAN, where the trunk is frozen)
+CONFORMER_GRAD_LAUNCHES = CONFORMER_FLASH
+
+
+def seeded_waveform(b: int, n: int, seed: int):
+    """[b, n] f32 on the card: random speech-band noise at 0.1 from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return 0.1 * torch.randn(b, n, generator=g, device=DEV)
+
+
+def make_speech_train_batch(rows: int = 0, waveform: bool = False):
+    """The speech batch (``make_speech_batch``'s first ``rows`` rows, all
+    BATCH by default, 16 s a
+    clip) with its target mels: ``hifigan_log_mel`` of a seeded waveform of
+    the clips' 256000 samples [rows, 1600, 128], and with ``waveform`` the
+    waveform itself [rows, 256000, 1] (the E2E GAN's target)."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.stft import hifigan_log_mel
+
+    rows = rows or BATCH
+    batch = {k: v[:rows] if k != "modality_mode" else v for k, v in make_speech_batch().items()}
+    wav = seeded_waveform(rows, SECONDS * 16000, seed=7)
+    with torch.no_grad():
+        batch["target_mel"] = hifigan_log_mel(wav)
+    batch["target_mel_lengths"] = torch.full((rows,), SECONDS * 100, dtype=torch.int32,
+                                             device=DEV)
+    if waveform:
+        batch["waveform"] = wav[..., None]
+    del batch["modality_mode"]  # the task draws it
+    return batch
+
+
+class GradLaunches:
+    """Counts the K1 launches that go through ``FlashAttentionGrad`` (a launch
+    with a gradient) while it is entered."""
+
+    def __enter__(self):
+        from multimodalvc_tpu_torch.ops import attention
+
+        self.n, apply = 0, attention.FlashAttentionGrad.apply
+
+        def counted(*args):
+            self.n += 1
+            return apply(*args)
+
+        self._patch = mock.patch.object(attention.FlashAttentionGrad, "apply", counted)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+
+def check_k1_launches(name, launches, grads, steps, grad_each) -> None:
+    """K1 SPEECH_FLASH times a step, ``grad_each`` of them with a gradient;
+    no other kernel."""
+    want = {"flash_attention": SPEECH_FLASH * steps}
+    wrong = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
+    if wrong or grads != grad_each * steps:
+        raise SmokeFailure(f"{name}: launches (got, expected) {wrong}, {grads} through "
+                           f"FlashAttentionGrad (expected {grad_each * steps})")
+
+
+def module_snapshot(module, names=None) -> dict:
+    """Clones of ``module``'s state_dict entries (those in ``names``)."""
+    return {n: x.clone() for n, x in module.state_dict().items() if names is None or n in names}
+
+
+def unchanged(name, module, before) -> None:
+    """Fails unless every entry of ``before`` is bit for bit the module's."""
+    import torch
+
+    now = module.state_dict()
+    moved = [n for n, x in before.items() if not torch.equal(now[n], x)]
+    if moved:
+        raise SmokeFailure(f"{name}: {len(moved)} frozen entries changed, e.g. {moved[:3]}")
+
+
+def step_split(trainer, batch) -> dict:
+    """One more step of ``trainer``, its stages timed apart (each ends in a
+    synchronise): the encoders and the Q-Former (no gradient but the
+    Q-Former's), the whole training forward, the backward with K1's
+    recompute inside it timed on its own, and the optimizer."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import attention
+    from multimodalvc_tpu_torch.runtime.trainer import copy_masters_
+
+    module, gen = trainer.module, torch.Generator(device=DEV).manual_seed(11)
+    _, enc_s = wall(lambda: module.encoder(batch["audio_feats"], batch["video"],
+                                           batch["video_lengths"], dropout_rng=gen,
+                                           modality_mode=batch.get("modality_mode")))
+    (loss, _), fwd_s = wall(lambda: trainer.loss_fn(batch, gen))
+    recompute, backward = [], attention.FlashAttentionGrad.backward
+
+    def timed(ctx, g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = backward(ctx, g)
+        torch.cuda.synchronize()
+        recompute.append(time.perf_counter() - t0)
+        return out
+
+    names = list(trainer.params)
+    with mock.patch.object(attention.FlashAttentionGrad, "backward", staticmethod(timed)):
+        got, bwd_s = wall(lambda: torch.autograd.grad(loss, [trainer.params[n] for n in names],
+                                                      allow_unused=True))
+    grads = {n: torch.zeros_like(trainer.master[n]) if x is None else x.float()
+             for n, x in zip(names, got)}
+    del got, loss
+
+    def update():
+        trainer.optimizer.update(grads, trainer.master)
+        copy_masters_(trainer.params, trainer.master)
+
+    _, opt_s = wall(update)
+    return {"encoders_s": enc_s, "forward_s": fwd_s, "head_forward_s": fwd_s - enc_s,
+            "backward_s": bwd_s, "k1_recompute_s": sum(recompute),
+            "k1_recomputes": len(recompute), "optimizer_s": opt_s}
+
+
+def train_speech_phase(table, variant: str) -> dict:
+    """SpeechTask(variant) -> Trainer at full width (bf16, seed 0), the
+    step-1 gradients gated against K1 plain first, then SPEECH_TRAIN_STEPS
+    steps on one batch, its modality mode drawn a step as the task draws
+    it; with every launch count 0 before the first step and read after the
+    last.  Checks: K1 SPEECH_FLASH times a step, 12 of them with a
+    gradient; the frozen leaves bit for bit; every Conformer running
+    statistic moved; the losses finite and the last below the first.  Then
+    one step timed by stage (``step_split``)."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+    from multimodalvc_tpu_torch.tasks import SpeechTask, SpeechTaskConfig
+
+    name = f"train_speech_{variant}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    task = SpeechTask(SpeechTaskConfig(variant=variant), speech_config(), dtype=torch.bfloat16,
+                      device=DEV)
+    task.init_random(SPEECH_SEED)
+    opt = OptimizationConfig(lr=2e-4, lr_scheduler="cosine", warmup_updates=TRAIN_WARMUP,
+                             max_update=60000, clip_norm=1.0)
+    trainer = Trainer(task.make_loss_fn(), task.module, opt, task.frozen_patterns())
+    raw = make_speech_train_batch()
+    print(f"  {name}: built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in trainer.master.values())} trainable of "
+          f"{sum(p.numel() for p in task.module.parameters())} parameters")
+    record = {}
+    buffers = module_snapshot(task.module, {n for n, _ in task.module.named_buffers()})
+    gate_batch = {**task.prepare_batch(raw, train=False),
+                  "modality_mode": torch.tensor(0, dtype=torch.int32, device=DEV)}
+    record.update(gradient_gate(trainer, gate_batch, name))
+    with torch.no_grad():  # the gate's training forwards moved the running statistics
+        for n, b in task.module.named_buffers():
+            if n in buffers:
+                b.copy_(buffers[n])
+    frozen = module_snapshot(task.module, {n for n, _ in task.module.named_parameters()
+                                           if n not in trainer.master})
+    stats = {n: x for n, x in buffers.items() if ".conformer." in n and "running_" in n}
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls, modes = [], [], []
+    reset_counts(table)
+    with GradLaunches() as grads:
+        for step in range(SPEECH_TRAIN_STEPS):
+            batch = task.prepare_batch(raw)
+            modes.append(int(batch["modality_mode"]))
+            m, t_step = wall(lambda: trainer.train_step(batch))
+            metrics.append(m)
+            walls.append(t_step)
+            print(f"    step {step + 1} (mode {modes[-1]}): mel L1 {m['mel_l1']:.4f} gnorm "
+                  f"{m['gnorm']:.3e} {1e3 * t_step:.1f} ms")
+    launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_k1_launches(name, launches, grads.n, SPEECH_TRAIN_STEPS, CONFORMER_GRAD_LAUNCHES)
+    unchanged(name, task.module, frozen)
+    now = task.module.state_dict()
+    still = [n for n, x in stats.items() if torch.equal(now[n], x)]
+    if not stats or still:
+        raise SmokeFailure(f"{name}: running statistics that did not move: {still[:3]}")
+    losses = [m["mel_l1"] for m in metrics]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"{name}: mel L1 {losses} (finite, the last below the first)")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    split = step_split(trainer, batch)
+    record.update(mel_l1=losses, modes=modes, step_ms=[1e3 * x for x in walls],
+                  mean_step_ms=1e3 * step_s, audio_s_per_s=BATCH * SECONDS / step_s,
+                  peak_gib=peak, launches=launches, k1_launches_a_step=SPEECH_FLASH,
+                  k1_grad_launches_a_step=grads.n // SPEECH_TRAIN_STEPS, split=split,
+                  frozen_leaves=len(frozen), trainable_leaves=len(trainer.master))
+    print(f"  phase {name}: {1e3 * step_s:.1f} ms a step (steps 2-{SPEECH_TRAIN_STEPS}), "
+          f"{BATCH * SECONDS / step_s:.1f} audio s trained a second, peak {peak:.2f} GiB, K1 "
+          f"{SPEECH_FLASH} a step ({grads.n // SPEECH_TRAIN_STEPS} with a gradient); split "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if k.endswith("_s")))
+    del task, trainer, frozen, buffers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def gan_stage(table, task, batch_raw, name, steps, grad_each) -> dict:
+    """``steps`` E2E GAN steps of ``task.make_trainer()`` on one batch, the
+    launch counts 0 before the first and read after the last: the five
+    losses a step, K1's launches, the leaves that must not move bit for bit
+    (the frozen ones) and those that must (the generator's, the
+    discriminators')."""
+    import torch
+
+    trainer = task.make_trainer(seed=0)
+    frozen = module_snapshot(task.model, {n for n, _ in task.model.named_parameters()
+                                          if n not in trainer.gen_master})
+    gen0 = {n: m.clone() for n, m in trainer.gen_master.items()}
+    disc0 = {n: m.clone() for n, m in trainer.disc_master.items()}
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = [], []
+    reset_counts(table)
+    with GradLaunches() as grads:
+        for step in range(steps):
+            batch = task.prepare_batch(batch_raw)
+            m, t_step = wall(lambda: trainer.train_step(batch))
+            metrics.append(m)
+            walls.append(t_step)
+            print(f"    {name} step {step + 1} (mode {int(batch['modality_mode'])}): "
+                  + " ".join(f"{k} {v:.4f}" for k, v in m.items()) + f" {1e3 * t_step:.1f} ms")
+    launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_k1_launches(name, launches, grads.n, steps, grad_each)
+    unchanged(name, task.model, frozen)
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise SmokeFailure(f"{name}: non-finite losses {metrics}")
+    for side, start, now in (("generator", gen0, trainer.gen_master),
+                             ("discriminators", disc0, trainer.disc_master)):
+        if all(torch.equal(now[n], x) for n, x in start.items()):
+            raise SmokeFailure(f"{name}: the {side} did not move")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    moved = sorted({n.split(".")[0] + "." + n.split(".")[1] for n in trainer.gen_master})
+    print(f"  phase {name}: {1e3 * step_s:.1f} ms a step (steps 2-{steps}), "
+          f"{E2E_BATCH * SECONDS / step_s:.1f} audio s trained a second, peak {peak:.2f} GiB, "
+          f"K1 {SPEECH_FLASH} a step ({grads.n // steps} with a gradient), training {moved}")
+    out = {"losses": metrics, "step_ms": [1e3 * x for x in walls], "mean_step_ms": 1e3 * step_s,
+           "audio_s_per_s": E2E_BATCH * SECONDS / step_s, "peak_gib": peak,
+           "launches": launches, "k1_grad_launches_a_step": grads.n // steps,
+           "trainable_leaves": len(trainer.gen_master), "frozen_leaves": len(frozen)}
+    del trainer
+    return out
+
+
+def train_e2e_gan_phase(table) -> dict:
+    """E2EGanTask at full width (the trunk bf16; the generator, the
+    discriminators and the STFT f32; seed 0): E2E_STAGE_STEPS[0] steps of
+    stage 1 (the trunk frozen: K1 without a gradient), then
+    E2E_STAGE_STEPS[1] of stage 2 (the encoders frozen: the Conformer's 12
+    K1 launches with a gradient), batch E2E_BATCH x 16 s, waveform [4,
+    256000, 1]."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.tasks import E2EGanTask, E2EGanTaskConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    task = E2EGanTask(E2EGanTaskConfig(stage1_freeze=True), speech_config(), dtype=torch.bfloat16,
+                      device=DEV)
+    task.init_random(SPEECH_SEED)
+    raw = make_speech_train_batch(E2E_BATCH, waveform=True)
+    print(f"  train_e2e_gan: built in {time.perf_counter() - t0:.1f} s")
+    record = {"stage1": gan_stage(table, task, raw, "train_e2e_gan/stage1", E2E_STAGE_STEPS[0], 0)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    task.cfg.stage1_freeze = False
+    record["stage2"] = gan_stage(table, task, raw, "train_e2e_gan/stage2", E2E_STAGE_STEPS[1],
+                                 CONFORMER_GRAD_LAUNCHES)
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def train_vocoder_phase(table) -> dict:
+    """VocoderModel's GAN step at full width (conf/hifigan-vocoder.yaml, f32,
+    seed VOCODER_SEED): VOCODER_STEPS steps on VOCODER_BATCH x 8320 samples
+    (mels from hifigan_log_mel), every loss finite, the EMA moved, no kernel
+    launched; then one step at VOCODER_CPU_BATCH rows on the card and on the
+    CPU from the same state (TF32 off), the losses and the updated
+    generator within VOCODER_CPU_TOL relative L2."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.models.vocoder import VocoderConfig, VocoderModel
+    from multimodalvc_tpu_torch.ops.stft import hifigan_log_mel
+
+    cfg = VocoderConfig()
+    voc = VocoderModel(cfg, device=DEV)
+    voc.init_random(VOCODER_SEED)
+    voc.init_state(VOCODER_SEED)
+    wav = seeded_waveform(VOCODER_BATCH, cfg.segment_length, seed=8)
+    with torch.no_grad():
+        batch = {"mel": hifigan_log_mel(wav), "wav": wav[..., None]}
+    cpu_batch = {k: v[:VOCODER_CPU_BATCH] for k, v in batch.items()}
+    # the card-versus-CPU step first, from the fresh state
+    cpu = VocoderModel(cfg, device="cpu")
+    cpu.init_state(VOCODER_SEED)
+    cpu.generator.load_state_dict({k: x.cpu() for k, x in voc.generator.state_dict().items()})
+    cpu.discriminator.load_state_dict({k: x.cpu() for k, x in
+                                       voc.discriminator.state_dict().items()})
+    cpu.reset_optimizers()
+    state = {k: v for k, v in voc.state_dict().items()}
+    saved = {"generator": {n: x.clone() for n, x in state["generator"].items()},
+             "discriminator": {n: x.clone() for n, x in state["discriminator"].items()}}
+    card_m = voc.train_step(cpu_batch)
+    cpu_m = cpu.train_step({k: v.cpu() for k, v in cpu_batch.items()})
+    flat = lambda d: torch.cat([x.double().reshape(-1).cpu() for x in d.values()])  # noqa: E731
+    gen_rel = rel_l2(flat(voc.gen_master), flat(cpu.gen_master))
+    loss_rel = max(abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in cpu_m)
+    print(f"    vocoder step at batch {VOCODER_CPU_BATCH}, card vs CPU: losses rel "
+          f"{loss_rel:.3e}, updated generator rel_l2 {gen_rel:.3e} (tol {VOCODER_CPU_TOL:g})")
+    if not (gen_rel <= VOCODER_CPU_TOL and loss_rel <= VOCODER_CPU_TOL):
+        raise SmokeFailure(f"train_vocoder: the card's step is {gen_rel:.3e} / {loss_rel:.3e} "
+                           "from the CPU's")
+    del cpu
+    # back to the fresh state for the timed steps
+    with torch.no_grad():
+        for key, module in (("generator", voc.generator), ("discriminator", voc.discriminator)):
+            module.load_state_dict({**module.state_dict(), **saved[key]})
+    voc.reset_optimizers()
+    ema0 = {n: e.clone() for n, e in voc.ema.items()}
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = [], []
+    reset_counts(table)
+    for step in range(VOCODER_STEPS):
+        m, t_step = wall(lambda: voc.train_step(batch))
+        metrics.append(m)
+        walls.append(t_step)
+        print(f"    train_vocoder step {step + 1}: " + " ".join(f"{k} {v:.4f}" for k, v in m.items())
+              + f" {1e3 * t_step:.1f} ms")
+    launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(launches.values()):
+        raise SmokeFailure(f"train_vocoder: kernels launched {launches}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise SmokeFailure(f"train_vocoder: non-finite losses {metrics}")
+    if all(torch.equal(voc.ema[n], e) for n, e in ema0.items()):
+        raise SmokeFailure("train_vocoder: the EMA did not move")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    audio = VOCODER_BATCH * cfg.segment_length / cfg.sample_rate
+    print(f"  phase train_vocoder: {1e3 * step_s:.1f} ms a step (steps 2-{VOCODER_STEPS}), "
+          f"{audio / step_s:.1f} audio s trained a second, peak {peak:.2f} GiB")
+    del voc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": metrics, "step_ms": [1e3 * x for x in walls], "mean_step_ms": 1e3 * step_s,
+            "audio_s_per_s": audio / step_s, "peak_gib": peak, "launches": launches,
+            "cpu_loss_rel": loss_rel, "cpu_generator_rel_l2": gen_rel}
+
+
+def speech_train_phases(table) -> dict:
+    """The four speech training phases, each model freed before the next."""
+    return {"train_speech_nollm": train_speech_phase(table, "nollm"),
+            "train_speech_llm": train_speech_phase(table, "llm"),
+            "train_e2e_gan": train_e2e_gan_phase(table),
+            "train_vocoder": train_vocoder_phase(table)}
+
+
 def check_output(name, seqs, scores, vocab, new_tokens, beams=BEAMS):
     import torch
 
@@ -2011,7 +2447,8 @@ def output_digest(phase, name, *tensors) -> None:
 
 
 def rel_l2(a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm())
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
 
 
 def compare(out, name, got, want, tol):
@@ -3022,6 +3459,15 @@ def main() -> int:
         print(json.dumps({"cases": results, "phases": phases, "checks": checks}))
         print(card)
         return 0
+    if "--speech-train" in sys.argv[1:]:
+        results = []
+        check_flash_grad(results, only=[CONFORMER_GRAD])
+        phases = speech_train_phases(kernels())
+        print(json.dumps({"cases": results, "phases": phases}))
+        print(f"smoke --speech-train: {time.perf_counter() - start:.1f} s, the kernels' build "
+              "included")
+        print(card)
+        return 0
     if "--digests" in sys.argv[1:]:
         phases, _ = serving_phases(kernels(), make_batch())
         print(json.dumps({"digests": {name: p["output_sha256"] for name, p in phases.items()
@@ -3062,6 +3508,9 @@ def main() -> int:
     print(f"speech synthesis: SpeechConfig() full width (Conformer-L, HiFi-GAN), random weights "
           f"(seed {SPEECH_SEED}), batch {BATCH} x {SECONDS} s, bf16")
     phases.update(speech_phases(table, checks))
+    print(f"speech training: SpeechConfig() full width, batch {BATCH} x {SECONDS} s (E2E "
+          f"{E2E_BATCH}), bf16 trunk; the vocoder f32 at {VOCODER_BATCH} x 8320 samples")
+    phases.update(speech_train_phases(table))
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():

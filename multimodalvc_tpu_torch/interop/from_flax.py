@@ -14,9 +14,13 @@ state_dict key by joining with dots; only the leaf names and layouts change:
 - BatchNorm running statistics (``batch_stats`` ``mean`` / ``var``)
                                           -> ``running_mean`` / ``running_var``
                                              (+ ``num_batches_tracked`` = 0)
-- Weight-normalized conv ``v`` (and only a leaf named ``v``, always of rank
-  3): Conv1d [K, I/g, O] -> [O, I/g, K], ConvTranspose1d [K, O, I] ->
-  [I, O, K] (one transpose for both); its ``g`` keeps its layout.
+- Weight-normalized conv ``v`` (and only a leaf named ``v``): Conv1d
+  [K, I/g, O] -> [O, I/g, K], ConvTranspose1d [K, O, I] -> [I, O, K] (one
+  transpose for both), Conv2d [kH, kW, I, O] -> [O, I, kH, kW]; its ``g``
+  keeps its layout.  A spectral-normalized conv's ``v`` moves the same way.
+- The ``spectral`` collection's ``u`` [O] and ``v`` [K * I/g] (the power
+  iteration's vectors) -> the buffers ``sn_u`` and ``sn_v``, ``v``
+  reordered from the flax flattening (K, I/g) to torch's (I/g, K).
 - LoRA ``lora_a`` [in, r] / ``lora_b`` [r, out], ``sr_token``,
   ``query_tokens``, ``light_weights`` [H, K], ``audio_mask_emb``,
   ``video_mask_emb`` and the generator's ``lut`` keep their names and
@@ -48,9 +52,11 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
 
 def _convert(name: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
     if name == "v":
-        if x.ndim != 3:
-            raise ValueError(f"weight-norm v of rank {x.ndim} (only 1-D convs are ported)")
-        return "v", x.transpose(2, 1, 0)
+        if x.ndim == 3:
+            return "v", x.transpose(2, 1, 0)
+        if x.ndim == 4:
+            return "v", x.transpose(3, 2, 0, 1)
+        raise ValueError(f"weight-norm v of rank {x.ndim}")
     if name == "kernel":
         if x.ndim == 2:
             return "weight", x.T
@@ -68,9 +74,17 @@ def _tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+def _sn_order(v: np.ndarray, kernel_shape, to_torch: bool) -> np.ndarray:
+    """A spectral ``v`` vector between the flax order (K, I/g) and torch's
+    (I/g, K), for a conv kernel of torch shape [O, I/g, K]."""
+    _, i, k = kernel_shape
+    return (v.reshape(k, i).T if to_torch else v.reshape(i, k).T).reshape(-1)
+
+
 def flax_to_state_dict(variables: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Convert ``{"params": ..., "batch_stats": ...}`` to a state_dict whose
-    keys are the module paths joined by dots (``prefix`` is prepended)."""
+    """Convert ``{"params": ..., "batch_stats": ..., "spectral": ...}`` to a
+    state_dict whose keys are the module paths joined by dots (``prefix`` is
+    prepended)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, x in _leaves(variables.get("params", {})):
         name, y = _convert(path[-1], x)
@@ -79,6 +93,11 @@ def flax_to_state_dict(variables: Mapping[str, Any], prefix: str = "") -> Dict[s
         base = prefix + ".".join(path[:-1])
         sd[f"{base}.{_STATS[path[-1]]}"] = _tensor(x)
         sd[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    for path, x in _leaves(variables.get("spectral", {})):
+        base = prefix + ".".join(path[:-1])
+        if path[-1] == "v":
+            x = _sn_order(x, sd[f"{base}.v"].shape, to_torch=True)
+        sd[f"{base}.sn_{path[-1]}"] = _tensor(x)
     return sd
 
 
@@ -105,7 +124,7 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
             x = x.T if x.ndim == 2 else x.transpose(2, 1, 0) if x.ndim == 3 else \
                 x.transpose(2, 3, 1, 0)
         elif name == "v":
-            x = x.transpose(2, 1, 0)
+            x = x.transpose(2, 1, 0) if x.ndim == 3 else x.transpose(2, 3, 1, 0)
         return x
 
     def walk(tree, prefix):
@@ -119,13 +138,26 @@ def state_dict_to_flax_variables(sd: Mapping[str, torch.Tensor],
                                  template: Mapping[str, Any]) -> Dict[str, Any]:
     """``state_dict_to_flax`` for a whole variables tree: ``{"params": ...}``
     and, where ``template`` has them, the BatchNorm ``batch_stats`` (``mean``
-    / ``var`` from ``running_mean`` / ``running_var``)."""
+    / ``var`` from ``running_mean`` / ``running_var``) and the ``spectral``
+    vectors (``u`` / ``v`` from ``sn_u`` / ``sn_v``, ``v`` back in the flax
+    order)."""
     out = {"params": state_dict_to_flax(sd, template["params"])}
-    if "batch_stats" in template:
-        def walk(tree, prefix):
-            return {k: walk(v, prefix + (str(k),)) if isinstance(v, Mapping) else
-                    sd[".".join(prefix + (_STATS[str(k)],))].detach().cpu().numpy()
-                    for k, v in tree.items()}
 
-        out["batch_stats"] = walk(template["batch_stats"], ())
+    def stat(path):
+        return sd[".".join(path[:-1] + (_STATS[path[-1]],))]
+
+    def spectral(path):
+        base = ".".join(path[:-1])
+        x = sd[f"{base}.sn_{path[-1]}"].detach().cpu().numpy()
+        return _sn_order(x, sd[f"{base}.v"].shape, to_torch=False) if path[-1] == "v" else x
+
+    def walk(tree, prefix, leaf):
+        return {k: walk(v, prefix + (str(k),), leaf) if isinstance(v, Mapping) else
+                np.asarray(leaf(prefix + (str(k),))) for k, v in tree.items()}
+
+    if "batch_stats" in template:
+        out["batch_stats"] = walk(template["batch_stats"], (),
+                                  lambda p: stat(p).detach().cpu().numpy())
+    if "spectral" in template:
+        out["spectral"] = walk(template["spectral"], (), spectral)
     return out

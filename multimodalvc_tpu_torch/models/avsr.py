@@ -249,6 +249,14 @@ def assemble_left_padded(
     return out, mask, labels
 
 
+def train_rng(train: bool, generator: Optional[torch.Generator]):
+    """The generator a forward draws its dropout from: ``generator`` in
+    training (which needs one), None in evaluation."""
+    if train and generator is None:
+        raise ValueError("a training forward draws its dropout from a torch.Generator")
+    return generator if train else None
+
+
 class AVSRModel(nn.Module):
     """Encoder + prompt assembly + the LLaMA trunk (the flax AVSRModel tree)."""
 
@@ -281,7 +289,7 @@ class AVSRModel(nn.Module):
         over the label slots and aux's logits, labels, hidden, attn_mask,
         query_lens, n_correct, n_valid.  ``train`` draws the dropout (the
         Q-Former's and LoRA's) from ``generator``."""
-        rng = self._dropout_rng(train, generator)
+        rng = train_rng(train, generator)
         queries, query_lens = self.encode_queries(batch, rng)
         emb, attn_mask, labels = self.build_prompt(queries, query_lens, batch, with_labels=True)
         out = self.llama(inputs_embeds=emb, attn_mask=attn_mask, dropout_rng=rng,
@@ -296,18 +304,12 @@ class AVSRModel(nn.Module):
         """Encoders + prompt assembly with the labels: (embeds, attn_mask,
         slot labels), the front half of ``forward``, for a caller that runs
         the LLaMA trunk itself (the JAX package's pipelined loss)."""
-        queries, query_lens = self.encode_queries(batch, self._dropout_rng(train, generator))
+        queries, query_lens = self.encode_queries(batch, train_rng(train, generator))
         return self.build_prompt(queries, query_lens, batch, with_labels=True)
 
     def prompt_for_generation(self, batch: Dict[str, torch.Tensor]):
         queries, query_lens = self.encode_queries(batch)
         return self.build_prompt(queries, query_lens, batch)
-
-    @staticmethod
-    def _dropout_rng(train: bool, generator: Optional[torch.Generator]):
-        if train and generator is None:
-            raise ValueError("a training forward draws its dropout from a torch.Generator")
-        return generator if train else None
 
 
 def merge_token_rows(rows, eos_token_id: int, pad_token_id: int, dedup: bool = True) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Speech synthesis: the LLM-conditioned, NoLLM and E2E speech heads.
 
-Port of ``multimodalvc_tpu/models/speech.py`` (inference):
+Port of ``multimodalvc_tpu/models/speech.py``:
 
 - ``SpeechLLMModel``: the AVSR front end and LLaMA without its unembed;
   the query slots' hidden states (``extract_query_hiddens``) drive the mel
@@ -19,6 +19,12 @@ at 100 Hz); row i is valid up to ``mel_lengths[i]`` = audio samples // 160.
 synthesize``: NoLLM mel, cut to each row's frames, then the vocoder.  On
 the card each system serves in bf16, as ``AVSRSystem`` does (K1 takes bf16
 only); ``device="cpu"`` runs the plain versions.
+
+Every module's ``forward(batch, train=False, generator=None)`` is also the
+training forward (the JAX ``deterministic=not train``): with ``train`` the
+Q-Former, the LLaMA's LoRA adapters and the Conformer drop, their masks
+drawn from ``generator``, and the Conformer's BatchNorm takes batch
+statistics (``nn/conformer.py``).  The modules stay in eval mode.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from ..nn.hifigan import HifiGanConfig, HifiGanGenerator
 from ..nn.init import init_random_
 from ..nn.llama import LlamaModel
 from ..ops.interpolate import linear_resize_batched
-from .avsr import AVSRConfig, AVSREncoder, assemble_left_padded
+from .avsr import AVSRConfig, AVSREncoder, assemble_left_padded, train_rng
 
 MEL_BINS = 128
 HOP = 160
@@ -108,13 +114,15 @@ class SpeechHead(nn.Module):
         if emit_mel:
             self.mel_head = nn.Linear(d, MEL_BINS, **kw)
 
-    def forward(self, tokens, token_lens, mel_lens):
+    def forward(self, tokens, token_lens, mel_lens, train: bool = False,
+                dropout_rng: Optional[torch.Generator] = None):
         """tokens [B, Q, in_dim] valid to token_lens -> [B, max_mel_frames,
         128 (or the Conformer's width)] valid to mel_lens."""
         x = self._norm("ln1", self.proj1(tokens))
         x = linear_resize_batched(x, token_lens, mel_lens, self.cfg.max_mel_frames)
         x = self._norm("ln2", self.proj2(x))
-        x = self._norm("ln3", self.conformer(x, lengths=mel_lens))
+        x = self._norm("ln3", self.conformer(x, lengths=mel_lens, train=train,
+                                             dropout_rng=dropout_rng))
         return self.mel_head(x) if self.emit_mel else x
 
     def _norm(self, name: str, x):
@@ -132,20 +140,23 @@ class SpeechLLMModel(nn.Module):
         self.llama = LlamaModel(cfg.llama, **kw)
         self.head = SpeechHead(cfg, cfg.llama.hidden_size, use_layer_norms=False, **kw)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
+        rng = train_rng(train, generator)
         queries, query_lens = self.encoder(batch["audio_feats"], batch["video"],
-                                           batch["video_lengths"])
+                                           batch["video_lengths"], dropout_rng=rng)
         dev = queries.device
         pad_emb = self.llama.embed(torch.tensor(cfg.pad_token_id, device=dev))
         inst_emb = self.llama.embed(batch["instruction"].long())
         emb, attn_mask = assemble_left_padded(pad_emb, inst_emb, queries.to(inst_emb.dtype),
                                               query_lens)
-        out = self.llama(inputs_embeds=emb, attn_mask=attn_mask, return_hidden=True,
-                         compute_logits=False)
+        out = self.llama(inputs_embeds=emb, attn_mask=attn_mask, dropout_rng=rng,
+                         return_hidden=True, compute_logits=False)
         av_hidden = extract_query_hiddens(out["hidden"], query_lens, cfg.max_queries)
         mel_lens = mel_lengths_from_samples(batch["audio_lengths"])
-        return {"melspec": self.head(av_hidden, query_lens, mel_lens), "mel_lengths": mel_lens}
+        return {"melspec": self.head(av_hidden, query_lens, mel_lens, train, rng),
+                "mel_lengths": mel_lens}
 
 
 class SpeechNoLLMModel(nn.Module):
@@ -161,19 +172,23 @@ class SpeechNoLLMModel(nn.Module):
         self.head = SpeechHead(cfg, cfg.llama.hidden_size, use_layer_norms=True,
                                emit_mel=emit_mel, **kw)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        rng = train_rng(train, generator)
         queries, query_lens = self.encoder(batch["audio_feats"], batch["video"],
-                                           batch["video_lengths"],
+                                           batch["video_lengths"], dropout_rng=rng,
                                            modality_mode=batch.get("modality_mode"))
         mel_lens = mel_lengths_from_samples(batch["audio_lengths"])
-        out = self.head(queries, query_lens, mel_lens)
+        out = self.head(queries, query_lens, mel_lens, train, rng)
         return {"melspec" if self.emit_mel else "features": out, "mel_lengths": mel_lens}
 
 
 class SpeechE2EModel(nn.Module):
     """NoLLM trunk (Conformer features) -> HiFi-GAN -> waveform [B,
     max_mel_frames * 160, 1]; the generator's conv_pre takes the head's
-    width (it is the head-to-vocoder adapter)."""
+    width (it is the head-to-vocoder adapter).  The generator may be kept
+    in another dtype than the trunk (the GAN trainer keeps it in f32 under a
+    bf16 trunk): the features are cast to it."""
 
     def __init__(self, cfg: SpeechConfig, vocoder: Optional[HifiGanConfig] = None,
                  device=None, dtype=None):
@@ -191,9 +206,11 @@ class SpeechE2EModel(nn.Module):
             upsample_initial_channel=voc.upsample_initial_channel,
         ), **kw)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        out = self.trunk(batch)
-        wav = self.generator(out["features"], lengths=out["mel_lengths"])
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        out = self.trunk(batch, train, generator)
+        features = out["features"].to(self.generator.conv_pre.v.dtype)
+        wav = self.generator(features, lengths=out["mel_lengths"])
         return {"waveform": wav, "mel_lengths": out["mel_lengths"]}
 
 

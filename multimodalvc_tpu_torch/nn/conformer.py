@@ -6,13 +6,21 @@ positions (the input scaled by sqrt(d)), a conv module with k = 31
 (depthwise, or the lightweight or dynamic variants of
 ``ops/dynamic_conv.py``) and BatchNorm + swish, LayerNorm eps 1e-12.
 
-Inference only: dropout is not applied and the BatchNorm runs on its
-running statistics, which it keeps in f32 with its affine (flax keeps its
-parameters in f32), whatever the module's dtype.  The residual stream runs
-in the module's dtype.  The self-attention is ``nn/layers.py:
+The mode follows the ``train`` argument, never ``module.train()``.  In
+evaluation the BatchNorm runs on its running statistics and nothing drops.
+In training (``train=True``) it takes flax's batch statistics: the mean and
+the biased variance (E[x^2] - E[x]^2, floored at 0) over every frame of the
+static buffer, padded frames included (the JAX BatchNorm sees no mask), used
+to normalise and to update the running statistics as ``ra = 0.9 ra + 0.1
+batch``; and ``dropout_rate`` drops, with masks drawn from ``dropout_rng``,
+at the JAX sites: after the positional encoding, inside each feed-forward,
+around each residual branch and on the attention output.  The BatchNorm
+keeps its statistics and its affine in f32 (flax keeps its parameters in
+f32) and computes in f32, whatever the module's dtype; the residual stream
+runs in the module's dtype.  The self-attention is ``nn/layers.py:
 MultiHeadAttention`` with the frame lengths as ``kv_lens``, so on the card
 it is the K1 kernel wherever ``use_flash`` takes it (Conformer-L: 8 heads
-of 64 over 2400 frames).
+of 64 over 2400 frames), with its gradient in training.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dynamic_conv import dynamic_conv, lightweight_conv
-from .layers import MultiHeadAttention, add_layers
+from .layers import MultiHeadAttention, add_layers, dropout
 
 CONV_TYPES = ("depthwise", "lightweight", "dynamic")
 
@@ -37,6 +45,7 @@ class ConformerConfig:
     attention_dim: int = 512
     attention_heads: int = 8
     linear_units: int = 2048
+    dropout_rate: float = 0.1
     cnn_kernel: int = 31
     macaron: bool = True
     normalize_before: bool = True
@@ -72,6 +81,18 @@ def positional_table(t: int, dim: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(espnet_positional_encoding(max(t, 1), dim)).to(device)
 
 
+def batch_norm_train_(h: torch.Tensor, norm: nn.BatchNorm1d, momentum: float = 0.9):
+    """flax ``BatchNorm(use_running_average=False)`` over f32 [B, T, C]: the
+    batch mean and biased variance over B x T normalise ``h``, and move
+    ``norm``'s running statistics (in place, no gradient) by ``momentum``."""
+    mean = h.mean(dim=(0, 1))
+    var = torch.clamp((h * h).mean(dim=(0, 1)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        norm.running_mean.copy_(momentum * norm.running_mean + (1.0 - momentum) * mean)
+        norm.running_var.copy_(momentum * norm.running_var + (1.0 - momentum) * var)
+    return (h - mean) * (torch.rsqrt(var + norm.eps) * norm.weight) + norm.bias
+
+
 def frame_mask(lengths: Optional[torch.Tensor], t: int, device) -> Optional[torch.Tensor]:
     """[B] lengths -> [B, t, 1] bool (True = valid frame), or None."""
     if lengths is None:
@@ -101,7 +122,7 @@ class ConformerConvModule(nn.Module):
         self.norm = nn.BatchNorm1d(d, eps=1e-5, device=device, dtype=torch.float32)
         self.pointwise_conv2 = nn.Linear(d, d, **kw)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None, train: bool = False):
         h = F.glu(self.pointwise_conv1(x), dim=-1)
         if mask is not None:
             # padded frames hold projection-bias values; the time conv would
@@ -116,19 +137,23 @@ class ConformerConvModule(nn.Module):
         else:
             h = self.depthwise_conv(h.transpose(1, 2)).transpose(1, 2)
         n = self.norm
-        h = F.batch_norm(h.float().transpose(1, 2), n.running_mean, n.running_var, n.weight,
-                         n.bias, training=False, eps=n.eps).transpose(1, 2).to(x.dtype)
+        if train:
+            h = batch_norm_train_(h.float(), n).to(x.dtype)
+        else:
+            h = F.batch_norm(h.float().transpose(1, 2), n.running_mean, n.running_var, n.weight,
+                             n.bias, training=False, eps=n.eps).transpose(1, 2).to(x.dtype)
         return self.pointwise_conv2(h * torch.sigmoid(h))
 
 
 class PositionwiseFF(nn.Module):
-    def __init__(self, d: int, hidden: int, device=None, dtype=None):
+    def __init__(self, d: int, hidden: int, dropout: float = 0.0, device=None, dtype=None):
         super().__init__()
+        self.dropout = dropout
         self.w_1 = nn.Linear(d, hidden, device=device, dtype=dtype)
         self.w_2 = nn.Linear(hidden, d, device=device, dtype=dtype)
 
-    def forward(self, x):
-        return self.w_2(F.relu(self.w_1(x)))
+    def forward(self, x, dropout_rng: Optional[torch.Generator] = None):
+        return self.w_2(dropout(F.relu(self.w_1(x)), self.dropout, dropout_rng))
 
 
 class ConformerBlock(nn.Module):
@@ -140,38 +165,45 @@ class ConformerBlock(nn.Module):
                 "which the port has not ported yet (ROADMAP queue 1, item 8)")
         kw = dict(device=device, dtype=dtype)
         d = cfg.attention_dim
-        self.macaron = cfg.macaron
+        self.macaron, self.dropout_rate = cfg.macaron, cfg.dropout_rate
         ln = lambda: nn.LayerNorm(d, eps=1e-12, **kw)  # noqa: E731
         if cfg.macaron:
             self.norm_ff_macaron = ln()
-            self.ff_macaron = PositionwiseFF(d, cfg.linear_units, **kw)
+            self.ff_macaron = PositionwiseFF(d, cfg.linear_units, cfg.dropout_rate, **kw)
         self.norm_mha = ln()
-        self.self_attn = MultiHeadAttention(d, cfg.attention_heads, **kw)
+        self.self_attn = MultiHeadAttention(d, cfg.attention_heads, dropout=cfg.dropout_rate,
+                                            **kw)
         self.norm_conv = ln()
         self.conv_module = ConformerConvModule(d, cfg.cnn_kernel, cfg.conv_type,
                                                cfg.attention_heads, **kw)
         self.norm_ff = ln()
-        self.ff = PositionwiseFF(d, cfg.linear_units, **kw)
+        self.ff = PositionwiseFF(d, cfg.linear_units, cfg.dropout_rate, **kw)
         self.norm_final = ln()
 
-    def forward(self, x, lengths: Optional[torch.Tensor] = None):
+    def forward(self, x, lengths: Optional[torch.Tensor] = None, train: bool = False,
+                dropout_rng: Optional[torch.Generator] = None):
+        def drop(h):
+            return dropout(h, self.dropout_rate, dropout_rng)
+
         if self.macaron:
-            x = x + 0.5 * self.ff_macaron(self.norm_ff_macaron(x))
-        x = x + self.self_attn(self.norm_mha(x), kv_lens=lengths)
-        x = x + self.conv_module(self.norm_conv(x), frame_mask(lengths, x.shape[1], x.device))
-        x = x + 0.5 * self.ff(self.norm_ff(x))
+            x = x + 0.5 * drop(self.ff_macaron(self.norm_ff_macaron(x), dropout_rng))
+        x = x + drop(self.self_attn(self.norm_mha(x), kv_lens=lengths, dropout_rng=dropout_rng))
+        x = x + drop(self.conv_module(self.norm_conv(x), frame_mask(lengths, x.shape[1], x.device),
+                                      train))
+        x = x + 0.5 * drop(self.ff(self.norm_ff(x), dropout_rng))
         return self.norm_final(x)
 
 
 class ConformerEncoder(nn.Module):
     """[B, T, in_dim] -> [B, T, attention_dim]; ``input_proj`` only where the
     widths differ.  ``lengths`` [B] masks the attention's keys and the conv
-    module's input past each row's frames."""
+    module's input past each row's frames.  ``train`` selects the BatchNorm's
+    batch statistics; ``dropout_rng`` (training) draws the dropout."""
 
     def __init__(self, cfg: ConformerConfig, in_dim: int, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.cfg = cfg
+        self.cfg, self.dropout_rate = cfg, cfg.dropout_rate
         d = cfg.attention_dim
         if in_dim != d:
             self.input_proj = nn.Linear(in_dim, d, **kw)
@@ -180,13 +212,15 @@ class ConformerEncoder(nn.Module):
         if cfg.normalize_before:
             self.after_norm = nn.LayerNorm(d, eps=1e-12, **kw)
 
-    def forward(self, x, lengths: Optional[torch.Tensor] = None):
+    def forward(self, x, lengths: Optional[torch.Tensor] = None, train: bool = False,
+                dropout_rng: Optional[torch.Generator] = None):
         if hasattr(self, "input_proj"):
             x = self.input_proj(x)
         t, d = x.shape[1], self.cfg.attention_dim
         x = (x * x.new_tensor(np.sqrt(d)) + positional_table(t, d, x.device)).to(x.dtype)
+        x = dropout(x, self.dropout_rate, dropout_rng)
         for block in self.blocks:
-            x = block(x, lengths)
+            x = block(x, lengths, train, dropout_rng)
         if self.cfg.normalize_before:
             x = self.after_norm(x)
         return x

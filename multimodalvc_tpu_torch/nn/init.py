@@ -5,7 +5,7 @@ import torch
 from torch import nn
 
 from .llama import RMSNorm
-from .wn_conv import reset_weight_norm_
+from .wn_conv import SNConv1d, reset_weight_norm_
 
 
 @torch.no_grad()
@@ -14,8 +14,9 @@ def init_random_(module: nn.Module, seed: int = 0) -> None:
     order of ``module.modules()``: matrices, convs, embeddings and learned
     tokens N(0, 0.02); LoRA ``lora_a`` N(0, 0.01) and ``lora_b`` zero (as the
     JAX init); the modality mask embeddings U[0, 1) (as the JAX init); norms
-    one, biases zero, PReLU 0.25, BatchNorm running statistics (0, 1); then
-    each weight-normalized conv's g = ||v||, so its weight is its v."""
+    one, biases zero, PReLU 0.25, BatchNorm running statistics (0, 1),
+    spectral-norm vectors N(0, 1) / sqrt(size); then each weight-normalized
+    conv's g = ||v||, so its weight is its v."""
     dev = next(module.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for mod in module.modules():
@@ -32,4 +33,6 @@ def init_random_(module: nn.Module, seed: int = 0) -> None:
                 p.normal_(0.0, 0.01 if name == "lora_a" else 0.02, generator=gen)
         if isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.reset_running_stats()
+        if isinstance(mod, SNConv1d):
+            mod.reset_spectral_(gen)
     reset_weight_norm_(module)

@@ -29,6 +29,11 @@ own dtype (bf16 on the card, f32 in the CPU tests).  Frozen leaves stay in
 the module's dtype.  Gradients are taken in the module's dtype and then
 widened to f32.
 
+``AdamW`` is the plain ``optax.adamw`` (every leaf, a schedule of its own
+update count, no clipping), the optimizer of the two GAN steps
+(``models/vocoder.py``, ``criterions/gan.py``); ``trainable_leaves`` gives
+them the same f32 masters of a module's trainable leaves as ``Trainer``.
+
 Not ported: the mesh shardings (``infer_param_specs``, the state and batch
 shardings, the GAN helpers), ``CompileGuard`` and buffer donation, which are
 XLA and mesh scaffolding with no counterpart in an eager step on one card;
@@ -36,6 +41,7 @@ XLA and mesh scaffolding with no counterpart in an eager step on one card;
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import re
@@ -71,6 +77,27 @@ def trainable_mask(names: Iterable[str], frozen_patterns: List[str],
         return not any(rx.search(p) for rx in regexes)
 
     return {name: decide(name) for name in names}
+
+
+def trainable_leaves(module: torch.nn.Module, frozen_patterns: List[str]):
+    """(mask, params, masters) of ``module``: the ``trainable_mask`` of its
+    parameters, each frozen one set to ``requires_grad=False`` (the JAX
+    ``stop_gradient``: the backward computes no weight gradient for it), the
+    trainable parameters by name, and an f32 master copy of each."""
+    named = dict(module.named_parameters())
+    mask = trainable_mask(named, frozen_patterns)
+    for name, p in named.items():
+        p.requires_grad_(mask[name])
+    params = {n: p for n, p in named.items() if mask[n]}
+    masters = {n: p.detach().float().clone() for n, p in params.items()}
+    return mask, params, masters
+
+
+def copy_masters_(params: Dict[str, torch.Tensor], masters: Dict[str, torch.Tensor]) -> None:
+    """Each parameter takes its f32 master's value, cast to its dtype."""
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(masters[n])
 
 
 # ---- the learning-rate schedules -----------------------------------------------
@@ -178,6 +205,97 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
+def adamw_update_(params, grads, mu, nu, count: int, lr: float, betas, eps: float,
+                  weight_decay: float, scale: float = 1.0) -> None:
+    """One optax ``adam`` (+ ``add_decayed_weights``) update in place:
+    moments, bias corrections 1 - b^count as f32 scalars, eps outside the
+    square root, the decay added to the direction, times -lr (and the
+    plateau ``scale``).  ``count`` is the update's number, from 1."""
+    b1, b2 = (float(b) for b in betas)
+    bc1, bc2 = _f32(1.0 - b1 ** count), _f32(1.0 - b2 ** count)
+    step_size = -_f32(lr)
+    for name, p in params.items():
+        g, m, v = grads[name], mu[name], nu[name]
+        m.copy_((1.0 - b1) * g + b1 * m)
+        v.copy_((1.0 - b2) * (g * g) + b2 * v)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p
+        u = u * step_size
+        if scale != 1.0:
+            u = u * scale
+        p.add_(u)
+
+
+class AdamW:
+    """``optax.adamw(schedule, b1, b2, eps, weight_decay)`` over every leaf of
+    ``params`` (f32 tensors, updated in place): no clipping, no mask, no
+    skip; the learning rate of update n is ``schedule(n - 1)``, the count
+    this optimizer's own."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable[[int], float],
+                 betas=(0.9, 0.999), weight_decay: float = 1e-4, eps: float = 1e-8):
+        self.schedule, self.betas, self.weight_decay, self.eps = (
+            schedule, betas, weight_decay, eps)
+        self.count = 0
+        self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+
+    def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> None:
+        adamw_update_(params, grads, self.mu, self.nu, self.count + 1,
+                      self.schedule(self.count), self.betas, self.eps, self.weight_decay)
+        self.count += 1
+
+    @property
+    def lr(self) -> float:
+        """The learning rate of the next update."""
+        return self.schedule(self.count)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.count = int(state["count"])
+        for key in ("mu", "nu"):
+            for name, t in getattr(self, key).items():
+                t.copy_(state[key][name])
+
+
+def apply_gradients_(loss: torch.Tensor, params: Dict[str, torch.Tensor],
+                     masters: Dict[str, torch.Tensor], opt: AdamW) -> None:
+    """One ``opt`` update of ``masters`` from the gradient of ``loss`` with
+    respect to ``params`` (zero where the loss does not reach a leaf); then
+    each parameter takes its master's value."""
+    names = list(params)
+    got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+    grads = {n: torch.zeros_like(masters[n]) if g is None else g.float()
+             for n, g in zip(names, got)}
+    with torch.no_grad():
+        opt.update(grads, masters)
+    copy_masters_(params, masters)
+
+
+@contextlib.contextmanager
+def no_weight_grad(module: torch.nn.Module):
+    """Within the block ``module``'s parameters take no gradient: a loss
+    through it reaches its input only (the JAX GAN steps differentiate the
+    generator's loss with respect to the generator alone)."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def exponential_decay(lr: float, transition_steps: int, decay_rate: float) -> Callable[[int], float]:
+    """optax ``exponential_decay(..., staircase=True)``: lr * decay_rate **
+    floor(count / transition_steps)."""
+    return lambda count: lr * decay_rate ** (count // transition_steps)
+
+
 class MaskedAdamW:
     """The JAX trainer's optax chain over the trainable leaves (f32 masters):
     [MultiSteps] of apply_if_finite of clip_by_global_norm -> adamw / adam
@@ -244,23 +362,11 @@ class MaskedAdamW:
             norm = global_norm(grads.values())
             clip = float(cfg.clip_norm)
             grads = {n: torch.where(norm < clip, g, (g / norm) * clip) for n, g in grads.items()}
-        b1, b2 = (float(b) for b in cfg.adam_betas)
-        count = self.count + 1
-        # optax's scalars are f32: bias corrections 1 - b^count, the step -lr(count)
-        bc1, bc2 = _f32(1.0 - b1 ** count), _f32(1.0 - b2 ** count)
-        step_size = -_f32(self.schedule(self.count))
-        for name, p in params.items():
-            g, mu, nu = grads[name], self.mu[name], self.nu[name]
-            mu.copy_((1.0 - b1) * g + b1 * mu)
-            nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
-            if cfg.optimizer == "adamw":
-                u = u + cfg.weight_decay * p
-            u = u * step_size
-            if self.plateau is not None:
-                u = u * self.plateau["scale"]
-            p.add_(u)
-        self.count = count
+        self.count += 1
+        adamw_update_(params, grads, self.mu, self.nu, self.count,
+                      self.schedule(self.count - 1), cfg.adam_betas, cfg.adam_eps,
+                      cfg.weight_decay if cfg.optimizer == "adamw" else 0.0,
+                      1.0 if self.plateau is None else self.plateau["scale"])
 
     def plateau_update(self, value: float) -> Optional[float]:
         """Host-side reduce-on-plateau step (torch ``ReduceLROnPlateau``,
@@ -327,12 +433,8 @@ class Trainer:
         self.loss_fn = loss_fn
         self.module = module
         self.opt_cfg = opt_cfg
+        self.mask, self.params, self.master = trainable_leaves(module, frozen_patterns or [])
         named = dict(module.named_parameters())
-        self.mask = trainable_mask(named, frozen_patterns or [])
-        for name, p in named.items():
-            p.requires_grad_(self.mask[name])
-        self.params = {n: p for n, p in named.items() if self.mask[n]}
-        self.master = {n: p.detach().float().clone() for n, p in self.params.items()}
         n_train = sum(p.numel() for p in self.params.values())
         n_total = sum(p.numel() for p in named.values())
         logger.info("trainable params: %.2fM / %.2fM (%.2f%%)", n_train / 1e6, n_total / 1e6,
@@ -343,8 +445,8 @@ class Trainer:
         self._step = 0
 
     def train_step(self, batch) -> Dict[str, float]:
-        """One step: loss, gnorm (the global norm of this micro-step's
-        gradients), accuracy and n_tokens."""
+        """One step: the loss function's metrics as Python numbers, with loss
+        and gnorm (the global norm of this micro-step's gradients)."""
         loss, metrics = self.loss_fn(batch, self.generator)
         names = list(self.params)
         got = torch.autograd.grad(loss, [self.params[n] for n in names], allow_unused=True)
@@ -353,12 +455,12 @@ class Trainer:
                  for n, g in zip(names, got)}
         gnorm = global_norm(grads.values())
         if self.optimizer.update(grads, self.master):
-            with torch.no_grad():
-                for n, p in self.params.items():
-                    p.copy_(self.master[n])
+            copy_masters_(self.params, self.master)
         self._step += 1
-        return {"loss": float(loss.detach()), "gnorm": float(gnorm),
-                "accuracy": float(metrics["accuracy"]), "n_tokens": int(metrics["n_tokens"])}
+        out = {k: v.detach().item() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+        out.update(loss=float(loss.detach()), gnorm=float(gnorm))
+        return out
 
     def plateau_step(self, value: float) -> Optional[float]:
         """Feed a validation metric to the reduce-on-plateau scheduler (a
@@ -371,11 +473,13 @@ class Trainer:
         return self._step
 
     def state_dict(self, include_frozen: bool = True) -> Dict[str, Any]:
-        """model (the trainable leaves' f32 masters, and with
-        ``include_frozen`` every other entry of the module's state_dict),
-        optimizer, step and generator state."""
+        """model (the trainable leaves' f32 masters, the module's buffers,
+        such as the BatchNorm statistics that a training forward moves, and
+        with ``include_frozen`` the frozen leaves too), optimizer, step and
+        generator state."""
+        frozen = {n for n, _ in self.module.named_parameters() if n not in self.master}
         model = {n: t for n, t in self.module.state_dict().items()
-                 if include_frozen and n not in self.master}
+                 if n not in self.master and (include_frozen or n not in frozen)}
         model.update(self.master)
         return {"model": model, "optimizer": self.optimizer.state_dict(), "step": self._step,
                 "generator": self.generator.get_state()}
@@ -384,11 +488,8 @@ class Trainer:
         own = self.module.state_dict()
         with torch.no_grad():
             for name, t in state["model"].items():
-                if name in self.master:
-                    self.master[name].copy_(t)
-                    self.params[name].copy_(self.master[name])
-                else:
-                    own[name].copy_(t)
+                (self.master if name in self.master else own)[name].copy_(t)
+        copy_masters_(self.params, self.master)
         if not reset_optimizer:
             self.optimizer.load_state_dict(state["optimizer"])
         self._step = int(state["step"])

@@ -73,9 +73,13 @@ def test_round_trip_and_resume(tiny, tmp_path):
     # a restore may name a part of what was saved
     part = mgr.restore({"step": None, "optimizer": {"count": None}})
     assert part == {"step": 3, "optimizer": {"count": 3}}
-    # without the frozen leaves the checkpoint still resumes the trainable state
+    # without the frozen leaves the checkpoint still resumes the trainable
+    # state: the masters and the module's saved buffers (its BatchNorm
+    # statistics)
     small = a.state_dict(include_frozen=False)
-    assert set(small["model"]) == set(a.master)
+    params = dict(a.module.named_parameters())
+    buffers = {n for n in a.module.state_dict() if n not in params}
+    assert buffers and set(small["model"]) == set(a.master) | buffers
 
 
 def test_keep_n_and_best(tiny, tmp_path):

@@ -4,6 +4,8 @@ weight-normalized convs, the generator (mel input with and without
 modules on the same weights (each g scaled away from ||v||) and numpy
 inputs; the bridge's round trip of the generator tree."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,6 +128,9 @@ def test_vocoder_generate(generator):
     got = voc.generate(t(mel))
     assert got.shape == (2, 11 * 8)
     assert max_err(want, got) < TOL
+    # the training fields are back with the GAN step that reads them
+    assert [f.name for f in dataclasses.fields(tvoc.VocoderConfig)] == \
+        [f.name for f in dataclasses.fields(jvoc.VocoderConfig)]
 
 
 def test_vocoder_init_random_is_weight_v():

@@ -21,6 +21,8 @@ from multimodalvc_tpu_torch.ops import (
 REPO = Path(__file__).resolve().parent.parent
 SLICE_MODULES = [
     "multimodalvc_tpu_torch",
+    "multimodalvc_tpu_torch.criterions.gan",
+    "multimodalvc_tpu_torch.criterions.mel",
     "multimodalvc_tpu_torch.interop.from_flax",
     "multimodalvc_tpu_torch.models.avsr",
     "multimodalvc_tpu_torch.models.speech",
@@ -45,7 +47,9 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch.ops.int8_matmul",
     "multimodalvc_tpu_torch.ops.interpolate",
     "multimodalvc_tpu_torch.ops.kernel_lib",
+    "multimodalvc_tpu_torch.ops.stft",
     "multimodalvc_tpu_torch.ops.topk",
+    "multimodalvc_tpu_torch.tasks",
 ]
 
 
