@@ -87,6 +87,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    - ``train_vocoder``: ``VocoderModel.train_step`` at 64 x 8320 samples,
      6 steps, the EMA moved; one step at batch 2 against the CPU (1e-4).
    ``check_flash_grad`` holds K1's gradient at Conformer-L too.
+7. Drives the command line from a manifest at full width (the presets as
+   dotted overrides, ``PRESETS``; random weights from the presets' seed):
+   - ``cli_corpus``: 32 clips of 4-16 s (96 x 96 uint8 video at 25 fps, 16 kHz
+     wavs, three-word transcripts), a babble track and the train / valid /
+     test manifests, under build/cli_corpus;
+   - ``cli_loader``: the loader over the train subset with the preset's 3
+     worker processes and with 0 (samples/s, ms a batch);
+   - ``cli_train_avsr``: ``cli.train.main`` on conf/mms-llama.yaml to 6
+     updates resumed to 8, beside a straight run to 8 (8 clips of 16 s a
+     batch at bucket 400): the first update against ``Trainer.train_step``
+     on the directly collated batch, K1 24 or 48 times a step, the resumed
+     run's losses and leaves against the straight run's, a validation WER;
+   - ``cli_eval``: ``cli.eval.main`` from that checkpoint over the test
+     subset three times (int8 weights + int8 KV + the ancestry decode;
+     int4 weights + n-gram blocking; constraints on every other clip), each
+     with the kernels its options select, the first against
+     ``AVSRSystem.generate`` on the same batches;
+   - ``cli_train_speech``: the NoLLM head (4 updates), the E2E GAN's two
+     stages (2 each) and the vocoder (3) through ``cli.train.main``;
+   - ``cli_generate``: ``cli.generate synthesize`` on a 16 s clip from the
+     NoLLM and vocoder checkpoints, then ``vocode`` of its mel.
+   Each run prints its step ms, the share of a step spent waiting for the
+   batch and its peak GiB.
 
 Prints JSON lines with the kernel checks and the phases, the smoke's own
 wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
@@ -96,6 +119,8 @@ back to the CPU.
 
 ``python3 chip_smoke.py --train`` runs only ``check_flash_grad`` and the two
 training phases.
+
+``python3 chip_smoke.py --cli`` runs only the command-line phases (7.).
 
 ``python3 chip_smoke.py --speech`` runs only K1's speech cases and the five
 speech phases.
@@ -135,11 +160,13 @@ step's candidate stage alone (``candidate_stage``).
 """
 from __future__ import annotations
 
+import copy
 import functools
 import hashlib
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3393,6 +3420,630 @@ def gather_bound(src, *outs) -> dict:
     return bound(nbytes(*outs) * (1 + distinct) + nbytes(src))
 
 
+# ---- the command line: train, validate, evaluate and generate from a manifest
+
+
+# conf/<preset>.yaml as dotted overrides, so that the smoke needs no PyYAML
+# (tests/test_torch_config.py holds each list equal to its file)
+PRESETS = {
+    "mms-llama": [
+        "common.seed=1", "common.log_format=json", "common.log_interval=100",
+        "common.compute_dtype=bfloat16", "mesh.data=-1", "mesh.fsdp=1", "mesh.tensor=1",
+        "dataset.data=???", "dataset.train_subset=train", "dataset.valid_subset=test",
+        "dataset.max_tokens=1000", "dataset.num_workers=3",
+        "dataset.length_buckets=[100,200,300,400,500]", "optimization.max_update=30000",
+        "optimization.lr=1.0e-4", "optimization.optimizer=adamw",
+        "optimization.adam_betas=[0.9,0.98]", "optimization.weight_decay=0.01",
+        "optimization.clip_norm=1.0", "optimization.update_freq=1",
+        "optimization.lr_scheduler=cosine", "optimization.warmup_updates=500",
+        "checkpoint.save_dir=checkpoints/mms-llama", "checkpoint.best_checkpoint_metric=loss",
+        "checkpoint.patience=-1", "generation.beam=5", "generation.max_len=100",
+        "generation.temperature=0.3", "task.name=avsr_training",
+        "task.llm_path=meta-llama/Llama-3.2-3B", "task.noise_prob=0.25", "task.noise_wav=???",
+        "task.max_video_frames=500", "task.max_label_tokens=96", "task.image_aug=true",
+        "model.name=mms_llama_avsr", "model.queries_per_sec=3", "model.use_sr_predictor=true",
+        "model.qformer_layers=2", "model.qformer_dim=1024", "model.modality_fuse=concat",
+    ],
+    "mms-speech-nollm": [
+        "common.seed=1", "common.log_format=json", "common.log_interval=100", "mesh.data=-1",
+        "dataset.data=???", "dataset.max_tokens=1000", "dataset.num_workers=3",
+        "optimization.max_update=60000", "optimization.lr=2.0e-4",
+        "optimization.lr_scheduler=cosine", "optimization.warmup_updates=1000",
+        "optimization.clip_norm=1.0", "checkpoint.save_dir=checkpoints/mms-speech-nollm",
+        "checkpoint.best_checkpoint_metric=mel_l1", "task.name=speech_training",
+        "task.variant=nollm", "task.max_mel_frames=2400", "task.p_modality_av=0.5",
+        "task.p_modality_video_only=0.25", "task.p_modality_audio_only=0.25",
+        "model.name=mms_speech_nollm", "model.use_qformer=true", "model.queries_per_sec=3",
+        "model.conformer_size=L", "model.modality_dropout=true",
+    ],
+    "mms-speech-nollm-e2e": [
+        "common.seed=1", "common.log_format=json", "common.log_interval=100", "mesh.data=-1",
+        "dataset.data=???", "dataset.batch_size=4", "dataset.num_workers=3",
+        "optimization.max_update=100000", "checkpoint.save_dir=checkpoints/mms-speech-nollm-e2e",
+        "checkpoint.best_checkpoint_metric=mel_l1", "checkpoint.save_interval_updates=5000",
+        "checkpoint.keep_interval_updates=2", "task.name=e2e_gan_training",
+        "task.variant=nollm", "task.max_mel_frames=2400", "task.stage1_freeze=true",
+        "task.gen_lr=2.0e-4", "task.disc_lr=2.0e-4", "task.p_modality_av=0.5",
+        "task.p_modality_video_only=0.25", "task.p_modality_audio_only=0.25",
+        "model.name=mms_speech_nollm_e2e", "model.use_qformer=true", "model.queries_per_sec=3",
+        "model.conformer_size=L", "model.modality_dropout=true",
+    ],
+    "hifigan-vocoder": [
+        "common.seed=1", "common.log_interval=100", "mesh.data=-1", "dataset.data=???",
+        "dataset.batch_size=64", "dataset.num_workers=4", "optimization.max_update=500000",
+        "checkpoint.save_dir=checkpoints/hifigan", "checkpoint.best_checkpoint_metric=mel_l1",
+        "checkpoint.patience=10", "task.name=vocoder_training", "task.segment_length=8320",
+        "task.lr=1.0e-4", "model.name=hifigan_vocoder", "model.lr=1.0e-4",
+        "model.betas=[0.8,0.99]", "model.weight_decay=1.0e-5", "model.lr_decay=0.999",
+        "model.ema_decay=0.999", "model.mel_weight=45.0", "model.segment_length=8320",
+    ],
+}
+# overrides appended to a preset's after the run's own (empty on the card; a
+# rehearsal on the CPU shrinks the models here)
+CLI_EXTRA = {name: [] for name in PRESETS}
+CLI_DIR = REPO / "build" / "cli_corpus"
+CLI_RUNS = REPO / "build" / "cli_runs"
+CLI_CLIPS, CLI_SEED = 32, 5
+CLI_WORDS = ("hello", "world", "speech", "video", "audio", "lips", "voice", "model")
+CLI_TRAIN_UPDATES, CLI_RESUME_UPDATES = 6, 8  # cli_train_avsr: a run to 6, resumed to 8
+CLI_MAX_TOKENS = 3200  # 8 clips of 16 s at bucket 400
+CLI_LOADER_EPOCHS = 4  # cli_loader: one loader over 4 epochs' batches (16)
+CLI_CONSTRAINT = "zq"  # forced into every other test clip's hypothesis by cli_eval (c)
+
+
+def clip_frames() -> list:
+    """CLI_CLIPS video lengths of 4-16 s at 25 fps, 8 in each of the length
+    buckets 100-400 (the 500 bucket takes clips past 16 s)."""
+    out = [100] * 8
+    for b in (200, 300, 400):
+        out += [b - 12 * j for j in range(8)]
+    return out
+
+
+def write_corpus() -> dict:
+    """The manifest corpus of the cli phases under build/cli_corpus, from
+    CLI_SEED with numpy: per clip a 96 x 96 uint8 mouth-ROI video (.npy, 25
+    fps) and a 16 kHz int16 wav of the same length (a tone in noise), three
+    words of transcript; a 5 s babble track; train (all clips), valid (two a
+    bucket) and test (four a bucket) .tsv + .wrd."""
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    (CLI_DIR / "data").mkdir(parents=True)
+    rng = np.random.default_rng(CLI_SEED)
+    rows, labels = [], []
+    for i, t_v in enumerate(clip_frames()):
+        n = t_v * 640
+        np.save(CLI_DIR / "data" / f"clip{i}.npy",
+                rng.integers(0, 256, (t_v, 96, 96), dtype=np.uint8))
+        wav = 0.1 * np.sin(2 * np.pi * (150 + 10 * i) * np.arange(n) / 16000) \
+            + 0.02 * rng.standard_normal(n)
+        wavfile.write(CLI_DIR / "data" / f"clip{i}.wav", 16000, (wav * 32767).astype(np.int16))
+        rows.append(f"cli\tdata/clip{i}.npy\tdata/clip{i}.wav:{i}\t{t_v}\t{n}")
+        labels.append(" ".join(rng.choice(CLI_WORDS, size=3)))
+    babble = CLI_DIR / "babble.wav"
+    wavfile.write(babble, 16000, (0.05 * rng.standard_normal(5 * 16000) * 32767).astype(np.int16))
+    subsets = {"train": range(CLI_CLIPS),
+               "valid": [b * 8 + j for b in range(4) for j in (0, 4)],
+               "test": [b * 8 + j for b in range(4) for j in (1, 3, 5, 7)]}
+    for subset, idx in subsets.items():
+        (CLI_DIR / f"{subset}.tsv").write_text(
+            f"{CLI_DIR}\n" + "".join(rows[i] + "\n" for i in idx))
+        (CLI_DIR / f"{subset}.wrd").write_text("".join(labels[i] + "\n" for i in idx))
+    size = sum(p.stat().st_size for p in CLI_DIR.rglob("*") if p.is_file())
+    record = {"clips": CLI_CLIPS, "mb": size / 1e6, "write_s": time.perf_counter() - t0,
+              "subsets": {k: len(v) for k, v in subsets.items()}, "babble": str(babble)}
+    print(f"  cli_corpus: {CLI_CLIPS} clips ({min(clip_frames())}-{max(clip_frames())} frames), "
+          f"{size / 1e6:.1f} MB in {record['write_s']:.1f} s under {CLI_DIR}")
+    return record
+
+
+def cli_config(preset: str, run: list):
+    """The port's TrainRootConfig of ``preset`` (PRESETS) with the corpus and
+    ``run`` overrides, then CLI_EXTRA[preset]."""
+    from multimodalvc_tpu_torch.config import TrainRootConfig, apply_overrides, from_dict
+
+    base = [f"dataset.data={CLI_DIR}", "common.log_interval=1", "common.log_format=simple"]
+    return from_dict(TrainRootConfig, apply_overrides(
+        {}, PRESETS[preset] + base + run + CLI_EXTRA[preset]))
+
+
+class CliTap:
+    """What a CLI run logs (log_stats: (prefix, step, stats)), and the
+    seconds and GiB of each checkpoint file it writes (``writes``)."""
+
+    def __init__(self, module):
+        self.lines, self.writes, self.module = [], [], module
+
+    def __enter__(self):
+        from multimodalvc_tpu_torch.runtime.checkpoint import STATE_FILE, CheckpointManager
+
+        real, real_write = self.module.log_stats, CheckpointManager._write
+
+        def write(mgr, state, name):
+            t0 = time.perf_counter()
+            real_write(mgr, state, name)
+            size = os.path.getsize(os.path.join(mgr._path(name), STATE_FILE))
+            self.writes.append((time.perf_counter() - t0, size / 2 ** 30))
+
+        self._patches = [
+            mock.patch.object(self.module, "log_stats",
+                              lambda stats, step, prefix="train", fmt="simple": (
+                                  self.lines.append((prefix, step, dict(stats))),
+                                  real(stats, step, prefix, fmt))),
+            mock.patch.object(CheckpointManager, "_write", write)]
+        for p in self._patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self._patches):
+            p.__exit__(*exc)
+        return False
+
+    def of(self, prefix) -> list:
+        return [stats for p, _, stats in self.lines if p == prefix]
+
+
+def step_times(tap: CliTap) -> dict:
+    """The mean step and wait-for-batch ms of a run's training steps after
+    the first (its wait holds the workers' start), and the wait's share."""
+    steps = tap.of("train")[1:] or tap.of("train")
+    step = sum(s["step_ms"] for s in steps) / len(steps)
+    wait = sum(s["data_ms"] for s in steps) / len(steps)
+    return {"mean_step_ms": step, "mean_wait_ms": wait, "wait_share": wait / (wait + step),
+            "ckpt_writes": len(tap.writes),
+            "ckpt_write_s": sum(w[0] for w in tap.writes) / max(1, len(tap.writes)),
+            "ckpt_gib": max((w[1] for w in tap.writes), default=0.0),
+            "first_wait_ms": tap.of("train")[0]["data_ms"],
+            "wait_ms": [s["data_ms"] for s in tap.of("train")],
+            "step_ms": [s["step_ms"] for s in tap.of("train")]}
+
+
+def sample_stages(ds, indices) -> dict:
+    """The host ms a sample of each stage of ``AVSRDataset.__getitem__`` on
+    ``indices`` (the video's decode and transform, the wav's read and noise
+    mix, the Whisper features, the HiFi-GAN mel targets the speech tasks
+    add), and of the batch's collation."""
+    import numpy as np
+
+    from multimodalvc_tpu_torch.data.audio import hifigan_mel_np, read_wav, whisper_features_np
+    from multimodalvc_tpu_torch.data.manifest import resolve_path
+    from multimodalvc_tpu_torch.data.video import load_video_frames, transform_video
+
+    ms = {k: 0.0 for k in ("video_decode", "video_transform", "wav_read", "noise_mix",
+                           "whisper_features", "hifigan_mel", "collate")}
+    clock = time.perf_counter
+    for i in indices:
+        e, root = ds.manifest.entries[int(i)], ds.manifest.root
+        t0 = clock()
+        frames = load_video_frames(resolve_path(root, e.video_path))
+        t1 = clock()
+        transform_video(frames, crop_size=ds.cfg.image_crop_size, train=True, rng=ds.rng)
+        t2 = clock()
+        wav = read_wav(resolve_path(root, e.audio_path))
+        t3 = clock()
+        wav = ds.noise(wav) if ds.noise is not None else wav
+        t4 = clock()
+        whisper_features_np(wav)
+        t5 = clock()
+        hifigan_mel_np(wav)
+        t6 = clock()
+        for k, a, b in (("video_decode", t0, t1), ("video_transform", t1, t2),
+                        ("wav_read", t2, t3), ("noise_mix", t3, t4),
+                        ("whisper_features", t4, t5), ("hifigan_mel", t5, t6)):
+            ms[k] += 1e3 * (b - a) / len(indices)
+    samples = [ds[int(i)] for i in indices]
+    t0 = clock()
+    ds.collate(samples)
+    ms["collate"] = 1e3 * (clock() - t0) / len(indices)
+    return {k: float(np.round(v, 3)) for k, v in ms.items()}
+
+
+def cli_loader_phase() -> dict:
+    """The host cost of a 16 s AVSR sample by stage (``sample_stages``), then
+    the port's loader over the train subset of the AVSR preset (noise and
+    crops on) with the preset's 3 worker processes and with 0, pinned as
+    the training loop pins them: the wait for the first batch (the workers'
+    start), then samples/s over the next batches (CLI_LOADER_EPOCHS epochs'
+    batches at CLI_MAX_TOKENS in one loader)."""
+    import types
+
+    import torch
+
+    from multimodalvc_tpu_torch.data.dataset import BatchLoader
+    from multimodalvc_tpu_torch.tasks import AVSRTask, AVSRTaskConfig
+    from multimodalvc_tpu_torch.config import from_dict
+
+    cfg = cli_config("mms-llama", ["task.llm_path=null", f"task.noise_wav={CLI_DIR}/babble.wav"])
+    task_cfg = from_dict(AVSRTaskConfig, {k: v for k, v in cfg.task.items() if k != "name"})
+    task_cfg.data = str(CLI_DIR)
+    ds = AVSRTask.load_dataset(types.SimpleNamespace(cfg=task_cfg,
+                                                     model_cfg=types.SimpleNamespace()), "train")
+    batches = ds.batches(max_tokens=CLI_MAX_TOKENS, required_multiple=8, epoch=1)
+    longest = [i for i, e in enumerate(ds.manifest.entries) if e.n_video_frames == 400]
+    record = {"batches": len(batches), "samples": sum(len(b) for b in batches),
+              "ms_a_16s_sample": sample_stages(ds, longest)}
+    print(f"  cli_loader: host ms a 16 s sample by stage {record['ms_a_16s_sample']}")
+    epochs = batches * CLI_LOADER_EPOCHS
+    for workers in (cfg.dataset.num_workers, 0):
+        t0 = time.perf_counter()
+        marks = []
+        for batch in BatchLoader(ds, epochs, num_workers=workers, epoch=1,
+                                 pin_memory=torch.device(DEV).type == "cuda"):
+            marks.append((time.perf_counter(), batch["video"].shape[0]))
+        first = marks[0][0] - t0
+        rest = sum(n for _, n in marks[1:]) / (marks[-1][0] - marks[0][0])
+        record[f"workers_{workers}"] = {"first_batch_ms": 1e3 * first, "samples_per_s": rest,
+                                        "ms_a_batch": 1e3 * (marks[-1][0] - marks[0][0])
+                                        / (len(marks) - 1)}
+        print(f"  cli_loader: {workers} workers, {len(epochs)} batches of <= 8 clips: the first "
+              f"in {1e3 * first:.1f} ms, then {rest:.1f} samples/s "
+              f"({record[f'workers_{workers}']['ms_a_batch']:.1f} ms a batch)")
+    return record
+
+
+def cli_k1_a_step(frames: int) -> int:
+    """K1's launches in a training step of the full-width AVSR model: the 24
+    Whisper layers, and the 24 AV-HuBERT layers at >= 256 video frames
+    (``nn/layers.py: use_flash``)."""
+    return 24 + (24 if frames >= 256 else 0)
+
+
+def _trainable_flat(trainer):
+    import torch
+
+    return torch.cat([m.double().reshape(-1) for m in trainer.master.values()])
+
+
+def cli_train_avsr(table) -> dict:
+    """``cli.train.main`` on the AVSR preset at full width (random weights,
+    ``task.llm_path=null``: the byte tokenizer): a run to CLI_TRAIN_UPDATES
+    updates resumed to CLI_RESUME_UPDATES, beside a straight run to
+    CLI_RESUME_UPDATES.  Checks: the first update's loss against
+    ``Trainer.train_step`` from the same start on the batch collated
+    directly from the dataset (bitwise the CLI's batch); K1 24 times a
+    step in Whisper and 24 more in AV-HuBERT at >= 256 frames; the resumed
+    run's losses and trainable leaves against the straight run's at
+    REL_TOL; a validation WER logged; checkpoints written."""
+    import gc
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.data.dataset import to_device, to_tensors
+    from multimodalvc_tpu_torch.ops.attention import flash_attention
+
+    run_dirs = {k: CLI_RUNS / f"avsr_{k}" for k in ("split", "straight")}
+    for d in run_dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    def overrides(save_dir, max_update):
+        return ["task.llm_path=null", f"task.noise_wav={CLI_DIR}/babble.wav",
+                f"dataset.max_tokens={CLI_MAX_TOKENS}", f"optimization.max_update={max_update}",
+                "dataset.valid_wer_batches=1", "generation.max_len=16",
+                f"checkpoint.save_dir={save_dir}"]
+
+    made = []
+
+    class Probe(cli_train.Trainer):
+        """Trainer that keeps its first batch, its state before it, and each
+        step's K1 launches and video length."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.first, self.k1 = None, []
+            made.append(self)
+
+        def train_step(self, batch):
+            if self.first is None:
+                self.first = ({k: v.clone() for k, v in batch.items()},
+                              copy.deepcopy(self.state_dict(include_frozen=False)))
+            before = flash_attention.launches
+            out = super().train_step(batch)
+            self.k1.append((flash_attention.launches - before, batch["video"].shape[1]))
+            return out
+
+    tasks = []
+    real_build = cli_train.build_task
+
+    def build_task(*a, **k):
+        tasks.append(real_build(*a, **k))
+        return tasks[-1]
+
+    record, losses, leaves = {}, {}, {}
+    with mock.patch.object(cli_train, "Trainer", Probe), \
+            mock.patch.object(cli_train, "build_task", build_task):
+        for name, save_dir, max_update in (("first", run_dirs["split"], CLI_TRAIN_UPDATES),
+                                           ("resumed", run_dirs["split"], CLI_RESUME_UPDATES),
+                                           ("straight", run_dirs["straight"], CLI_RESUME_UPDATES)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(table)
+            cfg = cli_config("mms-llama", overrides(save_dir, max_update))
+            with CliTap(cli_train) as tap:
+                val, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
+            trainer, task = made[-1], tasks[-1]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            losses[name] = [s["loss"] for s in tap.of("train")]
+            wrong = [(n, t) for n, t in trainer.k1 if n != cli_k1_a_step(t)]
+            if wrong:
+                raise SmokeFailure(f"cli_train_avsr {name}: K1 launches (got, video frames) "
+                                   f"{wrong} (24 a step, 48 at >= 256 frames)")
+            if not tap.of("valid") or "wer" not in tap.of("valid")[-1]:
+                raise SmokeFailure(f"cli_train_avsr {name}: no validation WER logged")
+            if not all(math.isfinite(x) for x in losses[name]):
+                raise SmokeFailure(f"cli_train_avsr {name}: losses {losses[name]}")
+            for ck in ("checkpoint_last", "checkpoint_best"):
+                if not (save_dir / ck / "state.pt").exists():
+                    raise SmokeFailure(f"cli_train_avsr {name}: no {ck} under {save_dir}")
+            times = step_times(tap)
+            record[name] = {"losses": losses[name], "valid": tap.of("valid"), "wall_s": t_run,
+                            "peak_gib": peak, "k1_a_step": trainer.k1, **times}
+            print(f"  cli_train_avsr {name}: {len(losses[name])} updates in {t_run:.1f} s, "
+                  f"{times['mean_step_ms']:.1f} ms a step, waiting {times['mean_wait_ms']:.1f} ms "
+                  f"for a batch ({100 * times['wait_share']:.1f}%), peak {peak:.2f} GiB, "
+                  f"{times['ckpt_writes']} checkpoint writes of {times['ckpt_gib']:.2f} GiB in "
+                  f"{times['ckpt_write_s']:.1f} s each, valid "
+                  f"{ {k: round(v, 4) for k, v in tap.of('valid')[-1].items()} }")
+            if name == "first":
+                # the CLI's first batch against the dataset's own collation
+                # of that batch (worker draws: seeded by epoch 1, position 0)
+                ds = task.load_dataset(cfg.dataset.train_subset)
+                idx = ds.batches(max_tokens=cfg.dataset.max_tokens,
+                                 required_multiple=cfg.dataset.required_batch_size_multiple,
+                                 epoch=1)[0]
+                ds.reseed(1, 0)
+                direct = task.prepare_batch(to_device(to_tensors(ds.load_batch(idx)), DEV))
+                cli_batch, start = trainer.first
+                for k, v in direct.items():
+                    if not torch.equal(v, cli_batch[k]):
+                        raise SmokeFailure(f"cli_train_avsr: the CLI's first batch differs in {k}")
+                trainer.load_state_dict(start)
+                reset_counts(table)
+                direct_loss = trainer.train_step(direct)["loss"]
+                rel = abs(direct_loss - losses[name][0]) / abs(direct_loss)
+                print(f"    first update: CLI loss {losses[name][0]:.6f}, Trainer.train_step on "
+                      f"the directly collated batch {direct_loss:.6f} (rel {rel:.2e}, gate "
+                      f"{REL_TOL:g})")
+                if not rel <= REL_TOL:
+                    raise SmokeFailure(f"cli_train_avsr: first update {rel:.3e} from the direct step")
+                record["direct_first_loss"], record["direct_rel"] = direct_loss, rel
+                record["launches"] = read_counts(table)
+            else:
+                leaves[name] = _trainable_flat(trainer)
+            if name == "resumed":  # full-state checkpoints: free the disk
+                shutil.rmtree(run_dirs["split"], ignore_errors=True)
+            made.clear()
+            tasks.clear()
+            del trainer, task
+    joined = losses["first"] + losses["resumed"]
+    rel_losses = max(abs(a - b) / abs(b) for a, b in zip(joined, losses["straight"]))
+    rel_leaves = rel_l2(leaves["resumed"], leaves["straight"])
+    print(f"  cli_train_avsr: resumed vs straight run, losses rel {rel_losses:.2e}, trainable "
+          f"leaves rel_l2 {rel_leaves:.2e} (gate {REL_TOL:g})")
+    if len(joined) != len(losses["straight"]) or not (rel_losses <= REL_TOL
+                                                      and rel_leaves <= REL_TOL):
+        raise SmokeFailure(f"cli_train_avsr: resumed run {len(joined)} updates, losses rel "
+                           f"{rel_losses:.3e}, leaves {rel_leaves:.3e} from the straight run")
+    record.update(resume_losses_rel=rel_losses, resume_leaves_rel_l2=rel_leaves)
+    del leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+CLI_EVAL_RUNS = {  # run -> (generation overrides, kernels that must launch)
+    "a_int8_serving": (["generation.weight_quant=int8", "generation.kv_cache_quant=int8",
+                        "generation.ancestry_decode=true", "generation.beam=5"],
+                       ("flash_attention", "ancestry_attention", "int8_matmul",
+                        "beam_topk_columns")),
+    "b_int4_ngram": (["generation.weight_quant=int4", "generation.no_repeat_ngram_size=3"],
+                     ("int4_matmul", "beam_topk")),
+    "c_constraints": ([f"generation.constraints_file={CLI_RUNS}/constraints.txt",
+                       "generation.constraints=unordered"], ("gather_rows",)),
+}
+
+
+def cli_eval_phase(table) -> dict:
+    """``cli.eval.main`` from cli_train_avsr's straight run's checkpoint over
+    the test subset, once a CLI_EVAL_RUNS entry, at max_len 16.  Checks:
+    each run writes wer.* and hypo-*.json and launches the kernels its
+    options select; run (a)'s hypotheses equal the tokens of
+    ``AVSRSystem.generate`` on the same batches collated directly, decoded
+    by the same tokenizer; run (c) forces its phrase into every
+    constrained clip's hypothesis."""
+    import gc
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import eval as cli_eval
+    from multimodalvc_tpu_torch.data.dataset import to_device, to_tensors
+
+    (CLI_RUNS / "constraints.txt").write_text("".join(
+        (CLI_CONSTRAINT if i % 2 == 0 else "") + "\n" for i in range(CLI_CLIPS)))
+    tasks = []
+    real_build = cli_eval.build_task
+
+    def build_task(*a, **k):
+        tasks.append(real_build(*a, **k))
+        return tasks[-1]
+
+    record = {}
+    for name, (gen, must) in CLI_EVAL_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = CLI_RUNS / f"eval_{name}"
+        shutil.rmtree(results, ignore_errors=True)
+        cfg = cli_config("mms-llama", [
+            "task.llm_path=null", "task.noise_wav=null", f"dataset.max_tokens={CLI_MAX_TOKENS}",
+            f"checkpoint.save_dir={CLI_RUNS}/avsr_straight", "checkpoint.restore_file=checkpoint_last",
+            "generation.max_len=16", *gen])
+        reset_counts(table)
+        with mock.patch.object(cli_eval, "build_task", build_task):
+            res, t_run = wall(lambda: cli_eval.main(cfg, str(results), device=DEV))
+        launches = read_counts(table)
+        task = tasks.pop()
+        missing = [k for k in must if not launches[k]]
+        if missing:
+            raise SmokeFailure(f"cli_eval {name}: no launch of {missing} ({launches})")
+        hypo = sorted(results.glob("hypo-*.json"))
+        wer = sorted(results.glob("wer.*"))
+        if len(hypo) != 1 or len(wer) != 1:
+            raise SmokeFailure(f"cli_eval {name}: outputs {sorted(os.listdir(results))}")
+        hyps = {r["id"]: r["hypo"] for r in json.loads(hypo[0].read_text())}
+        record[name] = {"wall_s": t_run, "wer": res["wer"], "words": res["words"],
+                        "launches": launches, "hypotheses": len(hyps)}
+        print(f"  cli_eval {name}: WER {res['wer']:.2f} over {res['words']} words, "
+              f"{len(hyps)} clips in {t_run:.1f} s; launches "
+              f"{ {k: n for k, n in launches.items() if n} }")
+        if name == "a_int8_serving":
+            ds = task.load_dataset("test")
+            tok, same = ds.tokenizer, 0
+            for idx in ds.batches(max_tokens=cfg.dataset.max_tokens):
+                batch = task.prepare_batch(to_device(to_tensors(ds.load_batch(idx)), DEV),
+                                           train=False)
+                batch = {k: v for k, v in batch.items() if k not in ("labels", "label_lengths")}
+                seqs, _ = task.system.generate(batch, num_beams=5, max_new_tokens=16,
+                                               kv_quant="int8", ancestry_reorder=True)
+                for row, i in zip(seqs[:, 0].tolist(), idx):
+                    toks = row[: row.index(task.model_cfg.eos_token_id)] \
+                        if task.model_cfg.eos_token_id in row else row
+                    if tok.decode(toks) != hyps[int(i)]:
+                        raise SmokeFailure(f"cli_eval {name}: clip {int(i)}'s hypothesis differs "
+                                           "from AVSRSystem.generate's")
+                    same += 1
+            record[name]["generate_equal"] = same
+            print(f"    run (a): {same} hypotheses equal AVSRSystem.generate's on the directly "
+                  "collated batches")
+        if name == "c_constraints":
+            ds = task.load_dataset("test")
+            forced = [i for i in range(len(ds)) if i % 2 == 0]
+            if any(CLI_CONSTRAINT not in hyps[i] for i in forced):
+                raise SmokeFailure(f"cli_eval {name}: {CLI_CONSTRAINT!r} missing from "
+                                   f"{[hyps[i] for i in forced if CLI_CONSTRAINT not in hyps[i]]}")
+            record[name]["constrained"] = len(forced)
+        del task
+    shutil.rmtree(CLI_RUNS / "avsr_straight", ignore_errors=True)
+    return record
+
+
+def cli_speech_run(table, name, preset, run) -> dict:
+    """One ``cli.train.main`` run of a speech preset: finite losses, a
+    checkpoint, the step ms and the wait for batches."""
+    import gc
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    save_dir = CLI_RUNS / name
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = cli_config(preset, [f"checkpoint.save_dir={save_dir}", *run])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(table)
+    with CliTap(cli_train) as tap:
+        val, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = tap.of("train")
+    bad = [s for s in steps + [val] for k, v in s.items() if not math.isfinite(v)]
+    if len(steps) != cfg.optimization.max_update or bad or not tap.of("valid"):
+        raise SmokeFailure(f"cli_train_speech {name}: {len(steps)} updates, non-finite {bad}")
+    if not (save_dir / "checkpoint_last" / "state.pt").exists():
+        raise SmokeFailure(f"cli_train_speech {name}: no checkpoint under {save_dir}")
+    times = step_times(tap)
+    keys = [k for k in steps[0] if k.startswith(("loss", "mel_l1"))]
+    print(f"  cli_train_speech {name}: {len(steps)} updates in {t_run:.1f} s, "
+          f"{times['mean_step_ms']:.1f} ms a step, waiting {times['mean_wait_ms']:.1f} ms "
+          f"({100 * times['wait_share']:.1f}%), peak {peak:.2f} GiB, {times['ckpt_writes']} "
+          f"checkpoint writes of {times['ckpt_gib']:.2f} GiB in {times['ckpt_write_s']:.1f} s "
+          f"each, valid "
+          f"{ {k: round(v, 4) for k, v in val.items()} }")
+    return {"updates": [{k: s[k] for k in keys} for s in steps], "valid": val, "wall_s": t_run,
+            "peak_gib": peak, "launches": read_counts(table), **times}
+
+
+def cli_train_speech(table) -> dict:
+    """The speech presets through ``cli.train.main`` at full width: the NoLLM
+    head (4 updates, mel targets computed by ``hifigan_mel_np``), the E2E
+    GAN's stages 1 and 2 (2 updates each) and the vocoder (3 updates)."""
+    return {
+        "nollm": cli_speech_run(table, "speech_nollm", "mms-speech-nollm",
+                                ["optimization.max_update=4"]),
+        "e2e_stage1": cli_speech_run(table, "e2e_stage1", "mms-speech-nollm-e2e",
+                                     ["optimization.max_update=2"]),
+        "e2e_stage2": cli_speech_run(table, "e2e_stage2", "mms-speech-nollm-e2e",
+                                     ["optimization.max_update=2", "task.stage1_freeze=false"]),
+        "vocoder": cli_speech_run(table, "vocoder", "hifigan-vocoder",
+                                  ["optimization.max_update=3"]),
+    }
+
+
+def cli_generate_phase() -> dict:
+    """``cli.generate``: ``synthesize`` at full width on one 16 s corpus clip
+    from the NoLLM run's checkpoint and the vocoder run's (a finite wav of
+    the clip's length), then ``vocode`` from the vocoder checkpoint of the
+    mel that the NoLLM run's speech head gives for that clip (a finite wav
+    of 160 samples a frame)."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from multimodalvc_tpu_torch.cli import generate as cli_generate
+
+    clip = clip_frames().index(400)
+    video, audio = CLI_DIR / "data" / f"clip{clip}.npy", CLI_DIR / "data" / f"clip{clip}.wav"
+    out, mel = CLI_RUNS / "synth.wav", CLI_RUNS / "synth_mel.npy"
+    nollm, voc = str(CLI_RUNS / "speech_nollm"), str(CLI_RUNS / "vocoder" / "checkpoint_last")
+    _, t_syn = wall(lambda: cli_generate.main([
+        "synthesize", "--video", str(video), "--audio", str(audio), "--preset", CLI_PRESET,
+        "--checkpoint", nollm, "--vocoder-checkpoint", voc, "--out", str(out), "--device", DEV]))
+    sr, wav = wavfile.read(out)
+    if sr != 16000 or wav.shape != (400 * 640,) or not np.isfinite(wav).all():
+        raise SmokeFailure(f"cli_generate synthesize: {sr} Hz, {wav.shape}")
+    system = cli_generate.load_speech(nollm, CLI_PRESET, DEV)
+    with torch.inference_mode():
+        head = system(cli_generate.clip_batch(video, audio, system.cfg, CLI_PRESET, DEV))
+    m = head["melspec"][0, : int(head["mel_lengths"][0])].float().cpu().numpy()
+    np.save(mel, m)
+    del system, head
+    _, t_voc = wall(lambda: cli_generate.main([
+        "vocode", "--mel", str(mel), "--checkpoint", voc, "--out", str(CLI_RUNS / "vocoded.wav"),
+        "--device", DEV]))
+    sr, vocoded = wavfile.read(CLI_RUNS / "vocoded.wav")
+    if vocoded.shape != (m.shape[0] * 160,) or not np.isfinite(vocoded).all():
+        raise SmokeFailure(f"cli_generate vocode: {vocoded.shape} from a mel {m.shape}")
+    print(f"  cli_generate: synthesize {wav.shape[0] / 16000:.1f} s of speech in {t_syn:.1f} s "
+          f"(mel {m.shape}), vocode in {t_voc:.1f} s")
+    return {"synthesize_s": t_syn, "vocode_s": t_voc, "samples": int(wav.shape[0]),
+            "mel_frames": int(m.shape[0])}
+
+
+CLI_PRESET = ""  # synthesize's SpeechConfig preset: "" is the full width
+
+
+def cli_phases(table) -> dict:
+    """The command-line phases, each model freed before the next."""
+    CLI_RUNS.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    phases = {"cli_corpus": write_corpus(), "cli_loader": cli_loader_phase(),
+              "cli_train_avsr": cli_train_avsr(table), "cli_eval": cli_eval_phase(table),
+              "cli_train_speech": cli_train_speech(table), "cli_generate": cli_generate_phase()}
+    phases["cli_wall_s"] = time.perf_counter() - t0
+    print(f"  cli phases: {phases['cli_wall_s']:.1f} s")
+    return phases
+
+
 def serving_phases(table, batch) -> tuple:
     """The AVSR serving phases: bf16 weights, then int8 and int4 weights."""
     phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
@@ -3474,6 +4125,12 @@ def main() -> int:
                                       if "output_sha256" in p}}))
         print(card)
         return 0
+    if "--cli" in sys.argv[1:]:
+        phases = cli_phases(kernels())
+        print(json.dumps({"phases": phases}))
+        print(f"smoke --cli: {time.perf_counter() - start:.1f} s, the kernels' build included")
+        print(card)
+        return 0
     if "--beam5" in sys.argv[1:]:
         results = []  # the cases an older tree has too: beam 5, K4 to beam 12
         check_decode(results, wide=False)
@@ -3511,6 +4168,9 @@ def main() -> int:
     print(f"speech training: SpeechConfig() full width, batch {BATCH} x {SECONDS} s (E2E "
           f"{E2E_BATCH}), bf16 trunk; the vocoder f32 at {VOCODER_BATCH} x 8320 samples")
     phases.update(speech_train_phases(table))
+    print(f"command line: manifest corpus of {CLI_CLIPS} clips; cli.train, cli.eval and "
+          "cli.generate at full width")
+    phases.update(cli_phases(table))
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():

@@ -1,13 +1,71 @@
-"""The optimization and checkpoint configuration groups.
+"""The root training configuration tree and its groups.
 
-A copy of ``OptimizationConfig`` and ``CheckpointConfig`` from
-``multimodalvc_tpu/config/configs.py`` (same fields, same defaults), so that
-a preset such as ``conf/mms-llama.yaml`` configures both packages alike.
+A copy of ``multimodalvc_tpu/config/configs.py`` (the same groups, fields and
+defaults), so that a preset such as ``conf/mms-llama.yaml`` configures both
+packages alike.  The port reads the mesh group only to refuse what it cannot
+run: it trains on one card in one process (``cli/train.py``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+from .structured import MISSING
+
+
+@dataclass
+class CommonConfig:
+    seed: int = 1
+    log_interval: int = 100
+    log_format: str = "simple"  # simple | json
+    tensorboard_logdir: Optional[str] = None
+    # extra metric sinks; each does nothing when unset or when its client
+    # package is absent
+    wandb_project: Optional[str] = None
+    azureml_logging: bool = False
+    metrics_jsonl: Optional[str] = None  # append-only JSONL metrics stream
+    # the dtype the modules compute in (the trainer keeps f32 masters)
+    compute_dtype: str = "bfloat16"
+    profile: bool = False
+    profile_dir: str = "profiles"
+    # log when one optimizer step blocks longer than this (0 = off)
+    step_timeout_s: float = 0.0
+    # the JAX package's recompile guard (no compiled step here)
+    max_compilations: int = 4
+
+
+@dataclass
+class MeshConfig:
+    """Device-mesh layout: -1 on one axis fills it with the devices left."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    sequence: int = 1
+    expert: int = 1
+    pipeline: int = 1
+    # number of microbatches when pipeline > 1
+    microbatches: int = 1
+
+
+@dataclass
+class DatasetConfig:
+    data: str = MISSING  # manifest directory
+    train_subset: str = "train"
+    valid_subset: str = "valid"
+    batch_size: Optional[int] = None
+    max_tokens: Optional[int] = 1000  # video frames budget per batch
+    num_workers: int = 4
+    required_batch_size_multiple: int = 8
+    skip_invalid_size_inputs_valid_test: bool = True
+    validate_interval: int = 1
+    # skip validation; checkpoints then track the training loss
+    disable_validation: bool = False
+    # beam-decode this many validation batches a validation pass and report
+    # the corpus WER (-1 = all, 0 = off); enables best_checkpoint_metric: wer
+    valid_wer_batches: int = 0
+    # samples are padded up to the nearest bucket boundary
+    length_buckets: Tuple[int, ...] = (100, 200, 300, 400, 500)
 
 
 @dataclass
@@ -65,3 +123,39 @@ class CheckpointConfig:
     # torch .pt checkpoint to import weights from
     init_from_pt: Optional[str] = None
     async_save: bool = True
+
+
+@dataclass
+class GenerationConfig:
+    beam: int = 5
+    max_len: int = 100
+    min_len: int = 1
+    temperature: float = 0.3
+    length_penalty: float = 1.0
+    no_repeat_ngram_size: int = 0
+    # weight-only quantized decode: None | "int8" | "int4"
+    weight_quant: Optional[str] = None
+    # beam reorder: None = the ancestry decode on the card, the gather
+    # reorder on the CPU; True / False force it
+    ancestry_decode: Optional[bool] = None
+    # KV-cache format: None (bf16) | "int8" (implies the ancestry decode)
+    kv_cache_quant: Optional[str] = None
+    # run the encoders and the prompt assembly in N sequential chunks
+    encoder_microbatch: int = 0
+    # lexically constrained decoding: None | "unordered" | "ordered"
+    constraints: Optional[str] = None
+    # line N: the tab-separated constraint phrases of manifest sample N
+    constraints_file: Optional[str] = None
+
+
+@dataclass
+class TrainRootConfig:
+    common: CommonConfig = field(default_factory=CommonConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    generation: GenerationConfig = field(default_factory=GenerationConfig)
+    task: Dict[str, Any] = field(default_factory=dict)  # includes 'name'
+    model: Dict[str, Any] = field(default_factory=dict)  # includes 'name'
+    criterion: Dict[str, Any] = field(default_factory=dict)  # includes 'name'

@@ -1,0 +1,102 @@
+"""Length-bucketed batch construction.
+
+Port of the numpy path of ``multimodalvc_tpu/data/batching.py`` (the JAX
+package's native fast path never loads: its ``data/native`` module does not
+exist).  fairseq's ``batch_by_size`` cost model over length-sorted indices,
+each batch padded to a bucket boundary, with fairseq's remainder carry under
+``required_multiple``: no sample is ever dropped.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+def bucket_for(length: int, buckets: Sequence[int]) -> int:
+    """The smallest bucket >= length (longer lengths clamp to the last)."""
+    for b in buckets:
+        if length <= b:
+            return b
+    return buckets[-1]
+
+
+def batch_by_size(
+    sizes: Sequence[int],
+    max_tokens: Optional[int] = None,
+    batch_size: Optional[int] = None,
+    buckets: Sequence[int] = (100, 200, 300, 400, 500),
+    required_multiple: int = 1,
+    shuffle_seed: Optional[int] = None,
+) -> List[np.ndarray]:
+    """Group indices into batches of same-bucket samples.  A batch of n
+    samples padded to bucket B costs n * B tokens; a batch is flushed when
+    one more sample would pass ``max_tokens`` or ``batch_size``, or changes
+    the bucket.  Returns a list of index arrays."""
+    sizes = np.asarray(sizes)
+    order = np.argsort(sizes, kind="stable")
+    batches: List[np.ndarray] = []
+    cur: List[int] = []
+    cur_bucket = 0
+    for idx in order:
+        b = bucket_for(int(sizes[idx]), buckets)
+        new_bucket = max(cur_bucket, b)
+        n = len(cur) + 1
+        over_tokens = max_tokens is not None and n * new_bucket > max_tokens
+        over_batch = batch_size is not None and n > batch_size
+        if cur and (over_tokens or over_batch or b != cur_bucket):
+            # flush the largest required_multiple-aligned prefix; the
+            # remainder carries into the next batch
+            keep = len(cur)
+            if required_multiple > 1 and len(cur) >= required_multiple:
+                keep = (len(cur) // required_multiple) * required_multiple
+            batches.append(np.asarray(cur[:keep]))
+            cur = cur[keep:]
+            new_bucket = b  # carried items are shorter (sorted order)
+        cur.append(int(idx))
+        cur_bucket = new_bucket
+    if cur:
+        batches.append(np.asarray(cur))  # the final remainder, whole
+    return _shuffled(batches, shuffle_seed)
+
+
+def _shuffled(batches: List[np.ndarray], seed: Optional[int]) -> List[np.ndarray]:
+    if seed is None:
+        return batches
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(batches))
+    return [batches[i] for i in order]
+
+
+def pad_batch_to_multiple(batch: dict, multiple: int) -> dict:
+    """Repeat trailing rows so that dim 0 of every array is a multiple of
+    ``multiple`` (the rows are those of the largest dim 0)."""
+    sizes = {v.shape[0] for v in batch.values() if hasattr(v, "ndim") and v.ndim >= 1}
+    if not sizes:
+        return batch
+    b = max(sizes)
+    target = -(-b // multiple) * multiple
+    if target == b:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if hasattr(v, "ndim") and v.ndim >= 1 and v.shape[0] == b:
+            reps = np.concatenate([np.arange(b), np.full(target - b, b - 1)])
+            out[k] = v[reps]
+        else:
+            out[k] = v
+    return out
+
+
+def pad_to(arr: np.ndarray, length: int, axis: int = 0, value=0) -> np.ndarray:
+    """Pad or cut along one axis to a static length."""
+    cur = arr.shape[axis]
+    if cur == length:
+        return arr
+    if cur > length:
+        sl = [slice(None)] * arr.ndim
+        sl[axis] = slice(0, length)
+        return arr[tuple(sl)]
+    cfg = [(0, 0)] * arr.ndim
+    cfg[axis] = (0, length - cur)
+    return np.pad(arr, cfg, constant_values=value)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config.registry import register_model
 from ..criterions.lm import lm_metrics
 from ..nn.avhubert import AVHubertConfig, AVHubertModel
 from ..nn.init import init_random_
@@ -352,6 +353,7 @@ def resolve_ancestry_reorder(kv_quant: Optional[str], device: torch.device | str
     return bool(kv_quant) or torch.device(device).type == "cuda"
 
 
+@register_model("mms_llama_avsr", config=AVSRConfig)
 class AVSRSystem:
     """Bundles the module with generation (HF-generate-equivalent decode) and
     the training loss."""

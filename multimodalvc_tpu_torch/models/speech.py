@@ -34,6 +34,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from ..config.registry import register_model
 from ..nn.conformer import ConformerConfig, ConformerEncoder
 from ..nn.hifigan import HifiGanConfig, HifiGanGenerator
 from ..nn.init import init_random_
@@ -233,18 +234,21 @@ class _SpeechSystem:
         return self.module(batch)
 
 
+@register_model("mms_llama_speech", config=SpeechConfig)
 class SpeechLLMSystem(_SpeechSystem):
     def __init__(self, cfg: SpeechConfig, dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
         super().__init__(SpeechLLMModel(cfg, device=device, dtype=dtype))
 
 
+@register_model("mms_speech_nollm", config=SpeechConfig)
 class SpeechNoLLMSystem(_SpeechSystem):
     def __init__(self, cfg: SpeechConfig, dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
         super().__init__(SpeechNoLLMModel(cfg, device=device, dtype=dtype))
 
 
+@register_model("mms_speech_nollm_e2e", config=SpeechConfig)
 class SpeechE2ESystem(_SpeechSystem):
     def __init__(self, cfg: SpeechConfig, vocoder: Optional[HifiGanConfig] = None,
                  dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda"):

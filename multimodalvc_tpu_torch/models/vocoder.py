@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.func import functional_call
 
+from ..config.registry import register_model
 from ..criterions.gan import discriminator_update_, generator_gan_loss, step_metrics
 from ..nn.hifigan import (
     HifiGanConfig,
@@ -69,6 +70,7 @@ class VocoderConfig:
     disc_channels_cap: int = 1024
 
 
+@register_model("hifigan_vocoder", config=VocoderConfig)
 class VocoderModel:
     """The generator, built on ``device`` (the card unless the caller passes
     "cpu") in ``dtype``; its flax ``params`` load through the bridge into

@@ -156,6 +156,46 @@ def average_checkpoints(trees: List[Any]) -> Any:
     return trees[-1]
 
 
+def load_ensemble(manager: CheckpointManager, restore_file: str, mode: str = "logprob",
+                  strict: bool = True, map_location=None) -> Optional[List[Any]]:
+    """The checkpoints named in a comma-separated ``restore_file``: the list
+    of states for a log-prob ensemble (``mode`` "logprob"), or one
+    parameter-averaged state (``mode`` "average", ``average_checkpoints``).
+    With ``strict``, a missing member of a multi-member list raises; a single
+    missing name returns None, so that the caller keeps its fallback."""
+    names = [n.strip() for n in restore_file.split(",") if n.strip()]
+    states, missing = [], []
+    for name in names:
+        state = manager.restore(name=name, map_location=map_location)
+        if state is None:
+            missing.append(name)
+            logger.warning("ensemble member %s not found%s", name, "" if strict else ": skipped")
+            continue
+        states.append(state)
+    if missing and strict and len(names) > 1:
+        raise FileNotFoundError(
+            f"ensemble member(s) not found: {', '.join(missing)} (requested: {restore_file}; "
+            "checkpoint.strict_ensemble=false decodes with the remaining members)")
+    if not states:
+        return None
+    if mode == "average" and len(states) > 1:
+        return [average_checkpoints(states)]
+    return states
+
+
+def load_model(module: torch.nn.Module, state: Dict[str, Any]) -> None:
+    """Copy a checkpoint's ``state["model"]`` (``Trainer.state_dict``: the
+    whole module, its trainable leaves as their f32 masters) into
+    ``module``, each entry cast to the module's dtype.  Entries the module
+    does not name are skipped, as the JAX restore takes the part of a
+    checkpoint that its template names; an entry the checkpoint lacks
+    raises."""
+    missing, _ = module.load_state_dict(state["model"], strict=False)
+    if missing:
+        raise KeyError(f"the checkpoint lacks {len(missing)} of the module's entries, "
+                       f"such as {missing[:3]}")
+
+
 def filter_frozen(state_dict: Dict[str, Any], frozen_patterns: List[str]) -> Dict[str, Any]:
     """Drop the frozen entries of a flat ``state_dict`` from an export: those
     whose name joined by "/" a frozen regex matches."""

@@ -1,25 +1,29 @@
-"""Task layer: couples each model with its trainer loss and its validation.
+"""Task layer: couples datasets, models and criterions for the command line.
 
-Port of ``multimodalvc_tpu/tasks.py`` without ``load_dataset`` (the data
-loaders are not ported yet): for the AVSR LM loss (``AVSRTask``), the
-speech heads' mel regression (``SpeechTask``), the standalone vocoder
-(``VocoderTask``) and the E2E GAN (``E2EGanTask``), the batch preparation,
-the trainer loss or trainer, the frozen patterns and the validation step.
-The speech tasks draw each training batch's modality mode from their own
-``np.random.default_rng(7)``, as the JAX tasks do, so both packages give a
-run the same modes.
+Port of ``multimodalvc_tpu/tasks.py`` (but ``AVHubertPretrainTask``): for
+the AVSR LM loss (``AVSRTask``), the speech heads' mel regression
+(``SpeechTask``), the standalone vocoder (``VocoderTask``) and the E2E GAN
+(``E2EGanTask``), the dataset of each subset (``load_dataset``), the batch
+preparation, the trainer loss or trainer, the frozen patterns, the
+validation step and, for AVSR, the beam decode to text.  The tasks are
+registered under the JAX package's names, which the presets' ``task.name``
+give.  The speech tasks draw each training batch's modality mode from their
+own ``np.random.default_rng(7)``, as the JAX tasks do, so both packages give
+a run the same modes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .config.registry import register_task
 from .criterions.gan import E2EGanConfig, E2EGanTrainer
 from .criterions.lm import lm_metrics
 from .criterions.mel import MelL1Config, MelL1Criterion
+from .data.dataset import AVSRDataset, AVSRDatasetConfig
 from .models.avsr import AVSRConfig, AVSRSystem
 from .models.speech import SpeechConfig, SpeechE2EModel, SpeechLLMModel, SpeechNoLLMModel
 from .models.vocoder import VocoderConfig, VocoderModel
@@ -38,14 +42,24 @@ def _trim_audio_feats(batch: Dict[str, torch.Tensor], whisper_frames: int) -> Di
 
 @dataclass
 class AVSRTaskConfig:
-    """The task group's field the port reads; the data fields (manifest,
-    noise, buckets, augmentation) come with the data loaders."""
-
+    data: str = ""
+    llm_path: Optional[str] = None
+    noise_wav: Optional[str] = None
+    noise_prob: float = 0.25
+    noise_snr: Optional[float] = None
+    modalities: tuple = ("video", "audio")
+    max_video_frames: int = 500
+    max_label_tokens: int = 96
+    length_buckets: tuple = (100, 200, 300, 400, 500)
+    image_aug: bool = True
     pipeline_microbatches: int = 0  # > 0: the pipelined LLaMA loss, not ported yet
 
 
+@register_task("avsr_training", config=AVSRTaskConfig)
 class AVSRTask:
-    """LM-loss AVSR fine-tuning."""
+    """LM-loss AVSR fine-tuning.  The system's config is ``model_cfg``
+    itself, so the special-token ids that ``load_dataset`` sets reach
+    ``generate``."""
 
     BATCH_KEYS = ("video", "video_lengths", "audio_feats", "audio_lengths", "instruction",
                   "labels", "label_lengths")
@@ -55,6 +69,42 @@ class AVSRTask:
         self.cfg = cfg
         self.model_cfg = model_cfg or AVSRConfig()
         self.system = AVSRSystem(self.model_cfg, dtype=dtype, device=device)
+
+    @classmethod
+    def from_config(cls, cfg, model_cfg=None, dtype=torch.float32, device="cuda"):
+        return cls(cfg, model_cfg, dtype, device)
+
+    @property
+    def module(self) -> torch.nn.Module:
+        return self.system.module
+
+    def init_random(self, seed: int = 0) -> None:
+        """Random weights from ``seed`` (``init_random_``)."""
+        self.system.init_random(seed)
+
+    def load_dataset(self, subset: str) -> AVSRDataset:
+        """The subset's dataset: noise on the train subset (on the others only
+        at a fixed ``noise_snr``); the model's eos and pad ids follow the
+        tokenizer."""
+        c = self.cfg
+        ds = AVSRDataset(AVSRDatasetConfig(
+            manifest_dir=c.data,
+            subset=subset,
+            llm_path=c.llm_path,
+            modalities=c.modalities,
+            noise_wav=c.noise_wav,
+            noise_prob=c.noise_prob if subset == "train" else (
+                c.noise_prob if c.noise_snr is not None else 0.0),
+            noise_snr=c.noise_snr,
+            max_video_frames=c.max_video_frames,
+            max_label_tokens=c.max_label_tokens,
+            length_buckets=tuple(c.length_buckets),
+            image_aug=c.image_aug,
+            with_text_labels=True,
+        ))
+        self.model_cfg.eos_token_id = ds.tokenizer.eos_token_id
+        self.model_cfg.pad_token_id = ds.tokenizer.pad_token_id
+        return ds
 
     def prepare_batch(self, batch: Dict[str, torch.Tensor], train: bool = True):
         batch = _trim_audio_feats(batch, self.model_cfg.whisper.max_frames)
@@ -76,6 +126,48 @@ class AVSRTask:
             return lm_metrics(*module(batch, train=False))
 
         return valid_step
+
+    def decode_to_text(self, batch: Dict[str, torch.Tensor], ids, dataset: AVSRDataset,
+                       generation_cfg, constraints_by_id=None,
+                       ensemble: Sequence[AVSRSystem] = ()) -> Tuple[List[str], List[str]]:
+        """Beam-decode one prepared batch to (hypotheses, references) text,
+        for evaluation and for validation-time WER.  ``constraints_by_id``
+        maps a manifest sample id to its constraint phrases (token lists); a
+        batch with none keeps the unconstrained path.  ``ensemble``: further
+        systems that decode with this one (log-prob averaged)."""
+        tok = dataset.tokenizer
+        gen_batch = {k: v for k, v in batch.items() if k not in ("labels", "label_lengths")}
+        cons_kw = {}
+        if constraints_by_id:
+            batch_cons = [constraints_by_id.get(int(i), []) for i in ids]
+            if any(batch_cons):
+                cons_kw = dict(constraints=batch_cons,
+                               constraints_mode=generation_cfg.constraints or "unordered")
+        seqs, _ = self.system.generate(
+            gen_batch,
+            num_beams=generation_cfg.beam,
+            max_new_tokens=generation_cfg.max_len,
+            length_penalty=generation_cfg.length_penalty,
+            no_repeat_ngram_size=generation_cfg.no_repeat_ngram_size,
+            ancestry_reorder=generation_cfg.ancestry_decode,
+            kv_quant=generation_cfg.kv_cache_quant,
+            encoder_microbatch=generation_cfg.encoder_microbatch,
+            ensemble=ensemble,
+            **cons_kw,
+        )
+        best = seqs[:, 0].cpu().numpy()
+        hyps: List[str] = []
+        refs: List[str] = []
+        for row, sample_id in zip(best, ids):
+            toks = []
+            for tkn in row.tolist():
+                if tkn == self.model_cfg.eos_token_id:
+                    break
+                toks.append(tkn)
+            hyps.append(tok.decode(toks))
+            refs.append(dataset.manifest.labels[int(sample_id)] if dataset.manifest.labels
+                        else "")
+        return hyps, refs
 
 
 @dataclass
@@ -104,6 +196,7 @@ def _take(batch, keys) -> Dict[str, torch.Tensor]:
     return {k: batch[k] for k in keys if k in batch}
 
 
+@register_task("speech_training", config=SpeechTaskConfig)
 class SpeechTask:
     """Mel-regression training of a speech head: "nollm" (``SpeechNoLLMModel``
     with modality dropout) or "llm" (``SpeechLLMModel``, LLaMA frozen but
@@ -127,9 +220,29 @@ class SpeechTask:
         self.criterion = MelL1Criterion(MelL1Config())
         self._mode = _ModeDraw(cfg)
 
+    @classmethod
+    def from_config(cls, cfg, model_cfg=None, dtype=torch.float32, device="cuda"):
+        return cls(cfg, model_cfg, dtype, device)
+
     def init_random(self, seed: int = 0) -> None:
         """Random weights from ``seed`` (``init_random_``)."""
         init_random_(self.module, seed)
+
+    def load_dataset(self, subset: str) -> AVSRDataset:
+        """The subset's dataset with mel targets (and the transcripts with
+        the instruction for the "llm" variant); no augmentation."""
+        c = self.cfg
+        return AVSRDataset(AVSRDatasetConfig(
+            manifest_dir=c.data,
+            subset=subset,
+            llm_path=c.llm_path,
+            modalities=c.modalities,
+            max_video_frames=c.max_video_frames,
+            length_buckets=tuple(c.length_buckets),
+            with_text_labels=c.variant == "llm",
+            with_mel_targets=True,
+            max_mel_frames=c.max_mel_frames,
+        ))
 
     def prepare_batch(self, batch: Dict[str, torch.Tensor], train: bool = True):
         """The model's keys, the Whisper features cut to its window and, in
@@ -170,18 +283,40 @@ class SpeechTask:
 
 @dataclass
 class VocoderTaskConfig:
+    data: str = ""
     segment_length: int = 8320
     lr: float = 1e-4
 
 
+@register_task("vocoder_training", config=VocoderTaskConfig)
 class VocoderTask:
-    """Standalone HiFi-GAN training: ``VocoderModel`` and its batches."""
+    """Standalone HiFi-GAN training: ``VocoderModel`` and its batches.  The
+    generator trains in f32, as the JAX task's does, whatever the compute
+    dtype (the E2E task keeps its generator in f32 too)."""
 
     def __init__(self, cfg: VocoderTaskConfig, model_cfg: Optional[VocoderConfig] = None,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 device="cuda"):
         self.cfg = cfg
         self.model_cfg = model_cfg or VocoderConfig(lr=cfg.lr, segment_length=cfg.segment_length)
-        self.model = VocoderModel(self.model_cfg, dtype=dtype, device=device)
+        self.model = VocoderModel(self.model_cfg, device=device)
+
+    @classmethod
+    def from_config(cls, cfg, model_cfg=None, dtype=None, device="cuda"):
+        """``dtype`` (the compute dtype) is not used: see the class."""
+        return cls(cfg, model_cfg, device)
+
+    def load_dataset(self, subset: str) -> AVSRDataset:
+        """The audio of the subset: mel targets and waveforms padded or cut
+        to one segment."""
+        return AVSRDataset(AVSRDatasetConfig(
+            manifest_dir=self.cfg.data,
+            subset=subset,
+            modalities=("audio",),
+            with_text_labels=False,
+            with_mel_targets=True,
+            with_waveform=True,
+            max_mel_frames=self.model_cfg.segment_length // 160,
+        ))
 
     def prepare_batch(self, batch: Dict[str, torch.Tensor], train: bool = True):
         """The segment's mel frames and samples: {"mel", "wav"}."""
@@ -203,6 +338,7 @@ class E2EGanTaskConfig(SpeechTaskConfig):
     disc_channels_cap: int = 1024
 
 
+@register_task("e2e_gan_training", config=E2EGanTaskConfig)
 class E2EGanTask:
     """E2E waveform training with the HiFi-GAN two-optimizer step
     (``criterions/gan.py``).  The model (``SpeechE2EModel``, modality dropout
@@ -230,9 +366,28 @@ class E2EGanTask:
                                     disc_channels_cap=cfg.disc_channels_cap)
         self._mode = _ModeDraw(cfg)
 
+    @classmethod
+    def from_config(cls, cfg, model_cfg=None, dtype=torch.float32, device="cuda"):
+        return cls(cfg, model_cfg, dtype, device)
+
     def init_random(self, seed: int = 0) -> None:
         """Random weights from ``seed`` (``init_random_``)."""
         init_random_(self.model, seed)
+
+    def load_dataset(self, subset: str) -> AVSRDataset:
+        """The subset's dataset with mel targets and waveforms."""
+        c = self.cfg
+        return AVSRDataset(AVSRDatasetConfig(
+            manifest_dir=c.data,
+            subset=subset,
+            modalities=c.modalities,
+            max_video_frames=c.max_video_frames,
+            length_buckets=tuple(c.length_buckets),
+            with_text_labels=False,
+            with_mel_targets=True,
+            with_waveform=True,
+            max_mel_frames=c.max_mel_frames,
+        ))
 
     def frozen_patterns(self) -> List[str]:
         if not self.cfg.stage1_freeze:

@@ -1,0 +1,161 @@
+"""The port's configuration layer against the JAX package's: every preset
+under conf/ loads into the port's TrainRootConfig as into the JAX one (the
+same ``to_dict``, with and without dotted overrides, which parse alike);
+the served presets' task and model groups build the port's registered
+configs as the JAX ones; chip_smoke.py's override lists are their presets;
+and what the port's CLI cannot run (a mesh beyond one device, a
+multi-process launch, ``checkpoint.init_from_pt``) raises
+NotImplementedError."""
+import dataclasses
+import glob
+import os
+
+import pytest
+from torch_parity import t  # noqa: F401 (sets one torch thread)
+
+import chip_smoke
+from multimodalvc_tpu import config as jconfig
+from multimodalvc_tpu import tasks as jtasks  # noqa: F401 (registers the tasks)
+from multimodalvc_tpu.models import avsr as _javsr, speech as _jsp, vocoder as _jvoc  # noqa: F401
+from multimodalvc_tpu_torch import config as tconfig
+from multimodalvc_tpu_torch.cli import train as ttrain
+from multimodalvc_tpu_torch.config import registry as tregistry
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PRESETS = sorted(os.path.basename(p)[:-5] for p in glob.glob(os.path.join(REPO, "conf", "*.yaml")))
+# the presets whose task and model the port's CLI serves
+SERVED = ["hifigan-vocoder", "mms-llama", "mms-llama-speech", "mms-speech-nollm",
+          "mms-speech-nollm-e2e", "s2s_decode"]
+OVERRIDES = ["dataset.data=/data/manifest", "task.noise_wav=/data/babble.wav",
+             "optimization.max_update=12", "optimization.lr=3.0e-5",
+             "optimization.adam_betas=[0.9,0.95]", "dataset.length_buckets=[50,100]",
+             "dataset.batch_size=null", "generation.weight_quant=int8",
+             "generation.ancestry_decode=true", "checkpoint.restore_file=a,b",
+             "common.profile=false", "model.queries_per_sec=4", "task.image_aug=false"]
+
+
+def both(tree_fn):
+    """(JAX, port) TrainRootConfig of the tree ``tree_fn(module)`` builds."""
+    return (jconfig.from_dict(jconfig.TrainRootConfig, tree_fn(jconfig)),
+            tconfig.from_dict(tconfig.TrainRootConfig, tree_fn(tconfig)))
+
+
+def preset_path(name: str) -> str:
+    return os.path.join(REPO, "conf", f"{name}.yaml")
+
+
+@pytest.mark.parametrize("with_overrides", [False, True], ids=["plain", "overridden"])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_presets_load_as_in_jax(preset, with_overrides):
+    ov = OVERRIDES if with_overrides else []
+    want, got = both(lambda m: m.apply_overrides(m.load_yaml(preset_path(preset)), ov))
+    assert tconfig.to_dict(got) == jconfig.to_dict(want)
+    assert tconfig.load_yaml(preset_path(preset)) == jconfig.load_yaml(preset_path(preset))
+
+
+def test_defaults_and_groups_match_jax():
+    want, got = both(lambda m: {})
+    assert tconfig.to_dict(got) == jconfig.to_dict(want)
+    for name in ("CommonConfig", "MeshConfig", "DatasetConfig", "OptimizationConfig",
+                 "CheckpointConfig", "GenerationConfig"):
+        fields = lambda cls: [(f.name, f.default if f.default is not dataclasses.MISSING  # noqa
+                               else None) for f in dataclasses.fields(cls)]
+        assert fields(getattr(tconfig, name)) == fields(getattr(jconfig, name)), name
+    assert tconfig.MISSING == jconfig.MISSING
+
+
+@pytest.mark.parametrize("raw", ["null", "None", "~", "true", "False", "7", "-3", "2.5e-4",
+                                 "[1,2,3]", "[]", "[a, 2.0]", "text", "1e3"])
+def test_overrides_parse_alike(raw):
+    from multimodalvc_tpu.config import structured as js
+    from multimodalvc_tpu_torch.config import structured as ts
+
+    assert ts._parse_scalar(raw) == js._parse_scalar(raw)
+    assert ts.apply_overrides({}, [f"a.b={raw}"]) == js.apply_overrides({}, [f"a.b={raw}"])
+    with pytest.raises(ValueError):
+        ts.apply_overrides({}, ["no_equals_sign"])
+    with pytest.raises(KeyError):
+        tconfig.from_dict(tconfig.TrainRootConfig, {"nope": 1})
+
+
+@pytest.mark.parametrize("preset", SERVED)
+def test_served_presets_build_the_registered_configs(preset):
+    """The task group builds the registered task config (dataset.data flows
+    in), the model group the registered model config, as in the JAX
+    package: the same fields where both have them."""
+    tree = tconfig.load_yaml(preset_path(preset))
+    tree["dataset"]["data"] = "/data/manifest"
+    cfg = tconfig.from_dict(tconfig.TrainRootConfig, tree)
+    task = dict(cfg.task)
+    tcls, tcfg_cls = tregistry.lookup("task", task.pop("name"))
+    jcls, jcfg_cls = jconfig.registry.lookup("task", cfg.task["name"])
+    assert tcls.__name__ == jcls.__name__
+    assert tconfig.to_dict(tconfig.from_dict(tcfg_cls, task)) == \
+        jconfig.to_dict(jconfig.from_dict(jcfg_cls, task))
+    model = dict(cfg.model)
+    name = model.pop("name")
+    _, tm = tregistry.lookup("model", name)
+    _, jm = jconfig.registry.lookup("model", name)
+    got, want = tconfig.to_dict(tconfig.from_dict(tm, model)), jconfig.to_dict(
+        jconfig.from_dict(jm, model))
+    for k in got.keys() & want.keys():
+        if not isinstance(got[k], dict):
+            assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("preset", sorted(chip_smoke.PRESETS))
+def test_smoke_overrides_are_their_presets(preset):
+    extra = ["dataset.data=/corpus", "task.noise_wav=/corpus/babble.wav"]
+    from_file = tconfig.apply_overrides(tconfig.load_yaml(preset_path(preset)), extra)
+    from_list = tconfig.apply_overrides({}, chip_smoke.PRESETS[preset] + extra)
+    assert from_list == from_file
+    assert tconfig.to_dict(tconfig.from_dict(tconfig.TrainRootConfig, from_list)) == \
+        jconfig.to_dict(jconfig.from_dict(jconfig.TrainRootConfig, from_file))
+
+
+MESHES = [{"pipeline": 2}, {"data": 2}, {"data": -1, "fsdp": -1}, {"expert": 4},
+          {"tensor": 2, "data": -1}]
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "_".join(f"{k}{v}" for k, v in m.items()))
+def test_meshes_beyond_one_device_raise(mesh):
+    cfg = tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": mesh})
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ttrain.main(cfg, device="cpu")
+    for ok in ({"data": -1}, {"data": 1}, {"data": -1, "fsdp": 1, "pipeline": 1}):
+        ttrain.check_one_device(tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": ok}))
+
+
+def test_presets_beyond_one_device_raise():
+    for preset in ("mms-llama-pp", "mms-speech-nollm-moe"):
+        cfg = tconfig.from_dict(tconfig.TrainRootConfig, tconfig.load_yaml(preset_path(preset)))
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+            ttrain.main(cfg, device="cpu")
+
+
+def test_multi_process_launch_raises(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ttrain.check_one_device(tconfig.TrainRootConfig())
+
+
+def test_init_from_pt_raises():
+    cfg = tconfig.from_dict(tconfig.TrainRootConfig, {
+        "common": {"compute_dtype": "float32"},
+        "checkpoint": {"init_from_pt": "/reference/model.pt"},
+        "task": {"name": "avsr_training"},
+        "model": {"name": "mms_llama_avsr", "preset": "tiny"}})
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        ttrain.main(cfg, device="cpu")
+
+
+def test_registries_name_the_jax_tasks_and_models():
+    assert set(tregistry.available("task")) == {
+        "avsr_training", "speech_training", "vocoder_training", "e2e_gan_training"}
+    assert set(tregistry.available("task")) < set(jconfig.registry.available("task"))
+    assert set(tregistry.available("model")) == {
+        "mms_llama_avsr", "mms_llama_speech", "mms_speech_nollm", "mms_speech_nollm_e2e",
+        "hifigan_vocoder"}
+    assert set(tregistry.available("model")) <= set(jconfig.registry.available("model"))
+    with pytest.raises(KeyError, match="available"):
+        tregistry.lookup("task", "avhubert_pretraining")
