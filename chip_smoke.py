@@ -110,6 +110,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
      NoLLM and vocoder checkpoints, then ``vocode`` of its mel.
    Each run prints its step ms, the share of a step spent waiting for the
    batch and its peak GiB.
+8. Starts from the paper's weights, in their reference layouts:
+   - ``import_pretrained``: the seed-0 bf16 system written out as HF
+     LLaMA-3.2-3B and HF Whisper-medium state dicts, a fairseq
+     AV-HuBERT-Large ``.pt`` (f32, the positional conv weight-normed, with a
+     ``cfg`` Namespace), the speech-rate predictor's state dict and a product
+     ``.pt`` of trainables drawn from seed 1 (Q-Former, ``query_tokens``,
+     ``afeat_1d_conv``, the projector, peft LoRA, an ``args`` Namespace);
+     the two files read back through ``load_pt`` and imported into a fresh
+     seed-2 system (``merge_state``): every entry equal to its source bit
+     for bit but the folded positional convs (their error printed), only
+     ``audio_proj.*`` logged absent, ``inspect_checkpoint``'s totals of both
+     files, and with int8 weights the same beams as the source's, bit for
+     bit, launching K1, the merged K2 + K3 entry, K7 and K4;
+   - ``cli_init_from_pt``: ``cli.train.main`` on conf/mms-llama.yaml with
+     ``checkpoint.init_from_pt`` = that product ``.pt``, 2 updates, one
+     checkpoint write: the imported entries equal the file's before update
+     1, K1 as in ``cli_train_avsr``;
+   - ``cli_demo``: ``cli.demo.main`` on one 16 s corpus clip from that
+     run's checkpoint at beam 5 (bf16 KV, the ancestry decode: K1, K3, K4),
+     its transcript equal to ``AVSRSystem.generate``'s on the clip.
 
 Prints JSON lines with the kernel checks and the phases, the smoke's own
 wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
@@ -121,6 +141,9 @@ back to the CPU.
 training phases.
 
 ``python3 chip_smoke.py --cli`` runs only the command-line phases (7.).
+
+``python3 chip_smoke.py --import`` runs only the weight-import phases (8.),
+writing the corpus of 7. first.
 
 ``python3 chip_smoke.py --speech`` runs only K1's speech cases and the five
 speech phases.
@@ -4044,6 +4067,459 @@ def cli_phases(table) -> dict:
     return phases
 
 
+# ---- the paper's weights: the reference layouts, read back and imported -------
+
+
+# the entries of AVSRModel a reference product checkpoint holds (the trainables)
+PRODUCT_KEY = r"^encoder\.(afeat_1d_conv|qformer|avfeat_to_llm)\.|^llama\..*\.lora_[ab]$"
+IMPORT_DIR = REPO / "build" / "import"
+IMPORT_TOKENS = 16  # import_pretrained's int8 decode
+DEMO_TOKENS = 32  # cli_demo's --max-len
+# the folded weight-norm convs: the only entries an import rounds
+FOLDED = ("encoder.avhubert.encoder.pos_conv.conv.weight",
+          "encoder.sr_predictor.encoder.pos_conv.conv.weight")
+
+
+def _layer_dots(rest: str) -> str:
+    """A port path's ``layers_{i}.`` as the reference's ``layers.{i}.``."""
+    import re
+
+    return re.sub(r"(^|\.)layers_(\d+)\.", r"\1layers.\2.", rest)
+
+
+def entries_under(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def hf_llama_state(sd) -> dict:
+    """An AVSRModel state dict's LLaMA as an HF ``LlamaForCausalLM`` state
+    dict (``model.*``, without the LoRA adapters, which HF's has not)."""
+    out = {}
+    for rest, x in entries_under(sd, "llama.").items():
+        if ".lora_" not in rest:
+            out["model." + _layer_dots(rest).replace(".base.weight", ".weight")] = x
+    return out
+
+
+def hf_whisper_state(sd) -> dict:
+    """An AVSRModel state dict's Whisper as HF ``WhisperModel`` keys
+    (``model.encoder.*``)."""
+    return {"model.encoder." + _layer_dots(rest).replace(".ffn.", "."): x
+            for rest, x in entries_under(sd, "encoder.whisper.").items()}
+
+
+def fairseq_encoder_state(sd, src: str, dst: str) -> dict:
+    """A port ``TransformerEncoder`` (under ``src``) as fairseq's wav2vec2
+    encoder keys (under ``dst``), the positional conv weight-normed over
+    dims (0, 1) as fairseq's (``weight_g`` = ||w||, ``weight_v`` = w), f32."""
+    import torch
+
+    out = {}
+    for rest, x in entries_under(sd, src).items():
+        x = x.float()
+        if rest == "pos_conv.conv.weight":
+            out[f"{dst}pos_conv.0.weight_v"] = x
+            out[f"{dst}pos_conv.0.weight_g"] = torch.linalg.vector_norm(x, dim=(0, 1),
+                                                                        keepdim=True)
+        elif rest == "pos_conv.conv.bias":
+            out[f"{dst}pos_conv.0.bias"] = x
+        else:
+            out[dst + _layer_dots(rest).replace(".ffn.", ".")] = x
+    return out
+
+
+def fairseq_avhubert_state(sd, seed: int = 3) -> dict:
+    """An AVSRModel state dict's AV-HuBERT as a fairseq AV-HuBERT ``model``
+    state dict in f32: the ResNet's conv3d stem [O, 1, 5, 7, 7] and
+    ``frontend3D`` / ``trunk.layer{l}.{b}`` names, ``downsample.{0,1}``; and
+    the audio stream's projection ``feature_extractor_audio.proj`` (104
+    stacked filterbank features; random from ``seed``), which the port's
+    video-only module has no entry for."""
+    import re
+
+    import torch
+
+    out = {}
+    for rest, x in entries_under(sd, "encoder.avhubert.video_resnet.").items():
+        if rest == "frontend_conv.weight":
+            x = x.unsqueeze(1)
+        rest = re.sub(r"^frontend_(conv|bn|relu)\.",
+                      lambda m: f"frontend3D.{dict(conv=0, bn=1, relu=2)[m[1]]}.", rest)
+        rest = re.sub(r"^trunk\.layer(\d)_(\d)\.", r"trunk.layer\1.\2.", rest)
+        rest = rest.replace("downsample_conv.", "downsample.0.").replace(
+            "downsample_bn.", "downsample.1.")
+        out["feature_extractor_video.resnet." + rest] = x if x.dtype == torch.long else x.float()
+    for rest, x in entries_under(sd, "encoder.avhubert.").items():
+        if rest.startswith(("video_proj.", "layer_norm.", "post_extract_proj.")):
+            out[rest.replace("video_proj.", "feature_extractor_video.proj.")] = x.float()
+    out.update(fairseq_encoder_state(sd, "encoder.avhubert.encoder.", "encoder."))
+    d = out["feature_extractor_video.proj.weight"].shape[0]
+    dev = out["layer_norm.weight"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out["feature_extractor_audio.proj.weight"] = 0.02 * torch.randn(d, 104, generator=g, device=dev)
+    out["feature_extractor_audio.proj.bias"] = torch.zeros(d, device=dev)
+    return out
+
+
+def sr_predictor_state(sd) -> dict:
+    """An AVSRModel state dict's speech-rate predictor as its checkpoint
+    (``sr_predictor.*``, the positional conv weight-normed)."""
+    out = {f"sr_predictor.{rest}": x for rest, x in entries_under(sd, "encoder.sr_predictor.").items()
+           if not rest.startswith("encoder.")}
+    out.update(fairseq_encoder_state(sd, "encoder.sr_predictor.encoder.",
+                                     "sr_predictor.encoder."))
+    return out
+
+
+_QFORMER_NAMES = [("self_attn.q_proj", "attention.self.query"),
+                  ("self_attn.k_proj", "attention.self.key"),
+                  ("self_attn.v_proj", "attention.self.value"),
+                  ("self_attn.out_proj", "attention.output.dense"),
+                  ("self_ln", "attention.output.LayerNorm"),
+                  ("cross_attn.q_proj", "crossattention.self.query"),
+                  ("cross_attn.k_proj", "crossattention.self.key"),
+                  ("cross_attn.v_proj", "crossattention.self.value"),
+                  ("cross_attn.out_proj", "crossattention.output.dense"),
+                  ("cross_ln", "crossattention.output.LayerNorm"),
+                  ("intermediate_query", "intermediate_query.dense"),
+                  ("output_query", "output_query.dense"),
+                  ("ffn_ln", "output_query.LayerNorm")]
+
+
+def product_state(trainables) -> dict:
+    """AVSRModel trainable entries (``PRODUCT_KEY``) as a reference product
+    checkpoint's ``model``: the 50 -> 25 Hz conv, the Q-Former in vendored
+    BERT names, ``query_tokens``, the projector and the peft LoRA adapters
+    (``lora_A`` [r, in] = lora_a^T, ``lora_B`` [out, r] = lora_b^T)."""
+    import re
+
+    out = {}
+    for key, x in trainables.items():
+        if key.startswith("encoder.afeat_1d_conv."):
+            out[key.removeprefix("encoder.")] = x
+        elif key == "encoder.qformer.query_tokens":
+            out["query_tokens"] = x
+        elif key.startswith("encoder.qformer.embeddings_ln."):
+            out["Qformer.bert.embeddings.LayerNorm." + key.rsplit(".", 1)[1]] = x
+        elif key.startswith("encoder.qformer.layers_"):
+            i, rest = re.fullmatch(r"encoder\.qformer\.layers_(\d+)\.(.*)", key).groups()
+            base, leaf = rest.rsplit(".", 1)
+            out[f"Qformer.bert.encoder.layer.{i}.{dict(_QFORMER_NAMES)[base]}.{leaf}"] = x
+        elif key.startswith("encoder.avfeat_to_llm."):
+            out[_layer_dots(key.removeprefix("encoder."))] = x
+        else:
+            i, proj, ab = re.fullmatch(r"llama\.layers_(\d+)\.self_attn\.(\w+)\.lora_([ab])",
+                                       key).groups()
+            out[f"llama.base_model.model.model.layers.{i}.self_attn.{proj}.lora_{ab.upper()}"
+                f".default.weight"] = x.t().contiguous()
+    return out
+
+
+def read_pt(path) -> tuple:
+    """``load_pt`` of ``path``: (the file, seconds, GiB on disk)."""
+    from multimodalvc_tpu_torch.runtime import load_pt
+
+    t0 = time.perf_counter()
+    raw = load_pt(str(path))
+    return raw, time.perf_counter() - t0, os.path.getsize(path) / 2 ** 30
+
+
+def inspect_totals(path, state) -> dict:
+    """``cli.inspect_checkpoint`` of ``path`` (its lines printed at depth 1):
+    its key and parameter totals, which must be those of the ``state``
+    written there."""
+    from multimodalvc_tpu_torch.cli import inspect_checkpoint
+    from multimodalvc_tpu_torch.runtime import flatten_state_dict
+
+    keys, params = inspect_checkpoint.main([str(path), "--depth", "1"])
+    flat = flatten_state_dict(state)
+    want = (len(flat), sum(x.numel() for x in flat.values()))
+    if (keys, params) != want:
+        raise SmokeFailure(f"inspect_checkpoint {path.name}: {keys} keys / {params} params, the "
+                           f"file holds {want[0]} / {want[1]}")
+    return {"keys": keys, "params": params}
+
+
+def import_pretrained(table) -> dict:
+    """The full-width seed-0 bf16 AVSR system written out in the reference
+    layouts (HF LLaMA-3.2-3B and HF Whisper-medium as state dicts, the
+    fairseq AV-HuBERT-Large ``.pt`` with ``cfg``, the speech-rate predictor,
+    and a product ``.pt`` of trainables drawn from seed 1 with ``args``),
+    the two ``.pt`` read back through ``load_pt`` and imported into a fresh
+    seed-2 system through the port's importers and ``merge_state``.  Checks:
+    every entry equals its source bit for bit (the product's where it has
+    one), but the folded positional convs (their max error printed); only
+    ``audio_proj.*`` logged as absent; ``inspect_checkpoint``'s totals of
+    both files; and with int8 weights both systems serve the same beam
+    tokens and scores, bit for bit, with K1, the merged K2 + K3 entry, K7
+    and K4."""
+    import argparse
+    import gc
+    import re
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.interop.avsr_import import (
+        import_reference_avsr,
+        import_sr_predictor,
+        merge_state,
+    )
+    from multimodalvc_tpu_torch.nn.avhubert import import_torch_avhubert
+    from multimodalvc_tpu_torch.nn.llama import import_hf_llama
+    from multimodalvc_tpu_torch.nn.whisper import import_hf_whisper_encoder
+    from multimodalvc_tpu_torch.runtime import flatten_state_dict
+
+    shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+    IMPORT_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    src = build_system(seed=0)
+    sd = src.module.state_dict()
+    g = torch.Generator(device=DEV).manual_seed(1)
+    # the source's trainables drawn anew, as a fine-tuned product holds them
+    trainables = {k: (0.02 * torch.randn(v.shape, generator=g, device=DEV)).to(v.dtype)
+                  for k, v in sd.items() if re.search(PRODUCT_KEY, k)}
+    merge_state(src.module, trainables)
+    cfg = src.cfg
+    t0 = time.perf_counter()
+    av_state = fairseq_avhubert_state(sd)
+    product = {k: v.float() for k, v in product_state(trainables).items()}  # f32 on disk, exact
+    av_path, product_path = IMPORT_DIR / "avhubert_large.pt", IMPORT_DIR / "product.pt"
+    torch.save({"model": av_state, "cfg": argparse.Namespace(
+        encoder_layers=cfg.avhubert.encoder_layers, encoder_embed_dim=cfg.avhubert.encoder_embed_dim,
+        modality_fuse="concat")}, av_path)
+    torch.save({"model": product, "args": argparse.Namespace(
+        llm_path="meta-llama/Llama-3.2-3B", qformer_layers=cfg.qformer_layers)}, product_path)
+    write_s = time.perf_counter() - t0
+    whisper, llama_state, sr_state = hf_whisper_state(sd), hf_llama_state(sd), sr_predictor_state(sd)
+    record = {"write_s": write_s}
+    del av_state, product, trainables
+    torch.cuda.synchronize()
+
+    dst = build_system(seed=2)
+    m = dst.module
+    files = {}
+    absent = []
+    t0 = time.perf_counter()
+    raw_av, av_s, av_gib = read_pt(av_path)
+    raw_product, product_s, product_gib = read_pt(product_path)
+    n = merge_state(m.encoder.whisper, import_hf_whisper_encoder(whisper, cfg.whisper), absent)
+    n += merge_state(m.encoder.avhubert, import_torch_avhubert(
+        flatten_state_dict(raw_av["model"]), cfg.avhubert), absent)
+    n += merge_state(m.encoder.sr_predictor, import_sr_predictor(sr_state), absent)
+    n += merge_state(m.llama, import_hf_llama(llama_state, cfg.llama), absent)
+    n += merge_state(m, import_reference_avsr(flatten_state_dict(raw_product["model"]),
+                                              cfg.qformer_layers), absent)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    files["avhubert_large.pt"] = {"read_s": av_s, "gib": av_gib,
+                                  **inspect_totals(av_path, raw_av["model"])}
+    files["product.pt"] = {"read_s": product_s, "gib": product_gib,
+                           **inspect_totals(product_path, raw_product["model"])}
+    if sorted(absent) != ["audio_proj.bias", "audio_proj.weight"]:
+        raise SmokeFailure(f"import_pretrained: entries logged absent {absent}")
+    got = m.state_dict()
+    entries = len(got)
+    differ, folded = [], {}
+    for key, x in got.items():
+        want = sd[key]
+        if key in FOLDED:
+            folded[key] = max_err(x, want)
+            if folded[key] > 2 ** -8 * float(want.abs().max()):
+                differ.append(key)
+        elif x.dtype != want.dtype or not torch.equal(x, want):
+            differ.append(key)
+    if differ:
+        raise SmokeFailure(f"import_pretrained: {len(differ)} entries differ from their source, "
+                           f"such as {differ[:4]}")
+    print(f"  import_pretrained: {n} entries written in {import_s:.1f} s (the .pt reads "
+          f"included), {entries} equal to their source bit for bit but the folded positional "
+          f"convs (max error {folded}); logged absent {absent}; files {files}")
+    del raw_av, raw_product, whisper, llama_state, sr_state, sd, got
+    gc.collect()
+
+    batch = make_batch()
+    outs = {}
+    for name, system in (("import_source_int8", src), ("import_imported_int8", dst)):
+        system.enable_quantized_decode("int8")
+        phase, seqs, scores = serve(table, system, batch, name, IMPORT_TOKENS,
+                                    dict(kv_quant="int8", ancestry_reorder=True),
+                                    expect=EXPECT["int8_weights"])
+        outs[name] = (phase, seqs, scores)
+    (_, s_seqs, s_scores), (_, i_seqs, i_scores) = outs.values()
+    if not (torch.equal(s_seqs, i_seqs) and torch.equal(s_scores, i_scores)):
+        raise SmokeFailure("import_pretrained: the imported system's int8 beams differ from "
+                           "its source's")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  import_pretrained: int8 beam tokens and scores of the imported system equal its "
+          f"source's bit for bit; peak {peak:.2f} GiB")
+    record.update(entries_written=n, entries=entries, import_s=import_s,
+                  folded_max_err=folded, absent=absent, files=files, peak_gib=peak,
+                  **{name: phase for name, (phase, _, _) in outs.items()})
+    del src, dst, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def cli_init_from_pt(table) -> dict:
+    """``cli.train.main`` on the AVSR preset at full width with
+    ``checkpoint.init_from_pt`` = import_pretrained's product ``.pt``, 2
+    updates, no validation, one checkpoint write.  Checks: before update 1
+    the imported entries equal the file's bit for bit; K1 24 or 48 times a
+    step, as in cli_train_avsr; finite losses; the checkpoint written."""
+    import gc
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.interop.avsr_import import import_reference_avsr
+    from multimodalvc_tpu_torch.ops.attention import flash_attention
+    from multimodalvc_tpu_torch.runtime import flatten_state_dict, load_pt
+
+    save_dir = CLI_RUNS / "avsr_import"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    path = IMPORT_DIR / "product.pt"
+    want = import_reference_avsr(flatten_state_dict(load_pt(str(path))["model"]))
+    seen = {}
+
+    class Probe(cli_train.Trainer):
+        """Trainer that holds the module's imported entries at its start and
+        counts each step's K1 launches."""
+
+        def __init__(self, loss_fn, module, *a, **k):
+            own = module.state_dict()
+            seen["differ"] = [key for key, x in want.items()
+                              if not torch.equal(own[key], x.to(own[key].dtype).to(DEV))]
+            seen["k1"] = []
+            super().__init__(loss_fn, module, *a, **k)
+
+        def train_step(self, batch):
+            before = flash_attention.launches
+            out = super().train_step(batch)
+            seen["k1"].append((flash_attention.launches - before, batch["video"].shape[1]))
+            return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cli_config("mms-llama", [
+        "task.llm_path=null", f"task.noise_wav={CLI_DIR}/babble.wav",
+        f"dataset.max_tokens={CLI_MAX_TOKENS}", "optimization.max_update=2",
+        "dataset.disable_validation=true", "dataset.valid_wer_batches=0",
+        "checkpoint.best_checkpoint_metric=none", f"checkpoint.save_dir={save_dir}",
+        f"checkpoint.init_from_pt={path}"])
+    reset_counts(table)
+    with mock.patch.object(cli_train, "Trainer", Probe), CliTap(cli_train) as tap:
+        _, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [s["loss"] for s in tap.of("train")]
+    if seen["differ"]:
+        raise SmokeFailure(f"cli_init_from_pt: {len(seen['differ'])} imported entries differ "
+                           f"from the file before update 1, such as {seen['differ'][:3]}")
+    wrong = [(n, t) for n, t in seen["k1"] if n != cli_k1_a_step(t)]
+    if wrong or len(seen["k1"]) != 2:
+        raise SmokeFailure(f"cli_init_from_pt: K1 launches (got, video frames) {seen['k1']}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != 2:
+        raise SmokeFailure(f"cli_init_from_pt: losses {losses}")
+    if not (save_dir / "checkpoint_last" / "state.pt").exists() or len(tap.writes) != 1:
+        raise SmokeFailure(f"cli_init_from_pt: {len(tap.writes)} checkpoint writes under {save_dir}")
+    times = step_times(tap)
+    print(f"  cli_init_from_pt: {len(want)} entries imported and equal to the file before update "
+          f"1; {len(losses)} updates in {t_run:.1f} s ({times['mean_step_ms']:.1f} ms a step), "
+          f"losses {[round(x, 4) for x in losses]}, K1 {seen['k1']}, peak {peak:.2f} GiB, one "
+          f"checkpoint write of {times['ckpt_gib']:.2f} GiB in {times['ckpt_write_s']:.1f} s")
+    return {"imported": len(want), "losses": losses, "wall_s": t_run, "peak_gib": peak,
+            "k1_a_step": seen["k1"], "launches": read_counts(table), **times}
+
+
+def cli_demo(table) -> dict:
+    """``cli.demo.main`` on one 16 s corpus clip (.npy video, 16 kHz wav)
+    from cli_init_from_pt's checkpoint at beam 5: ``generate()``'s GPU
+    default (bf16 KV, the ancestry decode: K1, K3 and K4, and nothing else).
+    Its transcript must equal the decode of ``AVSRSystem.generate`` on the
+    same clip's batch, built here, with the same tokenizer."""
+    import gc
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import demo as cli_demo_module
+    from multimodalvc_tpu_torch.data.audio import read_wav, whisper_features_np
+    from multimodalvc_tpu_torch.data.tokenizer import INSTRUCTION_TEXT, load_tokenizer
+    from multimodalvc_tpu_torch.data.video import load_video_frames, transform_video
+
+    clip = clip_frames().index(400)
+    video, audio = CLI_DIR / "data" / f"clip{clip}.npy", CLI_DIR / "data" / f"clip{clip}.wav"
+    tasks, decoded = [], []
+    real_build = cli_demo_module.build_task
+
+    def build_task(*a, **k):
+        """The demo's task, its ``generate`` output kept."""
+        task = real_build(*a, **k)
+        generate = task.system.generate
+        task.system.generate = lambda *a, **k: decoded.append(generate(*a, **k)) or decoded[-1]
+        tasks.append(task)
+        return task
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--config", "", "--video", str(video), "--audio", str(audio), "--beams", str(BEAMS),
+            "--max-len", str(DEMO_TOKENS), "--device", DEV, *PRESETS["mms-llama"],
+            *CLI_EXTRA["mms-llama"], "task.llm_path=null", f"dataset.data={CLI_DIR}",
+            f"checkpoint.save_dir={CLI_RUNS}/avsr_import", "checkpoint.restore_file=checkpoint_last"]
+    expect = {"flash_attention": ON, "gen_attention_ancestor/bf16": ON, "beam_topk_columns": ON}
+    with mock.patch.object(cli_demo_module, "build_task", build_task):
+        phase, text = run_phase(table, "cli_demo", lambda: cli_demo_module.main(argv), expect,
+                                audio_s=SECONDS)
+    task = tasks.pop()
+    check_ancestry("cli_demo", phase["launches"], phase["pytorch_merges"],
+                   task.model_cfg.llama.num_layers, 1)
+    tok = load_tokenizer(None)
+    frames = transform_video(load_video_frames(str(video)))[None]
+    feats = whisper_features_np(read_wav(str(audio)))[None][:, :, : 2 * task.model_cfg.whisper.max_frames]
+    batch = {"video": torch.from_numpy(frames).to(DEV),
+             "video_lengths": torch.tensor([frames.shape[1]], dtype=torch.int32, device=DEV),
+             "audio_feats": torch.from_numpy(feats.copy()).to(DEV),
+             "instruction": torch.tensor([tok.encode(INSTRUCTION_TEXT)], device=DEV)}
+    seqs, _ = task.system.generate(batch, num_beams=BEAMS, max_new_tokens=DEMO_TOKENS)
+    row = seqs[0, 0].tolist()
+    row = row[: row.index(tok.eos_token_id)] if tok.eos_token_id in row else row
+    want = tok.decode(row)
+    if text != want or not torch.equal(decoded[0][0][0, 0], seqs[0, 0]):
+        raise SmokeFailure(f"cli_demo: transcript {text!r} (best beam {decoded[0][0][0, 0]}), "
+                           f"AVSRSystem.generate's {want!r} ({seqs[0, 0]})")
+    print(f"  cli_demo: the transcript ({len(text)} characters of {len(row)} tokens before EOS: "
+          "the byte tokenizer decodes the ids under 256) and the best beam's tokens equal "
+          "AVSRSystem.generate's on the clip's batch")
+    del task, tasks
+    shutil.rmtree(CLI_RUNS / "avsr_import", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**phase, "transcript": text, "beams": BEAMS, "max_len": DEMO_TOKENS}
+
+
+def import_phases(table) -> dict:
+    """The weight-import phases: import_pretrained, then cli_init_from_pt on
+    its product ``.pt`` (with the cli corpus) and cli_demo from that run's
+    checkpoint."""
+    import shutil
+
+    CLI_RUNS.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    phases = {} if (CLI_DIR / "train.tsv").exists() else {"cli_corpus": write_corpus()}
+    phases["import_pretrained"] = import_pretrained(table)
+    phases["cli_init_from_pt"] = cli_init_from_pt(table)
+    phases["cli_demo"] = cli_demo(table)
+    shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+    phases["import_wall_s"] = time.perf_counter() - t0
+    print(f"  import phases: {phases['import_wall_s']:.1f} s")
+    return phases
+
+
 def serving_phases(table, batch) -> tuple:
     """The AVSR serving phases: bf16 weights, then int8 and int4 weights."""
     phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
@@ -4131,6 +4607,12 @@ def main() -> int:
         print(f"smoke --cli: {time.perf_counter() - start:.1f} s, the kernels' build included")
         print(card)
         return 0
+    if "--import" in sys.argv[1:]:
+        phases = import_phases(kernels())
+        print(json.dumps({"phases": phases}))
+        print(f"smoke --import: {time.perf_counter() - start:.1f} s, the kernels' build included")
+        print(card)
+        return 0
     if "--beam5" in sys.argv[1:]:
         results = []  # the cases an older tree has too: beam 5, K4 to beam 12
         check_decode(results, wide=False)
@@ -4171,6 +4653,9 @@ def main() -> int:
     print(f"command line: manifest corpus of {CLI_CLIPS} clips; cli.train, cli.eval and "
           "cli.generate at full width")
     phases.update(cli_phases(table))
+    print("weight import: the reference layouts of the full-width system, read back and imported; "
+          "cli.train with checkpoint.init_from_pt; cli.demo")
+    phases.update(import_phases(table))
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():

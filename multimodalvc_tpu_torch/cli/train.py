@@ -11,11 +11,13 @@ steps, validation (loss, and the beam-decoded WER of
 ``dataset.valid_wer_batches`` batches) at each epoch end and every
 ``checkpoint.save_interval_updates`` updates, checkpoints with the loader's
 position (a restart resumes mid-epoch), patience, the plateau scheduler,
-``max_update`` / ``max_epoch``.  The vocoder and the E2E GAN have their own
-dual-optimizer loops.  One process drives one card: a mesh whose axes all
-resolve to one device is accepted, any other mesh, a multi-process launch
-and ``checkpoint.init_from_pt`` (but for the vocoder) raise.  ``--device
-cpu`` runs on the CPU.
+``max_update`` / ``max_epoch``.  ``checkpoint.init_from_pt`` warm starts
+from a reference product ``.pt`` (``import_init_from_pt``; the vocoder
+from a reference generator).  The vocoder and the E2E GAN have their own
+dual-optimizer loops; the E2E loop refuses ``init_from_pt``, which the JAX
+E2E loop never reads.  One process drives one card: a mesh whose axes all
+resolve to one device is accepted, any other mesh and a multi-process
+launch raise.  ``--device cpu`` runs on the CPU.
 
 A checkpoint holds the whole state, as the JAX package's does: the
 module (its trainable leaves as their f32 masters), the optimizer, the step
@@ -41,18 +43,20 @@ from ..config import TrainRootConfig, apply_overrides, from_dict, load_yaml, mer
 from ..config.configs import MeshConfig
 from ..config.registry import lookup
 from ..data.dataset import BatchLoader, to_device, to_tensors
+from ..interop.avsr_import import import_reference_avsr, merge_state
 from ..models import avsr as _avsr, speech as _speech, vocoder as _vocoder  # noqa: F401
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.debug import Watchdog, find_nonfinite, with_oom_batch_split
 from ..runtime.metrics import MetricsAggregator, MetricSinks, log_stats
+from ..runtime.pt_loader import flatten_state_dict, load_pt
 from ..runtime.trainer import Trainer
 
 logger = logging.getLogger(__name__)
 
 NOT_PARALLEL = ("the port trains on one card in one process; meshes over more devices and "
-                "multi-process launches wait for parallel/ (ROADMAP queue 1 item 8)")
-NO_PT_IMPORT = ("checkpoint.init_from_pt: the reference .pt import (interop/, pt_loader) is "
-                "not ported yet (ROADMAP queue 1 item 9)")
+                "multi-process launches wait for parallel/ (ROADMAP queue 1 item 5)")
+E2E_NO_PT = ("checkpoint.init_from_pt: the E2E GAN loop takes no reference .pt, as the JAX "
+             "E2E loop never reads the field")
 
 
 def parse_args(argv=None, results: bool = False):
@@ -169,11 +173,24 @@ def main(cfg: TrainRootConfig, device="cuda") -> Dict[str, float]:
     with Profiler(cfg):
         if type(task).__name__ == "VocoderTask":
             return _vocoder_loop(cfg, task, device)
-        if cfg.checkpoint.init_from_pt:
-            raise NotImplementedError(NO_PT_IMPORT)
         if type(task).__name__ == "E2EGanTask":
+            if cfg.checkpoint.init_from_pt:
+                raise NotImplementedError(E2E_NO_PT)
             return _e2e_gan_loop(cfg, task, device)
         return _train_loop(cfg, task, device)
+
+
+def import_init_from_pt(module: torch.nn.Module, path: str) -> int:
+    """Warm start ``module`` from a reference product ``.pt``, as the JAX
+    training loop does: ``load_pt``, its ``model`` entry (or the whole
+    file), ``import_reference_avsr`` (the Q-Former, projector and LoRA
+    trainables; the frozen encoders keep their own weights) and
+    ``merge_state``.  Returns the number of entries written."""
+    raw = load_pt(path)
+    state = raw.get("model", raw) if isinstance(raw, dict) else raw
+    n = merge_state(module, import_reference_avsr(flatten_state_dict(state)))
+    logger.info("imported %d leaves from %s", n, path)
+    return n
 
 
 def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
@@ -181,6 +198,8 @@ def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
     valid_ds = task.load_dataset(cfg.dataset.valid_subset)
     seed = cfg.common.seed
     task.init_random(seed)
+    if cfg.checkpoint.init_from_pt:
+        import_init_from_pt(task.module, cfg.checkpoint.init_from_pt)
     if cfg.optimization.lr_scheduler == "reduce_lr_on_plateau":
         # the plateau direction follows the tracked checkpoint metric
         cfg.optimization.plateau_maximize = bool(cfg.checkpoint.maximize_best_checkpoint_metric)

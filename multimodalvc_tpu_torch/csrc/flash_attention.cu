@@ -500,7 +500,8 @@ extern "C" int mmvc_flash_attention(const void* q, const void* k, const void* v,
                                     int B, int H, int Tq, int Tk, int D, int causal,
                                     float scale, void* stream) {
   // the running max is taken on the raw scores, which needs scale > 0 (the
-  // wrapper ops/attention.py: flash_attention rejects any other)
+  // wrapper ops/attention.py: flash_attention folds any other into q first,
+  // fold_scale, so only a NaN scale reaches this refusal)
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B > 65535 || H > 65535 || !(scale > 0.f))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -42,6 +42,7 @@ from ..nn.hifigan import (
 )
 from ..nn.init import init_random_
 from ..ops.stft import hifigan_log_mel
+from ..runtime.pt_loader import flatten_state_dict, load_pt
 from ..runtime.trainer import (
     AdamW,
     apply_gradients_,
@@ -180,25 +181,17 @@ class VocoderModel:
         """Load a reference vocoder .pt into ``generator``: a raw state dict,
         ``{"generator": ...}`` or ``{"model": ...}``, or a trainer's dict
         whose ``ema_generator`` is taken first with ``use_ema``; a DDP
-        ``module.`` prefix is dropped.  Returns the loaded state_dict."""
-        raw = torch.load(path, map_location="cpu", weights_only=True)
+        ``module.`` prefix is dropped.  The file is read by
+        ``runtime/pt_loader.py: load_pt``, so objects that are not tensors
+        beside the weights (a trainer's ``args``) are skipped.  Returns the
+        loaded state_dict."""
+        raw = load_pt(path)
         state = raw
         for key in (("ema_generator",) if use_ema else ()) + ("generator", "model"):
             if isinstance(raw.get(key), dict):
                 state = raw[key]
                 break
-        flat = {k.removeprefix("module."): v for k, v in _flatten(state).items()}
+        flat = {k.removeprefix("module."): v for k, v in flatten_state_dict(state).items()}
         sd = import_torch_generator(flat, self.cfg.generator)
         self.generator.load_state_dict(sd, strict=True)
         return sd
-
-
-def _flatten(state, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """A nested dict of tensors as one flat dict of "."-joined names."""
-    out: Dict[str, torch.Tensor] = {}
-    for k, v in state.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .state_maps import as_tensor
 from ..ops.attention import flash_attention
 from ..ops.beam_search import beam_search, constrained_beam_search, log_softmax
 from ..ops.decode_attention import (
@@ -861,3 +862,44 @@ def quantize_llama_(model: LlamaModel, mode: str = "int8") -> LlamaModel:
     model.embed_tokens.to(torch.bfloat16)
     model.cfg = cfg
     return model
+
+
+# ---- the HF weight import ---------------------------------------------------------
+
+
+def import_hf_llama(state: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """An HF ``LlamaModel`` / ``LlamaForCausalLM`` state dict (keys under
+    ``""``, ``model.`` or ``base_model.model.model.``) as ``LlamaModel``'s
+    float state dict; the [out, in] weights cross as they are.
+
+    With ``cfg.lora``, each targeted projection gets fresh adapters, drawn
+    as the JAX import draws them: a new ``np.random.default_rng(0)`` for
+    every projection, ``lora_a`` ~ U(-sqrt(6 / in), sqrt(6 / in)) of shape
+    [in, r] in f32, and ``lora_b`` = 0, so the imported model is exact at
+    load."""
+
+    def get(k):
+        for p in ("", "model.", "base_model.model.model."):
+            if p + k in state:
+                return as_tensor(state[p + k])
+        raise KeyError(k)
+
+    out: Dict[str, torch.Tensor] = {"embed_tokens.weight": get("embed_tokens.weight"),
+                                    "norm.weight": get("norm.weight")}
+    for i in range(cfg.num_layers):
+        src, dst = f"layers.{i}", f"layers_{i}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{dst}.{norm}.weight"] = get(f"{src}.{norm}.weight")
+        for name in _ATTN_PROJ:
+            w = get(f"{src}.self_attn.{name}.weight")
+            out[f"{dst}.self_attn.{name}.base.weight"] = w
+            if cfg.lora and name in cfg.lora.targets:
+                d_out, d_in = w.shape
+                bound = math.sqrt(6.0 / d_in)
+                rng = np.random.default_rng(0)
+                out[f"{dst}.self_attn.{name}.lora_a"] = torch.from_numpy(
+                    rng.uniform(-bound, bound, (d_in, cfg.lora.rank)).astype(np.float32))
+                out[f"{dst}.self_attn.{name}.lora_b"] = torch.zeros(cfg.lora.rank, d_out)
+        for name in _MLP_PROJ:
+            out[f"{dst}.mlp.{name}.weight"] = get(f"{src}.mlp.{name}.weight")
+    return out

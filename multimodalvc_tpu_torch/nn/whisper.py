@@ -9,11 +9,13 @@ flash kernel sees whole tiles.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .state_maps import as_tensor
 from ..ops.attention import dot_product_attention, flash_attention
 from .layers import FeedForward, add_layers, gelu_exact, sinusoidal_positions, use_flash
 
@@ -109,3 +111,38 @@ class WhisperEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, lengths=lengths)
         return self.layer_norm(x)[:, :t]
+
+
+# ---- the HF weight import ---------------------------------------------------------
+
+
+def import_hf_whisper_encoder(state: Mapping, cfg: WhisperEncoderConfig) -> Dict[str, torch.Tensor]:
+    """An HF ``WhisperEncoder`` state dict (keys with or without the
+    ``model.encoder.`` or ``encoder.`` prefix) as this module's state dict.
+    The torch layouts match: the convs [O, I, K] and the linears [out, in]
+    cross as they are; ``k_proj`` has no bias."""
+    def get(k):
+        for p in ("", "model.encoder.", "encoder."):
+            if p + k in state:
+                return as_tensor(state[p + k])
+        raise KeyError(k)
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(src, dst, bias=True):
+        out[f"{dst}.weight"] = get(f"{src}.weight")
+        if bias:
+            out[f"{dst}.bias"] = get(f"{src}.bias")
+
+    put("conv1", "conv1")
+    put("conv2", "conv2")
+    put("layer_norm", "layer_norm")
+    for i in range(cfg.num_layers):
+        src, dst = f"layers.{i}", f"layers_{i}"
+        put(f"{src}.self_attn_layer_norm", f"{dst}.self_attn_layer_norm")
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(f"{src}.self_attn.{proj}", f"{dst}.self_attn.{proj}", bias=proj != "k_proj")
+        put(f"{src}.final_layer_norm", f"{dst}.final_layer_norm")
+        put(f"{src}.fc1", f"{dst}.ffn.fc1")
+        put(f"{src}.fc2", f"{dst}.ffn.fc2")
+    return out

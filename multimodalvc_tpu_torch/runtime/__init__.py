@@ -1,1 +1,3 @@
-"""Training runtime of the port: the trainer and its checkpoints."""
+"""Training runtime of the port: the trainer, its checkpoints, and the
+reader of reference ``.pt`` files."""
+from .pt_loader import flatten_state_dict, load_pt  # noqa: F401

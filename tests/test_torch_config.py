@@ -3,9 +3,10 @@ under conf/ loads into the port's TrainRootConfig as into the JAX one (the
 same ``to_dict``, with and without dotted overrides, which parse alike);
 the served presets' task and model groups build the port's registered
 configs as the JAX ones; chip_smoke.py's override lists are their presets;
-and what the port's CLI cannot run (a mesh beyond one device, a
-multi-process launch, ``checkpoint.init_from_pt``) raises
-NotImplementedError."""
+what the port's CLI cannot run (a mesh beyond one device, a multi-process
+launch, ``checkpoint.init_from_pt`` in the E2E GAN loop) raises
+NotImplementedError, and ``checkpoint.init_from_pt`` warm starts an AVSR
+task."""
 import dataclasses
 import glob
 import os
@@ -120,7 +121,7 @@ MESHES = [{"pipeline": 2}, {"data": 2}, {"data": -1, "fsdp": -1}, {"expert": 4},
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "_".join(f"{k}{v}" for k, v in m.items()))
 def test_meshes_beyond_one_device_raise(mesh):
     cfg = tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": mesh})
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ttrain.main(cfg, device="cpu")
     for ok in ({"data": -1}, {"data": 1}, {"data": -1, "fsdp": 1, "pipeline": 1}):
         ttrain.check_one_device(tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": ok}))
@@ -129,24 +130,68 @@ def test_meshes_beyond_one_device_raise(mesh):
 def test_presets_beyond_one_device_raise():
     for preset in ("mms-llama-pp", "mms-speech-nollm-moe"):
         cfg = tconfig.from_dict(tconfig.TrainRootConfig, tconfig.load_yaml(preset_path(preset)))
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             ttrain.main(cfg, device="cpu")
 
 
 def test_multi_process_launch_raises(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ttrain.check_one_device(tconfig.TrainRootConfig())
 
 
-def test_init_from_pt_raises():
+class _Built(Exception):
+    """Raised by a stand-in Trainer: the loop got as far as building it."""
+
+
+@pytest.mark.parametrize("task", ["avsr_training", "e2e_gan_training"])
+def test_init_from_pt(task, tmp_path, monkeypatch):
+    """The AVSR task imports a reference product .pt over its fresh module
+    before the trainer takes it; the E2E GAN loop refuses the field, which
+    the JAX E2E loop never reads."""
+    import argparse
+
+    import torch
+
+    from multimodalvc_tpu_torch import tasks as ttasks
+
+    model = {"avsr_training": "mms_llama_avsr", "e2e_gan_training": "mms_speech_nollm_e2e"}
+    g = torch.Generator().manual_seed(3)
+    state = {"query_tokens": torch.randn(1, 80, 32, generator=g),
+             "avfeat_to_llm.layers.0.weight": torch.randn(48, 32, generator=g),
+             "avfeat_to_llm.layers.0.bias": torch.randn(48, generator=g),
+             "avfeat_to_llm.layers.1.weight": torch.randn(64, 48, generator=g),
+             "avfeat_to_llm.layers.1.bias": torch.randn(64, generator=g),
+             "llama.model.layers.1.self_attn.v_proj.lora_B.default.weight":
+                 torch.randn(32, 16, generator=g)}
+    path = tmp_path / "product.pt"
+    torch.save({"model": state, "args": argparse.Namespace(lr=1e-4)}, path)
     cfg = tconfig.from_dict(tconfig.TrainRootConfig, {
         "common": {"compute_dtype": "float32"},
-        "checkpoint": {"init_from_pt": "/reference/model.pt"},
-        "task": {"name": "avsr_training"},
-        "model": {"name": "mms_llama_avsr", "preset": "tiny"}})
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        "checkpoint": {"init_from_pt": str(path)},
+        "task": {"name": task},
+        "model": {"name": model[task], "preset": "tiny"}})
+    if task == "e2e_gan_training":
+        with pytest.raises(NotImplementedError, match="JAX E2E loop never reads"):
+            ttrain.main(cfg, device="cpu")
+        return
+    seen = {}
+
+    def trainer(loss_fn, module, *a, **k):
+        seen.update(module.state_dict())
+        raise _Built
+
+    monkeypatch.setattr(ttasks.AVSRTask, "load_dataset", lambda self, subset: None)
+    monkeypatch.setattr(ttrain, "Trainer", trainer)
+    with pytest.raises(_Built):
         ttrain.main(cfg, device="cpu")
+    assert torch.equal(seen["encoder.qformer.query_tokens"], state["query_tokens"])
+    for j in (0, 1):
+        for leaf in ("weight", "bias"):
+            assert torch.equal(seen[f"encoder.avfeat_to_llm.layers_{j}.{leaf}"],
+                               state[f"avfeat_to_llm.layers.{j}.{leaf}"])
+    assert torch.equal(seen["llama.layers_1.self_attn.v_proj.lora_b"],
+                       state["llama.model.layers.1.self_attn.v_proj.lora_B.default.weight"].t())
 
 
 def test_registries_name_the_jax_tasks_and_models():

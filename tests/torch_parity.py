@@ -10,7 +10,10 @@ import jax
 import numpy as np
 import torch
 
-from multimodalvc_tpu_torch.interop.from_flax import load_flax_variables
+from multimodalvc_tpu_torch.interop.from_flax import (
+    load_flax_variables,
+    state_dict_to_flax_variables,
+)
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers on the same cores
 
@@ -43,6 +46,20 @@ def loaded(torch_module: torch.nn.Module, variables) -> torch.nn.Module:
     """``torch_module`` with the flax ``variables`` loaded, in eval mode."""
     load_flax_variables(torch_module, to_numpy_tree(variables))
     return torch_module.eval()
+
+
+def jax_variables(init, batch, torch_module: torch.nn.Module):
+    """``torch_module``'s weights as the flax variables tree that ``init(key,
+    batch)`` lays out, as numpy copies, each leaf of the init's shape: both
+    packages start from the same weights without compiling the JAX init."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), batch)
+    template = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    out = jax.tree.map(np.array, state_dict_to_flax_variables(torch_module.state_dict(), template))
+    want = jax.tree_util.tree_leaves({k: template[k] for k in out})
+    for (path, x), like in zip(jax.tree_util.tree_leaves_with_path(out), want, strict=True):
+        if x.shape != like.shape:
+            raise ValueError(f"{jax.tree_util.keystr(path)}: {x.shape}, the init's {like.shape}")
+    return out
 
 
 def t(x) -> torch.Tensor:
