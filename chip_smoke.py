@@ -130,6 +130,30 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    - ``cli_demo``: ``cli.demo.main`` on one 16 s corpus clip from that
      run's checkpoint at beam 5 (bf16 KV, the ancestry decode: K1, K3, K4),
      its transcript equal to ``AVSRSystem.generate``'s on the clip.
+9. Pretrains AV-HuBERT on the corpus of 7. (conf/avhubert-pretrain.yaml as
+   overrides, AV-HuBERT-Large at full width, random weights, bf16):
+   - ``pretrain_kmeans_mfcc``: ``cli.manifest_tools learn-kmeans`` (500
+     clusters on the train clips' MFCCs, the inertia of each epoch), then
+     ``dump-labels`` for train and valid;
+   - ``pretrain_train``: ``cli.train`` for 4 updates at max_tokens 1000,
+     one checkpoint and one validation: K1 24 times in a step of the 300 or
+     400 bucket (through ``FlashAttentionGrad``) and in such a validation
+     batch, none elsewhere; finite losses, the ResNet's running statistics
+     moved, the checkpoint equal to the trainer's state; each step's ms and
+     masked share, the peak GiB;
+   - ``pretrain_dump_features``: ``dump-features --layer 12`` from that
+     checkpoint at the default f32 (no launches) and at bf16 (K1 12 times
+     a clip of >= 256 padded frames), the bf16 dump's error;
+   - ``pretrain_kmeans_features``: iteration 2, k-means on the f32
+     features, the labels of both dumps in [0, 500) and the share of
+     frames where they agree;
+   - ``seq2seq`` / ``seq2seq_constrained``: ``generate_seq2seq`` at the
+     default decoder config (d 768, 6 layers, vocabulary 1000) on seeded
+     encoder states [8, 400, 768], beam 5, 64 tokens: K4 once a step at
+     [40, 1000], no K6, the tokens equal under ``plain_versions()``; then
+     with unordered constraints (no kernel).
+   ``check_topk`` holds K4 at [40, 1000] too, ``check_flash_grad`` K1's
+   gradient at the pretraining shape [2, 16, 400, 64].
 
 Prints JSON lines with the kernel checks and the phases, the smoke's own
 wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
@@ -144,6 +168,10 @@ training phases.
 
 ``python3 chip_smoke.py --import`` runs only the weight-import phases (8.),
 writing the corpus of 7. first.
+
+``python3 chip_smoke.py --pretrain`` runs only K1's pretraining gradient
+case, K4 at [40, 1000] and the pretraining phases (9.), writing the corpus
+of 7. first.
 
 ``python3 chip_smoke.py --speech`` runs only K1's speech cases and the five
 speech phases.
@@ -462,13 +490,15 @@ def flash_grad_cases() -> list:
     causal).  The LLaMA trunk's prompt in ``train_avsr_flash`` (left pads,
     causal) and at 512 slots; the Conformer-L self-attention of the speech
     training phases (keys to the 1600 frames of 16 s in the 2400-frame
-    buffer, no causal mask)."""
+    buffer, no causal mask); AV-HuBERT-Large's self-attention in the
+    pretraining phase (two 16 s clips of the 400 bucket, keys to 266)."""
     return [("trunk", (BATCH, 24, train_prompt_len(), 128), True),
             ("trunk", (BATCH, 24, 512, 128), True),
-            (CONFORMER_GRAD, (BATCH, 8, 2400, 64), False)]
+            (CONFORMER_GRAD, (BATCH, 8, 2400, 64), False),
+            (PRETRAIN_GRAD, (2, 16, 400, 64), False)]
 
 
-CONFORMER_GRAD = "conformer_l"
+CONFORMER_GRAD, PRETRAIN_GRAD = "conformer_l", "avhubert_pretrain"
 
 
 def check_flash_grad(results, only=None):
@@ -928,7 +958,8 @@ def check_topk(results, wide=True):
     8, statistics inside; with ``wide``, beams 17, 32 and 64 (n = 34, 64,
     128: the wide instance) and the ceiling ``topk_max_beams()`` the same
     way, then the select form's ceiling + 1, 128 and 200; each width up to
-    the ceiling also on the select form.  ``library_ms`` is
+    the ceiling also on the select form; with ``wide``, the seq2seq shape
+    (``check_topk_small_vocab``).  ``library_ms`` is
     ``torch.topk`` on the prebuilt candidate row; ``library_chain_ms`` the
     eager ``log_softmax`` + add + ``torch.topk``."""
     import torch
@@ -984,6 +1015,83 @@ def check_topk(results, wide=True):
                                                 tk.select_plan(BATCH, beams, v))
             print(f"  the same on the select form: ms={results[-1]['select_ms']:.4f}")
         del logits, scores
+    if wide:  # a case older trees never ran (the --beam5 comparison skips it)
+        check_topk_small_vocab(results)
+
+
+SEQ2SEQ_VOCAB = 1000  # the seq2seq decoder's default vocabulary (nn/seq2seq.py)
+
+
+def _k4_small_vocab_inputs(b, k, v, g):
+    """Raw logits [B*K, V] and scores for a vocabulary of a few blocks (V =
+    1000: 8 blocks of 128 columns): three winners in one column, two beams
+    tied on every candidate, a tie within a block and across blocks, a
+    4-way tie (2 rows x 2 columns, batch 3: flat [3, 7, V + 3, V + 7]
+    first), the best 6 of batch 4 in one warp's columns."""
+    import torch
+
+    logits = torch.randn(b * k, v, generator=g, device=DEV) * 3.0
+    scores = torch.randn(b, k, generator=g, device=DEV)
+    logits[0, v - 1], logits[1, v - 1], logits[3, v - 1] = 40.0, 39.5, 39.0
+    logits[k + 3] = logits[k + 2]
+    scores[1, 3] = scores[1, 2]
+    logits[2 * k, 100] = logits[2 * k, 120] = logits[2 * k, 900] = 45.0
+    logits[3 * k, 3] = logits[3 * k, 7] = 50.0
+    logits[3 * k + 1] = logits[3 * k]
+    # over 1000 columns a random row's best log-prob is only ~ -4: lift the
+    # tied rows' scores past every other beam's
+    scores[3, :2] = scores[3].amax() + 8.0
+    logits[4 * k + 2, :6] = 50.0
+    scores[4, 2] = scores[4].amax() + 8.0
+    return logits, scores
+
+
+def check_topk_small_vocab(results):
+    """K4 at the seq2seq decode's shape [8*5, 1000], n = 10, statistics
+    inside (the decode step's call) and given, with the ties of
+    ``_k4_small_vocab_inputs``: the first vocabulary other than LLaMA's on
+    the card (``topk_plan`` covers it: a cluster of 8 blocks of 128
+    columns, the last of 104, each block's range whole in its ring)."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import topk as tk
+    from multimodalvc_tpu_torch.ops.topk import (
+        _candidates,
+        beam_topk_columns,
+        beam_topk_columns_plain,
+        row_stats,
+    )
+
+    g = torch.Generator(device=DEV).manual_seed(21)
+    k, v, n = BEAMS, SEQ2SEQ_VOCAB, 2 * BEAMS
+
+    def ties(wi):
+        if wi[3, :4].tolist() != [3, 7, v + 3, v + 7]:
+            raise SmokeFailure(f"beam_topk_columns V={v}: tie order {wi[3, :4].tolist()}")
+        if sorted(wi[4, :6].tolist()) != [2 * v + j for j in range(6)]:
+            raise SmokeFailure(f"beam_topk_columns V={v}: batch 4's best 6 {wi[4, :6].tolist()}")
+
+    print(f"  topk_plan({BATCH}, {k}, {v}, {n}) = {tk.topk_plan(BATCH, k, v, n)}")
+    logits, scores = _k4_small_vocab_inputs(BATCH, k, v, g)
+    _topk_stats_case(results, f"beam_topk_columns/{BATCH * k}x{v}", beam_topk_columns,
+                     beam_topk_columns_plain, logits, scores, n, ties)
+    logits, scores = _k4_small_vocab_inputs(BATCH, k, v, g)
+    row_max, row_ls = row_stats(logits)
+    run = lambda: beam_topk_columns(logits, row_max, row_ls, scores, n)  # noqa: E731
+    plain = lambda: beam_topk_columns_plain(logits, row_max, row_ls, scores, n)  # noqa: E731
+    (gv, gi), (wv, wi) = run(), plain()
+    if not torch.equal(gi, wi):
+        bad = int((gi != wi).any(dim=1).nonzero()[0])
+        raise SmokeFailure(f"beam_topk_columns V={v}: indices differ at batch {bad}: "
+                           f"{gi[bad].tolist()} vs {wi[bad].tolist()}")
+    ties(wi)
+    _same_bits(f"beam_topk_columns/stats_given/{BATCH * k}x{v}", run, (gv, gi))
+    logits, scores = _unplanted(logits, scores)
+    row_max, row_ls = row_stats(logits)
+    cand = _candidates(logits, row_max, row_ls, scores).reshape(BATCH, -1)
+    record(results, f"beam_topk_columns/stats_given/{BATCH * k}x{v}", max_err(gv, wv), 1e-6,
+           library=lambda: torch.topk(cand, n), ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
+           **topk_bound(logits, (row_max, row_ls, scores), 4, (gv, gi)))
 
 
 def _form_ms(logits, scores, n, plan, iters=None) -> float:
@@ -3491,6 +3599,16 @@ PRESETS = {
         "model.name=mms_speech_nollm_e2e", "model.use_qformer=true", "model.queries_per_sec=3",
         "model.conformer_size=L", "model.modality_dropout=true",
     ],
+    "avhubert-pretrain": [
+        "common.seed=1", "common.log_format=json", "common.log_interval=200", "mesh.data=-1",
+        "dataset.data=???", "dataset.max_tokens=1000", "dataset.num_workers=4",
+        "optimization.max_update=400000", "optimization.lr=2.0e-3",
+        "optimization.lr_scheduler=polynomial", "optimization.warmup_updates=32000",
+        "optimization.clip_norm=1.0", "checkpoint.save_dir=checkpoints/avhubert-pretrain",
+        "checkpoint.save_interval_updates=25000", "checkpoint.keep_interval_updates=2",
+        "task.name=avhubert_pretraining", "model.name=av_hubert_pretrain",
+        "model.num_classes=2004", "model.mask_prob=0.8", "model.mask_length=10",
+    ],
     "hifigan-vocoder": [
         "common.seed=1", "common.log_interval=100", "mesh.data=-1", "dataset.data=???",
         "dataset.batch_size=64", "dataset.num_workers=4", "optimization.max_update=500000",
@@ -4502,6 +4620,329 @@ def cli_demo(table) -> dict:
     return {**phase, "transcript": text, "beams": BEAMS, "max_len": DEMO_TOKENS}
 
 
+# ---- AV-HuBERT pretraining: the label pipeline, cli.train, the seq2seq decode ----
+
+
+PRETRAIN_DIR = REPO / "build" / "pretrain"
+PRETRAIN_UPDATES, PRETRAIN_CLUSTERS, PRETRAIN_LAYER = 4, 500, 12
+PRETRAIN_LAYERS, PRETRAIN_WIDTH = 24, 1024  # AV-HuBERT-Large (K1 once a layer at T >= 256)
+S2S_BATCH, S2S_FRAMES, S2S_TOKENS, S2S_SEED = BATCH, SECONDS * 25, 64, 11
+S2S_CONSTRAINTS = [[[17, 23]], [[5]], [[300, 301, 302]], [], [[40], [41]], [], [[999]], []]
+
+
+def k1_layers(frames: int, layers: int) -> int:
+    """K1's launches in ``layers`` AV-HuBERT layers at ``frames`` frames
+    (``nn/layers.py: use_flash``: T >= 256)."""
+    return layers if frames >= 256 else 0
+
+
+def kmeans_run(table, name, argv) -> dict:
+    """``cli.manifest_tools learn-kmeans`` (no kernel launches): its wall and
+    each epoch's inertia."""
+    from multimodalvc_tpu_torch.cli import manifest_tools
+
+    reset_counts(table)
+    km, t_fit = wall(lambda: manifest_tools.main(["learn-kmeans", *argv, "--device", DEV]))
+    if any(read_counts(table).values()) or not all(map(math.isfinite, km.epoch_inertia)):
+        raise SmokeFailure(f"{name}: launches {read_counts(table)}, inertia {km.epoch_inertia}")
+    print(f"  {name}: {km.k} clusters in {t_fit:.2f} s, inertia by epoch "
+          f"{[f'{x:.6g}' for x in km.epoch_inertia]}")
+    return {"fit_s": t_fit, "inertia": km.epoch_inertia}
+
+
+def km_rows(path, lengths, clusters, name) -> list:
+    """The label rows of a .km file, checked: one a clip, ``lengths`` long,
+    in [0, clusters)."""
+    rows = [[int(x) for x in r.split()] for r in Path(path).read_text().splitlines()]
+    if [len(r) for r in rows] != list(lengths) or not all(0 <= x < clusters
+                                                          for r in rows for x in r):
+        raise SmokeFailure(f"{name}: {len(rows)} rows of {[len(r) for r in rows][:4]}... labels, "
+                           f"want {len(lengths)} of {list(lengths)[:4]}... in [0, {clusters})")
+    return rows
+
+
+def pretrain_kmeans_mfcc(table) -> dict:
+    """(a) Iteration 1: k-means (PRETRAIN_CLUSTERS) on the MFCCs of the train
+    clips, then the .km labels of train and valid beside the manifests."""
+    from multimodalvc_tpu_torch.cli import manifest_tools
+    from multimodalvc_tpu_torch.data.manifest import load_manifest
+
+    centroids = str(PRETRAIN_DIR / "km_mfcc.npy")
+    record = kmeans_run(table, "pretrain_kmeans_mfcc", [
+        "--tsv", str(CLI_DIR / "train.tsv"), "--clusters", str(PRETRAIN_CLUSTERS),
+        "--out", centroids])
+    for subset in ("train", "valid"):
+        n, t_dump = wall(lambda: manifest_tools.main([
+            "dump-labels", "--tsv", str(CLI_DIR / f"{subset}.tsv"), "--centroids", centroids,
+            "--out", str(CLI_DIR / f"{subset}.km"), "--device", DEV]))
+        frames = [e.n_video_frames for e in load_manifest(str(CLI_DIR / f"{subset}.tsv")).entries]
+        rows = km_rows(CLI_DIR / f"{subset}.km", [4 * f + 1 for f in frames], PRETRAIN_CLUSTERS,
+                       f"pretrain_kmeans_mfcc {subset}")
+        record[f"{subset}_labels"] = {"rows": n, "frames": sum(map(len, rows)), "dump_s": t_dump}
+        print(f"    dump-labels {subset}: {n} rows, {sum(map(len, rows))} frames at 100 Hz in "
+              f"{t_dump:.2f} s")
+    return record
+
+
+def pretrain_train(table) -> dict:
+    """(b) ``cli.train`` on conf/avhubert-pretrain.yaml (PRESETS) at full width
+    (AV-HuBERT-Large, 2004 classes, final_dim 256, mask_prob 0.8, length
+    10; random weights from the preset's seed, bf16), max_tokens 1000, for
+    PRETRAIN_UPDATES updates, one checkpoint and one validation.  Checks:
+    K1 24 times in a step whose bucket is >= 256 frames and 0 in the others
+    (and 24 a validation batch of such a bucket), at least one such step;
+    finite losses; the ResNet's running statistics moved; the checkpoint
+    equal, entry for entry, to the trainer's final state.  Records each
+    step's masked share of the valid frames, its ms and the peak GiB."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.data.batching import bucket_for
+    from multimodalvc_tpu_torch.data.dataset import PretrainDataset
+    from multimodalvc_tpu_torch.models import avhubert_pretrain
+    from multimodalvc_tpu_torch.ops.attention import flash_attention
+    from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    made, masks = [], []
+
+    class Probe(cli_train.Trainer):
+        """Trainer that keeps each step's K1 launches and frames."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.k1 = []
+            made.append(self)
+
+        def train_step(self, batch):
+            before = flash_attention.launches
+            out = super().train_step(batch)
+            self.k1.append((flash_attention.launches - before, batch["video"].shape[1]))
+            return out
+
+    real_mask = avhubert_pretrain.span_mask_from_uniforms
+
+    def tapped_mask(u, t, lengths, span):
+        mask = real_mask(u, t, lengths, span)
+        masks.append(float(mask.sum()) / float(lengths.sum()))
+        return mask
+
+    save_dir = PRETRAIN_DIR / "ckpt"
+    cfg = cli_config("avhubert-pretrain", [f"optimization.max_update={PRETRAIN_UPDATES}",
+                                           f"checkpoint.save_dir={save_dir}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(table)
+    with mock.patch.object(cli_train, "Trainer", Probe), \
+            mock.patch.object(avhubert_pretrain, "span_mask_from_uniforms", tapped_mask), \
+            CliTap(cli_train) as tap:
+        val, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_counts(table)
+    trainer = made[-1]
+    want = [(k1_layers(t, PRETRAIN_LAYERS), t) for _, t in trainer.k1]
+    vds = PretrainDataset(str(CLI_DIR), cfg.dataset.valid_subset)
+    valid_want = sum(k1_layers(bucket_for(max(vds.sizes()[i] for i in b), vds.buckets),
+                               PRETRAIN_LAYERS)
+                     for b in vds.batches(max_tokens=cfg.dataset.max_tokens,
+                                          batch_size=cfg.dataset.batch_size))
+    losses = [s["loss"] for s in tap.of("train")]
+    if trainer.k1 != want or not any(t >= 256 for _, t in trainer.k1):
+        raise SmokeFailure(f"pretrain_train: K1 a step (got, frames) {trainer.k1}, want {want}")
+    if len(losses) != PRETRAIN_UPDATES or not all(map(math.isfinite, losses)):
+        raise SmokeFailure(f"pretrain_train: losses {losses}")
+    valid = tap.of("valid")
+    if len(valid) != 1 or not math.isfinite(valid[0]["loss"]):
+        raise SmokeFailure(f"pretrain_train: validations {valid}")
+    state = trainer.state_dict()
+    moved = [n for n in state["model"] if n.endswith("running_var")
+             and not torch.equal(state["model"][n].float().cpu(),
+                                 torch.ones_like(state["model"][n].float().cpu()))]
+    if not moved:
+        raise SmokeFailure("pretrain_train: the ResNet's running statistics did not move")
+    saved = CheckpointManager(str(save_dir)).restore(map_location="cpu")
+    same = saved["step"] == state["step"] and all(
+        torch.equal(saved["model"][n], x.cpu()) for n, x in state["model"].items())
+    if not same:
+        raise SmokeFailure("pretrain_train: the checkpoint differs from the trainer's state")
+    train_k1 = sum(n for n, _ in trainer.k1)
+    if launches["flash_attention"] - train_k1 != valid_want or any(
+            n for k, n in launches.items() if k != "flash_attention"):
+        raise SmokeFailure(f"pretrain_train: launches {launches}; K1 {train_k1} in the steps "
+                           f"and {valid_want} expected in validation")
+    times = step_times(tap)
+    record = {"wall_s": t_run, "peak_gib": peak, "losses": losses, "valid": valid,
+              "k1_a_step": trainer.k1, "masked_share": masks[:PRETRAIN_UPDATES],
+              "valid_k1": launches["flash_attention"] - train_k1, "launches": launches,
+              "running_var_moved": len(moved), **times}
+    print(f"  pretrain_train: {len(losses)} updates in {t_run:.1f} s, "
+          f"{times['mean_step_ms']:.1f} ms a step (steps {[round(x, 1) for x in times['step_ms']]}"
+          f" ms), waiting {times['mean_wait_ms']:.1f} ms for a batch, peak {peak:.2f} GiB, K1 a "
+          f"step (launches, frames) {trainer.k1}, masked share "
+          f"{[round(x, 4) for x in record['masked_share']]}, losses "
+          f"{[round(x, 4) for x in losses]}, valid {valid[0]}, K1 in validation "
+          f"{record['valid_k1']}, {len(moved)} running variances moved, checkpoint "
+          f"{times['ckpt_gib']:.2f} GiB in {times['ckpt_write_s']:.1f} s, equal to the state")
+    del trainer, state, saved
+    made.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def pretrain_dump_features(table) -> dict:
+    """(c) ``dump-features --layer 12`` from pretrain_train's checkpoint over
+    the train clips, unmasked, twice: at the tool's default f32 (the JAX
+    tool's dtype; plain attention, no launches) and at ``--dtype bfloat16``
+    (K1 12 times a clip padded to >= 256 frames).  Each dump finite, [sum T,
+    1024], its .len the clips' frames; the bf16 dump's error against the
+    f32 one."""
+    import numpy as np
+
+    from multimodalvc_tpu_torch.cli import manifest_tools
+    from multimodalvc_tpu_torch.data.manifest import load_manifest
+
+    frames = [e.n_video_frames for e in load_manifest(str(CLI_DIR / "train.tsv")).entries]
+    k1 = sum(k1_layers(-(-f // 32) * 32, PRETRAIN_LAYER) for f in frames)
+    record, dumps = {}, {}
+    for dtype, expect in (("float32", {}), ("bfloat16", {"flash_attention": k1})):
+        out = str(PRETRAIN_DIR / f"feats_{dtype}")
+        phase, _ = run_phase(table, f"pretrain_dump_features_{dtype}", lambda: (
+                manifest_tools.main([
+                "dump-features", "--tsv", str(CLI_DIR / "train.tsv"),
+                "--ckpt", str(PRETRAIN_DIR / "ckpt"), "--layer", str(PRETRAIN_LAYER),
+                "--out", out, "--dtype", dtype, "--device", DEV])), expect,
+            audio_s=sum(frames) / 25)
+        feats, lens = manifest_tools._read_feature_dump(out)
+        if lens != frames or feats.shape != (sum(frames), PRETRAIN_WIDTH) or not np.isfinite(
+                feats).all():
+            raise SmokeFailure(f"pretrain_dump_features {dtype}: {feats.shape}, lens "
+                               f"{lens[:4]}...")
+        phase.update(feature_std=float(feats.std()))
+        record[dtype], dumps[dtype] = phase, feats
+    diff = np.abs(dumps["bfloat16"] - dumps["float32"])
+    record.update(frames=sum(frames), clips=len(frames), bf16_max_abs_err=float(diff.max()),
+                  bf16_mean_abs_err=float(diff.mean()),
+                  launches={k: n + record["bfloat16"]["launches"][k]
+                            for k, n in record["float32"]["launches"].items()})
+    print(f"    dump-features bf16 against f32: max abs error {diff.max():.4g}, mean "
+          f"{diff.mean():.4g} (f32 feature std {dumps['float32'].std():.4g})")
+    return record
+
+
+def pretrain_kmeans_features(table) -> dict:
+    """(d) Iteration 2: k-means (PRETRAIN_CLUSTERS) on the default (f32)
+    dump's layer features, then the labels of both dumps: a row a clip, its
+    frames long, in [0, PRETRAIN_CLUSTERS); the share of frames whose bf16
+    label equals the f32 one."""
+    import numpy as np
+
+    from multimodalvc_tpu_torch.cli import manifest_tools
+
+    centroids = str(PRETRAIN_DIR / "km_feats.npy")
+    record = kmeans_run(table, "pretrain_kmeans_features", [
+        "--features", str(PRETRAIN_DIR / "feats_float32"), "--clusters", str(PRETRAIN_CLUSTERS),
+        "--out", centroids])
+    labels = {}
+    for dtype in ("float32", "bfloat16"):
+        feats, km = str(PRETRAIN_DIR / f"feats_{dtype}"), PRETRAIN_DIR / f"train_{dtype}.km"
+        n, t_dump = wall(lambda: manifest_tools.main([
+            "dump-labels", "--features", feats, "--centroids", centroids, "--out", str(km),
+            "--device", DEV]))
+        _, lens = manifest_tools._read_feature_dump(feats)
+        rows = km_rows(km, lens, PRETRAIN_CLUSTERS, f"pretrain_kmeans_features {dtype}")
+        labels[dtype] = np.concatenate([np.asarray(r) for r in rows])
+        record[f"{dtype}_labels"] = {"rows": n, "dump_s": t_dump,
+                                     "clusters_used": len(set(labels[dtype].tolist()))}
+    equal = float((labels["bfloat16"] == labels["float32"]).mean())
+    record["bf16_labels_equal_share"] = equal
+    print(f"    dump-labels --features: {record['float32_labels']['rows']} rows, "
+          f"{record['float32_labels']['clusters_used']} clusters used; bf16 dump's labels equal "
+          f"to the f32 dump's on {equal:.4f} of the frames")
+    return record
+
+
+def seq2seq_phase(table) -> dict:
+    """(e) ``generate_seq2seq`` at the default ``Seq2SeqDecoderConfig`` (d
+    768, 6 layers, 4 heads, FFN 3072, vocabulary 1000; random bf16 weights
+    from S2S_SEED) on seeded encoder states [8, 400, 768], beam 5,
+    S2S_TOKENS new tokens: once plain (K4 once a decode step; the cache
+    leaves' head dim 192 keeps K6 off), its tokens equal to the same run
+    under ``plain_versions()``; then with unordered constraints (no kernel:
+    the constrained step's own top-k), each row's best beam holding its
+    phrases."""
+    import torch
+
+    from multimodalvc_tpu_torch.nn.init import init_random_
+    from multimodalvc_tpu_torch.nn.seq2seq import (
+        Seq2SeqDecoder,
+        Seq2SeqDecoderConfig,
+        generate_seq2seq,
+    )
+    from multimodalvc_tpu_torch.ops.constraints import pack_constraints
+
+    cfg = Seq2SeqDecoderConfig()
+    decoder = Seq2SeqDecoder(cfg, device=DEV, dtype=torch.bfloat16).eval()
+    init_random_(decoder, S2S_SEED)
+    g = torch.Generator(device=DEV).manual_seed(S2S_SEED)
+    enc = torch.randn(S2S_BATCH, S2S_FRAMES, cfg.d_model, generator=g, device=DEV).to(
+        torch.bfloat16)
+    lens = torch.tensor([S2S_FRAMES - 12 * i for i in range(S2S_BATCH)], dtype=torch.int32,
+                        device=DEV)
+    kw = dict(bos_token_id=0, max_new_tokens=S2S_TOKENS, num_beams=BEAMS)
+
+    def run():
+        return generate_seq2seq(decoder, enc, lens, **kw)
+
+    phase, (seqs, scores) = run_phase(table, "seq2seq", run, {"beam_topk_columns": ON},
+                                      audio_s=S2S_BATCH * SECONDS)
+    check_output("seq2seq", seqs, scores, cfg.vocab_size, S2S_TOKENS)
+    steps = phase["launches"]["beam_topk_columns"]
+    with plain_versions():
+        (pseqs, pscores), t_plain = wall(run)
+    if not torch.equal(seqs, pseqs):
+        bad = int((seqs != pseqs).flatten(1).any(dim=1).nonzero()[0])
+        raise SmokeFailure(f"seq2seq: tokens differ from the plain versions' at row {bad}")
+    cons = pack_constraints(S2S_CONSTRAINTS)
+    phase_c, (cseqs, cscores) = run_phase(
+        table, "seq2seq_constrained",
+        lambda: generate_seq2seq(decoder, enc, lens, constraints=cons, **kw), {},
+        audio_s=S2S_BATCH * SECONDS)
+    check_output("seq2seq_constrained", cseqs, cscores, cfg.vocab_size, S2S_TOKENS)
+    for row, phrases in zip(cseqs[:, 0].tolist(), S2S_CONSTRAINTS):
+        if not all(contains(row, p) for p in phrases):
+            raise SmokeFailure(f"seq2seq_constrained: best beam {row} lacks one of {phrases}")
+    score_err = max_err(scores, pscores)
+    print(f"    seq2seq: {steps} decode steps, tokens equal under plain_versions() ({t_plain:.3f} s"
+          f", scores {score_err:.2e} apart); constrained: every phrase in its row's best beam")
+    phase.update(decode_steps=steps, plain_s=t_plain, plain_tokens_equal=True,
+                 plain_score_err=score_err, tokens_a_s=S2S_BATCH * steps / phase["generate_s"])
+    output_digest(phase, "seq2seq", seqs, scores)
+    return {"seq2seq": phase, "seq2seq_constrained": phase_c}
+
+
+def pretrain_phases(table) -> dict:
+    """The pretraining slice, (a)-(e), on the cli corpus (written first if it
+    is not there); build/pretrain is removed after."""
+    import shutil
+
+    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    PRETRAIN_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    phases = {} if (CLI_DIR / "train.tsv").exists() else {"cli_corpus": write_corpus()}
+    phases["pretrain_kmeans_mfcc"] = pretrain_kmeans_mfcc(table)
+    phases["pretrain_train"] = pretrain_train(table)
+    phases["pretrain_dump_features"] = pretrain_dump_features(table)
+    phases["pretrain_kmeans_features"] = pretrain_kmeans_features(table)
+    phases.update(seq2seq_phase(table))
+    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    phases["pretrain_wall_s"] = time.perf_counter() - t0
+    print(f"  pretraining phases: {phases['pretrain_wall_s']:.1f} s")
+    return phases
+
+
 def import_phases(table) -> dict:
     """The weight-import phases: import_pretrained, then cli_init_from_pt on
     its product ``.pt`` (with the cli corpus) and cli_demo from that run's
@@ -4613,6 +5054,16 @@ def main() -> int:
         print(f"smoke --import: {time.perf_counter() - start:.1f} s, the kernels' build included")
         print(card)
         return 0
+    if "--pretrain" in sys.argv[1:]:
+        results = []
+        check_flash_grad(results, only=[PRETRAIN_GRAD])
+        check_topk_small_vocab(results)
+        phases = pretrain_phases(kernels())
+        print(json.dumps({"cases": results, "phases": phases}))
+        print(f"smoke --pretrain: {time.perf_counter() - start:.1f} s, the kernels' build "
+              "included")
+        print(card)
+        return 0
     if "--beam5" in sys.argv[1:]:
         results = []  # the cases an older tree has too: beam 5, K4 to beam 12
         check_decode(results, wide=False)
@@ -4656,6 +5107,9 @@ def main() -> int:
     print("weight import: the reference layouts of the full-width system, read back and imported; "
           "cli.train with checkpoint.init_from_pt; cli.demo")
     phases.update(import_phases(table))
+    print("AV-HuBERT pretraining: k-means labels, cli.train on conf/avhubert-pretrain.yaml at "
+          "full width, dump-features, iteration-2 labels; the seq2seq decoder's beam decode")
+    phases.update(pretrain_phases(table))
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():
@@ -4666,6 +5120,9 @@ def main() -> int:
             "replaces": replaces, "phase": phase, "on_path": on_path,
             "launches": phases[phase]["launches"][name],
             "speech_launches": phases["speech_nollm"]["mode0"]["launches"][name],
+            **{f"{p}_launches": phases[p]["launches"][name]
+               for p in ("pretrain_train", "pretrain_dump_features", "seq2seq",
+                         "seq2seq_constrained")},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "case": mine[0]["name"],

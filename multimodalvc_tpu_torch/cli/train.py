@@ -44,7 +44,8 @@ from ..config.configs import MeshConfig
 from ..config.registry import lookup
 from ..data.dataset import BatchLoader, to_device, to_tensors
 from ..interop.avsr_import import import_reference_avsr, merge_state
-from ..models import avsr as _avsr, speech as _speech, vocoder as _vocoder  # noqa: F401
+from ..models import avhubert_pretrain as _avh, avsr as _avsr, speech as _speech  # noqa: F401
+from ..models import vocoder as _vocoder  # noqa: F401
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.debug import Watchdog, find_nonfinite, with_oom_batch_split
 from ..runtime.metrics import MetricsAggregator, MetricSinks, log_stats

@@ -2,8 +2,8 @@
 
 Port of ``multimodalvc_tpu/data/audio.py``, bit for bit its host numpy code:
 scipy wavfile read, int16 -> [-1, 1), train-time noise mixing at a random
-SNR, Whisper's 80-bin features padded to 30 s, and HiFi-GAN's 128-band mel
-targets.  The DFT basis and the filterbanks are the port's own
+SNR, Whisper's 80-bin features padded to 30 s, HiFi-GAN's 128-band mel
+targets and AV-HuBERT's stacked log filterbanks.  The DFT basis and the filterbanks are the port's own
 (``ops/stft.py``), the same numpy tables as the JAX package's.  These run in
 the loader's worker processes: numpy only, never the card.
 """
@@ -108,3 +108,30 @@ def hifigan_mel_np(wav: np.ndarray) -> np.ndarray:
     fb = stft_ops.mel_filterbank(16000, n_fft, n_mels, 0.0, 8000.0)
     mel = mag2 @ fb
     return np.log(np.clip(mel, 1e-5, None)).astype(np.float32)
+
+
+def htk_logmel_np(wav: np.ndarray, sample_rate: int = 16000, n_mels: int = 26,
+                  n_fft: int = 400, hop: int = 160) -> np.ndarray:
+    """[T] -> [1 + T // hop, n_mels] HTK log mel bands (from 20 Hz, over a
+    reflect-padded Hann-windowed STFT, natural log floored at 1e-10): the
+    front of AV-HuBERT's filterbanks and of the k-means MFCCs."""
+    x = np.pad(wav.astype(np.float32), (n_fft // 2, n_fft // 2), mode="reflect")
+    n_frames = 1 + (len(x) - n_fft) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    frames = x[idx] * stft_ops.hann_window(n_fft)
+    basis = stft_ops._dft_basis(n_fft, n_fft)
+    proj = frames @ basis
+    n_bins = n_fft // 2 + 1
+    power = proj[:, :n_bins] ** 2 + proj[:, n_bins:] ** 2
+    fb = stft_ops.mel_filterbank(sample_rate, n_fft, n_mels, fmin=20.0, fmax=sample_rate / 2,
+                                 htk=True)
+    return np.log(np.maximum(power @ fb, 1e-10))
+
+
+def stacked_logfbank_np(wav: np.ndarray, n_mels: int = 26, stack: int = 4) -> np.ndarray:
+    """[T] -> [T_frames // stack, n_mels * stack] log filterbank at 25 Hz:
+    AV-HuBERT's audio input (26 HTK mel bands over a 400-point STFT, hop
+    160, 4 frames stacked to the video rate)."""
+    logmel = htk_logmel_np(wav, n_mels=n_mels)  # 25 ms / 10 ms at 16 kHz
+    t = (len(logmel) // stack) * stack
+    return logmel[:t].reshape(-1, stack * n_mels).astype(np.float32)

@@ -1,7 +1,9 @@
-"""AVSR / speech dataset: manifest-driven samples, bucketed collation, and the
-loader that feeds the card.
+"""AVSR / speech / pretraining datasets: manifest-driven samples, bucketed
+collation, and the loader that feeds the card.
 
-Port of ``multimodalvc_tpu/data/dataset.py``.  ``AVSRDataset`` decodes and
+Port of ``multimodalvc_tpu/data/dataset.py``.  ``PretrainDataset`` serves
+AV-HuBERT pretraining (video, stacked filterbanks, k-means labels).
+``AVSRDataset`` decodes and
 transforms the video, reads the audio (babble noise on the train subset),
 computes the Whisper features, tokenizes the transcript with the constant
 instruction, and, for the speech tasks, the mel targets and the waveform;
@@ -34,7 +36,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .audio import NoiseMixer, hifigan_mel_np, read_wav, whisper_features_np
+from .audio import NoiseMixer, hifigan_mel_np, read_wav, stacked_logfbank_np, whisper_features_np
 from .batching import batch_by_size, bucket_for, pad_to
 from .manifest import load_manifest, resolve_path
 from .tokenizer import INSTRUCTION_TEXT, load_tokenizer
@@ -177,6 +179,80 @@ class AVSRDataset:
                 [pad_to(s["waveform"], t_w)[..., None] for s in samples])
         batch["ids"] = np.asarray([int(s["id"]) for s in samples], np.int32)
         return batch
+
+    def load_batch(self, indices) -> Dict[str, np.ndarray]:
+        """The collated batch of ``indices``, in order."""
+        return self.collate([self[int(i)] for i in indices])
+
+
+class PretrainDataset:
+    """AV-HuBERT masked-pretraining samples: the video, the stacked log
+    filterbank (``stacked_logfbank_np``) and the frame-level k-means labels
+    of a ``.km`` file (one space-separated row a manifest clip, written by
+    ``cli.manifest_tools dump-labels``), decimated from ``label_rate`` to the
+    25 Hz frame rate and cut to the shortest of the three; ``collate`` pads
+    to the length bucket.  On the train subset the crops and flips are drawn
+    from ``self.rng``, seeded by ``seed`` (the JAX dataset draws them from an
+    unseeded generator); ``reseed`` gives the loader's workers theirs."""
+
+    def __init__(self, manifest_dir: str, subset: str, km_path: Optional[str] = None,
+                 label_rate: int = 100, max_video_frames: int = 500, image_crop_size: int = 88,
+                 length_buckets: Sequence[int] = (100, 200, 300, 400, 500), seed: int = 1):
+        tsv = os.path.join(manifest_dir, f"{subset}.tsv")
+        self.manifest = load_manifest(tsv, max_keep_frames=max_video_frames)
+        km = km_path or os.path.join(manifest_dir, f"{subset}.km")
+        with open(km) as f:
+            rows = f.read().splitlines()
+        decim = max(label_rate // 25, 1)  # decimate to the 25 Hz frame rate
+        self.labels = [np.asarray(r.split(), np.int32)[::decim] for r in rows]
+        if len(self.labels) < len(self.manifest.entries):
+            raise ValueError(
+                f"{km}: {len(self.labels)} label rows < {len(self.manifest.entries)} clips")
+        self.crop = image_crop_size
+        self.buckets = tuple(length_buckets)
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.is_train = subset == "train"
+
+    def __len__(self):
+        return len(self.manifest.entries)
+
+    def sizes(self) -> List[int]:
+        return self.manifest.sizes()
+
+    def reseed(self, *key: int) -> None:
+        """A new crop and flip generator from ``key``."""
+        self.rng = np.random.default_rng([self.seed, *key, 0])
+
+    def batches(self, max_tokens: Optional[int] = 1000, batch_size: Optional[int] = None,
+                required_multiple: int = 1, epoch: int = 0) -> List[np.ndarray]:
+        return batch_by_size(
+            self.sizes(), max_tokens=max_tokens, batch_size=batch_size, buckets=self.buckets,
+            required_multiple=required_multiple,
+            shuffle_seed=(self.seed + epoch) if self.is_train else None)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        e = self.manifest.entries[index]
+        root = self.manifest.root
+        video = transform_video(load_video_frames(resolve_path(root, e.video_path)),
+                                crop_size=self.crop, train=self.is_train, rng=self.rng)
+        audio = stacked_logfbank_np(read_wav(resolve_path(root, e.audio_path)))
+        t = min(len(video), len(audio), len(self.labels[index]))
+        return {
+            "video": video[:t],
+            "audio": audio[:t],
+            "targets": self.labels[index][:t],
+            "length": np.asarray(t, np.int32),
+        }
+
+    def collate(self, samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        t_max = bucket_for(max(int(s["length"]) for s in samples), self.buckets)
+        return {
+            "video": np.stack([pad_to(s["video"], t_max) for s in samples]),
+            "audio": np.stack([pad_to(s["audio"], t_max) for s in samples]),
+            "targets": np.stack([pad_to(s["targets"], t_max) for s in samples]).astype(np.int32),
+            "lengths": np.asarray([s["length"] for s in samples], np.int32),
+        }
 
     def load_batch(self, indices) -> Dict[str, np.ndarray]:
         """The collated batch of ``indices``, in order."""

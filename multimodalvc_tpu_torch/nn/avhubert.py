@@ -1,9 +1,19 @@
-"""AV-HuBERT encoder, video-only path (the frozen lip-reading backbone).
+"""AV-HuBERT encoder: the lip-reading backbone of the AVSR system and the
+trunk of the masked-prediction pretraining.
 
-Port of ``multimodalvc_tpu/nn/avhubert.py:AVHubertModel`` as the AVSR
-encoder calls it, in the large recipe (concat fuse, PReLU ResNet, pre-LN):
-ResNet front end -> video_proj; the missing audio stream contributes zeros;
-concat -> LayerNorm -> post_extract_proj -> a wav2vec2-style transformer.
+Port of ``multimodalvc_tpu/nn/avhubert.py:AVHubertModel``: the audio stream
+(a linear projection of the stacked log filterbanks, ``audio_proj``) and
+the video stream (the ResNet front end -> ``video_proj``); a missing stream
+contributes zeros; the "concat" fuse (audio first) -> LayerNorm(2D) ->
+``post_extract_proj``, or the "add" fuse -> LayerNorm(D); then a
+wav2vec2-style transformer, pre-LN or post-LN.  ``features(train=True)``
+runs the ResNet's BatchNorms on batch statistics (the pretraining model's
+forward).
+
+Flax creates ``audio_proj`` only where audio reaches the init: the AVSR
+system's video-only encoder has no such leaf, the pretraining model has
+one.  The port says which by ``audio`` at construction, so each caller's
+state dict holds its JAX twin's leaves and no other.
 ``import_torch_avhubert`` reads a fairseq AV-HuBERT checkpoint's weights.
 """
 from __future__ import annotations
@@ -25,6 +35,8 @@ from .state_maps import (
 from .layers import TransformerEncoder
 from .resnet import ResEncoder
 
+FUSE_MODES = ("concat", "add")
+
 
 @dataclass
 class AVHubertConfig:
@@ -32,8 +44,16 @@ class AVHubertConfig:
     encoder_layers: int = 24
     encoder_attention_heads: int = 16
     encoder_ffn_dim: int = 4096
+    audio_feat_dim: int = 104  # 26-dim fbank x 4-frame stack
+    modality_fuse: str = "concat"
+    layer_norm_first: bool = True  # large recipe
+    sub_encoder_layers: int = 0  # read by no module, as in the JAX package
     conv_pos: int = 128
     conv_pos_groups: int = 16
+    dropout: float = 0.0
+    resnet_relu_type: str = "prelu"
+    remat: bool = False  # not ported (ROADMAP queue 1 item 4)
+    sequence_parallel: bool = False  # not ported (ROADMAP queue 1 item 5)
 
     @classmethod
     def large(cls):
@@ -49,28 +69,61 @@ class AVHubertConfig:
         )
 
 
+def check_ported(cfg: AVHubertConfig) -> None:
+    """Raise for the options the port does not run."""
+    if cfg.remat:
+        raise NotImplementedError("AVHubertConfig.remat is not ported (ROADMAP queue 1 item 4)")
+    if cfg.sequence_parallel:
+        raise NotImplementedError(
+            "AVHubertConfig.sequence_parallel is not ported (ROADMAP queue 1 item 5)")
+    if cfg.modality_fuse not in FUSE_MODES:
+        raise ValueError(f"modality_fuse {cfg.modality_fuse!r} not in {FUSE_MODES}")
+
+
 class AVHubertModel(nn.Module):
-    def __init__(self, cfg: AVHubertConfig, device=None, dtype=None):
+    """``audio``: whether the audio stream exists (``audio_proj``), as the
+    flax init creates it only when given audio."""
+
+    def __init__(self, cfg: AVHubertConfig, audio: bool = False, device=None, dtype=None):
         super().__init__()
+        check_ported(cfg)
         kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
         d = cfg.encoder_embed_dim
-        self.video_resnet = ResEncoder(**kw)
+        self.video_resnet = ResEncoder(cfg.resnet_relu_type, **kw)
         self.video_proj = nn.Linear(512, d, **kw)
-        self.layer_norm = nn.LayerNorm(2 * d, eps=1e-5, **kw)
-        self.post_extract_proj = nn.Linear(2 * d, d, **kw)
+        if audio:
+            self.audio_proj = nn.Linear(cfg.audio_feat_dim, d, **kw)
+        fused = 2 * d if cfg.modality_fuse == "concat" else d
+        self.layer_norm = nn.LayerNorm(fused, eps=1e-5, **kw)
+        if fused != d:
+            self.post_extract_proj = nn.Linear(fused, d, **kw)
         self.encoder = TransformerEncoder(
             d, cfg.encoder_layers, cfg.encoder_attention_heads, cfg.encoder_ffn_dim,
-            conv_pos=cfg.conv_pos, conv_pos_groups=cfg.conv_pos_groups, **kw,
-        )
+            dropout=cfg.dropout, layer_norm_first=cfg.layer_norm_first, conv_pos=cfg.conv_pos,
+            conv_pos_groups=cfg.conv_pos_groups, **kw)
+
+    def features(self, audio: Optional[torch.Tensor], video: Optional[torch.Tensor],
+                 train: bool = False) -> torch.Tensor:
+        """The fused front end: [B, T, D] after the LayerNorm (and
+        ``post_extract_proj`` for the concat fuse)."""
+        if audio is None and video is None:
+            raise ValueError("at least one modality required")
+        if audio is not None and not hasattr(self, "audio_proj"):
+            raise ValueError("this AV-HuBERT was built without the audio stream (audio=False)")
+        v = None if video is None else self.video_proj(self.video_resnet(video, train))
+        a = None if audio is None else self.audio_proj(audio.to(self.audio_proj.weight.dtype))
+        a = torch.zeros_like(v) if a is None else a
+        v = torch.zeros_like(a) if v is None else v
+        # the reference concatenates audio first
+        x = torch.cat([a, v], dim=-1) if self.cfg.modality_fuse == "concat" else a + v
+        x = self.layer_norm(x)
+        return self.post_extract_proj(x) if hasattr(self, "post_extract_proj") else x
 
     def forward(self, audio: Optional[torch.Tensor] = None, video: Optional[torch.Tensor] = None,
                 *, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if audio is not None or video is None:
-            raise NotImplementedError("the port serves the video-only path")
-        v = self.video_proj(self.video_resnet(video))
-        # the reference concatenates audio first; a missing stream is zeros
-        x = self.layer_norm(torch.cat([torch.zeros_like(v), v], dim=-1))
-        return self.encoder(self.post_extract_proj(x), lengths=lengths)
+        """The evaluation forward (the AVSR system's frozen encoder)."""
+        return self.encoder(self.features(audio, video), lengths=lengths)
 
 
 # ---- the fairseq weight import ----------------------------------------------------
@@ -110,7 +163,7 @@ def import_torch_avhubert(state: Mapping, cfg: AVHubertConfig) -> Dict[str, torc
     dict: the ResNet (``map_resnet``), the projections, the LayerNorms and
     the transformer with its weight-normed positional conv folded.  The
     audio stream's ``audio_proj`` is read and returned, as the JAX import
-    does, though this video-only module has no such entry."""
+    does, though a video-only module (``audio=False``) has no such entry."""
     out = {f"video_resnet.{k}": v
            for k, v in map_resnet(state, "feature_extractor_video.resnet.").items()}
     put_linear(out, state, "feature_extractor_video.proj", "video_proj")

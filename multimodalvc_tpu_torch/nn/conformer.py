@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dynamic_conv import dynamic_conv, lightweight_conv
-from .layers import MultiHeadAttention, add_layers, dropout
+from .layers import MultiHeadAttention, add_layers, batch_norm_train_, dropout
 
 CONV_TYPES = ("depthwise", "lightweight", "dynamic")
 
@@ -79,18 +79,6 @@ def positional_table(t: int, dim: int, device: torch.device) -> torch.Tensor:
     """``espnet_positional_encoding`` at ``t`` positions on ``device``, built
     once a length (the JAX module builds it at trace time)."""
     return torch.from_numpy(espnet_positional_encoding(max(t, 1), dim)).to(device)
-
-
-def batch_norm_train_(h: torch.Tensor, norm: nn.BatchNorm1d, momentum: float = 0.9):
-    """flax ``BatchNorm(use_running_average=False)`` over f32 [B, T, C]: the
-    batch mean and biased variance over B x T normalise ``h``, and move
-    ``norm``'s running statistics (in place, no gradient) by ``momentum``."""
-    mean = h.mean(dim=(0, 1))
-    var = torch.clamp((h * h).mean(dim=(0, 1)) - mean * mean, min=0.0)
-    with torch.no_grad():
-        norm.running_mean.copy_(momentum * norm.running_mean + (1.0 - momentum) * mean)
-        norm.running_var.copy_(momentum * norm.running_var + (1.0 - momentum) * var)
-    return (h - mean) * (torch.rsqrt(var + norm.eps) * norm.weight) + norm.bias
 
 
 def frame_mask(lengths: Optional[torch.Tensor], t: int, device) -> Optional[torch.Tensor]:

@@ -13,7 +13,8 @@ def init_random_(module: nn.Module, seed: int = 0) -> None:
     """Random weights from ``seed``, drawn on the module's device in the
     order of ``module.modules()``: matrices, convs, embeddings and learned
     tokens N(0, 0.02); LoRA ``lora_a`` N(0, 0.01) and ``lora_b`` zero (as the
-    JAX init); the modality mask embeddings U[0, 1) (as the JAX init); norms
+    JAX init); the mask embeddings and the pretraining label embeddings
+    U[0, 1) (as the JAX init); norms
     one, biases zero, PReLU 0.25, BatchNorm running statistics (0, 1),
     spectral-norm vectors N(0, 1) / sqrt(size); then each weight-normalized
     conv's g = ||v||, so its weight is its v."""
@@ -27,7 +28,7 @@ def init_random_(module: nn.Module, seed: int = 0) -> None:
                 p.fill_(0.25)
             elif name == "bias" or name == "lora_b":
                 p.zero_()
-            elif name.endswith("_mask_emb"):
+            elif name.endswith("mask_emb") or name == "label_embs_concat":
                 p.uniform_(0.0, 1.0, generator=gen)
             else:
                 p.normal_(0.0, 0.01 if name == "lora_a" else 0.02, generator=gen)

@@ -17,9 +17,10 @@ from torch import nn
 from ..ops.attention import dot_product_attention, flash_attention
 
 
-def use_flash(tq: int, tk: int, head_dim: int, device: torch.device) -> bool:
-    """The flash kernel runs for CUDA tensors at encoder lengths."""
-    if device.type != "cuda":
+def use_flash(tq: int, tk: int, head_dim: int, x: torch.Tensor) -> bool:
+    """The flash kernel runs for bf16 CUDA activations ``x`` at encoder
+    lengths; f32 ones (an f32 feature dump) take the plain attention."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
         return False
     return tq >= 256 and tk >= 256 and head_dim % 64 == 0
 
@@ -78,7 +79,7 @@ class MultiHeadAttention(nn.Module):
             return t.reshape(b, -1, self.num_heads, self.head_dim).transpose(1, 2)
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(kv)), split(self.v_proj(kv))
-        if use_flash(tq, tk, self.head_dim, x.device):
+        if use_flash(tq, tk, self.head_dim, q):
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_lens=kv_lens)
         else:
             mask = None
@@ -125,42 +126,85 @@ def sinusoidal_positions(n_pos: int, dim: int, base: float = 10000.0) -> np.ndar
     return np.concatenate([np.sin(pos), np.cos(pos)], axis=1).astype(np.float32)
 
 
-class TransformerLayer(nn.Module):
-    """Pre-LN transformer encoder layer (fairseq wav2vec2, layer_norm_first:
-    the AV-HuBERT large recipe and the speech-rate predictor)."""
+def batch_norm_train_(h: torch.Tensor, norm: nn.modules.batchnorm._BatchNorm,
+                      momentum: float = 0.9, channel_dim: int = -1) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False)`` over f32 ``h`` whose
+    channels lie on ``channel_dim``: the batch mean and biased variance over
+    every other dimension normalise ``h``, and move ``norm``'s running
+    statistics (in place, no gradient, in the buffers' dtype) by
+    ``momentum``."""
+    dims = [d for d in range(h.ndim) if d != channel_dim % h.ndim]
+    shape = [1] * h.ndim
+    shape[channel_dim] = -1
+    mean = h.mean(dim=dims)
+    var = torch.clamp((h * h).mean(dim=dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        for stat, batch in ((norm.running_mean, mean), (norm.running_var, var)):
+            stat.copy_(momentum * stat.float() + (1.0 - momentum) * batch)
+    scale = torch.rsqrt(var + norm.eps) * norm.weight.float()
+    return (h - mean.view(shape)) * scale.view(shape) + norm.bias.float().view(shape)
 
-    def __init__(self, d: int, num_heads: int, ffn_dim: int, device=None, dtype=None):
+
+class TransformerLayer(nn.Module):
+    """fairseq wav2vec2 encoder layer, pre-LN (``layer_norm_first``: the
+    AV-HuBERT large recipe and the speech-rate predictor) or post-LN (the
+    base recipe).  ``dropout`` drops each residual branch in training (masks
+    from ``dropout_rng``); the attention and FFN insides never drop, as in
+    the JAX layer (their rates are 0 there)."""
+
+    def __init__(self, d: int, num_heads: int, ffn_dim: int, dropout: float = 0.0,
+                 layer_norm_first: bool = True, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.dropout, self.layer_norm_first = dropout, layer_norm_first
         self.self_attn = MultiHeadAttention(d, num_heads, **kw)
         self.ffn = FeedForward(d, ffn_dim, activation=gelu_tanh, **kw)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5, **kw)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5, **kw)
 
-    def forward(self, x, *, kv_lens=None):
-        x = x + self.self_attn(self.self_attn_layer_norm(x), kv_lens=kv_lens)
-        return x + self.ffn(self.final_layer_norm(x))
+    def forward(self, x, *, kv_lens=None, dropout_rng=None):
+        def drop(h):
+            return dropout(h, self.dropout, dropout_rng)
+
+        ln1, ln2 = self.self_attn_layer_norm, self.final_layer_norm
+        if self.layer_norm_first:
+            x = x + drop(self.self_attn(ln1(x), kv_lens=kv_lens))
+            return x + drop(self.ffn(ln2(x)))
+        x = ln1(x + drop(self.self_attn(x, kv_lens=kv_lens)))
+        return ln2(x + drop(self.ffn(x)))
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of pre-LN TransformerLayers with a conv positional embedding and
-    the outer LayerNorm after the stack."""
+    """Stack of TransformerLayers with a conv positional embedding.  The
+    outer LayerNorm runs after the stack for pre-LN layers and before it for
+    post-LN ones (fairseq wav2vec2); ``dropout`` drops the stack's input and
+    each layer's residual branches in training (a ``dropout_rng``)."""
 
     def __init__(self, d: int, num_layers: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.0, layer_norm_first: bool = True,
                  conv_pos: int = 128, conv_pos_groups: int = 16, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.dropout, self.layer_norm_first = dropout, layer_norm_first
         self.pos_conv = ConvPositionalEmbedding(d, conv_pos, conv_pos_groups, **kw)
         self.layer_norm = nn.LayerNorm(d, eps=1e-5, **kw)
-        self.layers = add_layers(
-            self, [TransformerLayer(d, num_heads, ffn_dim, **kw) for _ in range(num_layers)]
-        )
+        self.layers = add_layers(self, [
+            TransformerLayer(d, num_heads, ffn_dim, dropout, layer_norm_first, **kw)
+            for _ in range(num_layers)])
 
-    def forward(self, x, *, lengths=None):
+    def forward(self, x, *, lengths=None, dropout_rng=None, output_layer: Optional[int] = None):
+        """``output_layer=N`` returns the state after layer N (from 1),
+        without the final LayerNorm of a pre-LN stack (fairseq's
+        ``extract_features(tgt_layer)``, the iteration-2 feature dump)."""
         if lengths is not None:
             keep = torch.arange(x.shape[1], device=x.device)[None, :, None] < lengths[:, None, None]
             x = x * keep.to(x.dtype)
         x = x + self.pos_conv(x)
-        for layer in self.layers:
-            x = layer(x, kv_lens=lengths)
-        return self.layer_norm(x)
+        if not self.layer_norm_first:
+            x = self.layer_norm(x)
+        x = dropout(x, self.dropout, dropout_rng)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, kv_lens=lengths, dropout_rng=dropout_rng)
+            if output_layer is not None and i + 1 == output_layer:
+                return x
+        return self.layer_norm(x) if self.layer_norm_first else x

@@ -58,7 +58,7 @@ class WhisperAttention(nn.Module):
             return z.reshape(b, t, self.num_heads, hd).transpose(1, 2).contiguous()
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
-        if use_flash(t, t, hd, x.device):
+        if use_flash(t, t, hd, q):
             out = flash_attention(q, k, v, kv_lens=kv_lens)
         else:
             mask = None

@@ -1,9 +1,9 @@
 """Task layer: couples datasets, models and criterions for the command line.
 
-Port of ``multimodalvc_tpu/tasks.py`` (but ``AVHubertPretrainTask``): for
-the AVSR LM loss (``AVSRTask``), the speech heads' mel regression
-(``SpeechTask``), the standalone vocoder (``VocoderTask``) and the E2E GAN
-(``E2EGanTask``), the dataset of each subset (``load_dataset``), the batch
+Port of ``multimodalvc_tpu/tasks.py``: for the AVSR LM loss (``AVSRTask``),
+the speech heads' mel regression (``SpeechTask``), the standalone vocoder
+(``VocoderTask``), the E2E GAN (``E2EGanTask``) and AV-HuBERT's masked
+pretraining (``AVHubertPretrainTask``), the dataset of each subset (``load_dataset``), the batch
 preparation, the trainer loss or trainer, the frozen patterns, the
 validation step and, for AVSR, the beam decode to text.  The tasks are
 registered under the JAX package's names, which the presets' ``task.name``
@@ -23,7 +23,8 @@ from .config.registry import register_task
 from .criterions.gan import E2EGanConfig, E2EGanTrainer
 from .criterions.lm import lm_metrics
 from .criterions.mel import MelL1Config, MelL1Criterion
-from .data.dataset import AVSRDataset, AVSRDatasetConfig
+from .data.dataset import AVSRDataset, AVSRDatasetConfig, PretrainDataset
+from .models.avhubert_pretrain import AVHubertPretrainConfig, AVHubertPretrainModel
 from .models.avsr import AVSRConfig, AVSRSystem
 from .models.speech import SpeechConfig, SpeechE2EModel, SpeechLLMModel, SpeechNoLLMModel
 from .models.vocoder import VocoderConfig, VocoderModel
@@ -405,3 +406,77 @@ class E2EGanTask:
         if train:
             out["modality_mode"] = self._mode(out["video"])
         return out
+
+
+@dataclass
+class AVHubertPretrainTaskConfig:
+    data: str = ""
+    km_path: Optional[str] = None  # defaults to <data>/<subset>.km
+    max_video_frames: int = 500
+    image_crop_size: int = 88
+    length_buckets: tuple = (100, 200, 300, 400, 500)
+    loss_unmasked_weight: float = 0.0  # pred_nomask weighting (large_vox: 0)
+
+
+@register_task("avhubert_pretraining", config=AVHubertPretrainTaskConfig)
+class AVHubertPretrainTask:
+    """AV-HuBERT masked pretraining on k-means cluster labels (the labels
+    from ``cli.manifest_tools learn-kmeans`` / ``dump-labels``).  The module
+    is built on ``device`` in ``dtype``; nothing is frozen."""
+
+    def __init__(self, cfg: AVHubertPretrainTaskConfig,
+                 model_cfg: Optional[AVHubertPretrainConfig] = None,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        self.cfg = cfg
+        self.model_cfg = model_cfg or AVHubertPretrainConfig()
+        self.module = AVHubertPretrainModel(self.model_cfg, device=device, dtype=dtype).eval()
+
+    @classmethod
+    def from_config(cls, cfg, model_cfg=None, dtype=torch.float32, device="cuda"):
+        return cls(cfg, model_cfg, dtype, device)
+
+    def init_random(self, seed: int = 0) -> None:
+        """Random weights from ``seed`` (``init_random_``)."""
+        init_random_(self.module, seed)
+
+    def load_dataset(self, subset: str) -> PretrainDataset:
+        c = self.cfg
+        return PretrainDataset(manifest_dir=c.data, subset=subset, km_path=c.km_path,
+                               max_video_frames=c.max_video_frames,
+                               image_crop_size=c.image_crop_size,
+                               length_buckets=tuple(c.length_buckets))
+
+    def prepare_batch(self, batch: Dict[str, torch.Tensor], train: bool = True):
+        return batch
+
+    def frozen_patterns(self) -> List[str]:
+        return []
+
+    def make_loss_fn(self):
+        """(batch, generator) -> (loss, metrics) for ``Trainer``: the training
+        forward (span masks from ``generator``, the ResNet on batch
+        statistics, which move the running ones); loss_masked +
+        loss_unmasked_weight * loss_unmasked."""
+        module, w_u = self.module, self.cfg.loss_unmasked_weight
+
+        def loss_fn(batch, generator):
+            out = module(batch["audio"], batch["video"], batch["targets"], batch["lengths"],
+                         train=True, generator=generator)
+            loss = out["loss_masked"] + w_u * out["loss_unmasked"]
+            return loss, {"loss_masked": out["loss_masked"], "acc_masked": out["acc_masked"]}
+
+        return loss_fn
+
+    def valid_step_fn(self):
+        """No masking at evaluation: the loss over every valid frame, and, as
+        in the JAX task, ``acc_masked`` (0, with no masked frame) as the
+        accuracy."""
+        module = self.module
+
+        @torch.no_grad()
+        def valid_step(batch):
+            out = module(batch["audio"], batch["video"], batch["targets"], batch["lengths"],
+                         train=False)
+            return {"loss": out["loss_unmasked"], "accuracy": out["acc_masked"]}
+
+        return valid_step

@@ -17,6 +17,7 @@ from torch_parity import t  # noqa: F401 (sets one torch thread)
 import chip_smoke
 from multimodalvc_tpu import config as jconfig
 from multimodalvc_tpu import tasks as jtasks  # noqa: F401 (registers the tasks)
+from multimodalvc_tpu.models import avhubert_pretrain as _javh  # noqa: F401
 from multimodalvc_tpu.models import avsr as _javsr, speech as _jsp, vocoder as _jvoc  # noqa: F401
 from multimodalvc_tpu_torch import config as tconfig
 from multimodalvc_tpu_torch.cli import train as ttrain
@@ -25,8 +26,8 @@ from multimodalvc_tpu_torch.config import registry as tregistry
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = sorted(os.path.basename(p)[:-5] for p in glob.glob(os.path.join(REPO, "conf", "*.yaml")))
 # the presets whose task and model the port's CLI serves
-SERVED = ["hifigan-vocoder", "mms-llama", "mms-llama-speech", "mms-speech-nollm",
-          "mms-speech-nollm-e2e", "s2s_decode"]
+SERVED = ["avhubert-pretrain", "hifigan-vocoder", "mms-llama", "mms-llama-speech",
+          "mms-speech-nollm", "mms-speech-nollm-e2e", "s2s_decode"]
 OVERRIDES = ["dataset.data=/data/manifest", "task.noise_wav=/data/babble.wav",
              "optimization.max_update=12", "optimization.lr=3.0e-5",
              "optimization.adam_betas=[0.9,0.95]", "dataset.length_buckets=[50,100]",
@@ -196,11 +197,12 @@ def test_init_from_pt(task, tmp_path, monkeypatch):
 
 def test_registries_name_the_jax_tasks_and_models():
     assert set(tregistry.available("task")) == {
-        "avsr_training", "speech_training", "vocoder_training", "e2e_gan_training"}
-    assert set(tregistry.available("task")) < set(jconfig.registry.available("task"))
+        "avsr_training", "speech_training", "vocoder_training", "e2e_gan_training",
+        "avhubert_pretraining"}
+    assert set(tregistry.available("task")) <= set(jconfig.registry.available("task"))
     assert set(tregistry.available("model")) == {
         "mms_llama_avsr", "mms_llama_speech", "mms_speech_nollm", "mms_speech_nollm_e2e",
-        "hifigan_vocoder"}
+        "hifigan_vocoder", "av_hubert_pretrain"}
     assert set(tregistry.available("model")) <= set(jconfig.registry.available("model"))
     with pytest.raises(KeyError, match="available"):
-        tregistry.lookup("task", "avhubert_pretraining")
+        tregistry.lookup("task", "dummy_avsr")  # the JAX benchmark task, not ported

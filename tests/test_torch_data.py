@@ -6,7 +6,9 @@ bit, every array of the datasets' samples and collated batches bitwise
 calling process), and the port's loader in worker processes: the JAX
 loader's batches in order, distinct draws in each worker, the same batches
 at any worker count >= 1 and after a resume; with 0 workers, a resume draws
-as the JAX loader's resume does."""
+as the JAX loader's resume does.  AV-HuBERT's pretraining samples
+(``PretrainDataset``: stacked filterbanks, decimated .km labels) bit for
+bit too."""
 import dataclasses
 
 import numpy as np
@@ -133,7 +135,8 @@ def test_pad_helpers_match_jax():
 @pytest.mark.parametrize("n", [400, 12345, 48000])
 def test_features_bit_for_bit(n):
     wav = (0.3 * np.random.default_rng(n).standard_normal(n)).astype(np.float32)
-    for name in ("whisper_features_np", "whisper_features_long_np", "hifigan_mel_np"):
+    for name in ("whisper_features_np", "whisper_features_long_np", "hifigan_mel_np",
+                 "stacked_logfbank_np"):
         w, g = getattr(jaudio, name)(wav), getattr(taudio, name)(wav)
         assert w.dtype == g.dtype and w.shape == g.shape
         np.testing.assert_array_equal(g, w, err_msg=name)
@@ -307,3 +310,70 @@ def test_zero_worker_resume_draws_as_the_jax_resume(corpus):
     for x, y in zip(straight[2:], resumed):
         assert torch.equal(x["ids"], y["ids"]) and torch.equal(x["labels"], y["labels"])
     assert not torch.equal(straight[2]["video"], resumed[0]["video"])
+
+
+# ---- AV-HuBERT pretraining samples ------------------------------------------------
+
+
+def _km_file(root: str, tmp_path, frames) -> str:
+    """A .km file of random 100 Hz labels, 4 a video frame plus a ragged
+    tail, one row a clip of the corpus."""
+    rng = np.random.default_rng(6)
+    path = tmp_path / "train.km"
+    path.write_text("".join(" ".join(map(str, rng.integers(0, 50, 4 * f + (i % 3))))
+                            + "\n" for i, f in enumerate(frames)))
+    return str(path)
+
+
+@pytest.mark.parametrize("subset", ["valid", "train"])
+def test_pretrain_dataset_matches_jax(corpus, tmp_path, subset, monkeypatch):
+    """``PretrainDataset``: the samples (video, stacked filterbank, labels
+    decimated to 25 Hz, cut to the shortest) and the collated batches bit
+    for bit.  The JAX train subset draws its crops from an unseeded
+    generator: here it is handed one generator seeded as the port's (the
+    dataset seed), which the port's 0-worker loader draws from in order."""
+    import functools
+
+    root, _ = corpus
+    frames = [e.n_video_frames for e in tmanifest.load_manifest(f"{root}/{subset}.tsv").entries]
+    km = _km_file(root, tmp_path, frames)
+    if subset == "train":
+        monkeypatch.setattr(jdataset, "transform_video", functools.partial(
+            jvideo.transform_video, rng=np.random.default_rng(1)))
+    kw = dict(km_path=km, max_video_frames=60, image_crop_size=40, length_buckets=(16, 32, 64))
+    jds = jdataset.PretrainDataset(root, subset, **kw)
+    tds = tdataset.PretrainDataset(root, subset, **kw)
+    assert len(tds) == len(jds) and tds.sizes() == jds.sizes()
+    for w, g in zip(jds.labels, tds.labels):
+        np.testing.assert_array_equal(g, w)
+    batches = tds.batches(max_tokens=130, epoch=1)
+    for w, g in zip(jds.batches(max_tokens=130, epoch=1), batches):
+        np.testing.assert_array_equal(g, w)
+    want = [jds.collate([jds[int(i)] for i in idx]) for idx in batches]
+    for w, g in zip(want, tdataset.BatchLoader(tds, batches, num_workers=0)):
+        same_arrays(w, g, f"pretrain {subset}")
+        assert g["audio"].shape[-1] == 104
+
+
+def test_pretrain_task_dataset_and_workers(corpus, tmp_path):
+    """The task's ``load_dataset`` with its config, and the loader's worker
+    draws: the same batches at 1 and 2 workers, distinct crops a batch."""
+    root, _ = corpus
+    frames = [e.n_video_frames for e in tmanifest.load_manifest(f"{root}/train.tsv").entries]
+    km = _km_file(root, tmp_path, frames)
+    cfg = dict(data=root, km_path=km, max_video_frames=60, image_crop_size=40,
+               length_buckets=(16, 32, 64))
+    jds = jtasks.AVHubertPretrainTask(jtasks.AVHubertPretrainTaskConfig(**cfg)).load_dataset(
+        "valid")
+    tds = ttasks.AVHubertPretrainTask(ttasks.AVHubertPretrainTaskConfig(**cfg),
+                                      device="cpu").load_dataset("valid")
+    same_arrays(jds.collate([jds[0], jds[1]]), tds.load_batch([0, 1]), "task valid batch")
+    train = ttasks.AVHubertPretrainTask(ttasks.AVHubertPretrainTaskConfig(**cfg),
+                                        device="cpu").load_dataset("train")
+    batches = [np.asarray([0, 1])] * 3
+    one = list(tdataset.BatchLoader(train, batches, num_workers=1, epoch=2))
+    two = list(tdataset.BatchLoader(train, batches, num_workers=2, epoch=2))
+    for x, y in zip(one, two):
+        same_arrays({k: v.numpy() for k, v in x.items()}, y, "one vs two workers")
+    assert not torch.equal(two[0]["video"], two[1]["video"])
+    assert torch.equal(two[0]["targets"], two[1]["targets"])
