@@ -1689,12 +1689,12 @@ def make_train_batch():
     return batch
 
 
-def build_trainer(flash: bool):
+def build_trainer(flash: bool, warmup: int = TRAIN_WARMUP):
     """The training slice's entry points at full width: ``AVSRTask`` (bf16
     random weights from seed 0, ``use_flash_prefill`` as given), its loss
     and frozen patterns into ``Trainer`` with the conf/mms-llama.yaml
     optimizer (AdamW, betas (0.9, 0.98), weight decay 0.01, clip 1.0,
-    cosine) and a warmup of TRAIN_WARMUP updates."""
+    cosine) and a warmup of ``warmup`` updates."""
     import torch
 
     from multimodalvc_tpu_torch.config.configs import OptimizationConfig
@@ -1710,7 +1710,7 @@ def build_trainer(flash: bool):
     task.system.init_random(seed=0)
     opt = OptimizationConfig(lr=1e-4, optimizer="adamw", adam_betas=(0.9, 0.98),
                              weight_decay=0.01, clip_norm=1.0, lr_scheduler="cosine",
-                             warmup_updates=TRAIN_WARMUP, max_update=30000)
+                             warmup_updates=warmup, max_update=30000)
     trainer = Trainer(task.make_loss_fn(), task.system.module, opt, task.frozen_patterns())
     torch.cuda.synchronize()
     print(f"trainer: {'flash' if flash else 'plain'} trunk attention, built in "
@@ -3587,6 +3587,18 @@ PRESETS = {
         "model.name=mms_speech_nollm", "model.use_qformer=true", "model.queries_per_sec=3",
         "model.conformer_size=L", "model.modality_dropout=true",
     ],
+    "mms-speech-nollm-moe": [
+        "common.seed=1", "common.log_format=json", "common.log_interval=100", "mesh.expert=4",
+        "mesh.data=-1", "dataset.data=???", "dataset.max_tokens=1000", "dataset.num_workers=3",
+        "optimization.max_update=60000", "optimization.lr=2.0e-4",
+        "optimization.lr_scheduler=cosine", "optimization.warmup_updates=1000",
+        "optimization.clip_norm=1.0", "checkpoint.save_dir=checkpoints/mms-speech-nollm-moe",
+        "checkpoint.best_checkpoint_metric=mel_l1", "task.name=speech_training",
+        "task.variant=nollm", "task.max_mel_frames=2400", "task.p_modality_av=0.5",
+        "task.p_modality_video_only=0.25", "task.p_modality_audio_only=0.25",
+        "model.name=mms_speech_nollm", "model.use_qformer=true", "model.queries_per_sec=3",
+        "model.conformer_size=L", "model.conformer_moe_experts=4", "model.modality_dropout=true",
+    ],
     "mms-speech-nollm-e2e": [
         "common.seed=1", "common.log_format=json", "common.log_interval=100", "mesh.data=-1",
         "dataset.data=???", "dataset.batch_size=4", "dataset.num_workers=3",
@@ -3708,7 +3720,8 @@ class CliTap:
         def write(mgr, state, name):
             t0 = time.perf_counter()
             real_write(mgr, state, name)
-            size = os.path.getsize(os.path.join(mgr._path(name), STATE_FILE))
+            path = os.path.join(mgr._path(name), STATE_FILE)
+            size = os.path.getsize(path) if os.path.exists(path) else 0
             self.writes.append((time.perf_counter() - t0, size / 2 ** 30))
 
         self._patches = [
@@ -4961,6 +4974,388 @@ def import_phases(table) -> dict:
     return phases
 
 
+# ---- several ranks -----------------------------------------------------------------
+
+PARALLEL_DIR = REPO / "build" / "parallel"
+PARALLEL_UPDATES = 3  # parallel_nccl_1rank: cli.train updates a run
+# parallel_data_2rank: updates, the first at lr 0 (the cosine warmup starts at
+# 0), so the last two move the masters and the last loss sees them moved
+PARALLEL_STEPS, PARALLEL_WARMUP = 3, 1
+MOE_STEPS = 3  # parallel_moe_speech: updates
+CHILD_TIMEOUT_S = 600
+PARALLEL_BACKEND = "nccl"  # parallel_nccl_1rank's group (a CPU rehearsal: gloo)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_children(cmds, envs, name: str) -> None:
+    """Run the commands side by side (each in its own session, so that a
+    failure or the time limit stops it and what it started); fail the phase
+    unless every one exits 0 in CHILD_TIMEOUT_S."""
+    import signal
+
+    procs = [subprocess.Popen(cmd, cwd=REPO, env={**os.environ, **env}, start_new_session=True)
+             for cmd, env in zip(cmds, envs)]
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    codes = [proc.returncode for proc in procs]
+    if any(codes):
+        raise SmokeFailure(f"{name}: child processes exited {codes}")
+
+
+def nccl_child(out: str) -> int:
+    """In a ``torch.distributed.run`` launch of one process: ``cli.train`` on
+    conf/mms-llama.yaml at full width over the cli corpus, PARALLEL_UPDATES
+    updates with checkpoint writes off, first without a group (torchrun's
+    WORLD_SIZE=1 starts none), then in the NCCL group of one that
+    ``distributed_init(force=True)`` starts, which the CLI takes as a
+    launcher's: its step is the distributed one.  Writes both runs'
+    losses, K1 launches, walls and peaks to ``out``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.parallel import distributed
+    from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    table = kernels()
+    runs = {}
+    run = ["task.llm_path=null", f"task.noise_wav={CLI_DIR}/babble.wav",
+           f"dataset.max_tokens={CLI_MAX_TOKENS}", f"optimization.max_update={PARALLEL_UPDATES}",
+           "dataset.disable_validation=true", f"checkpoint.save_dir={PARALLEL_DIR}/nccl_run"]
+    with mock.patch.object(CheckpointManager, "_write", lambda *a: None):
+        for name in ("no_group", "nccl_group"):
+            if name == "nccl_group":
+                distributed.distributed_init(force=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(table)
+            with CliTap(cli_train) as tap:
+                _, t_run = wall(lambda: cli_train.main(cli_config("mms-llama", run), device=DEV))
+            steps = tap.of("train")
+            runs[name] = {"losses": [s["loss"] for s in steps],
+                          "step_ms": [s["step_ms"] for s in steps],
+                          "launches": read_counts(table), "wall_s": t_run,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "backend": dist.get_backend() if dist.is_initialized() else None,
+                          "world_size": dist.get_world_size() if dist.is_initialized() else 1}
+    distributed.destroy()
+    Path(out).write_text(json.dumps(runs))
+    return 0
+
+
+def parallel_nccl_1rank(table) -> dict:
+    """``nccl_child`` under ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1``.  Checks: the group run used NCCL at world size 1;
+    its losses equal the run without a group to 1e-6 relative, update by
+    update; both runs launched K1 the same times, 24 or more a step."""
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    out = PARALLEL_DIR / "nccl.json"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    run_children([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "1", str(REPO / "chip_smoke.py"), "--parallel-child",
+                   "nccl", str(out)]], [{}], "parallel_nccl_1rank")
+    runs = json.loads(out.read_text())
+    plain, group = runs["no_group"], runs["nccl_group"]
+    if (group["backend"] != PARALLEL_BACKEND or group["world_size"] != 1
+            or plain["backend"] is not None):
+        raise SmokeFailure(f"parallel_nccl_1rank: backends {plain['backend']}, "
+                           f"{group['backend']} (world {group['world_size']})")
+    if len(group["losses"]) != PARALLEL_UPDATES or len(plain["losses"]) != PARALLEL_UPDATES:
+        raise SmokeFailure(f"parallel_nccl_1rank: updates {plain['losses']}, {group['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(group["losses"], plain["losses"]))
+    k1 = group["launches"]["flash_attention"]
+    print(f"  parallel_nccl_1rank: {PARALLEL_UPDATES} cli.train updates in the NCCL group of "
+          f"one, losses {group['losses']} vs {plain['losses']} without a group (rel {rel:.2e}, "
+          f"gate 1e-06), step ms {[round(x, 1) for x in group['step_ms']]} vs "
+          f"{[round(x, 1) for x in plain['step_ms']]}, K1 {k1}, peak {group['peak_gib']:.2f} GiB")
+    if not all(math.isfinite(x) for x in group["losses"]) or not rel <= 1e-6:
+        raise SmokeFailure(f"parallel_nccl_1rank: losses {rel:.3e} from the run without a group")
+    if group["launches"] != plain["launches"] or k1 < cli_k1_a_step(0) * PARALLEL_UPDATES:
+        raise SmokeFailure(f"parallel_nccl_1rank: launches {group['launches']} vs "
+                           f"{plain['launches']}")
+    return {**group, "no_group": plain, "losses_rel": rel, "wall_s": time.perf_counter() - t0}
+
+
+def _masters_flat(trainer):
+    import torch
+
+    return torch.cat([m.reshape(-1) for m in trainer.master.values()])
+
+
+def _data_steps(trainer, batch):
+    """PARALLEL_STEPS updates: each one's loss and gnorm (the global norm of
+    the gradient before the clip, so a wrong gradient scale shows in it
+    although the clip and Adam hide it from the update), and the update of
+    the trainable masters over them (after minus before, f32, flat)."""
+    start = _masters_flat(trainer)
+    metrics = [trainer.train_step(batch) for _ in range(PARALLEL_STEPS)]
+    return {"losses": [m["loss"] for m in metrics], "gnorms": [m["gnorm"] for m in metrics],
+            "update": _masters_flat(trainer) - start}
+
+
+def _step_gaps(run, ref, key):
+    return [abs(a - b) / abs(b) for a, b in zip(run[key], ref[key])]
+
+
+def _data_gaps(run, ref) -> dict:
+    """How far ``run`` lies from ``ref``: the largest relative gap of the
+    losses and of the gnorms over the steps, and the update's relative L2."""
+    return {"losses": max(_step_gaps(run, ref, "losses")),
+            "gnorms": max(_step_gaps(run, ref, "gnorms")),
+            "update": rel_l2(run["update"], ref["update"])}
+
+
+def data_child(out: str) -> int:
+    """One of two ranks of ``parallel_data_2rank`` (RANK, WORLD_SIZE 2 and
+    LOCAL_RANK 0 from the parent: both bind cuda:0), joined over gloo: the
+    full-width AVSR Trainer on its 4 rows of the training batch, without
+    dropout, then its state saved and loaded back as a resume on the mesh
+    does (rank 1 reseeds its CUDA generator from rank 0's state).  Writes
+    its losses, gnorms, update, K1 launches, step walls, peak and what the
+    resume restored to ``out``."""
+    import torch
+
+    from multimodalvc_tpu_torch.models import avsr
+    from multimodalvc_tpu_torch.parallel import distributed
+    from multimodalvc_tpu_torch.parallel.mesh import batch_group_rank, make_mesh
+
+    distributed.distributed_init(backend="gloo")
+    make_mesh({"data": 2})
+    table = kernels()
+    with mock.patch.object(avsr, "train_rng", lambda train, generator: None):
+        task, trainer = build_trainer(flash=False, warmup=PARALLEL_WARMUP)
+        full = task.prepare_batch(make_train_batch())
+        rows = BATCH // 2
+        r = batch_group_rank()
+        mine = {k: v[r * rows:(r + 1) * rows] for k, v in full.items()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(table)
+        run, t = wall(lambda: _data_steps(trainer, mine))
+        launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    masters = _masters_flat(trainer)
+    saved = trainer.state_dict(include_frozen=False)
+    # the file of a resume holds rank 0's generator state
+    generator = saved["generator"].cpu().clone()
+    torch.distributed.broadcast(generator, src=0)
+    trainer.load_state_dict({**saved, "generator": generator})
+    torch.save({**run, "update": run["update"].cpu(), "launches": launches,
+                "step_ms": 1e3 * t / PARALLEL_STEPS, "peak_gib": peak,
+                "n_tokens": int(mine["label_lengths"].sum()),
+                "resume": {"masters_kept": bool(torch.equal(_masters_flat(trainer), masters)),
+                           "generator": generator,
+                           "restored": trainer.generator.get_state().cpu(),
+                           "device": str(trainer.generator.device)}}, out)
+    distributed.destroy()
+    return 0
+
+
+def parallel_data_2rank(table) -> dict:
+    """Data parallelism at full width on the one card: first the one-process
+    step on the whole batch (BATCH rows, PARALLEL_STEPS updates after a
+    warmup of PARALLEL_WARMUP, no dropout), and the same from the same
+    start with one bf16 ulp on 0.01% of the audio features, at two offsets
+    (the noise floor of each compared quantity, the larger of the two);
+    then two ranks (``data_child``) on its halves, whose valid label
+    tokens differ.  Checks: the ranks' losses, gnorms and updates bitwise
+    equal; the losses, the gnorms and the masters' update each within
+    FLOOR_MARGIN x its own floor of the one-process step; K1 48 a step a
+    rank; the resume on the mesh kept the masters, restored rank 0's
+    generator state and reseeded rank 1's CUDA generator apart."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.models import avsr
+
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with mock.patch.object(avsr, "train_rng", lambda train, generator: None):
+        task, trainer = build_trainer(flash=False, warmup=PARALLEL_WARMUP)
+        batch = task.prepare_batch(make_train_batch())
+        start = copy.deepcopy(trainer.state_dict(include_frozen=False))
+        ref, t_one = wall(lambda: _data_steps(trainer, batch))
+        peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+        nudges, step_gaps = [], {}
+        for offset in (0, 4999):
+            trainer.load_state_dict(start)
+            nudged = dict(batch)
+            nudged["audio_feats"] = batch["audio_feats"].clone()
+            flat = nudged["audio_feats"].view(-1)
+            flat[offset::9973] = flat[offset::9973] * (1 + 2 ** -7)
+            run = _data_steps(trainer, nudged)
+            nudges.append(_data_gaps(run, ref))
+            step_gaps[f"nudge{offset}"] = {k: _step_gaps(run, ref, k) for k in ("losses", "gnorms")}
+    floor = {k: max(n[k] for n in nudges) for k in nudges[0]}
+    ref["update"] = ref["update"].cpu()
+    del task, trainer, start, batch, nudged, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = [PARALLEL_DIR / f"data_rank{r}.pt" for r in range(2)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    env = {"WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "LOCAL_RANK": "0"}
+    t1 = time.perf_counter()
+    run_children([[sys.executable, str(REPO / "chip_smoke.py"), "--parallel-child", "data",
+                   str(o)] for o in outs], [{**env, "RANK": str(r)} for r in range(2)],
+                 "parallel_data_2rank")
+    t_ranks = time.perf_counter() - t1
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    a, b = ranks
+    if (a["losses"] != b["losses"] or a["gnorms"] != b["gnorms"]
+            or not torch.equal(a["update"], b["update"])):
+        raise SmokeFailure("parallel_data_2rank: the two ranks differ")
+    if a["n_tokens"] == b["n_tokens"]:
+        raise SmokeFailure("parallel_data_2rank: the halves hold equal valid tokens")
+    gaps = _data_gaps(a, ref)
+    step_gaps["ranks"] = {k: _step_gaps(a, ref, k) for k in ("losses", "gnorms")}
+    gates = {k: FLOOR_MARGIN * floor[k] for k in floor}
+    k1 = [r["launches"]["flash_attention"] for r in ranks]
+    print(f"  parallel_data_2rank: two gloo ranks on one card, {PARALLEL_STEPS} updates on "
+          f"{BATCH // 2} rows each ({a['n_tokens']} and {b['n_tokens']} label tokens): losses "
+          f"{a['losses']} vs one process {ref['losses']}, gnorms {a['gnorms']} vs "
+          f"{ref['gnorms']}, update norm {float(a['update'].norm()):.4e} vs "
+          f"{float(ref['update'].norm()):.4e}; gaps "
+          + ", ".join(f"{k} {gaps[k]:.2e} (floor {floor[k]:.2e}, gate {gates[k]:.2e})"
+                      for k in gaps)
+          + f"; {a['step_ms']:.1f} ms a step a rank (one process "
+          f"{1e3 * t_one / PARALLEL_STEPS:.1f} ms), peak {a['peak_gib']:.2f} / "
+          f"{b['peak_gib']:.2f} GiB a rank ({peak_one:.2f} one process), K1 {k1}")
+    if not all(gaps[k] <= gates[k] for k in gaps):
+        raise SmokeFailure(f"parallel_data_2rank: gaps {gaps} from the one-process step "
+                           f"(gates {gates})")
+    wrong = [r["launches"] for r in ranks
+             if r["launches"] != {**{k: 0 for k in r["launches"]},
+                                  "flash_attention": ENCODER_FLASH * PARALLEL_STEPS}]
+    if wrong:
+        raise SmokeFailure(f"parallel_data_2rank: launches {wrong} (K1 {ENCODER_FLASH} a step)")
+    ra, rb = a["resume"], b["resume"]
+    if not (ra["masters_kept"] and rb["masters_kept"] and ra["device"].startswith("cuda")
+            and torch.equal(ra["restored"], ra["generator"])
+            and torch.equal(rb["generator"], ra["generator"])
+            and not torch.equal(rb["restored"], ra["generator"])):
+        raise SmokeFailure(f"parallel_data_2rank: the resume on two ranks ({ra['device']}): "
+                           f"masters kept {ra['masters_kept']} / {rb['masters_kept']}")
+    print(f"  parallel_data_2rank: resumed on both ranks ({ra['device']} generators, rank 1 "
+          "reseeded apart)")
+    return {"losses": a["losses"], "one_process_losses": ref["losses"], "gnorms": a["gnorms"],
+            "one_process_gnorms": ref["gnorms"], "gaps": gaps, "noise_floor": floor,
+            "nudges": nudges, "step_gaps": step_gaps, "gates": gates, "step_ms_a_rank": a["step_ms"],
+            "one_process_step_ms": 1e3 * t_one / PARALLEL_STEPS,
+            "peak_gib_a_rank": [r["peak_gib"] for r in ranks], "one_process_peak_gib": peak_one,
+            "n_tokens": [r["n_tokens"] for r in ranks], "launches": a["launches"],
+            "ranks_wall_s": t_ranks, "wall_s": time.perf_counter() - t0}
+
+
+def parallel_moe_speech(table) -> dict:
+    """conf/mms-speech-nollm-moe.yaml with ``mesh.expert=1`` (all four
+    experts on the card) at full width, built by ``cli.train``'s
+    ``build_task`` and trained by its ``Trainer`` on the speech training
+    batch: the step-1 gradients against K1 plain at the run's noise floor
+    (``gradient_gate``), then MOE_STEPS updates with every launch count 0
+    before the first.  Checks: K1 SPEECH_FLASH a step, 12 with a gradient;
+    the mel L1 finite and moving; each block's expert bank took tokens.
+    Prints the tokens each expert of the first block took and the overflow
+    share over the blocks."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.parallel.expert import BaseMoELayer
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = cli_config("mms-speech-nollm-moe", ["mesh.expert=1", "model.max_video_frames=400",
+                                              "optimization.warmup_updates=2"])
+    cli_train.make_mesh(cli_train.mesh_sizes(cfg))
+    task = cli_train.build_task(cfg, DEV)
+    task.init_random(cfg.common.seed)
+    trainer = Trainer(task.make_loss_fn(), task.module, cfg.optimization, task.frozen_patterns(),
+                      seed=cfg.common.seed)
+    banks = [m for m in task.module.modules() if isinstance(m, BaseMoELayer)]
+    blocks = [m for m in task.module.modules() if type(m).__name__ == "ConformerBlock"]
+    if not banks or len(banks) != len(blocks):
+        raise SmokeFailure(f"parallel_moe_speech: {len(banks)} expert banks in {len(blocks)} "
+                           "Conformer blocks")
+    raw = make_speech_train_batch()
+    gate_batch = {**task.prepare_batch(raw, train=False),
+                  "modality_mode": torch.tensor(0, dtype=torch.int32, device=DEV)}
+    record = gradient_gate(trainer, gate_batch, "parallel_moe_speech")
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls, loads = [], [], []
+    reset_counts(table)
+    with GradLaunches() as grads:
+        for _ in range(MOE_STEPS):
+            m, t_step = wall(lambda: trainer.train_step(task.prepare_batch(raw)))
+            metrics.append(m)
+            walls.append(t_step)
+            loads.append([{k: v.tolist() for k, v in b.load.items()} for b in banks])
+    launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_k1_launches("parallel_moe_speech", launches, grads.n, MOE_STEPS,
+                      CONFORMER_GRAD_LAUNCHES)
+    losses = [m["mel_l1"] for m in metrics]
+    if not all(math.isfinite(x) for x in losses) or len(set(losses)) < 2:
+        raise SmokeFailure(f"parallel_moe_speech: mel L1 {losses} (finite, moving)")
+    last = loads[-1]
+    tokens = sum(sum(b["tokens"]) + b["overflow"] for b in last)
+    overflow = sum(b["overflow"] for b in last) / tokens
+    if any(sum(b["tokens"]) == 0 for b in last):
+        raise SmokeFailure("parallel_moe_speech: an expert bank took no token")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    print(f"  parallel_moe_speech: {MOE_STEPS} updates, mel L1 {[round(x, 4) for x in losses]}, "
+          f"{1e3 * step_s:.1f} ms a step, peak {peak:.2f} GiB; block 0's experts took "
+          f"{last[0]['tokens']} tokens, {100 * overflow:.2f}% of the tokens overflowed")
+    record.update(mel_l1=losses, step_ms=[1e3 * x for x in walls], mean_step_ms=1e3 * step_s,
+                  peak_gib=peak, launches=launches, expert_tokens=[b["tokens"] for b in last],
+                  overflow_share=overflow, k1_grad_launches_a_step=grads.n // MOE_STEPS,
+                  wall_s=time.perf_counter() - t0)
+    del task, trainer, banks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def parallel_phases(table) -> dict:
+    """The several-rank phases (the corpus written first if absent);
+    build/parallel removed after."""
+    import shutil
+
+    t0 = time.perf_counter()
+    phases = {} if (CLI_DIR / "train.tsv").exists() else {"cli_corpus": write_corpus()}
+    phases["parallel_nccl_1rank"] = parallel_nccl_1rank(table)
+    phases["parallel_data_2rank"] = parallel_data_2rank(table)
+    phases["parallel_moe_speech"] = parallel_moe_speech(table)
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    phases["parallel_wall_s"] = time.perf_counter() - t0
+    print(f"  parallel phases: {phases['parallel_wall_s']:.1f} s")
+    return phases
+
+
 def serving_phases(table, batch) -> tuple:
     """The AVSR serving phases: bf16 weights, then int8 and int4 weights."""
     phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
@@ -4995,6 +5390,16 @@ def main() -> int:
     print(f"kernels built in {lib.build_s:.1f} s -> {lib.path.name}")
     print(lib.log.strip())
 
+    if "--parallel-child" in sys.argv[1:]:
+        what, out = sys.argv[sys.argv.index("--parallel-child") + 1:][:2]
+        return {"nccl": nccl_child, "data": data_child}[what](out)
+    if "--parallel" in sys.argv[1:]:
+        phases = parallel_phases(kernels())
+        print(json.dumps({"phases": phases}))
+        print(f"smoke --parallel: {time.perf_counter() - start:.1f} s, the kernels' build "
+              "included")
+        print(card)
+        return 0
     if "--profile-gather" in sys.argv[1:]:
         print(json.dumps({"profile_gather": profile_gather(kernels(), make_batch())}))
         print(card)
@@ -5110,6 +5515,9 @@ def main() -> int:
     print("AV-HuBERT pretraining: k-means labels, cli.train on conf/avhubert-pretrain.yaml at "
           "full width, dump-features, iteration-2 labels; the seq2seq decoder's beam decode")
     phases.update(pretrain_phases(table))
+    print("several ranks: cli.train in an NCCL group of one under torch.distributed.run; two "
+          "data-parallel gloo ranks on the card at full width; the MoE Conformer preset")
+    phases.update(parallel_phases(table))
 
     summary = []
     for name, (fn, attr, src, replaces, phase, on_path) in table.items():
@@ -5122,7 +5530,8 @@ def main() -> int:
             "speech_launches": phases["speech_nollm"]["mode0"]["launches"][name],
             **{f"{p}_launches": phases[p]["launches"][name]
                for p in ("pretrain_train", "pretrain_dump_features", "seq2seq",
-                         "seq2seq_constrained")},
+                         "seq2seq_constrained", "parallel_nccl_1rank", "parallel_data_2rank",
+                         "parallel_moe_speech")},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "case": mine[0]["name"],

@@ -28,7 +28,7 @@ from ..data.dataset import to_device
 from ..models.avsr import AVSRSystem
 from ..runtime.checkpoint import CheckpointManager, load_ensemble, load_model
 from ..utils.wer import wer
-from .train import Profiler, build_task, check_one_device, loader, parse_args
+from .train import Profiler, build_task, loader, parse_args
 
 logger = logging.getLogger(__name__)
 
@@ -52,7 +52,6 @@ def load_constraints(path: str, tokenizer) -> Dict[int, List[List[int]]]:
 
 
 def _main(cfg: TrainRootConfig, results_path: str, device) -> Dict[str, float]:
-    check_one_device(cfg)
     task = build_task(cfg, device)
     ds = task.load_dataset("test")
 

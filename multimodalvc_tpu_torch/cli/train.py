@@ -15,9 +15,19 @@ position (a restart resumes mid-epoch), patience, the plateau scheduler,
 from a reference product ``.pt`` (``import_init_from_pt``; the vocoder
 from a reference generator).  The vocoder and the E2E GAN have their own
 dual-optimizer loops; the E2E loop refuses ``init_from_pt``, which the JAX
-E2E loop never reads.  One process drives one card: a mesh whose axes all
-resolve to one device is accepted, any other mesh and a multi-process
-launch raise.  ``--device cpu`` runs on the CPU.
+E2E loop never reads.  ``--device cpu`` runs on the CPU.
+
+Several devices: one process a device, launched by ``torch.distributed.run``
+(torchrun) or SLURM (``parallel/distributed.py``).  ``mesh`` lays the world
+out over the (pipeline, data, fsdp, sequence, expert, tensor) axes
+(``parallel/mesh.py``; -1 fills); ``mesh.tensor > 1`` raises.  Each loop
+takes its batch-group rank's share of the batches (``shard_batches``); a
+step is the step on the batch group's concatenated batch.  Every rank
+validates the whole set on its own (``parallel.mesh.local``); the beam WER
+runs only in a launch of one process; rank 0 alone writes checkpoints and
+metric sinks, and every rank takes rank 0's validation metrics
+(``parallel.mesh.from_rank0``), so that all make the same checkpoint,
+patience and plateau decisions.
 
 A checkpoint holds the whole state, as the JAX package's does: the
 module (its trainable leaves as their f32 masters), the optimizer, the step
@@ -30,7 +40,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
-import math
 import os
 import time
 from typing import Any, Dict, Optional
@@ -42,10 +51,22 @@ from .. import tasks as _tasks  # noqa: F401 (registers the tasks)
 from ..config import TrainRootConfig, apply_overrides, from_dict, load_yaml, merge
 from ..config.configs import MeshConfig
 from ..config.registry import lookup
+from ..data.batching import shard_batches
 from ..data.dataset import BatchLoader, to_device, to_tensors
 from ..interop.avsr_import import import_reference_avsr, merge_state
 from ..models import avhubert_pretrain as _avh, avsr as _avsr, speech as _speech  # noqa: F401
 from ..models import vocoder as _vocoder  # noqa: F401
+from ..parallel.distributed import distributed_init, is_master, world_size
+from ..parallel.mesh import (
+    active_mesh,
+    batch_group_rank,
+    batch_group_size,
+    from_rank0,
+    local,
+    make_mesh,
+    resolve_axis_sizes,
+    restore_generator_,
+)
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.debug import Watchdog, find_nonfinite, with_oom_batch_split
 from ..runtime.metrics import MetricsAggregator, MetricSinks, log_stats
@@ -54,8 +75,8 @@ from ..runtime.trainer import Trainer
 
 logger = logging.getLogger(__name__)
 
-NOT_PARALLEL = ("the port trains on one card in one process; meshes over more devices and "
-                "multi-process launches wait for parallel/ (ROADMAP queue 1 item 5)")
+NO_TENSOR = ("mesh.tensor > 1: the tensor-parallel (Megatron) forms of the attention and MLP "
+             "are not ported (ROADMAP queue 1 item 7)")
 E2E_NO_PT = ("checkpoint.init_from_pt: the E2E GAN loop takes no reference .pt, as the JAX "
              "E2E loop never reads the field")
 
@@ -77,16 +98,16 @@ def parse_args(argv=None, results: bool = False):
     return from_dict(TrainRootConfig, tree), args
 
 
-def check_one_device(cfg: TrainRootConfig) -> None:
-    """Raise NotImplementedError unless the mesh resolves to one device (-1
-    fills to 1) in a single-process launch."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"WORLD_SIZE={os.environ['WORLD_SIZE']}: {NOT_PARALLEL}")
-    sizes = {f.name: getattr(cfg.mesh, f.name) for f in dataclasses.fields(MeshConfig)
-             if f.name != "microbatches"}
-    fill = [ax for ax, s in sizes.items() if s == -1]
-    if len(fill) > 1 or math.prod(s for s in sizes.values() if s != -1) != 1:
-        raise NotImplementedError(f"mesh {sizes}: {NOT_PARALLEL}")
+def mesh_sizes(cfg: TrainRootConfig, n_devices: Optional[int] = None) -> Dict[str, int]:
+    """The mesh axes of ``cfg`` resolved over ``n_devices`` (default the
+    world: one device a process); NotImplementedError for a tensor axis past
+    1."""
+    sizes = resolve_axis_sizes({f.name: getattr(cfg.mesh, f.name)
+                                for f in dataclasses.fields(MeshConfig)
+                                if f.name != "microbatches"}, n_devices)
+    if sizes["tensor"] > 1:
+        raise NotImplementedError(f"mesh {sizes}: {NO_TENSOR}")
+    return sizes
 
 
 def compute_dtype(cfg: TrainRootConfig) -> torch.dtype:
@@ -169,7 +190,9 @@ def main(cfg: TrainRootConfig, device="cuda") -> Dict[str, float]:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")
     np.random.seed(cfg.common.seed)
-    check_one_device(cfg)
+    # a multi-process launch rendezvous before the first device access
+    distributed_init()
+    make_mesh(mesh_sizes(cfg))
     task = build_task(cfg, device)
     with Profiler(cfg):
         if type(task).__name__ == "VocoderTask":
@@ -213,9 +236,10 @@ def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
         maximize=cfg.checkpoint.maximize_best_checkpoint_metric,
         save_interval_updates=cfg.checkpoint.save_interval_updates,
         keep_interval_updates=cfg.checkpoint.keep_interval_updates,
+        writer=is_master(),
     )
     agg = MetricsAggregator()
-    tb = MetricSinks(cfg.common)
+    tb = MetricSinks(cfg.common, enabled=is_master())
     patience_left = cfg.checkpoint.patience
     epoch = 0
     stop = False
@@ -235,6 +259,7 @@ def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
             stats = agg.snapshot()
             if "loss" not in stats:  # the aggregator was just reset at a log tick
                 stats = dict(last_train_stats) or stats
+            stats = from_rank0(stats)
             log_stats(stats, trainer.step, "train(valid-off)", cfg.common.log_format)
             return stats
         val_agg = MetricsAggregator()
@@ -243,21 +268,26 @@ def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
         hyps: list = []
         refs: list = []
         budget = cfg.dataset.valid_wer_batches
-        can_wer = budget != 0 and hasattr(task, "decode_to_text") and valid_ds.manifest.labels
+        # as the JAX CLI: the beam WER only in a launch of one process
+        can_wer = (budget != 0 and hasattr(task, "decode_to_text") and valid_ds.manifest.labels
+                   and world_size() == 1)
         for bi, (vb, raw, _) in enumerate(timed_batches(
                 loader(cfg, valid_ds, v_batches, device), task, device, train=False)):
-            for vm in with_oom_batch_split(valid_step, vb):
-                val_agg.update({k: float(v) for k, v in vm.items()})
-            if can_wer and (budget < 0 or bi < budget):
-                # the live training module, under inference mode
-                h, r = task.decode_to_text(vb, raw["ids"].tolist(), valid_ds, cfg.generation)
-                hyps += h
-                refs += r
+            with local():  # every rank validates the whole set on its own
+                for vm in with_oom_batch_split(valid_step, vb):
+                    val_agg.update({k: float(v) for k, v in vm.items()})
+                if can_wer and (budget < 0 or bi < budget):
+                    # the live training module, under inference mode
+                    h, r = task.decode_to_text(vb, raw["ids"].tolist(), valid_ds,
+                                               cfg.generation)
+                    hyps += h
+                    refs += r
         metrics = val_agg.snapshot()
         if hyps:
             from ..utils.wer import wer as corpus_wer
 
             metrics["wer"] = corpus_wer(hyps, refs)[0]
+        metrics = from_rank0(metrics)  # one checkpoint, patience and plateau decision
         log_stats(metrics, trainer.step, "valid", cfg.common.log_format)
         tb.scalars(metrics, trainer.step, "valid")
         if cfg.optimization.lr_scheduler == "reduce_lr_on_plateau":
@@ -281,6 +311,8 @@ def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
         batches = train_ds.batches(
             max_tokens=cfg.dataset.max_tokens, batch_size=cfg.dataset.batch_size,
             required_multiple=cfg.dataset.required_batch_size_multiple, epoch=epoch)
+        # this rank's share (batch_offset counts this rank's batches)
+        batches = shard_batches(batches, batch_group_size(), batch_group_rank())
         n_epoch_batches = len(batches)
         skipped = min(resume_offset, n_epoch_batches)
         if skipped:
@@ -349,21 +381,23 @@ def _gan_loop(cfg: TrainRootConfig, task, device, trainer, bsz: int, max_tokens,
     ckpt = CheckpointManager(
         cfg.checkpoint.save_dir, best_metric="mel_l1",
         save_interval_updates=cfg.checkpoint.save_interval_updates,
-        keep_interval_updates=cfg.checkpoint.keep_interval_updates)
+        keep_interval_updates=cfg.checkpoint.keep_interval_updates, writer=is_master())
     epoch = 0
     restored = ckpt.restore(name=cfg.checkpoint.restore_file, map_location=device)
     if restored is not None:
         trainer.load_state_dict(restored)
         epoch = int(ckpt.meta.get("epoch", 0))
         logger.info("resumed GAN training state at step %d (epoch %d)", trainer.step, epoch)
+    sync_gan_state_(trainer, restored is not None)
     agg = MetricsAggregator()
-    tb = MetricSinks(cfg.common)
+    tb = MetricSinks(cfg.common, enabled=is_master())
     stop = False
     patience_left = cfg.checkpoint.patience
     last_val: Dict[str, float] = {}
     while not stop:
         epoch += 1
         batches = train_ds.batches(batch_size=bsz, max_tokens=max_tokens)
+        batches = shard_batches(batches, batch_group_size(), batch_group_rank())
         for batch, _, data_ms in timed_batches(
                 loader(cfg, train_ds, batches, device, epoch), task, device):
             t0 = time.perf_counter()
@@ -382,8 +416,9 @@ def _gan_loop(cfg: TrainRootConfig, task, device, trainer, bsz: int, max_tokens,
         v_batches = valid_ds.batches(batch_size=bsz, max_tokens=max_tokens)
         for batch, _, _ in timed_batches(loader(cfg, valid_ds, v_batches, device), task, device,
                                          train=False):
-            val_agg.update(trainer.valid_step(batch))
-        last_val = val_agg.snapshot()
+            with local():
+                val_agg.update(trainer.valid_step(batch))
+        last_val = from_rank0(val_agg.snapshot())
         log_stats(last_val, trainer.step, "valid", cfg.common.log_format)
         tb.scalars(last_val, trainer.step, "valid")
         if cfg.common.tensorboard_logdir:
@@ -403,6 +438,29 @@ def _gan_loop(cfg: TrainRootConfig, task, device, trainer, bsz: int, max_tokens,
             stop = True
     tb.close()
     return last_val
+
+
+def sync_gan_state_(trainer, restored: bool) -> None:
+    """On a mesh every rank takes rank 0's GAN state (its floating tensors:
+    weights, masters, optimizer moments, EMA); after a restore the dropout
+    generator (rank 0's in the file) is re-derived for the rank."""
+    if active_mesh() is None:
+        return
+    device = next(trainer.gen_master[n] for n in trainer.gen_master).device
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            y = x.to(device).clone()
+            torch.distributed.broadcast(y, src=0)
+            return y
+        return x
+
+    trainer.load_state_dict(walk(trainer.state_dict()))
+    gen = getattr(trainer, "generator", None)
+    if restored and isinstance(gen, torch.Generator):
+        restore_generator_(gen, gen.get_state())
 
 
 def _e2e_gan_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:

@@ -36,6 +36,7 @@ from ..nn.hifigan import (
 )
 from ..nn.init import init_random_
 from ..ops.stft import hifigan_log_mel
+from ..parallel.mesh import dropout_seed
 from ..runtime.trainer import (
     AdamW,
     apply_gradients_,
@@ -55,7 +56,7 @@ def discriminator_update_(disc: HifiGanDiscriminator, params, masters, opt: Adam
     scores_real, _ = disc(real, update_sn=True)
     scores_fake, _ = disc(fake.detach())
     loss = discriminator_loss(scores_real, scores_fake)
-    apply_gradients_(loss, params, masters, opt)
+    apply_gradients_(loss, params, masters, opt, rows=real.shape[0])
     return loss
 
 
@@ -112,7 +113,7 @@ class E2EGanTrainer:
             device=device, dtype=torch.float32).eval()
         init_random_(self.discriminator, seed)
         self.frozen_patterns = list(frozen_patterns or [])
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.generator = torch.Generator(device=device).manual_seed(dropout_seed(seed))
         self.reset_optimizers()
 
     def reset_optimizers(self) -> None:
@@ -136,7 +137,8 @@ class E2EGanTrainer:
         d_loss = discriminator_update_(self.discriminator, self.disc_params, self.disc_master,
                                        self.disc_opt, gt, pred)
         g_loss, aux = generator_gan_loss(self.discriminator, pred, gt, self.cfg.mel_weight)
-        apply_gradients_(g_loss, self.gen_params, self.gen_master, self.gen_opt)
+        apply_gradients_(g_loss, self.gen_params, self.gen_master, self.gen_opt,
+                         rows=pred.shape[0])
         self.step += 1
         return step_metrics(g_loss, d_loss, aux)
 

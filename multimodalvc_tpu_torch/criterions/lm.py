@@ -13,13 +13,18 @@ from typing import Dict
 
 import torch
 
+from ..parallel.mesh import batch_total
+
 
 def lm_metrics(loss: torch.Tensor, aux: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """loss, ppl, accuracy (argmax hits over the valid label tokens) and
-    n_tokens of a forward's (loss, aux)."""
+    n_tokens of a forward's (loss, aux); on a mesh the batch group's (the
+    same on every rank)."""
+    loss = batch_total(loss)
+    n_valid = batch_total(aux["n_valid"])
     return {
         "loss": loss,
         "ppl": torch.exp(loss),
-        "accuracy": aux["n_correct"] / aux["n_valid"].clamp(min=1),
-        "n_tokens": aux["n_valid"],
+        "accuracy": batch_total(aux["n_correct"]) / n_valid.clamp(min=1),
+        "n_tokens": n_valid,
     }

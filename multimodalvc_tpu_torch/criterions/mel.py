@@ -15,14 +15,16 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.interpolate import length_mask
+from ..parallel.mesh import batch_total
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Mean |pred - target| over the valid frames, [B, T, D]: the sum over
-    them divided by max(frames * D, 1)."""
+    them divided by max(frames * D, 1) (on a mesh the batch group's frames:
+    the rank's share of the global mean)."""
     mask = length_mask(lengths, pred.shape[1], dtype=pred.dtype)[..., None]
     diff = (pred - target).abs() * mask
-    return diff.sum() / torch.clamp(mask.sum() * pred.shape[-1], min=1.0)
+    return diff.sum() / torch.clamp(batch_total(mask.sum()) * pred.shape[-1], min=1.0)
 
 
 def dct_matrix(n_mfcc: int, n_mels: int) -> np.ndarray:
@@ -101,7 +103,8 @@ class MelL1Criterion:
                                             batch["target_mel_lengths"].to(model_out["mel_lengths"])),
                               max=t)
         loss = masked_l1(pred_t, target_t, lengths)
-        metrics = {"loss": loss, "mel_l1": loss}
+        total = batch_total(loss)
+        metrics = {"loss": total, "mel_l1": total}
         if not train:
             if self.cfg.report_mcd:
                 metrics["mcd"] = compute_mcd(pred_t, target_t, lengths)

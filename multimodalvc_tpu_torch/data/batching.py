@@ -100,3 +100,23 @@ def pad_to(arr: np.ndarray, length: int, axis: int = 0, value=0) -> np.ndarray:
     cfg = [(0, 0)] * arr.ndim
     cfg[axis] = (0, length - cur)
     return np.pad(arr, cfg, constant_values=value)
+
+
+def shard_batches(batches: List[np.ndarray], num_shards: int, shard_id: int,
+                  fill: bool = True) -> List[np.ndarray]:
+    """This rank's share of the batch list (fairseq's ``ShardedIterator``):
+    every ``num_shards``-th batch from ``shard_id`` (the batch-group rank);
+    with ``fill`` the share is topped up by wrapping round the list, so every
+    rank takes the same number of steps."""
+    if not 0 <= shard_id < num_shards:
+        raise ValueError(f"shard_id {shard_id} out of range for {num_shards}")
+    if num_shards == 1:
+        return list(batches)
+    mine = batches[shard_id::num_shards]
+    if fill:
+        n_total = -(-len(batches) // num_shards)
+        i = 0
+        while len(mine) < n_total and batches:
+            mine.append(batches[i % len(batches)])
+            i += 1
+    return mine

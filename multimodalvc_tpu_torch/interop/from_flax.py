@@ -23,8 +23,9 @@ state_dict key by joining with dots; only the leaf names and layouts change:
   reordered from the flax flattening (K, I/g) to torch's (I/g, K).
 - LoRA ``lora_a`` [in, r] / ``lora_b`` [r, out], ``sr_token``,
   ``query_tokens``, ``light_weights`` [H, K], ``audio_mask_emb``,
-  ``video_mask_emb`` and the generator's ``lut`` keep their names and
-  layouts.
+  ``video_mask_emb``, the generator's ``lut`` and the expert bank's
+  ``expert_centroids`` [D, E], ``experts_w1`` [E, D, F] and ``experts_w2``
+  [E, F, D] keep their names and layouts.
 - The quantized leaves of ``QuantDense`` (``w_q``, ``w_packed``,
   ``w_scale``) cross untransposed, in the flax [d_in, d_out] layout and
   their packed formats, so both packages serve from one checkpoint byte for

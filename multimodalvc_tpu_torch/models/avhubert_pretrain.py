@@ -22,6 +22,7 @@ from torch import nn
 from ..config.registry import register_model
 from ..nn.avhubert import AVHubertConfig, AVHubertModel
 from ..ops.masking import apply_feature_mask, span_mask_from_uniforms, span_uniforms
+from ..parallel.mesh import batch_total
 
 
 @dataclass
@@ -97,13 +98,14 @@ class AVHubertPretrainModel(AVHubertModel):
         token_logp = logp.gather(-1, targets.long()[..., None])[..., 0]
 
         def masked_mean(sel):
-            n = torch.clamp(sel.sum(), min=1)
+            # on a mesh: the batch group's count, the rank's share of the mean
+            n = torch.clamp(batch_total(sel.sum()), min=1)
             return -torch.where(sel, token_logp, 0.0).sum() / n, n
 
         loss_m, n_m = masked_mean(masked)
         loss_u, _ = masked_mean(~mask & valid)
         hits = masked & (logits.argmax(dim=-1) == targets.long())
-        acc_m = hits.sum() / torch.clamp(masked.sum(), min=1)
+        acc_m = batch_total(hits.sum()) / torch.clamp(batch_total(masked.sum()), min=1)
         return {"loss_masked": loss_m, "loss_unmasked": loss_u, "n_masked": n_m,
                 "acc_masked": acc_m, "mask": mask}
 

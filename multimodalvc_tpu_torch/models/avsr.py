@@ -42,6 +42,7 @@ from ..nn.llama import (
     LlamaModel,
     cross_entropy_lm_loss,
     generate_beam,
+    pipeline_lm_forward,
     quantize_llama_,
 )
 from ..nn.modules import MultimodalAttention, Projector, SpeechRatePredictor
@@ -391,6 +392,32 @@ class AVSRSystem:
         def loss_fn(batch, generator):
             loss, aux = self.module(batch, train=True, generator=generator)
             return loss, lm_metrics(loss, aux)
+
+        return loss_fn
+
+    def make_pipeline_loss_fn(self, mesh, n_microbatches: int):
+        """(batch, generator) -> (loss, metrics) with the LLaMA decoder
+        pipelined over the mesh's pipeline axis (GPipe; the JAX
+        ``make_pipeline_loss_fn``).  Every pipeline rank runs the encoders
+        and the prompt assembly on its batch, with the same dropout draws;
+        the LoRA dropout of the trunk draws from one seed taken from
+        ``generator`` (``pipeline_lm_forward``).  The trunk's final norm and
+        embedding table run on every stage and must be frozen (they are:
+        ``^llama/``)."""
+        module, lora = self.module, self.cfg.llama.lora
+        use_dropout = lora is not None and lora.dropout > 0
+
+        def loss_fn(batch, generator):
+            emb, attn_mask, labels = module.prompt_for_training(batch, train=True,
+                                                                generator=generator)
+            seed = None
+            if use_dropout:
+                seed = int(torch.randint(2 ** 62, (1,), generator=generator,
+                                         device=generator.device))
+            logits = pipeline_lm_forward(module.llama, emb, attn_mask, mesh, n_microbatches,
+                                         dropout_seed=seed)
+            loss, n_correct, n_valid = cross_entropy_lm_loss(logits, labels)
+            return loss, lm_metrics(loss, {"n_correct": n_correct, "n_valid": n_valid})
 
         return loss_fn
 

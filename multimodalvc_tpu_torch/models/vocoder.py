@@ -128,7 +128,8 @@ class VocoderModel:
                                        self.disc_opt, wav, fake)
         g_loss, aux = generator_gan_loss(self.discriminator, fake, wav, cfg.mel_weight,
                                          cfg.sample_rate)
-        apply_gradients_(g_loss, self.gen_params, self.gen_master, self.gen_opt)
+        apply_gradients_(g_loss, self.gen_params, self.gen_master, self.gen_opt,
+                         rows=fake.shape[0])
         with torch.no_grad():
             for n, e in self.ema.items():
                 e.copy_(e * cfg.ema_decay + self.gen_master[n] * (1.0 - cfg.ema_decay))

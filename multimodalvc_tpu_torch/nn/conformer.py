@@ -20,7 +20,9 @@ f32) and computes in f32, whatever the module's dtype; the residual stream
 runs in the module's dtype.  The self-attention is ``nn/layers.py:
 MultiHeadAttention`` with the frame lengths as ``kv_lens``, so on the card
 it is the K1 kernel wherever ``use_flash`` takes it (Conformer-L: 8 heads
-of 64 over 2400 frames), with its gradient in training.
+of 64 over 2400 frames), with its gradient in training.  With
+``moe_experts > 1`` each block's final FFN is the expert bank ``ff_moe``
+(``parallel/expert.py: BaseMoELayer``), routed over the global token set.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dynamic_conv import dynamic_conv, lightweight_conv
+from ..parallel.expert import BaseMoELayer
 from .layers import MultiHeadAttention, add_layers, batch_norm_train_, dropout
 
 CONV_TYPES = ("depthwise", "lightweight", "dynamic")
@@ -49,8 +52,9 @@ class ConformerConfig:
     cnn_kernel: int = 31
     macaron: bool = True
     normalize_before: bool = True
-    # > 1 swaps each block's final FFN for an expert bank (not ported)
+    # > 1 swaps each block's final FFN for an expert bank (parallel/expert.py)
     moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
     conv_type: str = "depthwise"  # depthwise | lightweight | dynamic
 
     @classmethod
@@ -147,10 +151,6 @@ class PositionwiseFF(nn.Module):
 class ConformerBlock(nn.Module):
     def __init__(self, cfg: ConformerConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.moe_experts > 1:
-            raise NotImplementedError(
-                "the Conformer's expert FFN (moe_experts > 1) lives in parallel/expert.py, "
-                "which the port has not ported yet (ROADMAP queue 1, item 8)")
         kw = dict(device=device, dtype=dtype)
         d = cfg.attention_dim
         self.macaron, self.dropout_rate = cfg.macaron, cfg.dropout_rate
@@ -165,7 +165,11 @@ class ConformerBlock(nn.Module):
         self.conv_module = ConformerConvModule(d, cfg.cnn_kernel, cfg.conv_type,
                                                cfg.attention_heads, **kw)
         self.norm_ff = ln()
-        self.ff = PositionwiseFF(d, cfg.linear_units, cfg.dropout_rate, **kw)
+        if cfg.moe_experts > 1:
+            self.ff_moe = BaseMoELayer(d, cfg.moe_experts, cfg.linear_units,
+                                       cfg.moe_capacity_factor, **kw)
+        else:
+            self.ff = PositionwiseFF(d, cfg.linear_units, cfg.dropout_rate, **kw)
         self.norm_final = ln()
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None, train: bool = False,
@@ -178,7 +182,8 @@ class ConformerBlock(nn.Module):
         x = x + drop(self.self_attn(self.norm_mha(x), kv_lens=lengths, dropout_rng=dropout_rng))
         x = x + drop(self.conv_module(self.norm_conv(x), frame_mask(lengths, x.shape[1], x.device),
                                       train))
-        x = x + 0.5 * drop(self.ff(self.norm_ff(x), dropout_rng))
+        h = self.norm_ff(x)
+        x = x + 0.5 * drop(self.ff_moe(h) if hasattr(self, "ff_moe") else self.ff(h, dropout_rng))
         return self.norm_final(x)
 
 

@@ -15,6 +15,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention, flash_attention
+from ..ops.ring_attention import ring_attention
+from ..parallel.collectives import all_gather, all_reduce_sum, shard_of
+from ..parallel.mesh import BATCH_AXES, active_mesh
 
 
 def use_flash(tq: int, tk: int, head_dim: int, x: torch.Tensor) -> bool:
@@ -56,13 +59,19 @@ def add_layers(module: nn.Module, layers, prefix: str = "layers") -> list:
 
 class MultiHeadAttention(nn.Module):
     """MHA with self/cross support and key-length masks; ``dropout`` on the
-    attention output before ``out_proj`` in training (a ``dropout_rng``)."""
+    attention output before ``out_proj`` in training (a ``dropout_rng``).
+
+    ``sequence_parallel`` (self-attention): on a mesh whose sequence axis
+    divides T, each sequence rank runs ring attention on its time chunk
+    (``ops/ring_attention.py``) and the chunks' outputs are all-gathered
+    along time; otherwise, as the JAX layer with the flag, the plain
+    attention (never the flash kernel)."""
 
     def __init__(self, d_model: int, num_heads: int, kv_dim: Optional[int] = None,
-                 dropout: float = 0.0, device=None, dtype=None):
+                 dropout: float = 0.0, sequence_parallel: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.dropout = dropout
+        self.dropout, self.sequence_parallel = dropout, sequence_parallel
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
         self.q_proj = nn.Linear(d_model, d_model, **kw)
@@ -79,7 +88,15 @@ class MultiHeadAttention(nn.Module):
             return t.reshape(b, -1, self.num_heads, self.head_dim).transpose(1, 2)
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(kv)), split(self.v_proj(kv))
-        if use_flash(tq, tk, self.head_dim, q):
+        ring = self.sequence_parallel and tq == tk
+        mesh = active_mesh() if ring else None
+        n_seq = mesh.size("sequence") if mesh is not None else 1
+        if n_seq > 1 and tq % n_seq == 0:
+            group = mesh.group("sequence")
+            out = ring_attention(shard_of(q, group, 2), shard_of(k, group, 2),
+                                 shard_of(v, group, 2), mesh, kv_len=kv_lens)
+            out = all_gather(out, group, dim=2)
+        elif not ring and use_flash(tq, tk, self.head_dim, q):
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_lens=kv_lens)
         else:
             mask = None
@@ -132,12 +149,22 @@ def batch_norm_train_(h: torch.Tensor, norm: nn.modules.batchnorm._BatchNorm,
     channels lie on ``channel_dim``: the batch mean and biased variance over
     every other dimension normalise ``h``, and move ``norm``'s running
     statistics (in place, no gradient, in the buffers' dtype) by
-    ``momentum``."""
+    ``momentum``.  On a mesh the statistics are the batch group's, as
+    GSPMD's over the global batch: the sums and the count are all-reduced
+    (their gradient summed back)."""
     dims = [d for d in range(h.ndim) if d != channel_dim % h.ndim]
     shape = [1] * h.ndim
     shape[channel_dim] = -1
-    mean = h.mean(dim=dims)
-    var = torch.clamp((h * h).mean(dim=dims) - mean * mean, min=0.0)
+    mesh = active_mesh()
+    if mesh is not None and mesh.size(*BATCH_AXES) > 1:
+        count = h.new_full((1,), h.numel() / h.shape[channel_dim])
+        sums = all_reduce_sum(torch.cat([h.sum(dim=dims), (h * h).sum(dim=dims), count]),
+                              mesh.group(*BATCH_AXES))
+        c = h.shape[channel_dim]
+        mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    else:
+        mean, mean_sq = h.mean(dim=dims), (h * h).mean(dim=dims)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         for stat, batch in ((norm.running_mean, mean), (norm.running_var, var)):
             stat.copy_(momentum * stat.float() + (1.0 - momentum) * batch)
@@ -153,11 +180,13 @@ class TransformerLayer(nn.Module):
     the JAX layer (their rates are 0 there)."""
 
     def __init__(self, d: int, num_heads: int, ffn_dim: int, dropout: float = 0.0,
-                 layer_norm_first: bool = True, device=None, dtype=None):
+                 layer_norm_first: bool = True, sequence_parallel: bool = False, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.dropout, self.layer_norm_first = dropout, layer_norm_first
-        self.self_attn = MultiHeadAttention(d, num_heads, **kw)
+        self.self_attn = MultiHeadAttention(d, num_heads, sequence_parallel=sequence_parallel,
+                                            **kw)
         self.ffn = FeedForward(d, ffn_dim, activation=gelu_tanh, **kw)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5, **kw)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5, **kw)
@@ -182,14 +211,16 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, d: int, num_layers: int, num_heads: int, ffn_dim: int,
                  dropout: float = 0.0, layer_norm_first: bool = True,
-                 conv_pos: int = 128, conv_pos_groups: int = 16, device=None, dtype=None):
+                 conv_pos: int = 128, conv_pos_groups: int = 16, sequence_parallel: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.dropout, self.layer_norm_first = dropout, layer_norm_first
         self.pos_conv = ConvPositionalEmbedding(d, conv_pos, conv_pos_groups, **kw)
         self.layer_norm = nn.LayerNorm(d, eps=1e-5, **kw)
         self.layers = add_layers(self, [
-            TransformerLayer(d, num_heads, ffn_dim, dropout, layer_norm_first, **kw)
+            TransformerLayer(d, num_heads, ffn_dim, dropout, layer_norm_first,
+                             sequence_parallel, **kw)
             for _ in range(num_layers)])
 
     def forward(self, x, *, lengths=None, dropout_rng=None, output_layer: Optional[int] = None):

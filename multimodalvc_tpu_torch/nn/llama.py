@@ -31,7 +31,9 @@ Training: ``LlamaModel.forward(..., dropout_rng=, return_hidden=)`` is the
 training forward (LoRA dropout drawn from an explicit generator), and
 ``cross_entropy_lm_loss`` its loss.  The flash path carries a gradient
 (``ops/attention.py: FlashAttentionGrad``), and so does the tied unembed's
-bf16 product with f32 logits (``TiedUnembed``).
+bf16 product with f32 logits (``TiedUnembed``).  ``pipeline_lm_forward`` is
+the training forward with the decoder layers split over the mesh's
+pipeline axis (``parallel/pipeline.py``).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import functools
 import math
 import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,6 +65,8 @@ from ..ops.int8_matmul import (
     quantize_kernel,
     quantize_kernel_int4,
 )
+from ..parallel.mesh import batch_group_rank, batch_total
+from ..parallel.pipeline import microbatch, pipeline_apply, unmicrobatch
 from .layers import add_layers, dropout
 
 NEG = -1e30
@@ -592,7 +596,9 @@ def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
                           ignore_index: int = -100):
     """HF-style causal LM loss: shift by one, the mean of -log p over the
     label tokens that are not ``ignore_index`` (the softmax in f32).  Returns
-    (loss, n_correct, n_valid): argmax hits and the count of valid tokens."""
+    (loss, n_correct, n_valid): argmax hits and the count of valid tokens
+    (this rank's).  On a mesh the sum divides by the batch group's count
+    (``batch_total``): the rank's share of the global batch's loss."""
     shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
     valid = shift_labels != ignore_index
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
@@ -600,7 +606,7 @@ def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     token_logp = logp.gather(-1, safe[..., None])[..., 0]
     n_valid = valid.sum()
     nll = -torch.where(valid, token_logp, torch.zeros_like(token_logp)).sum()
-    loss = nll / n_valid.clamp(min=1)
+    loss = nll / batch_total(n_valid).clamp(min=1)
     n_correct = ((shift_logits.argmax(dim=-1) == shift_labels) & valid).sum()
     return loss, n_correct, n_valid
 
@@ -810,6 +816,70 @@ _MLP_PROJ = ("gate_proj", "up_proj", "down_proj")
 # lists as quantize_llama_
 _QUANT_KEY = re.compile(rf"(layers_\d+\.(?:self_attn\.(?:{'|'.join(_ATTN_PROJ)})\.base"
                         rf"|mlp\.(?:{'|'.join(_MLP_PROJ)})))\.weight")
+
+
+# ---- the pipeline-parallel training forward ---------------------------------------
+
+
+def stack_layer_params(layers: Sequence[nn.Module], num_layers: int,
+                       n_stages: int) -> List[List[nn.Module]]:
+    """The decoder layers as P stages of L / P consecutive layers: stage s
+    holds layers s * L / P ... (s + 1) * L / P - 1 (the JAX function stacks
+    their parameters on a leading [P, L / P] axis)."""
+    if num_layers % n_stages:
+        raise ValueError(f"{num_layers} layers not divisible into {n_stages} stages")
+    per = num_layers // n_stages
+    return [list(layers[s * per:(s + 1) * per]) for s in range(n_stages)]
+
+
+_STREAM = 1_000_003
+
+
+def stream_seed(base: int, *index: int) -> int:
+    """A dropout stream's seed from ``base`` and (stage, microbatch, batch
+    group, layer)."""
+    for i in index:
+        base = (base * _STREAM + i) % (2 ** 63)
+    return base
+
+
+def pipeline_lm_forward(model: "LlamaModel", inputs_embeds: torch.Tensor,
+                        attn_mask: Optional[torch.Tensor], mesh, n_microbatches: int,
+                        dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """The training forward with the decoder layers split over the mesh's
+    pipeline axis (GPipe, ``parallel/pipeline.py: pipeline_apply``): this
+    rank runs its stage's layers on the ``n_microbatches`` microbatches of
+    its batch, the positions and the mask riding with each; every stage then
+    runs the final norm and the tied unembed on the broadcast output.
+    Returns f32 logits [B, T, V].  ``dropout_seed`` draws the LoRA dropout,
+    one stream for each (stage, microbatch, batch group, layer); None is the
+    deterministic forward."""
+    cfg = model.cfg
+    n_stages = mesh.size("pipeline") if mesh is not None else 1
+    stage = mesh.coords["pipeline"] if mesh is not None else 0
+    b, t, _ = inputs_embeds.shape
+    if b % n_microbatches:
+        raise ValueError(f"batch {b} not divisible by {n_microbatches} microbatches")
+    x = inputs_embeds.to(model.dtype)
+    positions = microbatch(torch.arange(t, device=x.device)[None, :].expand(b, t), n_microbatches)
+    mask = attn_mask if attn_mask is not None else torch.ones((b, t), dtype=torch.int32,
+                                                            device=x.device)
+    mask = microbatch(mask, n_microbatches)
+    layers = stack_layer_params(model.layers, cfg.num_layers, n_stages)[stage]
+    group = batch_group_rank(mesh)
+
+    def stage_fn(h, mb):
+        for li, layer in enumerate(layers):
+            rng = None
+            if dropout_seed is not None:
+                rng = torch.Generator(device=h.device).manual_seed(
+                    stream_seed(dropout_seed, stage, mb, group, li))
+            h, _ = layer(h, positions[mb], mask[mb], dropout_rng=rng)
+        return h
+
+    params = [p for layer in layers for p in layer.parameters() if p.requires_grad]
+    h = unmicrobatch(pipeline_apply(stage_fn, params, microbatch(x, n_microbatches), mesh))
+    return model.unembed(model.norm(h))
 
 
 def quantize_llama_params(

@@ -1,0 +1,25 @@
+"""Training on several devices: one process a device, ``torch.distributed``.
+
+Port of ``multimodalvc_tpu/parallel/``: the mesh over the (pipeline, data,
+fsdp, sequence, expert, tensor) axes (``mesh.py``), the process-group
+bootstrap (``distributed.py``), the collectives with derivatives
+(``collectives.py``), the fsdp split of the optimizer state
+(``sharding.py``), the expert-parallel MoE layer (``expert.py``), the GPipe
+schedule (``pipeline.py``) and BMUF (``bmuf.py``).  Ring attention is
+``ops/ring_attention.py``.  The tensor axis is not ported.
+"""
+from .mesh import (  # noqa: F401
+    AXIS_ORDER,
+    BATCH_AXES,
+    Mesh,
+    active_mesh,
+    batch_group_rank,
+    batch_group_size,
+    batch_total,
+    get_current_mesh,
+    local,
+    make_mesh,
+    replicas,
+    resolve_axis_sizes,
+    set_current_mesh,
+)

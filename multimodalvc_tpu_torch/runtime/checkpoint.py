@@ -61,16 +61,21 @@ class CheckpointManager:
         keep_best: int = 1,
         save_interval_updates: int = 0,
         keep_interval_updates: int = -1,
+        writer: bool = True,
     ):
+        """``writer``: whether this process writes (rank 0 of a multi-process
+        run); the others keep the best-value bookkeeping only."""
         self.save_dir = os.path.abspath(save_dir)
-        os.makedirs(self.save_dir, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.save_dir, exist_ok=True)
         self.best_metric = best_metric
         self.maximize = maximize
         self.keep_best = keep_best
         self.save_interval_updates = save_interval_updates
         self.keep_interval_updates = keep_interval_updates
         self.best_value: Optional[float] = None
-        for n in os.listdir(self.save_dir):
+        for n in os.listdir(self.save_dir) if writer else ():
             if n.endswith(".tmp") or n.endswith(".old"):
                 shutil.rmtree(os.path.join(self.save_dir, n), ignore_errors=True)
         self._meta_path = os.path.join(self.save_dir, "meta.json")
@@ -102,13 +107,15 @@ class CheckpointManager:
             self._prune_interval()
         meta = {"step": step, "best_value": self.best_value, "best_metric": self.best_metric,
                 **(extra or {})}
+        if not self.writer:
+            return
         with open(self._meta_path, "w") as f:
             json.dump(meta, f)
         logger.info("saved checkpoint step=%d%s", step, " (new best)" if improved else "")
 
     def _prune_interval(self) -> None:
         """Delete all but the newest ``keep_interval_updates`` step checkpoints."""
-        if self.keep_interval_updates < 0:
+        if self.keep_interval_updates < 0 or not self.writer:
             return
         rx = re.compile(r"^checkpoint_(\d+)$")
         steps = sorted(int(m.group(1)) for m in map(rx.match, os.listdir(self.save_dir)) if m)
@@ -116,6 +123,8 @@ class CheckpointManager:
             shutil.rmtree(self._path(f"checkpoint_{s}"), ignore_errors=True)
 
     def _write(self, state: Dict[str, Any], name: str) -> None:
+        if not self.writer:
+            return
         path = self._path(name)
         tmp = path + ".tmp"
         if os.path.exists(tmp):

@@ -224,8 +224,9 @@ class MetricSinks:
     """Fan-out over every configured sink (TensorBoard / W&B / AzureML /
     JSONL), same surface as TensorBoardSink so call sites don't care."""
 
-    def __init__(self, common_cfg) -> None:
-        self.sinks = [
+    def __init__(self, common_cfg, enabled: bool = True) -> None:
+        """``enabled``: False on the ranks past 0 of a multi-process run (no sink)."""
+        self.sinks = [] if not enabled else [
             TensorBoardSink(getattr(common_cfg, "tensorboard_logdir", None)),
             JsonlSink(getattr(common_cfg, "metrics_jsonl", None)),
             WandbSink(getattr(common_cfg, "wandb_project", None)),

@@ -34,9 +34,23 @@ update count, no clipping), the optimizer of the two GAN steps
 (``models/vocoder.py``, ``criterions/gan.py``); ``trainable_leaves`` gives
 them the same f32 masters of a module's trainable leaves as ``Trainer``.
 
-Not ported: the mesh shardings (``infer_param_specs``, the state and batch
-shardings, the GAN helpers), ``CompileGuard`` and buffer donation, which are
-XLA and mesh scaffolding with no counterpart in an eager step on one card;
+On a mesh (``parallel/mesh.py``; one process a device) the step is the
+JAX step on the concatenation of the batch group's batches: the loss
+function divides by its global count (``batch_total``), each rank's loss
+enters with the weight 1 / ``replicas()``, and the gradients are summed over
+the world.  Every rank then makes the same decisions: the global grad norm
+and its clip, the non-finite skip, the plateau metric (rank 0's).  Under
+fsdp each rank keeps its share of the f32 masters and the optimizer moments
+of the leaves that ``parallel/sharding.py: fsdp_shard_dim`` splits (ZeRO-3
+for the optimizer state): their gradients are reduce-scattered over fsdp,
+the updated shares all-gathered into the module's whole weights.  This
+changes memory, never the numbers.  The trainable leaves and the buffers
+start from rank 0's (after ``init_from_pt``, and in ``load_state_dict``
+after a restore); ``state_dict`` gathers the shares, so a checkpoint written
+on any mesh resumes on any other.  The GAN steps (``apply_gradients_`` with
+``rows``) weight their row means and sum their gradients the same way.
+
+Not ported: ``CompileGuard`` and buffer donation (XLA scaffolding),
 ``build_composite_optimizer`` and the optimizers other than adamw and adam.
 """
 from __future__ import annotations
@@ -48,8 +62,19 @@ import re
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config.configs import OptimizationConfig
+from ..parallel.collectives import flat_all_reduce_
+from ..parallel.mesh import (
+    Mesh,
+    active_mesh,
+    batch_total,
+    dropout_seed,
+    replicas,
+    restore_generator_,
+)
+from ..parallel.sharding import fsdp_shard_dim
 
 logger = logging.getLogger(__name__)
 
@@ -261,15 +286,33 @@ class AdamW:
                 t.copy_(state[key][name])
 
 
+def row_share(rows: int, mesh: Mesh) -> float:
+    """The weight of a rank's mean over its ``rows`` batch rows in the global
+    batch's mean: rows / the batch group's rows / the ranks holding the same
+    batch."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    total = batch_total(torch.tensor(rows, dtype=torch.float64, device=device))
+    return rows / float(total) / replicas(mesh)
+
+
 def apply_gradients_(loss: torch.Tensor, params: Dict[str, torch.Tensor],
-                     masters: Dict[str, torch.Tensor], opt: AdamW) -> None:
+                     masters: Dict[str, torch.Tensor], opt: AdamW,
+                     rows: Optional[int] = None) -> None:
     """One ``opt`` update of ``masters`` from the gradient of ``loss`` with
     respect to ``params`` (zero where the loss does not reach a leaf); then
-    each parameter takes its master's value."""
+    each parameter takes its master's value.  On a mesh ``loss`` is a mean
+    over the rank's ``rows`` batch rows: it enters with its ``row_share`` and
+    the gradients are summed over the world."""
     names = list(params)
+    mesh = active_mesh()
+    if mesh is not None:
+        loss = loss * row_share(rows, mesh)
     got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
     grads = {n: torch.zeros_like(masters[n]) if g is None else g.float()
              for n, g in zip(names, got)}
+    if mesh is not None:
+        flat_all_reduce_(grads.values())
     with torch.no_grad():
         opt.update(grads, masters)
     copy_masters_(params, masters)
@@ -321,6 +364,8 @@ class MaskedAdamW:
                                cfg.lr_shrink)
             best = -math.inf if cfg.plateau_maximize else math.inf
             self.plateau = {"scale": 1.0, "best": best, "bad": 0}
+        # under fsdp: the group that splits the leaves named in ``sharded``
+        self.shard_group, self.sharded = None, frozenset()
 
     def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> bool:
         k = self.cfg.update_freq
@@ -339,11 +384,34 @@ class MaskedAdamW:
             acc.zero_()
         return applied
 
+    def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grads``; under fsdp (``shard_group``) the
+        squares of the split leaves' shares are summed over the group."""
+        if self.shard_group is None:
+            return global_norm(grads.values())
+        zero = torch.zeros((), device=next(iter(grads.values())).device)
+
+        def squares(split: bool) -> torch.Tensor:
+            return sum(((g.float() * g.float()).sum() for n, g in grads.items()
+                        if (n in self.sharded) == split), zero)
+
+        shares = squares(True)
+        dist.all_reduce(shares, group=self.shard_group)
+        return torch.sqrt(squares(False) + shares)
+
+    def _all_finite(self, grads) -> bool:
+        finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+        if self.shard_group is not None:
+            flag = finite.to(torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.shard_group)
+            finite = flag > 0
+        return bool(finite)
+
     def _if_finite(self, grads, params) -> bool:
         if not self.cfg.skip_nonfinite_grads:
             self._apply(grads, params)
             return True
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        finite = self._all_finite(grads)
         self.last_finite = finite
         if finite:
             self.notfinite_count = 0
@@ -359,7 +427,7 @@ class MaskedAdamW:
     def _apply(self, grads, params) -> None:
         cfg = self.cfg
         if cfg.clip_norm and cfg.clip_norm > 0:
-            norm = global_norm(grads.values())
+            norm = self.grad_norm(grads)
             clip = float(cfg.clip_norm)
             grads = {n: torch.where(norm < clip, g, (g / norm) * clip) for n, g in grads.items()}
         self.count += 1
@@ -421,51 +489,124 @@ def build_optimizer(opt_cfg: OptimizationConfig,
     return MaskedAdamW(opt_cfg, params)
 
 
+def broadcast_(tensors: Iterable[torch.Tensor]) -> None:
+    """Each tensor takes global rank 0's value, in place."""
+    for t in tensors:
+        dist.broadcast(t.data, src=0)
+
+
 class Trainer:
     """Generic loss-driven trainer over a module.
 
     ``loss_fn(batch, generator) -> (loss, metrics)`` runs the module's
     training forward with its dropout drawn from ``generator`` (the
-    trainer's, seeded by ``seed``; its state checkpoints with the rest)."""
+    trainer's, seeded by ``seed`` (``dropout_seed`` on a mesh); its state
+    checkpoints with the rest).  On the active mesh the loss divides by
+    global counts and the step is the step of the batch group's
+    concatenated batch (module docstring)."""
 
     def __init__(self, loss_fn: Callable, module: torch.nn.Module, opt_cfg: OptimizationConfig,
                  frozen_patterns: Optional[List[str]] = None, seed: int = 0):
         self.loss_fn = loss_fn
         self.module = module
         self.opt_cfg = opt_cfg
-        self.mask, self.params, self.master = trainable_leaves(module, frozen_patterns or [])
+        self.mesh = active_mesh()
+        self.mask, self.params, full = trainable_leaves(module, frozen_patterns or [])
+        if self.mesh is not None:
+            # rank 0's trainable leaves and buffers (after its init_from_pt)
+            broadcast_([*self.params.values(), *module.buffers()])
+            full = {n: p.detach().float().clone() for n, p in self.params.items()}
+        fsdp = self.mesh.size("fsdp") if self.mesh is not None else 1
+        self.shard_dim = {n: fsdp_shard_dim(tuple(p.shape), fsdp) for n, p in self.params.items()}
+        self.master = {n: self._share(n, m) for n, m in full.items()}
         named = dict(module.named_parameters())
         n_train = sum(p.numel() for p in self.params.values())
         n_total = sum(p.numel() for p in named.values())
         logger.info("trainable params: %.2fM / %.2fM (%.2f%%)", n_train / 1e6, n_total / 1e6,
                     100.0 * n_train / max(n_total, 1))
         self.optimizer = build_optimizer(opt_cfg, self.master)
+        if fsdp > 1:
+            self.optimizer.shard_group = self.mesh.group("fsdp")
+            self.optimizer.sharded = frozenset(n for n, d in self.shard_dim.items()
+                                               if d is not None)
         device = next(iter(named.values())).device
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.generator = torch.Generator(device=device).manual_seed(dropout_seed(seed, self.mesh))
         self._step = 0
+
+    # -- the fsdp shares ---------------------------------------------------------------
+
+    def _share(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a whole leaf-shaped tensor."""
+        d = self.shard_dim[name]
+        if d is None:
+            return full
+        fsdp = self.mesh.size("fsdp")
+        return full.chunk(fsdp, d)[self.mesh.coords["fsdp"]].clone().contiguous()
+
+    def _whole(self, name: str, share: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from the fsdp group's shares."""
+        d = self.shard_dim[name]
+        if d is None:
+            return share
+        fsdp = self.mesh.size("fsdp")
+        part = share.movedim(d, 0).contiguous()
+        out = part.new_empty((fsdp * part.shape[0],) + part.shape[1:])
+        dist.all_gather_into_tensor(out, part, group=self.mesh.group("fsdp"))
+        return out.movedim(0, d).contiguous()
+
+    def _reduce_(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Sum the gradients over the world: the whole leaves through one
+        flat all-reduce; a split leaf reduce-scattered over fsdp, then summed
+        over the other axes."""
+        flat_all_reduce_(g for n, g in grads.items() if self.shard_dim[n] is None)
+        fsdp = self.mesh.size("fsdp")
+        for n, d in self.shard_dim.items():
+            if d is None:
+                continue
+            g = grads[n].movedim(d, 0).contiguous()
+            out = g.new_empty((g.shape[0] // fsdp,) + g.shape[1:])
+            dist.reduce_scatter_tensor(out, g, group=self.mesh.group("fsdp"))
+            if self.mesh.world > fsdp:
+                dist.all_reduce(out, group=self.mesh.group(*(a for a in self.mesh.sizes
+                                                             if a != "fsdp")))
+            grads[n] = out.movedim(0, d).contiguous()
+
+    def _copy_to_module(self) -> None:
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(self._whole(n, self.master[n]))
+
+    # -- the step --------------------------------------------------------------------
 
     def train_step(self, batch) -> Dict[str, float]:
         """One step: the loss function's metrics as Python numbers, with loss
-        and gnorm (the global norm of this micro-step's gradients)."""
+        (the batch group's) and gnorm (the global norm of this micro-step's
+        gradients)."""
         loss, metrics = self.loss_fn(batch, self.generator)
         names = list(self.params)
-        got = torch.autograd.grad(loss, [self.params[n] for n in names], allow_unused=True)
+        weighted = loss if self.mesh is None else loss / replicas(self.mesh)
+        got = torch.autograd.grad(weighted, [self.params[n] for n in names], allow_unused=True)
         # a trainable leaf the loss does not reach has a zero gradient
-        grads = {n: torch.zeros_like(self.master[n]) if g is None else g.float()
-                 for n, g in zip(names, got)}
-        gnorm = global_norm(grads.values())
+        grads = {n: torch.zeros_like(self.params[n], dtype=torch.float32) if g is None
+                 else g.float() for n, g in zip(names, got)}
+        if self.mesh is not None:
+            self._reduce_(grads)
+        gnorm = self.optimizer.grad_norm(grads)
         if self.optimizer.update(grads, self.master):
-            copy_masters_(self.params, self.master)
+            self._copy_to_module()
         self._step += 1
         out = {k: v.detach().item() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
-        out.update(loss=float(loss.detach()), gnorm=float(gnorm))
+        if "loss" not in out:  # the criterions report the batch group's loss themselves
+            out["loss"] = float(batch_total(loss.detach()))
+        out["gnorm"] = float(gnorm)
         return out
 
     def plateau_step(self, value: float) -> Optional[float]:
         """Feed a validation metric to the reduce-on-plateau scheduler (a
         no-op unless lr_scheduler is reduce_lr_on_plateau); returns the LR
-        scale."""
+        scale.  On a mesh every rank must pass the same value (``cli.train``
+        passes rank 0's, ``parallel.mesh.from_rank0``)."""
         return self.optimizer.plateau_update(float(value))
 
     @property
@@ -476,21 +617,48 @@ class Trainer:
         """model (the trainable leaves' f32 masters, the module's buffers,
         such as the BatchNorm statistics that a training forward moves, and
         with ``include_frozen`` the frozen leaves too), optimizer, step and
-        generator state."""
+        generator state (rank 0's on a mesh).  Under fsdp the shares are
+        gathered: every rank must call it, and the result is the one-rank
+        state."""
         frozen = {n for n, _ in self.module.named_parameters() if n not in self.master}
         model = {n: t for n, t in self.module.state_dict().items()
                  if n not in self.master and (include_frozen or n not in frozen)}
-        model.update(self.master)
-        return {"model": model, "optimizer": self.optimizer.state_dict(), "step": self._step,
+        model.update({n: self._whole(n, m) for n, m in self.master.items()})
+        opt = self.optimizer.state_dict()
+        for key in ("mu", "nu", "acc"):
+            if opt[key] is not None:
+                opt[key] = {n: self._whole(n, t) for n, t in opt[key].items()}
+        return {"model": model, "optimizer": opt, "step": self._step,
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: Dict[str, Any], reset_optimizer: bool = False) -> None:
+        """Load a (one-rank layout) state.  On a mesh the trainable leaves,
+        the buffers and the optimizer moments are rank 0's; the frozen leaves
+        come from the same file on every rank."""
         own = self.module.state_dict()
+        buffers = {n for n, _ in self.module.named_buffers()}
+        device = next(iter(own.values())).device
+
+        def rank0(t):
+            if self.mesh is None:
+                return t
+            t = t.to(device).clone()
+            dist.broadcast(t, src=0)
+            return t
+
         with torch.no_grad():
             for name, t in state["model"].items():
-                (self.master if name in self.master else own)[name].copy_(t)
-        copy_masters_(self.params, self.master)
+                if name in self.master:
+                    whole = rank0(t)
+                    self.master[name].copy_(self._share(name, whole.float()))
+                    self.params[name].copy_(whole)
+                else:
+                    own[name].copy_(rank0(t) if name in buffers else t)
         if not reset_optimizer:
-            self.optimizer.load_state_dict(state["optimizer"])
+            opt = dict(state["optimizer"])
+            for key in ("mu", "nu", "acc"):
+                if opt.get(key) is not None:
+                    opt[key] = {n: self._share(n, rank0(t)) for n, t in opt[key].items()}
+            self.optimizer.load_state_dict(opt)
         self._step = int(state["step"])
-        self.generator.set_state(state["generator"].cpu())
+        restore_generator_(self.generator, state["generator"].cpu(), self.mesh)

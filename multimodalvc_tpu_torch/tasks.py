@@ -30,6 +30,7 @@ from .models.speech import SpeechConfig, SpeechE2EModel, SpeechLLMModel, SpeechN
 from .models.vocoder import VocoderConfig, VocoderModel
 from .nn.hifigan import HifiGanConfig
 from .nn.init import init_random_
+from .parallel.mesh import batch_total, get_current_mesh
 
 
 def _trim_audio_feats(batch: Dict[str, torch.Tensor], whisper_frames: int) -> Dict[str, torch.Tensor]:
@@ -53,7 +54,7 @@ class AVSRTaskConfig:
     max_label_tokens: int = 96
     length_buckets: tuple = (100, 200, 300, 400, 500)
     image_aug: bool = True
-    pipeline_microbatches: int = 0  # > 0: the pipelined LLaMA loss, not ported yet
+    pipeline_microbatches: int = 0  # > 0: the pipelined LLaMA loss on a pipeline axis
 
 
 @register_task("avsr_training", config=AVSRTaskConfig)
@@ -112,8 +113,13 @@ class AVSRTask:
         return {k: batch[k] for k in self.BATCH_KEYS if k in batch}
 
     def make_loss_fn(self):
+        """The pipelined loss when ``pipeline_microbatches`` > 0 and the
+        current mesh has more than one pipeline stage, else the plain one
+        (as the JAX task)."""
         if getattr(self.cfg, "pipeline_microbatches", 0) > 0:
-            raise NotImplementedError("the pipelined LLaMA loss is not ported yet")
+            mesh = get_current_mesh()
+            if mesh is not None and mesh.size("pipeline") > 1:
+                return self.system.make_pipeline_loss_fn(mesh, self.cfg.pipeline_microbatches)
         return self.system.make_trainer_loss_fn()
 
     def frozen_patterns(self):
@@ -463,7 +469,8 @@ class AVHubertPretrainTask:
             out = module(batch["audio"], batch["video"], batch["targets"], batch["lengths"],
                          train=True, generator=generator)
             loss = out["loss_masked"] + w_u * out["loss_unmasked"]
-            return loss, {"loss_masked": out["loss_masked"], "acc_masked": out["acc_masked"]}
+            return loss, {"loss_masked": batch_total(out["loss_masked"]),
+                          "acc_masked": out["acc_masked"]}
 
         return loss_fn
 

@@ -3,10 +3,11 @@ under conf/ loads into the port's TrainRootConfig as into the JAX one (the
 same ``to_dict``, with and without dotted overrides, which parse alike);
 the served presets' task and model groups build the port's registered
 configs as the JAX ones; chip_smoke.py's override lists are their presets;
-what the port's CLI cannot run (a mesh beyond one device, a multi-process
-launch, ``checkpoint.init_from_pt`` in the E2E GAN loop) raises
-NotImplementedError, and ``checkpoint.init_from_pt`` warm starts an AVSR
-task."""
+a mesh is resolved over the world as the JAX CLI resolves it over its
+devices (a mesh beyond one process's device raises the same ValueError),
+what the port's CLI cannot run (a tensor axis, ``checkpoint.init_from_pt``
+in the E2E GAN loop) raises NotImplementedError, and
+``checkpoint.init_from_pt`` warm starts an AVSR task."""
 import dataclasses
 import glob
 import os
@@ -17,6 +18,7 @@ from torch_parity import t  # noqa: F401 (sets one torch thread)
 import chip_smoke
 from multimodalvc_tpu import config as jconfig
 from multimodalvc_tpu import tasks as jtasks  # noqa: F401 (registers the tasks)
+from multimodalvc_tpu.parallel import mesh as jmesh
 from multimodalvc_tpu.models import avhubert_pretrain as _javh  # noqa: F401
 from multimodalvc_tpu.models import avsr as _javsr, speech as _jsp, vocoder as _jvoc  # noqa: F401
 from multimodalvc_tpu_torch import config as tconfig
@@ -121,24 +123,69 @@ MESHES = [{"pipeline": 2}, {"data": 2}, {"data": -1, "fsdp": -1}, {"expert": 4},
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "_".join(f"{k}{v}" for k, v in m.items()))
 def test_meshes_beyond_one_device_raise(mesh):
+    """In one process (one device) a mesh beyond it raises the JAX
+    ``resolve_axis_sizes`` error; over four devices every mesh resolves as
+    the JAX one does, but a tensor axis, which raises NotImplementedError."""
     cfg = tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": mesh})
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError):
         ttrain.main(cfg, device="cpu")
+    with pytest.raises(ValueError):
+        jmesh.resolve_axis_sizes(mesh, 1)
+    axes = {k: v for k, v in dataclasses.asdict(cfg.mesh).items() if k != "microbatches"}
+    try:
+        want = jmesh.resolve_axis_sizes(axes, 4)
+    except ValueError:
+        want = None
+    if want is None:
+        with pytest.raises(ValueError):
+            ttrain.mesh_sizes(cfg, 4)
+    elif want["tensor"] > 1:
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            ttrain.mesh_sizes(cfg, 4)
+    else:
+        assert ttrain.mesh_sizes(cfg, 4) == want
     for ok in ({"data": -1}, {"data": 1}, {"data": -1, "fsdp": 1, "pipeline": 1}):
-        ttrain.check_one_device(tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": ok}))
+        sizes = ttrain.mesh_sizes(tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": ok}))
+        assert set(sizes.values()) == {1}
 
 
 def test_presets_beyond_one_device_raise():
+    """The two presets whose mesh needs several devices raise the mesh
+    error in one process; on a mesh of one device each builds its model:
+    the pipeline preset's loss is the plain one at one pipeline stage (as
+    in JAX), the MoE preset's Conformer blocks hold the expert bank."""
+    from multimodalvc_tpu_torch.nn.conformer import ConformerBlock
+
     for preset in ("mms-llama-pp", "mms-speech-nollm-moe"):
-        cfg = tconfig.from_dict(tconfig.TrainRootConfig, tconfig.load_yaml(preset_path(preset)))
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            ttrain.main(cfg, device="cpu")
+        tree = tconfig.load_yaml(preset_path(preset))
+        with pytest.raises(ValueError):
+            ttrain.main(tconfig.from_dict(tconfig.TrainRootConfig, tree), device="cpu")
+        over = ["mesh.pipeline=1", "mesh.expert=1", "model.preset=tiny"]
+        cfg = tconfig.from_dict(tconfig.TrainRootConfig, tconfig.apply_overrides(tree, over))
+        ttrain.make_mesh(ttrain.mesh_sizes(cfg))
+        task = ttrain.build_task(cfg, device="cpu")
+        if preset == "mms-llama-pp":
+            assert task.cfg.pipeline_microbatches == 4
+            assert task.make_loss_fn().__qualname__.startswith("AVSRSystem.make_trainer_loss_fn")
+        else:
+            blocks = [m for m in task.module.modules() if isinstance(m, ConformerBlock)]
+            assert blocks and all(hasattr(b, "ff_moe") and not hasattr(b, "ff") for b in blocks)
 
 
 def test_multi_process_launch_raises(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttrain.check_one_device(tconfig.TrainRootConfig())
+    """A launch of four processes (torchrun's variables) is read as such,
+    and the one mesh it cannot run, a tensor axis, raises."""
+    for k, v in (("MASTER_ADDR", "10.0.0.1"), ("MASTER_PORT", "29500"), ("WORLD_SIZE", "4"),
+                 ("RANK", "3"), ("LOCAL_RANK", "1")):
+        monkeypatch.setenv(k, v)
+    from multimodalvc_tpu_torch.parallel.distributed import infer_init_args
+
+    assert infer_init_args() == {"init_method": "tcp://10.0.0.1:29500", "world_size": 4,
+                                 "rank": 3, "local_rank": 1}
+    cfg = tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": {"data": -1, "tensor": 2}})
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        ttrain.mesh_sizes(cfg, 4)
+    assert ttrain.mesh_sizes(tconfig.TrainRootConfig(), 4)["data"] == 4
 
 
 class _Built(Exception):

@@ -69,8 +69,22 @@ def test_conformer_sizes():
 
 
 def test_expert_ffn_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tconf.ConformerBlock(tconf.ConformerConfig.sized("S", moe_experts=4, **SMALL))
+    """The expert FFN is no longer refused: with moe_experts > 1 a block
+    holds the expert bank ``ff_moe`` in place of ``ff``, under the JAX
+    init's names and shapes (the weight bridge moves its leaves as they
+    are)."""
+    from multimodalvc_tpu_torch.interop.from_flax import flax_to_state_dict
+
+    cfg = dict(moe_experts=4, **SMALL)
+    jm = jconf.ConformerBlock(jconf.ConformerConfig.sized("S", **cfg))
+    x = jnp.zeros((1, 6, SMALL["attention_dim"]))
+    shapes = jax.eval_shape(lambda k: jm.init(k, x), KEY)
+    want = {k: tuple(v.shape) for k, v in flax_to_state_dict(
+        jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)).items()}
+    block = tconf.ConformerBlock(tconf.ConformerConfig.sized("S", **cfg))
+    got = {k: tuple(v.shape) for k, v in block.state_dict().items()}
+    assert got == want
+    assert "ff_moe.experts_w1" in got and not any(k.startswith("ff.") for k in got)
 
 
 @pytest.mark.parametrize("padding_left", [None, 3, 6])

@@ -244,7 +244,9 @@ def test_avhubert_streams_and_fuses(form):
 
 def test_avsr_avhubert_keeps_its_state_dict():
     """The AVSR system's video-only AV-HuBERT: no audio stream, the keys of
-    the JAX video-only init, and the port's options refused plainly."""
+    the JAX video-only init, ``remat`` refused plainly, and
+    ``sequence_parallel`` (ring attention) building the same keys with its
+    self-attention flagged."""
     video = np.zeros((1, 4, 24, 24, 1), np.float32)
     jm = javh.AVHubertModel(javh.AVHubertConfig.tiny())
     shapes = jax.eval_shape(jm.init, KEY, video=jnp.asarray(video))
@@ -256,10 +258,13 @@ def test_avsr_avhubert_keeps_its_state_dict():
     avsr = set(tavsr.AVSRSystem(tavsr.AVSRConfig.tiny(), device="cpu").module.state_dict())
     assert avsr >= {f"encoder.avhubert.{k}" for k in want}
     assert not any("audio_proj" in k for k in avsr)
-    for field, value in (("remat", True), ("sequence_parallel", True)):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            tavh.AVHubertModel(tavh.AVHubertConfig(**{**vars(tavh.AVHubertConfig.tiny()),
-                                                      field: value}))
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        tavh.AVHubertModel(tavh.AVHubertConfig(**{**vars(tavh.AVHubertConfig.tiny()),
+                                                  "remat": True}))
+    ring = tavh.AVHubertModel(tavh.AVHubertConfig(**{**vars(tavh.AVHubertConfig.tiny()),
+                                                     "sequence_parallel": True}))
+    assert set(ring.state_dict()) == want
+    assert all(layer.self_attn.sequence_parallel for layer in ring.encoder.layers)
 
 
 @pytest.mark.parametrize("relu_type", ["prelu", "relu"])

@@ -49,6 +49,14 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch.ops.kernel_lib",
     "multimodalvc_tpu_torch.ops.stft",
     "multimodalvc_tpu_torch.ops.topk",
+    "multimodalvc_tpu_torch.ops.ring_attention",
+    "multimodalvc_tpu_torch.parallel",
+    "multimodalvc_tpu_torch.parallel.bmuf",
+    "multimodalvc_tpu_torch.parallel.collectives",
+    "multimodalvc_tpu_torch.parallel.distributed",
+    "multimodalvc_tpu_torch.parallel.expert",
+    "multimodalvc_tpu_torch.parallel.pipeline",
+    "multimodalvc_tpu_torch.parallel.sharding",
     "multimodalvc_tpu_torch.tasks",
 ]
 
