@@ -154,6 +154,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
      with unordered constraints (no kernel).
    ``check_topk`` holds K4 at [40, 1000] too, ``check_flash_grad`` K1's
    gradient at the pretraining shape [2, 16, 400, 64].
+10. Remat and the other optimizers (run after 4. and, for the last, 9.):
+   - ``train_avsr_remat``: the ``train_avsr_flash`` system with
+     ``LlamaConfig.remat`` and the preset's LoRA dropout: step 1's loss,
+     gradients and dropout generator with and without remat on one module,
+     bit for bit; K1 104 a step (28 forwards and 28 recomputes through
+     ``FlashAttentionGrad``, 48 in the encoders); 3 steps with remat, then
+     2 without and the training forward alone: walls and peaks (the remat
+     peak below both the plain steps' and ``train_avsr_flash``'s);
+   - ``train_optimizers``: adafactor, lamb, adagrad, adamax, nag and sgd,
+     3 updates each on that trainer from the same masters: finite losses,
+     the frozen leaves bit for bit, each optimizer's state GiB beside
+     AdamW's, update 1 against the same optimizer on the CPU in f32 on the
+     same gradients (1e-5 of each leaf's largest element);
+   - ``pretrain_remat``: two AV-HuBERT-Large pretraining updates with the
+     encoder's remat against the same two without, under torch's
+     deterministic algorithms: bit for bit (K1 48 a step with remat).
+11. Data preparation: ``prep_tools``, every manifest_tools subcommand over
+   the corpus of 7. laid out raw (``generate``'s rows equal the corpus's,
+   ``generate-mels``' files the mels the dataset computes, ``align-mouth``
+   from synthetic landmarks, ``split`` / ``hours`` / ``normalize-rates`` /
+   ``update-paths`` / ``filter-language`` / ``make-babble``), then
+   ``quantize_tree`` of the full-width bf16 state dict on the card (its
+   error, size ratio and one leaf's codes equal to the CPU's).
 
 Prints JSON lines with the kernel checks and the phases, the smoke's own
 wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
@@ -172,6 +195,14 @@ writing the corpus of 7. first.
 ``python3 chip_smoke.py --pretrain`` runs only K1's pretraining gradient
 case, K4 at [40, 1000] and the pretraining phases (9.), writing the corpus
 of 7. first.
+
+``python3 chip_smoke.py --optim`` runs only the phases of 10. (writing the
+corpus of 7. and its k-means labels first where absent);
+``--profile-remat`` profiles one ``train_avsr_remat`` step with and one
+without remat.
+
+``python3 chip_smoke.py --prep`` writes the corpus of 7. and runs
+``prep_tools`` (11.).
 
 ``python3 chip_smoke.py --speech`` runs only K1's speech cases and the five
 speech phases.
@@ -221,6 +252,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import ExitStack
 from pathlib import Path
 from unittest import mock
@@ -1689,12 +1721,12 @@ def make_train_batch():
     return batch
 
 
-def build_trainer(flash: bool, warmup: int = TRAIN_WARMUP):
+def build_trainer(flash: bool, warmup: int = TRAIN_WARMUP, remat: bool = False):
     """The training slice's entry points at full width: ``AVSRTask`` (bf16
-    random weights from seed 0, ``use_flash_prefill`` as given), its loss
-    and frozen patterns into ``Trainer`` with the conf/mms-llama.yaml
-    optimizer (AdamW, betas (0.9, 0.98), weight decay 0.01, clip 1.0,
-    cosine) and a warmup of ``warmup`` updates."""
+    random weights from seed 0, ``use_flash_prefill`` and the LLaMA's
+    ``remat`` as given), its loss and frozen patterns into ``Trainer`` with
+    the conf/mms-llama.yaml optimizer (AdamW, betas (0.9, 0.98), weight decay
+    0.01, clip 1.0, cosine) and a warmup of ``warmup`` updates."""
     import torch
 
     from multimodalvc_tpu_torch.config.configs import OptimizationConfig
@@ -1705,6 +1737,7 @@ def build_trainer(flash: bool, warmup: int = TRAIN_WARMUP):
     cfg = AVSRConfig()
     cfg.max_video_frames = SECONDS * 25
     cfg.llama.use_flash_prefill = True if flash else None
+    cfg.llama.remat = remat
     t0 = time.perf_counter()
     task = AVSRTask(AVSRTaskConfig(), cfg, dtype=torch.bfloat16, device=DEV)
     task.system.init_random(seed=0)
@@ -1713,7 +1746,8 @@ def build_trainer(flash: bool, warmup: int = TRAIN_WARMUP):
                              warmup_updates=warmup, max_update=30000)
     trainer = Trainer(task.make_loss_fn(), task.system.module, opt, task.frozen_patterns())
     torch.cuda.synchronize()
-    print(f"trainer: {'flash' if flash else 'plain'} trunk attention, built in "
+    print(f"trainer: {'flash' if flash else 'plain'} trunk attention"
+          f"{', LLaMA remat' if remat else ''}, built in "
           f"{time.perf_counter() - t0:.1f} s, {sum(p.numel() for p in trainer.master.values())} "
           f"trainable of {sum(p.numel() for p in task.system.module.parameters())} parameters")
     return task, trainer
@@ -5356,6 +5390,619 @@ def parallel_phases(table) -> dict:
     return phases
 
 
+# ---- remat, the other optimizers, data preparation --------------------------------
+
+
+REMAT_STEPS = 3  # train_avsr_remat's steps after the step-1 comparison
+# the six optimizers besides adamw / adam, 3 updates each in train_optimizers
+NEW_OPTIMIZERS, OPTIMIZER_STEPS, OPTIMIZER_RTOL = (
+    ("adafactor", "lamb", "adagrad", "adamax", "nag", "sgd"), 3, 1e-5)
+PRETRAIN_REMAT_UPDATES = 2
+PREP_DIR = REPO / "build" / "prep"
+
+
+def _set_remat(module, cls, on: bool) -> int:
+    """Turn remat on or off in every ``cls`` (a LlamaModel's config, a
+    TransformerEncoder's flag) of ``module``; returns how many there are."""
+    from multimodalvc_tpu_torch.nn.llama import LlamaModel
+
+    found = [m for m in module.modules() if isinstance(m, cls)]
+    for m in found:
+        if cls is LlamaModel:
+            m.cfg.remat = on
+        else:
+            m.remat = on
+    return len(found)
+
+
+def _step1(trainer, batch, table) -> dict:
+    """Step 1's loss and trainable gradients (one f32 vector), the dropout
+    generator's state after them (seeded 9), K1's launches (with a gradient
+    apart), and the memory the step took above what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(table)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    with GradLaunches() as grads:
+        loss, _ = trainer.loss_fn(batch, gen)
+        got = torch.autograd.grad(loss, list(trainer.params.values()), allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(p) if g is None else g).float().reshape(-1)
+                      for g, p in zip(got, trainer.params.values())])
+    del got
+    return {"loss": loss.detach(), "grads": flat, "generator": gen.get_state(),
+            "k1": read_counts(table)["flash_attention"], "k1_grad": grads.n,
+            "step_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+
+def remat_gate(name, plain, again, remat, same) -> dict:
+    """Remat's result against the plain one's: bit for bit (``same``, each
+    check True) where the plain step repeated (``again``) is bit for bit
+    itself; else, where an op of the step is not deterministic on the card,
+    within FLOOR_MARGIN times the relative L2 between the two plain runs."""
+    import torch
+
+    deterministic = bool(torch.equal(plain, again))
+    floor, rel = rel_l2(again, plain), rel_l2(remat, plain)
+    out = {"deterministic": deterministic, "noise_floor_rel_l2": floor, "rel_l2": rel,
+           "max_abs_diff": float((plain - remat).abs().max())}
+    if deterministic and not all(same.values()):
+        raise SmokeFailure(f"{name}: with remat the step differs from without: {same}, rel L2 "
+                           f"{rel:.3e} (the plain step repeats bit for bit)")
+    if not deterministic and not rel <= FLOOR_MARGIN * floor:
+        raise SmokeFailure(f"{name}: with remat {rel:.3e} from the plain step, whose repeat "
+                           f"differs by {floor:.3e} (gate {FLOOR_MARGIN}x)")
+    if not deterministic:
+        print(f"    {name}: the plain step does not repeat bit for bit (rel L2 {floor:.3e}); "
+              f"remat within {rel:.3e}")
+    return out
+
+
+def train_avsr_remat(table, flash_peak_gib=None) -> tuple:
+    """The ``train_avsr_flash`` system (K1 with its gradient in the trunk)
+    with ``LlamaConfig.remat``, the LoRA dropout at the preset's 0.05.
+    Step 1 (loss, gradients, the dropout generator after it) without and
+    with remat on the same module must be equal bit for bit; K1 76 times
+    without (28 with a gradient) and 104 with (56: each trunk layer's
+    forward runs again in the backward); the step's memory above the model
+    lower with remat.  Then REMAT_STEPS ``train_step``s with remat: K1 104 a
+    step, finite losses, the step wall, tokens/s and the peak GiB, below
+    that of two more steps without remat on the same trainer (their wall
+    beside, and the training forward's alone) and below
+    ``flash_peak_gib`` (train_avsr_flash's, which holds a copy of the frozen
+    leaves beside) where given.  Returns the record and (task, trainer,
+    batch) for train_optimizers."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.nn.llama import LlamaModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    task, trainer = build_trainer(True, remat=True)
+    batch = task.prepare_batch(make_train_batch())
+    if _set_remat(trainer.module, LlamaModel, False) != 1:
+        raise SmokeFailure("train_avsr_remat: no LLaMA in the AVSR module")
+    (plain, t_plain) = wall(lambda: _step1(trainer, batch, table))
+    again = _step1(trainer, batch, table)["grads"]  # is the step deterministic?
+    _set_remat(trainer.module, LlamaModel, True)
+    (remat, t_remat) = wall(lambda: _step1(trainer, batch, table))
+    same = {"loss": bool(torch.equal(plain["loss"], remat["loss"])),
+            "grads": bool(torch.equal(plain["grads"], remat["grads"])),
+            "generator": bool(torch.equal(plain["generator"], remat["generator"]))}
+    gate = remat_gate("train_avsr_remat", plain["grads"], again, remat["grads"], same)
+    del again
+    print(f"    step 1 without / with remat: loss {float(plain['loss']):.6f} / "
+          f"{float(remat['loss']):.6f}, gradients max |diff| {gate['max_abs_diff']:.3e} over "
+          f"{plain['grads'].numel()}, equal {same}; K1 {plain['k1']} / {remat['k1']} "
+          f"({plain['k1_grad']} / {remat['k1_grad']} with a gradient); the step's memory "
+          f"{plain['step_gib']:.2f} / {remat['step_gib']:.2f} GiB, {1e3 * t_plain:.1f} / "
+          f"{1e3 * t_remat:.1f} ms")
+    # each trunk layer's attention (K1 through FlashAttentionGrad) runs again
+    want = (ENCODER_FLASH + TRUNK_FLASH, TRUNK_FLASH, ENCODER_FLASH + 2 * TRUNK_FLASH,
+            2 * TRUNK_FLASH)
+    got = (plain["k1"], plain["k1_grad"], remat["k1"], remat["k1_grad"])
+    if got != want:
+        raise SmokeFailure(f"train_avsr_remat: K1 (without, with a gradient; with remat, with a "
+                           f"gradient) {got}, want {want}")
+    if not remat["step_gib"] < plain["step_gib"]:
+        raise SmokeFailure(f"train_avsr_remat: the step took {remat['step_gib']:.2f} GiB with "
+                           f"remat, {plain['step_gib']:.2f} without")
+    record = {"step1_equal": same, "step1_gate": gate, "step1_loss": float(plain["loss"]),
+              "k1_step1": {"plain": plain["k1"], "plain_grad": plain["k1_grad"],
+                           "remat": remat["k1"], "remat_grad": remat["k1_grad"]},
+              "step1_gib": {"plain": plain["step_gib"], "remat": remat["step_gib"]},
+              "step1_ms": {"plain": 1e3 * t_plain, "remat": 1e3 * t_remat}}
+    del plain, remat
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(table)
+    metrics, walls = [], []
+    with GradLaunches() as grads:
+        for step in range(REMAT_STEPS):
+            m, t_step = wall(lambda: trainer.train_step(batch))
+            metrics.append(m)
+            walls.append(t_step)
+            print(f"    step {step + 1}: loss {m['loss']:.4f} gnorm {m['gnorm']:.3e} "
+                  f"{1e3 * t_step:.1f} ms")
+    launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # two more steps without remat in the same state of the card, and the
+    # training forward alone (what the recompute repeats, and more)
+    _set_remat(trainer.module, LlamaModel, False)
+    torch.cuda.reset_peak_memory_stats()
+    plain_walls = [wall(lambda: trainer.train_step(batch))[1] for _ in range(2)]
+    t_plain_step = sum(plain_walls) / len(plain_walls)
+    plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _set_remat(trainer.module, LlamaModel, True)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    forward_walls = [wall(lambda: trainer.loss_fn(batch, gen)[0].detach())[1] for _ in range(2)]
+    t_forward = forward_walls[-1]
+    print(f"    steps without remat: {[round(1e3 * x, 1) for x in plain_walls]} ms, peak "
+          f"{plain_peak:.2f} GiB; the training forward alone {1e3 * t_forward:.1f} ms")
+    want_k1 = (ENCODER_FLASH + 2 * TRUNK_FLASH) * REMAT_STEPS
+    wrong = {k: n for k, n in launches.items() if n != (want_k1 if k == "flash_attention" else 0)}
+    if wrong or grads.n != 2 * TRUNK_FLASH * REMAT_STEPS:
+        raise SmokeFailure(f"train_avsr_remat: launches {wrong} (K1 {want_k1} expected), "
+                           f"{grads.n} through FlashAttentionGrad")
+    losses = [m["loss"] for m in metrics]
+    if not all(map(math.isfinite, losses)):
+        raise SmokeFailure(f"train_avsr_remat: losses {losses}")
+    if not peak < plain_peak or (flash_peak_gib is not None and not peak < flash_peak_gib):
+        raise SmokeFailure(f"train_avsr_remat: peak {peak:.2f} GiB, a step without remat "
+                           f"{plain_peak:.2f}, train_avsr_flash's {flash_peak_gib}")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    b, t = batch["instruction"].shape[0], INSTRUCTION + task.model_cfg.max_queries + TRAIN_LABELS
+    record.update(losses=losses, step_ms=[1e3 * x for x in walls], mean_step_ms=1e3 * step_s,
+                  seq_tokens_per_s=b * t / step_s, peak_gib=peak, plain_step_ms=1e3 * t_plain_step,
+                  plain_steps_ms=[1e3 * x for x in plain_walls], forward_ms=1e3 * t_forward,
+                  plain_step_peak_gib=plain_peak, flash_peak_gib=flash_peak_gib, launches=launches,
+                  k1_grad_launches_a_step=grads.n // REMAT_STEPS)
+    print(f"  phase train_avsr_remat: {1e3 * step_s:.1f} ms a step (steps 2-{REMAT_STEPS}), "
+          f"{b * t / step_s:.0f} sequence tokens/s, peak {peak:.2f} GiB (a step without remat "
+          f"{1e3 * t_plain_step:.1f} ms, {plain_peak:.2f} GiB; the forward {1e3 * t_forward:.1f} "
+          f"ms; train_avsr_flash "
+          f"{flash_peak_gib if flash_peak_gib is None else round(flash_peak_gib, 2)} GiB), K1 "
+          f"{launches['flash_attention'] // REMAT_STEPS} a step, "
+          f"{grads.n // REMAT_STEPS} with a gradient")
+    return record, (task, trainer, batch)
+
+
+def profile_remat(top: int = 10) -> dict:
+    """Where remat's extra time goes in the train_avsr_remat step: one
+    ``train_step`` with and one without ``LlamaConfig.remat`` (after a warm
+    step of each) under torch.profiler: the wall, the device time summed
+    over kernels, copies and memsets, the device's idle share, the device
+    ops, and the kernels whose time grew most with remat."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodalvc_tpu_torch.nn.llama import LlamaModel
+
+    task, trainer = build_trainer(True, remat=True)
+    batch = task.prepare_batch(make_train_batch())
+    out, device = {}, {}
+    for remat in (True, False):
+        _set_remat(trainer.module, LlamaModel, remat)
+        trainer.train_step(batch)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, t = wall(lambda: trainer.train_step(batch))
+        us, n = Counter(), 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us[e.name] += e.time_range.elapsed_us()
+                n += 1
+        device_ms = sum(us.values()) / 1e3
+        if device_ms <= 0:
+            raise SmokeFailure("profile_remat: torch.profiler recorded no device time")
+        tag = "remat" if remat else "plain"
+        device[tag] = us
+        out[tag] = {"wall_ms": 1e3 * t, "device_ms": device_ms, "device_ops": n,
+                    "idle_share": 1 - device_ms / (1e3 * t)}
+        print(f"  profile_remat {tag}: {1e3 * t:.1f} ms profiled, device {device_ms:.1f} ms, "
+              f"idle share {out[tag]['idle_share']:.3f}, {n} device ops")
+    grew = {k: (device["remat"][k] - device["plain"].get(k, 0)) / 1e3 for k in device["remat"]}
+    out["grew_ms"] = dict(sorted(grew.items(), key=lambda kv: -kv[1])[:top])
+    for k, v in out["grew_ms"].items():
+        print(f"    +{v:8.3f} ms  {k[:110]}")
+    return out
+
+
+def _cpu(tensors) -> dict:
+    return {n: t.detach().float().cpu().clone() for n, t in tensors.items()}
+
+
+def train_optimizers(table, built) -> dict:
+    """The six optimizers besides adamw / adam (NEW_OPTIMIZERS) on
+    train_avsr_remat's full-width trainer, each from the same masters with
+    the phase's AdamW settings at a fixed learning rate: OPTIMIZER_STEPS
+    ``train_step``s; finite losses; the frozen leaves (and buffers) bit for
+    bit; each optimizer's state GiB beside AdamW's two moments.  Its first
+    update is held against the same optimizer on the CPU in f32 on the same
+    gradients and masters: each trainable leaf within OPTIMIZER_RTOL of its
+    largest element."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.runtime.trainer import Leaves, build_optimizer
+
+    task, trainer, batch = built
+    start = {n: m.clone() for n, m in trainer.master.items()}
+    frozen = {n: x.clone() for n, x in trainer.module.state_dict().items()
+              if n not in trainer.master}
+    numel = sum(m.numel() for m in start.values())
+    record = {"trainable": numel, "adamw_state_gib": 8 * numel / 2 ** 30}
+    for name in NEW_OPTIMIZERS:
+        with torch.no_grad():
+            for n, m in trainer.master.items():
+                m.copy_(start[n])
+        trainer._copy_to_module()
+        cfg = dataclasses.replace(trainer.opt_cfg, optimizer=name, lr_scheduler="fixed")
+        opt = trainer.optimizer = build_optimizer(cfg, trainer.master, trainer.leaves)
+        first, real = {}, opt.update
+
+        def update(grads, params, first=first, real=real):
+            if first:
+                return real(grads, params)
+            first.update(grads=_cpu(grads), before=_cpu(params))
+            moved = real(grads, params)
+            first["after"] = _cpu(params)
+            return moved
+
+        opt.update = update
+        reset_counts(table)
+        torch.cuda.reset_peak_memory_stats()
+        metrics, t_run = wall(lambda: [trainer.train_step(batch) for _ in range(OPTIMIZER_STEPS)])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [m["loss"] for m in metrics]
+        if not all(map(math.isfinite, losses)):
+            raise SmokeFailure(f"train_optimizers {name}: losses {losses}")
+        unchanged(f"train_optimizers {name}", trainer.module, frozen)
+        state_gib = sum(t.numel() * t.element_size() for kind in opt.state.values()
+                        for t in kind.values()) / 2 ** 30
+        before = first["before"]
+        cpu = build_optimizer(cfg, before, Leaves(before,
+                                                  reversed_layout=trainer.leaves.reversed_layout))
+        cpu.update(first["grads"], before)
+        worst, moved = 0.0, 0
+        for n, want in before.items():
+            got = first["after"][n]
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            worst = max(worst, err / scale if scale else err)
+            moved += int(not torch.equal(got, start[n].cpu()))
+        if not worst <= OPTIMIZER_RTOL or not moved:
+            raise SmokeFailure(f"train_optimizers {name}: update 1 {worst:.3e} from the CPU's "
+                               f"(gate {OPTIMIZER_RTOL}), {moved} leaves moved")
+        record[name] = {"losses": losses, "wall_s": t_run, "state_gib": state_gib,
+                        "state_kinds": list(opt.state), "peak_gib": peak,
+                        "update1_rel_err": worst, "leaves_moved": moved,
+                        "launches": read_counts(table)["flash_attention"]}
+        print(f"  train_optimizers {name}: losses {[round(x, 4) for x in losses]}, "
+              f"{1e3 * t_run / OPTIMIZER_STEPS:.1f} ms a step, state {state_gib:.3f} GiB "
+              f"{list(opt.state)} (AdamW {record['adamw_state_gib']:.3f}), update 1 "
+              f"{worst:.2e} from the CPU's, {moved}/{len(before)} leaves moved, peak "
+              f"{peak:.2f} GiB")
+        del first, cpu, before
+    del start, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def pretrain_remat(table) -> dict:
+    """PRETRAIN_REMAT_UPDATES AV-HuBERT-Large pretraining updates
+    (conf/avhubert-pretrain.yaml at full width, bf16, the corpus's k-means
+    labels) on two train batches of the 300 / 400 buckets, through
+    ``Trainer`` with the encoder's ``remat``, against the same updates
+    without (the trainer's state put back in between), under torch's
+    deterministic algorithms: losses, grad norms, masters and the ResNet's
+    running statistics equal bit for bit where the plain run repeats
+    itself bit for bit (``remat_gate``); K1 24 times a step without remat
+    and 48 with (24 of them the recompute); the peak GiB of each."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.data.batching import bucket_for
+    from multimodalvc_tpu_torch.data.dataset import to_device
+    from multimodalvc_tpu_torch.nn.layers import TransformerEncoder
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+
+    cfg = cli_config("avhubert-pretrain", [])
+    gc.collect()
+    torch.cuda.empty_cache()
+    task = cli_train.build_task(cfg, DEV)
+    ds = task.load_dataset(cfg.dataset.train_subset)
+    task.init_random(cfg.common.seed)
+    trainer = Trainer(task.make_loss_fn(), task.module, cfg.optimization, task.frozen_patterns(),
+                      seed=cfg.common.seed)
+    sizes = ds.sizes()
+    picked = [b for b in ds.batches(max_tokens=cfg.dataset.max_tokens, epoch=1)
+              if bucket_for(max(sizes[i] for i in b), ds.buckets) >= 300][:PRETRAIN_REMAT_UPDATES]
+    batches = [task.prepare_batch(to_device(raw, DEV)) for raw, _ in zip(
+        cli_train.loader(cfg, ds, picked, DEV, epoch=1), picked)]
+    frames = [b["video"].shape[1] for b in batches]
+
+    def snapshot(state):
+        if isinstance(state, dict):
+            return {k: snapshot(v) for k, v in state.items()}
+        return state.clone() if isinstance(state, torch.Tensor) else copy.deepcopy(state)
+
+    start = snapshot(trainer.state_dict())
+    runs = {}
+    # deterministic algorithms where torch has them (cuDNN's ResNet
+    # backward is not, by default), so that the plain run repeats itself and
+    # remat can be held to it bit for bit; the ops without one are named
+    was = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for remat in (False, "again", True):  # the plain run twice: does it repeat?
+                if _set_remat(task.module, TransformerEncoder, remat is True) != 1:
+                    raise SmokeFailure("pretrain_remat: no AV-HuBERT encoder")
+                trainer.load_state_dict(start)
+                reset_counts(table)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                with GradLaunches() as grads:
+                    metrics, t_run = wall(lambda: [trainer.train_step(b) for b in batches])
+                peak = torch.cuda.max_memory_allocated()
+                state = trainer.state_dict()
+                # kept on the host: the next run's peak sees none of them
+                runs[remat] = {"metrics": metrics, "wall_s": t_run, "k1": read_counts(table),
+                               "k1_grad": grads.n, "peak_gib": peak / 2 ** 30,
+                               "step_gib": (peak - base) / 2 ** 30,
+                               "model": {n: t.to("cpu", copy=True)
+                                         for n, t in state["model"].items()}}
+                del state
+    finally:
+        torch.backends.cudnn.deterministic = was[0]
+        torch.use_deterministic_algorithms(was[1])
+    nondeterministic = sorted({str(w.message).split(" does not have a deterministic")[0]
+                               for w in caught if "deterministic" in str(w.message)})
+    if nondeterministic:
+        print(f"    pretrain_remat: ops without a deterministic implementation: "
+              f"{nondeterministic}")
+    plain, remat = runs[False], runs[True]
+    same_metrics = plain["metrics"] == remat["metrics"]
+    differ = [n for n, t in plain["model"].items() if not torch.equal(t, remat["model"][n])]
+
+    def flat(run):
+        return torch.cat([t.float().reshape(-1) for t in run["model"].values()]
+                         + [torch.tensor([m["gnorm"] for m in run["metrics"]])])
+
+    gate = remat_gate("pretrain_remat", flat(plain), flat(runs["again"]), flat(remat),
+                      {"metrics": same_metrics, "entries": not differ})
+    layers = k1_layers(min(frames), PRETRAIN_LAYERS) * len(batches)
+    want = (layers, layers, 2 * layers, 2 * layers)
+    got = (plain["k1"]["flash_attention"], plain["k1_grad"], remat["k1"]["flash_attention"],
+           remat["k1_grad"])
+    others = {k: n for run in (plain, remat) for k, n in run["k1"].items()
+              if n and k != "flash_attention"}
+    losses = [m["loss"] for m in plain["metrics"]]
+    print(f"  pretrain_remat: {len(batches)} updates at {frames} frames; losses "
+          f"{[round(x, 5) for x in losses]} (remat {[round(m['loss'], 5) for m in remat['metrics']]}"
+          f"), metrics equal {same_metrics}, {len(differ)} of {len(plain['model'])} entries "
+          f"differ; {plain['wall_s']:.2f} (again {runs['again']['wall_s']:.2f}) / "
+          f"{remat['wall_s']:.2f} s, peak {plain['peak_gib']:.2f} / {remat['peak_gib']:.2f} GiB "
+          f"({plain['step_gib']:.2f} / {remat['step_gib']:.2f} above the state) without / with "
+          f"remat; K1 {got}")
+    if not all(map(math.isfinite, losses)):
+        raise SmokeFailure(f"pretrain_remat: losses {losses}")
+    if got != want or others:
+        raise SmokeFailure(f"pretrain_remat: K1 (without, with a gradient; with remat, with a "
+                           f"gradient) {got}, want {want}; other launches {others}")
+    record = {"frames": frames, "losses": losses, "nondeterministic_ops": nondeterministic,
+              "equal": {"metrics": same_metrics,
+                                                            "entries_differing": len(differ)},
+              "gate": gate,
+              **{f"{k}_{tag}": runs[r][k] for r, tag in ((False, "plain"), ("again", "again"),
+                                                          (True, "remat"))
+                 for k in ("wall_s", "peak_gib", "step_gib", "k1_grad")},
+              "launches": remat["k1"], "plain_launches": plain["k1"]}
+    del task, trainer, start, runs, plain, remat, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def _tool(*argv) -> str:
+    """``cli.manifest_tools`` in this process: what it prints."""
+    import contextlib
+    import io
+
+    from multimodalvc_tpu_torch.cli import manifest_tools
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        manifest_tools.main([str(a) for a in argv])
+    print("    manifest_tools " + " ".join(str(a) for a in argv[:1]) + ": "
+          + out.getvalue().strip().replace("\n", "; "))
+    return out.getvalue()
+
+
+def _prep_layout() -> list:
+    """The cli corpus as a raw layout under PREP_DIR: video/clipN.npy (linked)
+    beside a copy of clipN.wav, text/clipN.txt from the transcripts.  Returns
+    the corpus's (frames, samples, words) a clip."""
+    import shutil
+
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    (PREP_DIR / "video").mkdir(parents=True)
+    (PREP_DIR / "text").mkdir()
+    rows = (CLI_DIR / "train.tsv").read_text().splitlines()[1:]
+    words = (CLI_DIR / "train.wrd").read_text().splitlines()
+    clips = []
+    for row, text in zip(rows, words):
+        _, video, audio, frames, samples = row.split("\t")[:5]
+        stem = Path(video).stem
+        os.symlink(CLI_DIR / video, PREP_DIR / "video" / f"{stem}.npy")
+        shutil.copy(CLI_DIR / audio.split(":")[0], PREP_DIR / "video" / f"{stem}.wav")
+        (PREP_DIR / "text" / f"{stem}.txt").write_text(text)
+        clips.append((stem, int(frames), int(samples), text))
+    return clips
+
+
+def prep_tools(table) -> dict:
+    """Every manifest_tools subcommand that prepares data, over the cli
+    corpus laid out raw under PREP_DIR: ``generate`` (the rows equal to the
+    corpus's own: frames, samples, transcripts), ``split``, ``hours`` (the
+    corpus's total), ``normalize-rates`` (in [1, 2]), ``update-paths``,
+    ``filter-language``, ``make-babble``; ``generate-mels`` (each file equal
+    to the mel that ``AVSRDataset`` computes on the fly for the clip, before
+    the files exist); ``align-mouth`` on a corpus clip with synthetic
+    landmarks (one detection missing); then a ``quantize_tree`` round trip of
+    the full-width bf16 AVSR state dict on the card (its error, size ratio,
+    and one leaf's codes equal to the CPU's).  No kernel launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from multimodalvc_tpu_torch.data.dataset import AVSRDataset, AVSRDatasetConfig
+    from multimodalvc_tpu_torch.data.roi import default_mean_face
+    from multimodalvc_tpu_torch.runtime import quantization
+
+    t0 = time.perf_counter()
+    reset_counts(table)
+    clips = _prep_layout()
+    _tool("generate", "--root", PREP_DIR, "--video-dir", "video", "--text-dir", "text",
+          "--out-tsv", PREP_DIR / "all.tsv", "--workers", 4)
+    lines = (PREP_DIR / "all.tsv").read_text().splitlines()[1:]
+    got = sorted((Path(r.split("\t")[1]).stem, int(r.split("\t")[3]), int(r.split("\t")[4]), w)
+                 for r, w in zip(lines, (PREP_DIR / "all.wrd").read_text().splitlines()))
+    if got != sorted(clips):
+        raise SmokeFailure(f"prep_tools generate: rows {got[:2]}..., the corpus's "
+                           f"{sorted(clips)[:2]}...")
+    split = PREP_DIR / "split"
+    split.mkdir()
+    _tool("split", "--tsv", PREP_DIR / "all.tsv", "--out-dir", split, "--valid-frac", 0.125,
+          "--test-frac", 0.125)
+    counts = {s: len((split / f"{s}.tsv").read_text().splitlines()) - 1
+              for s in ("train", "valid", "test")}
+    hours = _tool("hours", "--tsv", PREP_DIR / "all.tsv")
+    total = sum(c[2] for c in clips)
+    _tool("normalize-rates", "--tsv", PREP_DIR / "all.tsv", "--out", PREP_DIR / "norm.tsv")
+    rates = [float(r.split("\t")[5]) for r in
+             (PREP_DIR / "norm.tsv").read_text().splitlines()[1:]]
+    _tool("update-paths", "--tsv", PREP_DIR / "all.tsv", "--old", str(PREP_DIR),
+          "--new", "/data/corpus", "--out", PREP_DIR / "moved.tsv")
+    moved = (PREP_DIR / "moved.tsv").read_text()
+    german = {c[0] for i, c in enumerate(clips) if i % 4 == 0}
+    (PREP_DIR / "meta.csv").write_text("id,language\n" + "".join(
+        f"{c[0]},{'de' if c[0] in german else 'en'}\n" for c in clips))
+    _tool("filter-language", "--tsv", PREP_DIR / "all.tsv", "--wrd", PREP_DIR / "all.wrd",
+          "--meta", PREP_DIR / "meta.csv", "--language", "de", "--out", PREP_DIR / "de.tsv")
+    kept = sorted(Path(r.split("\t")[1]).stem
+                  for r in (PREP_DIR / "de.tsv").read_text().splitlines()[1:])
+    _tool("make-babble", "--tsv", PREP_DIR / "all.tsv", "--n", 30, "--out",
+          PREP_DIR / "babble.wav")
+    from multimodalvc_tpu_torch.data.audio import read_wav
+
+    babble = read_wav(str(PREP_DIR / "babble.wav"))
+    checks = {"split": sum(counts.values()) == len(clips) and counts["valid"] == 4,
+              "hours": f"total samples: {total}" in hours,
+              "rates": len(rates) == len(clips) and all(1.0 <= r <= 2.0 for r in rates),
+              "update_paths": str(PREP_DIR) not in moved and "/data/corpus/video/" in moved,
+              "filter_language": kept == sorted(german),
+              "babble": len(babble) == max(c[2] for c in clips)
+              and 0.9 < float(np.abs(babble).max()) <= 0.95 + 1e-4}
+    # the dataset's on-the-fly mels, then the offline files
+    ds = AVSRDataset(AVSRDatasetConfig(manifest_dir=str(PREP_DIR), subset="all",
+                                       with_text_labels=False, with_mel_targets=True))
+    fly = {Path(e.audio_path).stem: ds[i]["target_mel"] for i, e in enumerate(ds.manifest.entries)}
+    # one worker: a Pool forked from this process (CUDA and torch's threads
+    # up) is not what a user runs
+    _, t_mels = wall(lambda: _tool("generate-mels", "--tsv", PREP_DIR / "all.tsv", "--workers", 1))
+    mel_err = max(float(np.abs(np.load(PREP_DIR / "video" / f"{s}_mel_100hz_128bands.npy")
+                               - m).max()) for s, m in fly.items())
+    checks["mels"] = len(fly) == len(clips) and mel_err <= 1e-5
+    # align-mouth: the mean face scaled into a corpus clip's frames
+    stem, frames = clips[0][0], clips[0][1]
+    lms = np.stack([default_mean_face(256) * 0.3 + 10.0 + 0.1 * i for i in range(frames)])
+    lms[3] = np.nan
+    np.save(PREP_DIR / "lm.npy", lms.astype(np.float32))
+    _tool("align-mouth", "--video", PREP_DIR / "video" / f"{stem}.npy", "--landmarks",
+          PREP_DIR / "lm.npy", "--crop", 48, "--out", PREP_DIR / "roi.npy")
+    rois = np.load(PREP_DIR / "roi.npy")
+    checks["align_mouth"] = rois.shape == (frames, 48, 48) and bool(np.isfinite(rois).all())
+    tools_s = time.perf_counter() - t0
+    # quantize_tree over the full-width state dict
+    system = build_system()
+    sd = system.module.state_dict()
+    (q, t_q) = wall(lambda: quantization.quantize_tree(sd))
+    (back, t_dq) = wall(lambda: quantization.dequantize_tree(q, torch.bfloat16))
+    rel, orig, packed = 0.0, 0, 0
+    for n, x in sd.items():
+        orig += x.numel() * x.element_size()
+        node = q[n]
+        packed += sum(t.numel() * t.element_size() for t in node.values()) \
+            if isinstance(node, dict) else x.numel() * x.element_size()
+        if isinstance(node, dict):  # the codes' error in f32, leaf by leaf
+            got = quantization.dequantize_tree(node)
+            rel = max(rel, float((got - x.float()).abs().max())
+                      / max(float(x.float().abs().max()), 1e-12))
+            del got
+    same_bf16 = all(back[n].dtype == x.dtype for n, x in sd.items() if x.is_floating_point())
+    name = "llama.embed_tokens.weight" if "llama.embed_tokens.weight" in sd else max(
+        sd, key=lambda n: sd[n].numel())
+    cpu = quantization.quantize_tree({name: sd[name].cpu()})[name]
+    same_codes = all(torch.equal(cpu[k], q[name][k].cpu()) for k in cpu)
+    # half a step of the channel's scale at most
+    checks["quantize"] = (same_codes and same_bf16 and rel <= 0.5 / 127 * (1 + 1e-5)
+                          and orig / packed > 1.9)
+    launches = read_counts(table)
+    record = {"checks": checks, "split": counts, "kept": len(kept), "mel_max_abs_err": mel_err,
+              "generate_mels_s": t_mels, "tools_s": tools_s, "quantize_s": t_q,
+              "dequantize_s": t_dq,
+              "quantize_rel_err": rel, "quantize_ratio": orig / packed,
+              "quantize_codes_equal_cpu": same_codes, "state_gib": orig / 2 ** 30,
+              "launches": launches}
+    print(f"  prep_tools: {len(clips)} clips, checks {checks}; mels max |err| {mel_err:.2e} "
+          f"({t_mels:.2f} s); quantize_tree of {orig / 2 ** 30:.2f} GiB in {t_q:.2f} s (back to "
+          f"bf16 in {t_dq:.2f} s): max rel "
+          f"err {rel:.3e}, {orig / packed:.3f}x smaller, {name}'s codes equal the CPU's "
+          f"{same_codes}; tools {tools_s:.1f} s")
+    del system, sd, q, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks.values()) or any(launches.values()):
+        raise SmokeFailure(f"prep_tools: checks {checks}, launches {launches}")
+    return record
+
+
+def optim_phases(table, flash_peak_gib=None) -> dict:
+    """train_avsr_remat, train_optimizers on its trainer, pretrain_remat
+    (after the corpus and its k-means labels where absent)."""
+    import gc
+
+    phases = {}
+    phases["train_avsr_remat"], built = train_avsr_remat(table, flash_peak_gib)
+    phases["train_optimizers"] = train_optimizers(table, built)
+    del built
+    gc.collect()
+    if not (CLI_DIR / "train.km").exists():
+        phases["cli_corpus"] = write_corpus()
+        PRETRAIN_DIR.mkdir(parents=True, exist_ok=True)
+        phases["pretrain_kmeans_mfcc"] = pretrain_kmeans_mfcc(table)
+    phases["pretrain_remat"] = pretrain_remat(table)
+    return phases
+
+
 def serving_phases(table, batch) -> tuple:
     """The AVSR serving phases: bf16 weights, then int8 and int4 weights."""
     phases, checks, prompt, tokens, bf16_logits = bf16_weight_phases(table, batch)
@@ -5469,6 +6116,22 @@ def main() -> int:
               "included")
         print(card)
         return 0
+    if "--optim" in sys.argv[1:]:
+        phases = optim_phases(kernels())
+        print(json.dumps({"phases": phases}))
+        print(f"smoke --optim: {time.perf_counter() - start:.1f} s, the kernels' build included")
+        print(card)
+        return 0
+    if "--profile-remat" in sys.argv[1:]:
+        print(json.dumps({"profile_remat": profile_remat()}))
+        print(card)
+        return 0
+    if "--prep" in sys.argv[1:]:
+        phases = {"cli_corpus": write_corpus(), "prep_tools": prep_tools(kernels())}
+        print(json.dumps({"phases": phases}))
+        print(f"smoke --prep: {time.perf_counter() - start:.1f} s, the kernels' build included")
+        print(card)
+        return 0
     if "--beam5" in sys.argv[1:]:
         results = []  # the cases an older tree has too: beam 5, K4 to beam 12
         check_decode(results, wide=False)
@@ -5500,6 +6163,12 @@ def main() -> int:
           f"tokens, {TRAIN_STEPS} steps on one batch")
     for name, flash in (("train_avsr", False), ("train_avsr_flash", True)):
         phases[name] = train_phase(table, name, flash)
+    print("remat and the other optimizers: train_avsr_flash with LlamaConfig.remat; adafactor, "
+          "lamb, adagrad, adamax, nag and sgd on its trainer")
+    phases["train_avsr_remat"], built = train_avsr_remat(
+        table, phases["train_avsr_flash"]["peak_gib"])
+    phases["train_optimizers"] = train_optimizers(table, built)
+    del built
     print(f"speech synthesis: SpeechConfig() full width (Conformer-L, HiFi-GAN), random weights "
           f"(seed {SPEECH_SEED}), batch {BATCH} x {SECONDS} s, bf16")
     phases.update(speech_phases(table, checks))
@@ -5515,6 +6184,10 @@ def main() -> int:
     print("AV-HuBERT pretraining: k-means labels, cli.train on conf/avhubert-pretrain.yaml at "
           "full width, dump-features, iteration-2 labels; the seq2seq decoder's beam decode")
     phases.update(pretrain_phases(table))
+    phases["pretrain_remat"] = pretrain_remat(table)
+    print("data preparation: every manifest_tools subcommand over the corpus laid out raw; "
+          "quantize_tree of the full-width state dict")
+    phases["prep_tools"] = prep_tools(table)
     print("several ranks: cli.train in an NCCL group of one under torch.distributed.run; two "
           "data-parallel gloo ranks on the card at full width; the MoE Conformer preset")
     phases.update(parallel_phases(table))
@@ -5529,8 +6202,9 @@ def main() -> int:
             "launches": phases[phase]["launches"][name],
             "speech_launches": phases["speech_nollm"]["mode0"]["launches"][name],
             **{f"{p}_launches": phases[p]["launches"][name]
-               for p in ("pretrain_train", "pretrain_dump_features", "seq2seq",
-                         "seq2seq_constrained", "parallel_nccl_1rank", "parallel_data_2rank",
+               for p in ("train_avsr_remat", "pretrain_train", "pretrain_remat",
+                         "pretrain_dump_features", "seq2seq", "seq2seq_constrained",
+                         "prep_tools", "parallel_nccl_1rank", "parallel_data_2rank",
                          "parallel_moe_speech")},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -68,7 +68,12 @@ from ..parallel.mesh import (
     restore_generator_,
 )
 from ..runtime.checkpoint import CheckpointManager
-from ..runtime.debug import Watchdog, find_nonfinite, with_oom_batch_split
+from ..runtime.debug import (
+    NanDetector,
+    Watchdog,
+    check_cross_process_scalar,
+    with_oom_batch_split,
+)
 from ..runtime.metrics import MetricsAggregator, MetricSinks, log_stats
 from ..runtime.pt_loader import flatten_state_dict, load_pt
 from ..runtime.trainer import Trainer
@@ -338,9 +343,12 @@ def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
                 log_stats(stats, step, "train", cfg.common.log_format)
                 tb.scalars(stats, step, "train")
                 agg.reset()
+                # the NanDetector flow (reference trainer.py:835-850): localise
+                # the non-finite tensor on the batch that produced it
                 if not np.isfinite(stats.get("loss", 0.0)):
-                    for line in find_nonfinite(trainer.master, "params/"):
-                        logger.error("non-finite: %s", line)
+                    NanDetector(trainer.loss_fn, trainer.params).run(
+                        batch, torch.Generator(device=device).manual_seed(0))
+                check_cross_process_scalar("gnorm", stats.get("gnorm", 0.0))
             if (cfg.checkpoint.save_interval_updates
                     and step % cfg.checkpoint.save_interval_updates == 0
                     and consumed < n_epoch_batches):

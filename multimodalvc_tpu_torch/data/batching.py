@@ -4,7 +4,10 @@ Port of the numpy path of ``multimodalvc_tpu/data/batching.py`` (the JAX
 package's native fast path never loads: its ``data/native`` module does not
 exist).  fairseq's ``batch_by_size`` cost model over length-sorted indices,
 each batch padded to a bucket boundary, with fairseq's remainder carry under
-``required_multiple``: no sample is ever dropped.
+``required_multiple``: no sample is ever dropped.  ``pack_token_blocks`` and
+``block_to_dataset_index`` are fairseq's token-block packing (the JAX
+package takes its 'complete' modes from ``native/``; the port has its own
+numpy loop).
 """
 from __future__ import annotations
 
@@ -120,3 +123,80 @@ def shard_batches(batches: List[np.ndarray], num_shards: int, shard_id: int,
             mine.append(batches[i % len(batches)])
             i += 1
     return mine
+
+
+def _complete_blocks(sizes: np.ndarray, block_size: int, complete_doc: bool,
+                     document_sep_len: int) -> np.ndarray:
+    """Greedy whole-sentence packing (fairseq's 'complete' / 'complete_doc',
+    token_block_utils_fast.pyx:66-97): a sentence joins the open block while
+    the block stays within ``block_size`` (a longer one opens its own);
+    with ``complete_doc`` a sentence of ``document_sep_len`` tokens closes
+    the document and is skipped, and single-token blocks are dropped."""
+    blocks = []
+    tok_idx = curr = i = 0
+    min_keep = 1 if complete_doc else 0
+    while i < len(sizes):
+        size = int(sizes[i])
+        is_sep = complete_doc and size == document_sep_len
+        if (curr + size <= block_size or curr == 0) and not is_sep:
+            curr += size
+            i += 1
+            continue
+        if curr > min_keep:
+            blocks.append((tok_idx, tok_idx + curr))
+        tok_idx += curr
+        curr = 0
+        if is_sep:
+            tok_idx += size
+            i += 1
+    if curr > min_keep:
+        blocks.append((tok_idx, tok_idx + curr))
+    return np.asarray(blocks, np.int64).reshape(-1, 2)
+
+
+def pack_token_blocks(sizes: Sequence[int], block_size: int, break_mode: Optional[str] = None,
+                      document_sep_len: int = 1) -> np.ndarray:
+    """Slice a concatenated token stream into LM training blocks: [N, 2]
+    int64 (start, end) offsets into the flattened stream (fairseq's
+    ``TokenBlockDataset``, token_block_utils_fast.pyx:52-106).  Break modes:
+
+    - None / 'none': fixed ``block_size`` windows across sentence bounds;
+    - 'complete': whole sentences packed greedily up to ``block_size`` (a
+      longer sentence gets its own block);
+    - 'complete_doc': the same, never across documents (a sentence of
+      exactly ``document_sep_len`` tokens separates them); single-token
+      blocks are dropped;
+    - 'eos': one block a sentence.
+    """
+    sizes = np.asarray(sizes, np.int64)
+    if break_mode is None or break_mode == "none":
+        total = int(sizes.sum())
+        starts = np.arange(0, total, block_size, dtype=np.int64)
+        return np.stack([starts, np.minimum(starts + block_size, total)], axis=1)
+    if break_mode == "eos":
+        cum = sizes.cumsum()
+        out = np.zeros((len(sizes), 2), np.int64)
+        out[1:, 0] = cum[:-1]
+        out[:, 1] = cum
+        return out
+    if break_mode not in ("complete", "complete_doc"):
+        raise ValueError(f"Invalid break_mode: {break_mode}")
+    return _complete_blocks(sizes, block_size, break_mode == "complete_doc", document_sep_len)
+
+
+def block_to_dataset_index(sizes: Sequence[int], slice_indices: np.ndarray) -> np.ndarray:
+    """Each (start, end) block as (start sentence, offset in it, end
+    sentence) of the per-sentence dataset (token_block_utils_fast.pyx:109-139,
+    ``DatasetSearcher``); an empty block (end <= start) ends where it
+    starts."""
+    sizes = np.asarray(sizes, np.int64)
+    cum = np.concatenate([[0], sizes.cumsum()])
+    out = np.zeros((len(slice_indices), 3), np.int64)
+    s = slice_indices[:, 0]
+    e = np.maximum(slice_indices[:, 1], s + 1)
+    start_idx = np.searchsorted(cum, s, side="right") - 1
+    end_idx = np.searchsorted(cum, e - 1, side="right") - 1
+    out[:, 0] = start_idx
+    out[:, 1] = s - cum[start_idx]
+    out[:, 2] = np.where(slice_indices[:, 1] <= s, start_idx, end_idx)
+    return out

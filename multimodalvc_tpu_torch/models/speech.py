@@ -49,7 +49,8 @@ HOP = 160
 @dataclass
 class SpeechConfig(AVSRConfig):
     conformer_size: str = "L"
-    # > 1 swaps each Conformer block's final FFN for an expert bank (not ported)
+    # > 1 swaps each Conformer block's final FFN for an expert bank
+    # (nn/conformer.py: BaseMoELayer, expert-parallel on a mesh)
     conformer_moe_experts: int = 0
     proj_mid_dim: int = 768
     head_dim: int = 512

@@ -52,7 +52,7 @@ class AVHubertConfig:
     conv_pos_groups: int = 16
     dropout: float = 0.0
     resnet_relu_type: str = "prelu"
-    remat: bool = False  # not ported (ROADMAP queue 1 item 4)
+    remat: bool = False  # rematerialise each encoder layer in the backward
     sequence_parallel: bool = False  # ring attention over the mesh's sequence axis
 
     @classmethod
@@ -71,8 +71,6 @@ class AVHubertConfig:
 
 def check_ported(cfg: AVHubertConfig) -> None:
     """Raise for the options the port does not run."""
-    if cfg.remat:
-        raise NotImplementedError("AVHubertConfig.remat is not ported (ROADMAP queue 1 item 4)")
     if cfg.modality_fuse not in FUSE_MODES:
         raise ValueError(f"modality_fuse {cfg.modality_fuse!r} not in {FUSE_MODES}")
 
@@ -98,7 +96,8 @@ class AVHubertModel(nn.Module):
         self.encoder = TransformerEncoder(
             d, cfg.encoder_layers, cfg.encoder_attention_heads, cfg.encoder_ffn_dim,
             dropout=cfg.dropout, layer_norm_first=cfg.layer_norm_first, conv_pos=cfg.conv_pos,
-            conv_pos_groups=cfg.conv_pos_groups, sequence_parallel=cfg.sequence_parallel, **kw)
+            conv_pos_groups=cfg.conv_pos_groups, sequence_parallel=cfg.sequence_parallel,
+            remat=cfg.remat, **kw)
 
     def features(self, audio: Optional[torch.Tensor], video: Optional[torch.Tensor],
                  train: bool = False) -> torch.Tensor:

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, flash_attention
 from ..ops.ring_attention import ring_attention
@@ -47,6 +48,33 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> tor
         return x
     keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def remat(fn, *args, rng: Optional[torch.Generator] = None, **kwargs):
+    """``fn(*args, **kwargs)`` with its activations rematerialised in the
+    backward (the JAX ``nn.remat``): ``torch.utils.checkpoint`` (not
+    reentrant) keeps the inputs only and runs ``fn`` again in the backward.
+    The dropout draws of ``fn`` come from the explicit generator ``rng``,
+    which the checkpoint does not restore: its state before the forward is
+    kept and replayed for the recompute, and put back after it, so the
+    recompute draws the forward's masks and later draws are those of a run
+    without remat."""
+    if rng is None:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    before, calls = rng.get_state(), []
+
+    def replayed(*a, **kw):
+        if not calls:  # the forward
+            calls.append(1)
+            return fn(*a, **kw)
+        now = rng.get_state()
+        rng.set_state(before)
+        try:
+            return fn(*a, **kw)
+        finally:
+            rng.set_state(now)
+
+    return checkpoint(replayed, *args, use_reentrant=False, **kwargs)
 
 
 def add_layers(module: nn.Module, layers, prefix: str = "layers") -> list:
@@ -207,15 +235,17 @@ class TransformerEncoder(nn.Module):
     """Stack of TransformerLayers with a conv positional embedding.  The
     outer LayerNorm runs after the stack for pre-LN layers and before it for
     post-LN ones (fairseq wav2vec2); ``dropout`` drops the stack's input and
-    each layer's residual branches in training (a ``dropout_rng``)."""
+    each layer's residual branches in training (a ``dropout_rng``).
+    ``remat`` rematerialises each layer's activations in the backward
+    (``remat``) when a gradient is being taken."""
 
     def __init__(self, d: int, num_layers: int, num_heads: int, ffn_dim: int,
                  dropout: float = 0.0, layer_norm_first: bool = True,
                  conv_pos: int = 128, conv_pos_groups: int = 16, sequence_parallel: bool = False,
-                 device=None, dtype=None):
+                 remat: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.dropout, self.layer_norm_first = dropout, layer_norm_first
+        self.dropout, self.layer_norm_first, self.remat = dropout, layer_norm_first, remat
         self.pos_conv = ConvPositionalEmbedding(d, conv_pos, conv_pos_groups, **kw)
         self.layer_norm = nn.LayerNorm(d, eps=1e-5, **kw)
         self.layers = add_layers(self, [
@@ -235,7 +265,10 @@ class TransformerEncoder(nn.Module):
             x = self.layer_norm(x)
         x = dropout(x, self.dropout, dropout_rng)
         for i, layer in enumerate(self.layers):
-            x = layer(x, kv_lens=lengths, dropout_rng=dropout_rng)
+            if self.remat and torch.is_grad_enabled():
+                x = remat(layer, x, rng=dropout_rng, kv_lens=lengths, dropout_rng=dropout_rng)
+            else:
+                x = layer(x, kv_lens=lengths, dropout_rng=dropout_rng)
             if output_layer is not None and i + 1 == output_layer:
                 return x
         return self.layer_norm(x) if self.layer_norm_first else x

@@ -67,7 +67,7 @@ from ..ops.int8_matmul import (
 )
 from ..parallel.mesh import batch_group_rank, batch_total
 from ..parallel.pipeline import microbatch, pipeline_apply, unmicrobatch
-from .layers import add_layers, dropout
+from .layers import add_layers, dropout, remat
 
 NEG = -1e30
 
@@ -96,6 +96,9 @@ class LlamaConfig:
     rope_high_freq_factor: float = 4.0
     rope_original_max_position: int = 8192
     lora: Optional[LoraConfig] = field(default_factory=LoraConfig)
+    # rematerialise each decoder layer's activations in the backward
+    # (``layers.remat``; the pipelined loss runs its layers without)
+    remat: bool = False
     # flash prefill gate: None = auto (padded t >= 512 and batch*t >= 4096)
     use_flash_prefill: Optional[bool] = None
     # weight-only quantized serving: None (float), "int8" or "int4"
@@ -488,6 +491,11 @@ class LlamaLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x)), new_cache
 
 
+def _layer_state(layer, x, positions, attn_mask, dropout_rng):
+    """A training layer's output state (no cache), for ``remat``."""
+    return layer(x, positions, attn_mask, None, None, dropout_rng)[0]
+
+
 class LlamaModel(nn.Module):
     """Decoder trunk. Accepts token ids or pre-built input embeddings."""
 
@@ -545,9 +553,15 @@ class LlamaModel(nn.Module):
         if positions is None:
             positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
         new_caches = []
+        checkpointed = self.cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x, new_c = layer(x, positions, attn_mask, cache[i] if cache is not None else None,
-                             cache_positions, dropout_rng)
+            if checkpointed:
+                x, new_c = remat(_layer_state, layer, x, positions, attn_mask, dropout_rng,
+                                 rng=dropout_rng), None
+            else:
+                x, new_c = layer(x, positions, attn_mask,
+                                 cache[i] if cache is not None else None, cache_positions,
+                                 dropout_rng)
             new_caches.append(new_c)
         x = self.norm(x)
         logits = None

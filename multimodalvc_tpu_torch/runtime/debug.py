@@ -4,6 +4,13 @@ Port of what ``cli/train.py`` calls from ``multimodalvc_tpu/runtime/debug.py``:
 
 - ``find_nonfinite``: the names of a module's (or a dict's) tensors holding
   NaN or Inf, to localise a non-finite loss;
+- ``NanDetector``: re-runs a loss with its gradient and lists the
+  non-finite gradient and parameter leaves (``cli.train`` calls it on the
+  batch of a non-finite logged loss);
+- ``checkify_loss``: a loss that raises at the first module whose output is
+  non-finite (forward hooks; the counterpart of checkify's float checks);
+- ``check_cross_process_scalar``: a host scalar (the grad norm) held equal
+  across the processes of the default group;
 - ``Watchdog``: a context manager around blocking work that logs when the
   body outlasts ``common.step_timeout_s``;
 - ``with_oom_batch_split``: run a step on a batch and, on
@@ -13,9 +20,10 @@ from __future__ import annotations
 
 import logging
 import threading
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -34,6 +42,100 @@ def find_nonfinite(tensors: Union[torch.nn.Module, Dict[str, torch.Tensor]],
         if n_bad:
             bad.append(f"{prefix}{name} ({n_bad}/{x.numel()} non-finite)")
     return bad
+
+
+class NanDetector:
+    """Re-run a failed batch and list its non-finite gradients and
+    parameters (the JAX ``NanDetector``; reference: fairseq's nan_detector,
+    invoked from trainer.py:835-850).
+
+    ``loss_fn(*args) -> (loss, aux)``.  With ``params`` (a dict of the
+    tensors the loss reaches, such as ``Trainer.params``) ``run(*args)``
+    differentiates with respect to them; without, ``run(params, *args)``
+    takes the JAX call's form: the first argument is a dict of tensors, which
+    the loss receives as leaves that take a gradient."""
+
+    def __init__(self, loss_fn: Callable, params: Optional[Dict[str, torch.Tensor]] = None):
+        self.loss_fn, self.params = loss_fn, params
+
+    def run(self, *args) -> Dict[str, Any]:
+        params = self.params
+        if params is None:
+            params = {n: t.detach().clone().requires_grad_(t.is_floating_point())
+                      for n, t in args[0].items()}
+            args = (params,) + tuple(args[1:])
+        with torch.enable_grad():
+            loss, _ = self.loss_fn(*args)
+            names = [n for n, t in params.items() if t.requires_grad]
+            got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        report: Dict[str, Any] = {"loss_nonfinite": not bool(torch.isfinite(loss.detach()).all())}
+        grads = {n: g for n, g in zip(names, got) if g is not None}
+        report["nonfinite_grads"] = find_nonfinite(grads, "grads/")
+        report["nonfinite_params"] = find_nonfinite(
+            {n: t.detach() for n, t in params.items()}, "params/")
+        for line in report["nonfinite_grads"] + report["nonfinite_params"]:
+            logger.error("NanDetector: %s", line)
+        return report
+
+
+def _nonfinite(out) -> bool:
+    """Whether a module's output (a tensor, or tensors in dicts, lists and
+    tuples) holds a NaN or an Inf."""
+    if isinstance(out, torch.Tensor):
+        return out.is_floating_point() and not bool(torch.isfinite(out).all())
+    if isinstance(out, dict):
+        return any(_nonfinite(v) for v in out.values())
+    if isinstance(out, (list, tuple)):
+        return any(_nonfinite(v) for v in out)
+    return False
+
+
+def checkify_loss(loss_fn: Callable, module: Optional[torch.nn.Module] = None):
+    """``loss_fn`` wrapped so that a NaN or an Inf raises
+    ``FloatingPointError``: at the first submodule of ``module`` whose output
+    holds one (forward hooks, for the call only), else at the loss's output.
+    The counterpart of the JAX ``checkify_loss`` (checkify's float checks,
+    the compiled form of fairseq's module hooks)."""
+
+    def check(name):
+        def hook(_mod, _inputs, out):
+            if _nonfinite(out):
+                raise FloatingPointError(f"non-finite output of module {name or '<root>'}")
+        return hook
+
+    def wrapped(*args, **kwargs):
+        handles = [] if module is None else [
+            m.register_forward_hook(check(name)) for name, m in module.named_modules()]
+        try:
+            out = loss_fn(*args, **kwargs)
+        finally:
+            for h in handles:
+                h.remove()
+        if _nonfinite(out):
+            raise FloatingPointError("non-finite loss output")
+        return out
+
+    return wrapped
+
+
+def check_cross_process_scalar(name: str, value: float, atol: float = 1e-4) -> bool:
+    """Whether a host scalar (the grad norm) agrees across the processes of
+    the default group, within ``atol`` * (1 + |rank 0's|) (the JAX check;
+    reference: trainer.py:1300-1337).  True without a group or with one
+    process; every process of a group must call it."""
+    if not dist.is_available() or not dist.is_initialized() or dist.get_world_size() == 1:
+        return True
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    mine = torch.tensor([float(value)], dtype=torch.float32, device=device)
+    gathered = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, mine)
+    values = torch.cat(gathered).cpu()
+    ok = bool(((values - values[0]).abs() <= atol * (1 + values[0].abs())).all())
+    if not ok:
+        logger.error("cross-process %s divergence: %s (different data or a non-deterministic "
+                     "op order)", name, values.tolist())
+    return ok
 
 
 class Watchdog:

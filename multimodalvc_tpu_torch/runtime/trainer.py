@@ -1,7 +1,8 @@
-"""Trainer: masked AdamW with optax's semantics over an ``nn.Module``.
+"""Trainer: the JAX trainer's masked optax chain over an ``nn.Module``.
 
-Port of ``multimodalvc_tpu/runtime/trainer.py`` for one device.  One
-``train_step(batch)`` is the JAX trainer's compiled step, eagerly:
+Port of ``multimodalvc_tpu/runtime/trainer.py``, on one device or on a mesh
+(below).  One ``train_step(batch)`` is the JAX trainer's compiled step,
+eagerly:
 
 - the loss and its gradient with respect to the trainable leaves only.  A
   leaf is frozen when one of the task's regexes matches its ``state_dict``
@@ -17,8 +18,12 @@ Port of ``multimodalvc_tpu/runtime/trainer.py`` for one device.  One
   ``apply_if_finite`` (a step with a non-finite gradient is skipped: no
   update, the optimizer's count does not advance; more than 25 in a row
   raise, where optax would apply the non-finite update) of
-  ``clip_by_global_norm`` -> ``adamw`` / ``adam`` (decoupled weight decay,
-  scaled by the learning rate) -> the reduce-on-plateau scale;
+  ``clip_by_global_norm`` -> the base optimizer -> the reduce-on-plateau
+  scale.  The base optimizers are the eight of ``OptimizationConfig.optimizer``
+  with the JAX trainer's arguments: ``adamw`` / ``adam`` (decoupled weight
+  decay, scaled by the learning rate), ``adafactor`` (optax's defaults:
+  factored second moments), ``lamb``, ``adagrad``, ``adamax``, ``nag``
+  (Nesterov momentum 0.99) and ``sgd``;
 - the eight learning-rate schedules as plain functions of the update count
   (``make_schedule``).
 
@@ -29,10 +34,12 @@ own dtype (bf16 on the card, f32 in the CPU tests).  Frozen leaves stay in
 the module's dtype.  Gradients are taken in the module's dtype and then
 widened to f32.
 
-``AdamW`` is the plain ``optax.adamw`` (every leaf, a schedule of its own
-update count, no clipping), the optimizer of the two GAN steps
-(``models/vocoder.py``, ``criterions/gan.py``); ``trainable_leaves`` gives
-them the same f32 masters of a module's trainable leaves as ``Trainer``.
+``Optimizer`` is a plain optax alias (every leaf, a schedule of its own
+update count, no clipping); ``AdamW`` (``optax.adamw``) is the optimizer of
+the two GAN steps (``models/vocoder.py``, ``criterions/gan.py``);
+``trainable_leaves`` gives them the same f32 masters of a module's trainable
+leaves as ``Trainer``.  ``build_composite_optimizer`` routes leaves to such
+optimizers by path regex.
 
 On a mesh (``parallel/mesh.py``; one process a device) the step is the
 JAX step on the concatenation of the batch group's batches: the loss
@@ -40,18 +47,19 @@ function divides by its global count (``batch_total``), each rank's loss
 enters with the weight 1 / ``replicas()``, and the gradients are summed over
 the world.  Every rank then makes the same decisions: the global grad norm
 and its clip, the non-finite skip, the plateau metric (rank 0's).  Under
-fsdp each rank keeps its share of the f32 masters and the optimizer moments
+fsdp each rank keeps its share of the f32 masters and the optimizer state
 of the leaves that ``parallel/sharding.py: fsdp_shard_dim`` splits (ZeRO-3
 for the optimizer state): their gradients are reduce-scattered over fsdp,
-the updated shares all-gathered into the module's whole weights.  This
-changes memory, never the numbers.  The trainable leaves and the buffers
+the updated shares all-gathered into the module's whole weights; the
+reductions over a whole leaf (adafactor's means and RMSs, lamb's norms) sum
+the shares over the group (``Leaves``).  This changes memory, never the
+numbers.  The trainable leaves and the buffers
 start from rank 0's (after ``init_from_pt``, and in ``load_state_dict``
 after a restore); ``state_dict`` gathers the shares, so a checkpoint written
 on any mesh resumes on any other.  The GAN steps (``apply_gradients_`` with
 ``rows``) weight their row means and sum their gradients the same way.
 
-Not ported: ``CompileGuard`` and buffer donation (XLA scaffolding),
-``build_composite_optimizer`` and the optimizers other than adamw and adam.
+Not ported: ``CompileGuard`` and buffer donation (XLA scaffolding).
 """
 from __future__ import annotations
 
@@ -59,8 +67,9 @@ import contextlib
 import logging
 import math
 import re
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -217,7 +226,7 @@ def make_schedule(cfg: OptimizationConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown lr_scheduler {name}")
 
 
-# ---- the optimizer ----------------------------------------------------------------
+# ---- the optimizers ----------------------------------------------------------------
 
 
 def _f32(x: float) -> float:
@@ -230,6 +239,20 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
+def _moments(g, m, v, b1: float, b2: float) -> None:
+    """Adam's moments in place: m = (1 - b1) g + b1 m, v = (1 - b2) g^2 + b2 v."""
+    m.copy_((1.0 - b1) * g + b1 * m)
+    v.copy_((1.0 - b2) * (g * g) + b2 * v)
+
+
+def _finish_(p, u, step_size: float, scale: float) -> None:
+    """p += u * step_size (* the plateau scale)."""
+    u = u * step_size
+    if scale != 1.0:
+        u = u * scale
+    p.add_(u)
+
+
 def adamw_update_(params, grads, mu, nu, count: int, lr: float, betas, eps: float,
                   weight_decay: float, scale: float = 1.0) -> None:
     """One optax ``adam`` (+ ``add_decayed_weights``) update in place:
@@ -240,36 +263,314 @@ def adamw_update_(params, grads, mu, nu, count: int, lr: float, betas, eps: floa
     bc1, bc2 = _f32(1.0 - b1 ** count), _f32(1.0 - b2 ** count)
     step_size = -_f32(lr)
     for name, p in params.items():
-        g, m, v = grads[name], mu[name], nu[name]
-        m.copy_((1.0 - b1) * g + b1 * m)
-        v.copy_((1.0 - b2) * (g * g) + b2 * v)
+        m, v = mu[name], nu[name]
+        _moments(grads[name], m, v, b1, b2)
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         if weight_decay:
             u = u + weight_decay * p
-        u = u * step_size
-        if scale != 1.0:
-            u = u * scale
-        p.add_(u)
+        _finish_(p, u, step_size, scale)
 
 
-class AdamW:
-    """``optax.adamw(schedule, b1, b2, eps, weight_decay)`` over every leaf of
-    ``params`` (f32 tensors, updated in place): no clipping, no mask, no
-    skip; the learning rate of update n is ``schedule(n - 1)``, the count
-    this optimizer's own."""
+class Leaves:
+    """The layout of the leaves an optimizer updates: each leaf's whole
+    shape, the dim along which fsdp splits it (absent: whole on this rank),
+    the group that splits it, and the names whose JAX layout is the reverse
+    of the port's (``nn.Linear`` weights: torch [out, in], flax [in, out]).
+    The reductions over a whole leaf (adafactor's means and RMSs, lamb's
+    norms) sum a split leaf's shares over the group, so fsdp changes memory,
+    never the numbers."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable[[int], float],
-                 betas=(0.9, 0.999), weight_decay: float = 1e-4, eps: float = 1e-8):
-        self.schedule, self.betas, self.weight_decay, self.eps = (
-            schedule, betas, weight_decay, eps)
-        self.count = 0
-        self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+    def __init__(self, params: Dict[str, torch.Tensor], shapes=None, dims=None, group=None,
+                 reversed_layout: Iterable[str] = ()):
+        self.shapes = {n: tuple(p.shape) for n, p in params.items()} if shapes is None \
+            else {n: tuple(s) for n, s in shapes.items()}
+        self.dims = {n: d for n, d in (dims or {}).items() if d is not None}
+        self.group = group
+        self.reversed_layout = frozenset(reversed_layout)
 
-    def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> None:
-        adamw_update_(params, grads, self.mu, self.nu, self.count + 1,
-                      self.schedule(self.count), self.betas, self.eps, self.weight_decay)
+    def dim(self, name: str) -> Optional[int]:
+        return self.dims.get(name)
+
+    def total_(self, x: torch.Tensor, split: bool) -> torch.Tensor:
+        """``x`` (a sum over a share) summed over the group where ``split``."""
+        if split:
+            dist.all_reduce(x, group=self.group)
+        return x
+
+    def square_sum(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The sum of the squares of the whole leaf ``name`` (``x`` its share)."""
+        return self.total_((x * x).sum(), self.dim(name) is not None)
+
+    def mean(self, x: torch.Tensor, axis: int, split: Optional[int], size: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """The mean over ``axis`` (of length ``size`` whole) of a tensor whose
+        share ``x`` is split along ``split``: the sum over the share, summed
+        over the group where ``axis`` is the split one, over ``size``."""
+        return self.total_(x.sum(axis, keepdim=keepdim), split == axis) / size
+
+
+class BaseOptimizer:
+    """One of the optax aliases of the JAX ``build_optimizer`` over a dict of
+    f32 leaves.  ``state`` holds its tensors by kind ({kind: {leaf: tensor}},
+    the names optax gives them); ``apply_`` makes update number ``count``
+    (from 1) at learning rate ``lr`` (the schedule's value for count - 1),
+    times the plateau ``scale``, in place."""
+
+    KINDS: tuple = ()
+
+    def __init__(self, params: Dict[str, torch.Tensor], leaves: Leaves):
+        self.leaves = leaves
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {
+            kind: {n: torch.zeros_like(p) for n, p in params.items()} for kind in self.KINDS}
+
+    def split_dim(self, kind: str, name: str) -> Optional[int]:
+        """The dim along which fsdp splits ``state[kind][name]``."""
+        return self.leaves.dim(name)
+
+    def apply_(self, params, grads, count: int, lr: float, scale: float = 1.0) -> None:
+        raise NotImplementedError
+
+
+class Adam(BaseOptimizer):
+    """``optax.adamw`` (``weight_decay`` > 0) / ``optax.adam``: "mu", "nu"."""
+
+    KINDS = ("mu", "nu")
+
+    def __init__(self, params, leaves, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
+        super().__init__(params, leaves)
+        self.betas, self.eps, self.weight_decay = (b1, b2), eps, weight_decay
+
+    def apply_(self, params, grads, count, lr, scale=1.0):
+        adamw_update_(params, grads, self.state["mu"], self.state["nu"], count, lr, self.betas,
+                      self.eps, self.weight_decay, scale)
+
+
+class Lamb(BaseOptimizer):
+    """``optax.lamb``: Adam's direction ("mu", "nu"), plus the decayed
+    weights, times the trust ratio ||p|| / ||u|| (1 where either is 0), times
+    -lr."""
+
+    KINDS = ("mu", "nu")
+
+    def __init__(self, params, leaves, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0):
+        super().__init__(params, leaves)
+        self.b1, self.b2, self.eps, self.weight_decay = float(b1), float(b2), eps, weight_decay
+
+    def apply_(self, params, grads, count, lr, scale=1.0):
+        bc1, bc2 = _f32(1.0 - self.b1 ** count), _f32(1.0 - self.b2 ** count)
+        for name, p in params.items():
+            m, v = self.state["mu"][name], self.state["nu"][name]
+            _moments(grads[name], m, v, self.b1, self.b2)
+            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p_norm = torch.sqrt(self.leaves.square_sum(p, name))
+            u_norm = torch.sqrt(self.leaves.square_sum(u, name))
+            ratio = torch.where((p_norm == 0.0) | (u_norm == 0.0), torch.ones_like(p_norm),
+                                p_norm / u_norm)
+            _finish_(p, u * ratio, -_f32(lr), scale)
+
+
+class Adagrad(BaseOptimizer):
+    """``optax.adagrad``: "sum_of_squares" from ``initial_accumulator_value``;
+    the update g / sqrt(sum + eps) (0 where the sum is 0), times -lr."""
+
+    KINDS = ("sum_of_squares",)
+
+    def __init__(self, params, leaves, initial_accumulator_value=0.1, eps=1e-7):
+        super().__init__(params, leaves)
+        for t in self.state["sum_of_squares"].values():
+            t.fill_(initial_accumulator_value)
+        self.eps = eps
+
+    def apply_(self, params, grads, count, lr, scale=1.0):
+        for name, p in params.items():
+            g, s = grads[name], self.state["sum_of_squares"][name]
+            s.copy_(g * g + s)
+            inv = torch.where(s > 0, torch.rsqrt(s + self.eps), torch.zeros_like(s))
+            _finish_(p, inv * g, -_f32(lr), scale)
+
+
+class Adamax(BaseOptimizer):
+    """``optax.adamax``: "mu" (bias-corrected) over "nu", the decayed
+    maximum of |g| + eps, times -lr."""
+
+    KINDS = ("mu", "nu")
+
+    def __init__(self, params, leaves, b1=0.9, b2=0.999, eps=1e-8):
+        super().__init__(params, leaves)
+        self.b1, self.b2, self.eps = float(b1), float(b2), eps
+
+    def apply_(self, params, grads, count, lr, scale=1.0):
+        bc1 = _f32(1.0 - self.b1 ** count)
+        for name, p in params.items():
+            g, m, v = grads[name], self.state["mu"][name], self.state["nu"][name]
+            m.copy_((1.0 - self.b1) * g + self.b1 * m)
+            v.copy_(torch.maximum(g.abs() + self.eps, self.b2 * v))
+            _finish_(p, (m / bc1) / v, -_f32(lr), scale)
+
+
+class Sgd(BaseOptimizer):
+    """``optax.sgd``: -lr g; with ``momentum`` a "trace" t = g + momentum t
+    and the update t, or with ``nesterov`` g + momentum t (``nag``)."""
+
+    def __init__(self, params, leaves, momentum: Optional[float] = None, nesterov=False):
+        super().__init__(params, leaves)
+        if momentum is not None:
+            self.state["trace"] = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.momentum, self.nesterov = momentum, nesterov
+
+    def apply_(self, params, grads, count, lr, scale=1.0):
+        for name, p in params.items():
+            u = grads[name]
+            if self.momentum is not None:
+                t = self.state["trace"][name]
+                t.copy_(u + self.momentum * t)
+                u = u + self.momentum * t if self.nesterov else t
+            _finish_(p, u, -_f32(lr), scale)
+
+
+def factored_dims(shape, reverse: bool = False,
+                  min_dim_size_to_factor: int = 128) -> Optional[Tuple[int, int]]:
+    """optax ``_factored_dims``: (d1, d0), the second largest dim and the
+    largest of ``shape`` (numpy's argsort), or None where the second largest
+    is under ``min_dim_size_to_factor``.  ``reverse``: the shape is the
+    reverse of the JAX leaf's, whose choice (on equal sizes) is taken."""
+    if len(shape) < 2:
+        return None
+    jax_shape = tuple(shape)[::-1] if reverse else tuple(shape)
+    order = np.argsort(jax_shape)
+    if jax_shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    d1, d0 = int(order[-2]), int(order[-1])
+    if reverse:
+        d1, d0 = len(shape) - 1 - d1, len(shape) - 1 - d0
+    return d1, d0
+
+
+def _decay_rate(count: int, decay_rate: float) -> float:
+    """optax ``_decay_rate_pow`` at step count - 1: 1 - count^-decay_rate in
+    f32."""
+    return float(1.0 - torch.tensor(float(count), dtype=torch.float32) ** -decay_rate)
+
+
+class Adafactor(BaseOptimizer):
+    """``optax.adafactor(lr)`` at optax's defaults: a leaf whose two largest
+    dims are both >= 128 keeps the factored second moments "v_row" (its mean
+    over the largest dim d0) and "v_col" (over d1), any other leaf "v"; the
+    decay 1 - count^-0.8, eps 1e-30, then the update clipped to an RMS of
+    1.0, times lr, times the parameter's RMS (at least 1e-3), negated; no
+    momentum.
+
+    Under fsdp a split leaf keeps the share of each statistic that its share
+    produces: a mean over the split dim is summed over the group (that
+    statistic then whole on every rank), so are the RMSs."""
+
+    MIN_DIM, DECAY, EPS, CLIP, MIN_SCALE = 128, 0.8, 1e-30, 1.0, 1e-3
+
+    def __init__(self, params, leaves):
+        super().__init__(params, leaves)
+        self.factored = {n: factored_dims(leaves.shapes[n], n in leaves.reversed_layout,
+                                          self.MIN_DIM) for n in params}
+        self.state = {"v_row": {}, "v_col": {}, "v": {}}
+        for n, p in params.items():
+            dims = self.factored[n]
+            if dims is None:
+                self.state["v"][n] = torch.zeros_like(p)
+                continue
+            # a share's statistics: along the split dim a mean is whole
+            d1, d0 = dims
+            self.state["v_row"][n] = p.new_zeros(_without(p.shape, d0))
+            self.state["v_col"][n] = p.new_zeros(_without(p.shape, d1))
+
+    def split_dim(self, kind, name):
+        s = self.leaves.dim(name)
+        if kind == "v" or s is None:
+            return s
+        d1, d0 = self.factored[name]
+        gone = d0 if kind == "v_row" else d1
+        return None if s == gone else (s - 1 if s > gone else s)
+
+    def apply_(self, params, grads, count, lr, scale=1.0):
+        decay = _decay_rate(count, self.DECAY)
+        lr32 = _f32(lr)
+        for name, p in params.items():
+            g, shape, s = grads[name], self.leaves.shapes[name], self.leaves.dim(name)
+            grad_sqr = g * g + self.EPS
+            if self.factored[name] is None:
+                v = self.state["v"][name]
+                v.copy_(decay * v + (1.0 - decay) * grad_sqr)
+                u = g * v ** -0.5
+            else:
+                d1, d0 = self.factored[name]
+                v_row, v_col = self.state["v_row"][name], self.state["v_col"][name]
+                v_row.copy_(decay * v_row + (1.0 - decay)
+                            * self.leaves.mean(grad_sqr, d0, s, shape[d0]))
+                v_col.copy_(decay * v_col + (1.0 - decay)
+                            * self.leaves.mean(grad_sqr, d1, s, shape[d1]))
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = self.leaves.mean(v_row, reduced_d1, self.split_dim("v_row", name),
+                                                shape[d1], keepdim=True)
+                row_factor = (v_row / row_col_mean) ** -0.5
+                col_factor = v_col ** -0.5
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            numel = math.prod(shape)
+            rms = torch.sqrt(self.leaves.square_sum(u, name) / numel)
+            u = u / torch.clamp(rms / self.CLIP, min=1.0)
+            u = u * lr32
+            p_rms = torch.sqrt(self.leaves.square_sum(p, name) / numel)
+            u = u * torch.where(p_rms <= self.MIN_SCALE, torch.full_like(p_rms, self.MIN_SCALE),
+                                p_rms)
+            _finish_(p, u, -1.0, scale)
+
+
+def _without(shape, dim: int) -> tuple:
+    return tuple(n for i, n in enumerate(shape) if i != dim)
+
+
+OPTIMIZERS = ("adamw", "adam", "adafactor", "lamb", "adagrad", "adamax", "nag", "sgd")
+
+
+def make_base(name: str, params: Dict[str, torch.Tensor], leaves: Leaves,
+              betas=(0.9, 0.999), eps: Optional[float] = None,
+              weight_decay: float = 0.0) -> BaseOptimizer:
+    """The base optimizer ``name`` as the JAX ``build_optimizer`` builds it
+    (``betas``, ``eps`` and ``weight_decay`` where it passes them; ``eps``
+    None: optax's default)."""
+    b1, b2 = (float(b) for b in betas)
+    if name in ("adamw", "adam"):
+        return Adam(params, leaves, b1, b2, 1e-8 if eps is None else eps,
+                    weight_decay if name == "adamw" else 0.0)
+    if name == "lamb":
+        return Lamb(params, leaves, b1, b2, 1e-6 if eps is None else eps, weight_decay)
+    if name == "adamax":
+        return Adamax(params, leaves, b1, b2, 1e-8 if eps is None else eps)
+    if name == "adafactor":
+        return Adafactor(params, leaves)
+    if name == "adagrad":
+        return Adagrad(params, leaves)
+    if name == "nag":
+        return Sgd(params, leaves, momentum=0.99, nesterov=True)
+    if name == "sgd":
+        return Sgd(params, leaves)
+    raise ValueError(f"unknown optimizer {name}")
+
+
+class Optimizer:
+    """An optax alias over every leaf of ``params`` (f32 tensors, updated in
+    place): no clipping, no mask, no skip; the learning rate of update n is
+    ``schedule(n - 1)``, the count this optimizer's own.  ``name`` and the
+    keywords as ``make_base`` takes them."""
+
+    def __init__(self, name: str, params: Dict[str, torch.Tensor],
+                 schedule: Callable[[int], float], **hyper):
+        self.schedule, self.count = schedule, 0
+        self.base = make_base(name, params, Leaves(params), **hyper)
+
+    def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> bool:
+        self.base.apply_(params, grads, self.count + 1, self.schedule(self.count))
         self.count += 1
+        return True
 
     @property
     def lr(self) -> float:
@@ -277,13 +578,85 @@ class AdamW:
         return self.schedule(self.count)
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        return {"count": self.count, **self.base.state}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.count = int(state["count"])
-        for key in ("mu", "nu"):
-            for name, t in getattr(self, key).items():
-                t.copy_(state[key][name])
+        for kind, mine in self.base.state.items():
+            for name, t in mine.items():
+                t.copy_(state[kind][name])
+
+
+class AdamW(Optimizer):
+    """``optax.adamw(schedule, b1, b2, eps, weight_decay)``, the optimizer of
+    the two GAN steps."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable[[int], float],
+                 betas=(0.9, 0.999), weight_decay: float = 1e-4, eps: float = 1e-8):
+        super().__init__("adamw", params, schedule, betas=betas, eps=eps,
+                         weight_decay=weight_decay)
+        self.betas, self.weight_decay, self.eps = betas, weight_decay, eps
+
+    @property
+    def mu(self):
+        return self.base.state["mu"]
+
+    @property
+    def nu(self):
+        return self.base.state["nu"]
+
+
+def alias(name: str, learning_rate, **hyper) -> Callable[[Dict[str, torch.Tensor]], Optimizer]:
+    """The port of ``optax.<name>(learning_rate, ...)`` for
+    ``build_composite_optimizer``: a function of a group's leaves that
+    builds its ``Optimizer`` (``learning_rate`` a number or a schedule)."""
+    schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+    return lambda params: Optimizer(name, params, schedule, **hyper)
+
+
+class CompositeOptimizer:
+    """``build_composite_optimizer``: each leaf's group is the first regex
+    that matches its path; each group's optimizer updates its leaves alone."""
+
+    def __init__(self, groups, params: Dict[str, torch.Tensor], default=None):
+        regexes = [re.compile(rx) for rx, _ in groups]
+        factories = {f"g{i}": make for i, (_, make) in enumerate(groups)}
+        factories["default"] = default
+
+        def label(name: str) -> str:
+            p = path_str(name)
+            return next((f"g{i}" for i, rx in enumerate(regexes) if rx.search(p)), "default")
+
+        self.labels = {n: label(n) for n in params}
+        self.members = {}
+        for key, make in factories.items():
+            mine = {n: p for n, p in params.items() if self.labels[n] == key}
+            if make is not None and mine:
+                self.members[key] = make(mine)
+
+    def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> bool:
+        """Leaves of no group and no default stay as they are (frozen)."""
+        for key, opt in self.members.items():
+            names = [n for n in params if self.labels[n] == key]
+            opt.update({n: grads[n] for n in names}, {n: params[n] for n in names})
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {key: opt.state_dict() for key, opt in self.members.items()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for key, opt in self.members.items():
+            opt.load_state_dict(state[key])
+
+
+def build_composite_optimizer(groups: List[Tuple[str, Callable]], params: Dict[str, torch.Tensor],
+                              default: Optional[Callable] = None) -> CompositeOptimizer:
+    """Route leaves to different optimizers by the regex of their path
+    ("a/b/c" for ``state_dict`` name "a.b.c"): ``groups`` is [(regex,
+    factory)], a factory a function of the group's leaves such as
+    ``alias("sgd", 0.1)``; first match wins; unmatched leaves use
+    ``default`` or are frozen."""
+    return CompositeOptimizer(groups, params, default)
 
 
 def row_share(rows: int, mesh: Mesh) -> float:
@@ -297,7 +670,7 @@ def row_share(rows: int, mesh: Mesh) -> float:
 
 
 def apply_gradients_(loss: torch.Tensor, params: Dict[str, torch.Tensor],
-                     masters: Dict[str, torch.Tensor], opt: AdamW,
+                     masters: Dict[str, torch.Tensor], opt: Optimizer,
                      rows: Optional[int] = None) -> None:
     """One ``opt`` update of ``masters`` from the gradient of ``loss`` with
     respect to ``params`` (zero where the loss does not reach a leaf); then
@@ -339,24 +712,26 @@ def exponential_decay(lr: float, transition_steps: int, decay_rate: float) -> Ca
     return lambda count: lr * decay_rate ** (count // transition_steps)
 
 
-class MaskedAdamW:
+class MaskedOptimizer:
     """The JAX trainer's optax chain over the trainable leaves (f32 masters):
-    [MultiSteps] of apply_if_finite of clip_by_global_norm -> adamw / adam
-    -> the plateau scale.  ``update`` applies one micro-step's gradients in
-    place and says whether the parameters moved."""
+    [MultiSteps] of apply_if_finite of clip_by_global_norm -> the base
+    optimizer of ``cfg.optimizer`` (``make_base``) -> the plateau scale.
+    ``update`` applies one micro-step's gradients in place and says whether
+    the parameters moved.  ``leaves`` is the masters' layout (fsdp shares)."""
 
-    def __init__(self, cfg: OptimizationConfig, params: Dict[str, torch.Tensor]):
-        if cfg.optimizer not in ("adamw", "adam"):
-            raise ValueError(f"optimizer {cfg.optimizer!r} is not ported (adamw and adam are)")
+    def __init__(self, cfg: OptimizationConfig, params: Dict[str, torch.Tensor],
+                 leaves: Optional[Leaves] = None):
         self.cfg = cfg
+        self.leaves = leaves or Leaves(params)
         self.schedule = make_schedule(cfg)
-        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
-        self.count = 0  # updates the inner optimizer applied (adam's and the schedule's)
-        self.mu, self.nu = zeros(), zeros()
+        self.base = make_base(cfg.optimizer, params, self.leaves, cfg.adam_betas, cfg.adam_eps,
+                              cfg.weight_decay)
+        self.count = 0  # updates the base optimizer applied (its count and the schedule's)
         self.notfinite_count = self.total_notfinite = 0
         self.last_finite = True
         self.mini_step = self.gradient_step = 0
-        self.acc = zeros() if cfg.update_freq > 1 else None
+        self.acc = {n: torch.zeros_like(p) for n, p in params.items()} \
+            if cfg.update_freq > 1 else None
         self.plateau = None
         if cfg.lr_scheduler == "reduce_lr_on_plateau":
             if cfg.lr_shrink >= 1.0:
@@ -364,8 +739,18 @@ class MaskedAdamW:
                                cfg.lr_shrink)
             best = -math.inf if cfg.plateau_maximize else math.inf
             self.plateau = {"scale": 1.0, "best": best, "bad": 0}
-        # under fsdp: the group that splits the leaves named in ``sharded``
-        self.shard_group, self.sharded = None, frozenset()
+
+    @property
+    def state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The base optimizer's tensors by kind."""
+        return self.base.state
+
+    def tensor_kinds(self) -> List[str]:
+        """The kinds of per-leaf tensors ``state_dict`` holds."""
+        return list(self.base.state) + ([] if self.acc is None else ["acc"])
+
+    def split_dim(self, kind: str, name: str) -> Optional[int]:
+        return self.leaves.dim(name) if kind == "acc" else self.base.split_dim(kind, name)
 
     def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> bool:
         k = self.cfg.update_freq
@@ -385,25 +770,23 @@ class MaskedAdamW:
         return applied
 
     def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The global norm of ``grads``; under fsdp (``shard_group``) the
-        squares of the split leaves' shares are summed over the group."""
-        if self.shard_group is None:
+        """The global norm of ``grads``; under fsdp the squares of the split
+        leaves' shares are summed over the group."""
+        if not self.leaves.dims:
             return global_norm(grads.values())
         zero = torch.zeros((), device=next(iter(grads.values())).device)
 
         def squares(split: bool) -> torch.Tensor:
             return sum(((g.float() * g.float()).sum() for n, g in grads.items()
-                        if (n in self.sharded) == split), zero)
+                        if (self.leaves.dim(n) is not None) == split), zero)
 
-        shares = squares(True)
-        dist.all_reduce(shares, group=self.shard_group)
-        return torch.sqrt(squares(False) + shares)
+        return torch.sqrt(squares(False) + self.leaves.total_(squares(True), True))
 
     def _all_finite(self, grads) -> bool:
         finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
-        if self.shard_group is not None:
+        if self.leaves.dims:
             flag = finite.to(torch.int32)
-            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.shard_group)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.leaves.group)
             finite = flag > 0
         return bool(finite)
 
@@ -431,10 +814,8 @@ class MaskedAdamW:
             clip = float(cfg.clip_norm)
             grads = {n: torch.where(norm < clip, g, (g / norm) * clip) for n, g in grads.items()}
         self.count += 1
-        adamw_update_(params, grads, self.mu, self.nu, self.count,
-                      self.schedule(self.count - 1), cfg.adam_betas, cfg.adam_eps,
-                      cfg.weight_decay if cfg.optimizer == "adamw" else 0.0,
-                      1.0 if self.plateau is None else self.plateau["scale"])
+        self.base.apply_(params, grads, self.count, self.schedule(self.count - 1),
+                         1.0 if self.plateau is None else self.plateau["scale"])
 
     def plateau_update(self, value: float) -> Optional[float]:
         """Host-side reduce-on-plateau step (torch ``ReduceLROnPlateau``,
@@ -466,27 +847,27 @@ class MaskedAdamW:
                 "gradient_step", "plateau")
 
     def state_dict(self) -> Dict[str, Any]:
+        """The counters, each of the base optimizer's kinds ({leaf: tensor})
+        and "acc" (None without accumulation)."""
         out = {k: getattr(self, k) for k in self._SCALARS}
-        out.update(mu=self.mu, nu=self.nu, acc=self.acc)
+        out.update(self.base.state, acc=self.acc)
         return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         for k in self._SCALARS:
             setattr(self, k, state[k])
-        for key in ("mu", "nu", "acc"):
-            mine = getattr(self, key)
-            if mine is None:
-                continue
+        for kind in self.tensor_kinds():
+            mine = self.acc if kind == "acc" else self.base.state[kind]
             for name, t in mine.items():
-                t.copy_(state[key][name])
+                t.copy_(state[kind][name])
 
 
-def build_optimizer(opt_cfg: OptimizationConfig,
-                    params: Dict[str, torch.Tensor]) -> MaskedAdamW:
+def build_optimizer(opt_cfg: OptimizationConfig, params: Dict[str, torch.Tensor],
+                    leaves: Optional[Leaves] = None) -> MaskedOptimizer:
     """The optimizer over ``params`` (the trainable leaves' f32 masters):
     the JAX ``build_optimizer``, kept under its name for callers ported from
     the JAX package."""
-    return MaskedAdamW(opt_cfg, params)
+    return MaskedOptimizer(opt_cfg, params, leaves)
 
 
 def broadcast_(tensors: Iterable[torch.Tensor]) -> None:
@@ -524,28 +905,33 @@ class Trainer:
         n_total = sum(p.numel() for p in named.values())
         logger.info("trainable params: %.2fM / %.2fM (%.2f%%)", n_train / 1e6, n_total / 1e6,
                     100.0 * n_train / max(n_total, 1))
-        self.optimizer = build_optimizer(opt_cfg, self.master)
-        if fsdp > 1:
-            self.optimizer.shard_group = self.mesh.group("fsdp")
-            self.optimizer.sharded = frozenset(n for n, d in self.shard_dim.items()
-                                               if d is not None)
+        linear = {f"{m}.weight" for m, mod in module.named_modules()
+                  if isinstance(mod, torch.nn.Linear)}
+        # the masters' layout, for the optimizer (and one built later for them)
+        self.leaves = Leaves(self.master, {n: p.shape for n, p in self.params.items()},
+                             self.shard_dim if fsdp > 1 else None,
+                             self.mesh.group("fsdp") if fsdp > 1 else None,
+                             reversed_layout=linear & set(self.params))
+        self.optimizer = build_optimizer(opt_cfg, self.master, self.leaves)
         device = next(iter(named.values())).device
         self.generator = torch.Generator(device=device).manual_seed(dropout_seed(seed, self.mesh))
         self._step = 0
 
     # -- the fsdp shares ---------------------------------------------------------------
 
-    def _share(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's share of a whole leaf-shaped tensor."""
-        d = self.shard_dim[name]
+    def _share(self, name: str, full: torch.Tensor, d: Optional[int] = -1) -> torch.Tensor:
+        """This rank's share of a whole tensor split along ``d`` (by default
+        the leaf's split dim)."""
+        d = self.shard_dim[name] if d == -1 else d
         if d is None:
             return full
         fsdp = self.mesh.size("fsdp")
         return full.chunk(fsdp, d)[self.mesh.coords["fsdp"]].clone().contiguous()
 
-    def _whole(self, name: str, share: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from the fsdp group's shares."""
-        d = self.shard_dim[name]
+    def _whole(self, name: str, share: torch.Tensor, d: Optional[int] = -1) -> torch.Tensor:
+        """The whole tensor from the fsdp group's shares along ``d`` (by
+        default the leaf's split dim)."""
+        d = self.shard_dim[name] if d == -1 else d
         if d is None:
             return share
         fsdp = self.mesh.size("fsdp")
@@ -625,9 +1011,9 @@ class Trainer:
                  if n not in self.master and (include_frozen or n not in frozen)}
         model.update({n: self._whole(n, m) for n, m in self.master.items()})
         opt = self.optimizer.state_dict()
-        for key in ("mu", "nu", "acc"):
-            if opt[key] is not None:
-                opt[key] = {n: self._whole(n, t) for n, t in opt[key].items()}
+        for kind in self.optimizer.tensor_kinds():
+            opt[kind] = {n: self._whole(n, t, self.optimizer.split_dim(kind, n))
+                         for n, t in opt[kind].items()}
         return {"model": model, "optimizer": opt, "step": self._step,
                 "generator": self.generator.get_state()}
 
@@ -656,9 +1042,9 @@ class Trainer:
                     own[name].copy_(rank0(t) if name in buffers else t)
         if not reset_optimizer:
             opt = dict(state["optimizer"])
-            for key in ("mu", "nu", "acc"):
-                if opt.get(key) is not None:
-                    opt[key] = {n: self._share(n, rank0(t)) for n, t in opt[key].items()}
+            for kind in self.optimizer.tensor_kinds():
+                opt[kind] = {n: self._share(n, rank0(t), self.optimizer.split_dim(kind, n))
+                             for n, t in opt[kind].items()}
             self.optimizer.load_state_dict(opt)
         self._step = int(state["step"])
         restore_generator_(self.generator, state["generator"].cpu(), self.mesh)

@@ -173,6 +173,19 @@ def test_manifest_tools_pipeline_matches_jax(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["split", "generate-mels", "make-babble"])
-def test_manifest_tools_refuses_the_other_subcommands(cmd):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttools.main([cmd, "--tsv", "x.tsv"])
+def test_manifest_tools_refuses_the_other_subcommands(cmd, tmp_path):
+    """The other subcommands are ported (their outputs against the JAX
+    tool's: tests/test_torch_manifest_tools.py): none refuses any more; on
+    a missing manifest each fails as the JAX tool's does."""
+    import sys
+    from unittest import mock
+
+    argv = [cmd, "--tsv", str(tmp_path / "x.tsv")] + {
+        "split": ["--out-dir", str(tmp_path)], "generate-mels": [],
+        "make-babble": ["--out", str(tmp_path / "b.wav")]}[cmd]
+    with pytest.raises(FileNotFoundError) as want, \
+            mock.patch.object(sys, "argv", ["manifest_tools", *argv]):
+        jtools.main()
+    with pytest.raises(FileNotFoundError) as got:
+        ttools.main(argv)
+    assert str(got.value) == str(want.value)

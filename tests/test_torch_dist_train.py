@@ -16,7 +16,7 @@ import optax
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
-from torch_dist_worker import spawn, tiny_vocoder
+from torch_dist_worker import spawn, tiny_vocoder, toy_trainer
 from torch_parity import jax_variables, randomize, to_numpy_tree
 
 from multimodalvc_tpu.config.configs import OptimizationConfig as JaxOptimizationConfig
@@ -38,6 +38,9 @@ from multimodalvc_tpu_torch.runtime.trainer import Trainer
 LOSS_RTOL, MASTER_RTOL = 1e-5, 1e-5
 OPT = dict(lr=1e-3, warmup_updates=2, max_update=10, adam_eps=1e-3)
 STEPS = 3
+# adafactor and lamb reduce over whole leaves: the toy model's split weights
+FSDP_OPTIMIZERS, TOY_STEPS = ("adafactor", "lamb"), 4
+TOY_OPT = dict(lr=1e-2, weight_decay=0.01, clip_norm=1.0, lr_scheduler="fixed")
 ATTN_TOL = 1e-5  # ring against exact attention, f32
 
 
@@ -114,6 +117,8 @@ def world(tmp_path_factory):
             ("batch_norm", dict(x=str(tmp / "bn_x.npy"), w=str(tmp / "bn_w.npy"))),
             ("ring", dict(mesh={"sequence": 2}, cases=ring_cases)),
             ("bmuf", dict(sync_every=3, steps=5, lr=0.05, block_momentum=0.875)),
+            *((f"optim_fsdp:{name}", dict(mesh={"fsdp": 2}, opt=dict(TOY_OPT, optimizer=name),
+                                          steps=TOY_STEPS)) for name in FSDP_OPTIMIZERS),
             ("vocoder", dict(batch=str(tmp / "vocoder.npz"), steps=2))]
     ranks = spawn(tmp, 2, jobs)
     return dict(ranks=ranks, jsys=jsys, variables=variables, batch=batch, tmp=tmp, state=state,
@@ -171,6 +176,38 @@ def test_fsdp_gives_the_data_parallel_numbers_with_half_the_bytes(world):
         # the clip's norm sums the split leaves' shares in another order
         np.testing.assert_allclose(m.numpy(), data["masters"][n].numpy(), rtol=MASTER_RTOL,
                                    atol=1e-7, err_msg=n)
+
+
+@pytest.mark.parametrize("name", FSDP_OPTIMIZERS)
+def test_fsdp_optimizer_takes_the_one_rank_steps(world, name):
+    """adafactor (the factored means over a split dim, the RMSs) and lamb
+    (the norms) at fsdp 2 against one process on the whole batch: the same
+    losses, grad norms, masters and optimizer state (gathered), each within
+    the order of the sums."""
+    one = toy_trainer(dict(TOY_OPT, optimizer=name), TOY_STEPS)
+    r0, r1 = (r[f"optim_fsdp:{name}"] for r in world["ranks"])
+    # the [128, 256] weight along dim 1 (adafactor's d0), the [255, 128] one
+    # along dim 1 (its d1), the 128-wide bias
+    assert r0["split"] == {"0.weight": 1, "2.weight": 1, "0.bias": 0}
+    for a, b, w in zip(r0["metrics"], r1["metrics"], one["metrics"]):
+        assert a == b
+        np.testing.assert_allclose(a["loss"], w["loss"], rtol=1e-6)
+        np.testing.assert_allclose(a["gnorm"], w["gnorm"], rtol=1e-6)
+    def close(got, want, what):
+        # the gradients sum the ranks' rows in another order: each tensor
+        # within 1e-5 of its largest element
+        assert got.shape == want.shape, what
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), what
+
+    model, opt = one["state"]["model"], one["state"]["optimizer"]
+    for n, want in model.items():
+        assert torch.equal(r0["state"]["model"][n], r1["state"]["model"][n]), n
+        close(r0["state"]["model"][n], want, n)
+    kinds = ("v_row", "v_col", "v") if name == "adafactor" else ("mu", "nu")
+    for kind in kinds:
+        assert opt[kind].keys() == r0["state"]["optimizer"][kind].keys()
+        for n, want in opt[kind].items():
+            close(r0["state"]["optimizer"][kind][n], want, f"{kind}/{n}")
 
 
 def test_fsdp_checkpoint_resumes_on_one_rank(world):

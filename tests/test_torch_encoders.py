@@ -244,7 +244,8 @@ def test_avhubert_streams_and_fuses(form):
 
 def test_avsr_avhubert_keeps_its_state_dict():
     """The AVSR system's video-only AV-HuBERT: no audio stream, the keys of
-    the JAX video-only init, ``remat`` refused plainly, and
+    the JAX video-only init, with ``remat`` too (its gradients:
+    tests/test_torch_remat.py), and
     ``sequence_parallel`` (ring attention) building the same keys with its
     self-attention flagged."""
     video = np.zeros((1, 4, 24, 24, 1), np.float32)
@@ -258,9 +259,9 @@ def test_avsr_avhubert_keeps_its_state_dict():
     avsr = set(tavsr.AVSRSystem(tavsr.AVSRConfig.tiny(), device="cpu").module.state_dict())
     assert avsr >= {f"encoder.avhubert.{k}" for k in want}
     assert not any("audio_proj" in k for k in avsr)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tavh.AVHubertModel(tavh.AVHubertConfig(**{**vars(tavh.AVHubertConfig.tiny()),
-                                                  "remat": True}))
+    remat = tavh.AVHubertModel(tavh.AVHubertConfig(**{**vars(tavh.AVHubertConfig.tiny()),
+                                                      "remat": True}))
+    assert set(remat.state_dict()) == want and remat.encoder.remat
     ring = tavh.AVHubertModel(tavh.AVHubertConfig(**{**vars(tavh.AVHubertConfig.tiny()),
                                                      "sequence_parallel": True}))
     assert set(ring.state_dict()) == want

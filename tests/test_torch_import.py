@@ -21,8 +21,12 @@ from multimodalvc_tpu_torch.ops import (
 REPO = Path(__file__).resolve().parent.parent
 SLICE_MODULES = [
     "multimodalvc_tpu_torch",
+    "multimodalvc_tpu_torch.cli.manifest_tools",
+    "multimodalvc_tpu_torch.cli.train",
     "multimodalvc_tpu_torch.criterions.gan",
     "multimodalvc_tpu_torch.criterions.mel",
+    "multimodalvc_tpu_torch.data.batching",
+    "multimodalvc_tpu_torch.data.roi",
     "multimodalvc_tpu_torch.interop.from_flax",
     "multimodalvc_tpu_torch.models.avsr",
     "multimodalvc_tpu_torch.models.speech",
@@ -57,6 +61,9 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch.parallel.expert",
     "multimodalvc_tpu_torch.parallel.pipeline",
     "multimodalvc_tpu_torch.parallel.sharding",
+    "multimodalvc_tpu_torch.runtime.debug",
+    "multimodalvc_tpu_torch.runtime.quantization",
+    "multimodalvc_tpu_torch.runtime.trainer",
     "multimodalvc_tpu_torch.tasks",
 ]
 

@@ -110,11 +110,6 @@ def test_adamw_steps_match_optax():
         assert np.abs(no_decay[k].numpy() - want).max() >= 1e-4 * scale, k
 
 
-def test_unported_optimizers_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        ttrainer.build_optimizer(OptimizationConfig(optimizer="lamb"), {})
-
-
 @pytest.fixture(scope="module")
 def tiny():
     cfg = javsr.AVSRConfig.tiny()

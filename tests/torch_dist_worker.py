@@ -116,8 +116,8 @@ def avsr_trainer(rank, mesh, state, batch, opt, steps, fsdp_min=None, ckpt=None)
                       system.frozen_patterns())
     metrics = [trainer.train_step(mine) for _ in range(steps)]
     split = [n for n, d in trainer.shard_dim.items() if d is not None]
-    held = sum(4 * (trainer.master[n].numel() + trainer.optimizer.mu[n].numel()
-                    + trainer.optimizer.nu[n].numel()) for n in split)
+    held = sum(4 * (trainer.master[n].numel() + trainer.optimizer.state["mu"][n].numel()
+                    + trainer.optimizer.state["nu"][n].numel()) for n in split)
     whole = sum(12 * trainer.params[n].numel() for n in split)
     state_dict = trainer.state_dict(include_frozen=False)
     if ckpt is not None and rank == 0:
@@ -127,6 +127,55 @@ def avsr_trainer(rank, mesh, state, batch, opt, steps, fsdp_min=None, ckpt=None)
     return {"metrics": metrics, "masters": {n: state_dict["model"][n] for n in trainer.master},
             "mu": state_dict["optimizer"]["mu"], "split": split, "held_bytes": held,
             "whole_bytes": whole, "rows": int(mine["labels"].shape[0])}
+
+
+def toy_model(seed: int = 0):
+    """Two Linear layers whose weights fsdp splits along their largest dim
+    ([128, 256]) and along their smaller one ([255, 128]: 255 is odd), with a
+    bias that it splits and one that it keeps whole."""
+    torch.manual_seed(seed)
+    return torch.nn.Sequential(torch.nn.Linear(256, 128), torch.nn.Tanh(),
+                               torch.nn.Linear(128, 255))
+
+
+def toy_batch(seed: int = 1, rows: int = 4):
+    g = torch.Generator().manual_seed(seed)
+    return {"x": torch.randn(rows, 256, generator=g), "y": torch.randn(rows, 255, generator=g)}
+
+
+def toy_loss(module):
+    """The mean square error over the batch group's rows."""
+    from multimodalvc_tpu_torch.parallel.mesh import batch_total
+
+    def loss_fn(b, generator):
+        err = ((module(b["x"]) - b["y"]) ** 2).sum(-1)
+        n = batch_total(torch.tensor(float(err.shape[0])))
+        return err.sum() / n, {}
+
+    return loss_fn
+
+
+def toy_trainer(opt, steps, mesh=None, fsdp_min=None):
+    """``steps`` Trainer steps of the toy model on the toy batch (this
+    rank's rows on a mesh): the metrics and the gathered state dict."""
+    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.parallel import sharding
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+
+    if fsdp_min is not None:
+        sharding.FSDP_MIN_SIZE = fsdp_min
+    batch = toy_batch()
+    if mesh is not None:
+        batch = _rows(batch, _mesh(mesh))
+    module = toy_model()
+    trainer = Trainer(toy_loss(module), module, OptimizationConfig(**opt))
+    metrics = [trainer.train_step(batch) for _ in range(steps)]
+    split = {n: d for n, d in trainer.shard_dim.items() if d is not None}
+    return {"metrics": metrics, "state": trainer.state_dict(), "split": split}
+
+
+def optim_fsdp(rank, mesh, opt, steps):
+    return toy_trainer(opt, steps, mesh, fsdp_min=64)
 
 
 def avsr_resume(rank, state, batch, opt, steps, ckpt):
@@ -413,7 +462,7 @@ def vocoder(rank, batch, steps):
     return {"gen": dict(voc.gen_master), "disc": dict(voc.disc_master)}
 
 
-JOBS = {"avsr_trainer": avsr_trainer, "avsr_resume": avsr_resume, "agree": agree,
-        "vocoder": vocoder, "batch_norm": batch_norm, "ring": ring, "bmuf": bmuf,
+JOBS = {"avsr_trainer": avsr_trainer, "optim_fsdp": optim_fsdp, "avsr_resume": avsr_resume,
+        "agree": agree, "vocoder": vocoder, "batch_norm": batch_norm, "ring": ring, "bmuf": bmuf,
         "llama_pipeline": llama_pipeline, "avsr_pipeline": avsr_pipeline, "moe": moe,
         "encoder_sp": encoder_sp, "cli_train": cli_train}
