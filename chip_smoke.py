@@ -178,6 +178,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``quantize_tree`` of the full-width bf16 state dict on the card (its
    error, size ratio and one leaf's codes equal to the CPU's).
 
+12. Several ranks (the corpus of 7. written first if absent):
+   ``parallel_nccl_1rank`` (``cli.train`` in an NCCL group of one under
+   ``torch.distributed.run``), ``parallel_data_2rank`` (two data-parallel
+   gloo ranks sharing the card), ``parallel_moe_speech`` (the MoE Conformer
+   preset), then two gloo ranks at {tensor 2} sharing the card:
+   ``parallel_tensor_avsr`` (``cli.train`` on mms-llama with
+   ``mesh.tensor=2``) and ``parallel_tensor_speech`` (the NoLLM head, K1
+   with a gradient on 4 of Conformer-L's 8 heads), each against a
+   one-process run and its two nudged runs in a fresh child process, with
+   each rank's bytes of the split leaves, peak and K1 launches; K1 at the
+   local-head shapes (``TENSOR_FLASH_CASES``, ``conformer_l_tensor2``) is
+   in 2.
+
 Prints JSON lines with the kernel checks and the phases, the smoke's own
 wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -186,6 +199,9 @@ back to the CPU.
 
 ``python3 chip_smoke.py --train`` runs only ``check_flash_grad`` and the two
 training phases.
+
+``python3 chip_smoke.py --parallel`` runs only K1's local-head cases and the
+several-rank phases (12.).
 
 ``python3 chip_smoke.py --cli`` runs only the command-line phases (7.).
 
@@ -371,6 +387,12 @@ SPEECH_FLASH_CASES = [
     ("conformer_l", (8, 8, 2400, 64), [1600] * 8, None, False, None),
     ("cross_att_fusion", (8, 8, 400, 128), [400] * 8, None, False, None),
 ]
+# K1 on a tensor axis of 2: each rank attends with its half of the heads
+# (Whisper-medium 16 -> 8, AV-HuBERT-Large 16 -> 8)
+TENSOR_FLASH_CASES = [
+    ("whisper_tensor2", (8, 8, 1536, 64), [1500] * 8, None, False, None),
+    ("avhubert_tensor2", (8, 8, 400, 64), [400] * 8, None, False, None),
+]
 # K1 against its plain version: at most 3e-2 absolute on bf16 outputs (the
 # JAX selftest's) and at most 1e-2 relative L2.  The absolute bound alone is
 # about a typical output value at Whisper (1500 keys average the values down
@@ -523,14 +545,18 @@ def flash_grad_cases() -> list:
     causal) and at 512 slots; the Conformer-L self-attention of the speech
     training phases (keys to the 1600 frames of 16 s in the 2400-frame
     buffer, no causal mask); AV-HuBERT-Large's self-attention in the
-    pretraining phase (two 16 s clips of the 400 bucket, keys to 266)."""
+    pretraining phase (two 16 s clips of the 400 bucket, keys to 266);
+    Conformer-L on a tensor axis of 2 (4 of its 8 heads a rank,
+    ``parallel_tensor_speech``)."""
     return [("trunk", (BATCH, 24, train_prompt_len(), 128), True),
             ("trunk", (BATCH, 24, 512, 128), True),
             (CONFORMER_GRAD, (BATCH, 8, 2400, 64), False),
-            (PRETRAIN_GRAD, (2, 16, 400, 64), False)]
+            (PRETRAIN_GRAD, (2, 16, 400, 64), False),
+            (CONFORMER_TENSOR_GRAD, (BATCH, 4, 2400, 64), False)]
 
 
 CONFORMER_GRAD, PRETRAIN_GRAD = "conformer_l", "avhubert_pretrain"
+CONFORMER_TENSOR_GRAD = "conformer_l_tensor2"
 
 
 def check_flash_grad(results, only=None):
@@ -5374,6 +5400,309 @@ def parallel_moe_speech(table) -> dict:
     return record
 
 
+# ---- the tensor axis: two gloo ranks sharing the card ----------------------------
+
+TENSOR_RUN = ["task.llm_path=null", f"task.noise_wav={CLI_DIR}/babble.wav",
+              f"dataset.max_tokens={CLI_MAX_TOKENS}", f"optimization.max_update={PARALLEL_UPDATES}",
+              "optimization.warmup_updates=2", "dataset.disable_validation=true",
+              f"checkpoint.save_dir={PARALLEL_DIR}/tensor_run"]
+# the input changes whose effects on a one-process run are the tensor
+# phases' noise floor: one bf16 ulp on every 9973rd audio feature from each
+# offset (parallel_data_2rank's), and DITHER, one bf16 ulp either way on
+# every feature: the tensor split rounds every split product differently,
+# a change of every element, not of 0.01% of them
+DITHER = "dither"
+PERTURBATIONS = (0, 2500, 4999, DITHER)
+# the tensor phases' gate over their floor: the split's own rounding (a
+# split the CPU tests hold to the one-process steps) landed at 0.82-1.30x
+# the largest floor source in the NoLLM step-3 loss over PR 20's calls,
+# where a fault (a split leaf's gradient unscaled, a dropout mask sliced
+# wrong, a bias added twice) lands at 10-10,000x
+TENSOR_FLOOR_MARGIN = 2.0
+
+
+def perturb(x, how):
+    """``x`` changed by ``how`` (PERTURBATIONS): an offset's nudges or the
+    dither (its signs seeded)."""
+    import torch
+
+    if how == DITHER:
+        g = torch.Generator(device=x.device).manual_seed(17)
+        sign = torch.randint(0, 2, x.shape, generator=g, device=x.device) * 2 - 1
+        return x * (1 + 2 ** -7 * sign)
+    x = x.clone()
+    flat = x.view(-1)
+    flat[how::9973] = flat[how::9973] * (1 + 2 ** -7)
+    return x
+
+
+def whole_masters_flat(trainer):
+    """The trainable masters, whole (a tensor-split leaf's slices gathered,
+    collective), as one f32 vector."""
+    import torch
+
+    model = trainer.state_dict(include_frozen=False)["model"]
+    return torch.cat([model[n].float().reshape(-1) for n in trainer.master])
+
+
+def split_bytes(module, trainer) -> dict:
+    """Each tensor-split leaf's bytes on this rank (the module's weight, and
+    a trainable one's f32 master and optimizer moments) against the whole
+    leaf's."""
+    from multimodalvc_tpu_torch.parallel.tensor import tensor_dim
+
+    held = whole = 0
+    leaves = 0
+    for n, p in module.named_parameters():
+        if tensor_dim(p) is None:
+            continue
+        leaves += 1
+        n_whole = math.prod(p.whole_shape)
+        held += p.numel() * p.element_size()
+        whole += n_whole * p.element_size()
+        if n in trainer.master:
+            state = [trainer.master[n]] + [t[n] for t in trainer.optimizer.state.values()]
+            held += sum(t.numel() * t.element_size() for t in state)
+            whole += len(state) * 4 * n_whole
+    return {"leaves": leaves, "held_gib": held / 2 ** 30, "whole_gib": whole / 2 ** 30}
+
+
+def tensor_avsr_run(table, tensor: bool = False, change=None) -> dict:
+    """``cli.train.main`` on conf/mms-llama.yaml at full width over the cli
+    corpus (TENSOR_RUN: PARALLEL_UPDATES updates, no validation, checkpoint
+    writes off), dropout on, with ``mesh.tensor=2`` where ``tensor``;
+    ``change``: the training batches' audio features perturbed
+    (``perturb``).  Its losses,
+    gnorms, the trainable masters' update, K1's launches, the step walls
+    and the peak, and on a tensor axis the split leaves' bytes."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch import tasks
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    kept = {}
+
+    class Kept(cli_train.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            kept["trainer"], kept["start"] = self, whole_masters_flat(self)
+
+    prepare = tasks.AVSRTask.prepare_batch
+
+    def nudged(self, batch, train=True):
+        out = prepare(self, batch, train)
+        if train and change is not None:
+            out["audio_feats"] = perturb(out["audio_feats"], change)
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(table)
+    with mock.patch.object(CheckpointManager, "_write", lambda *a: None), \
+            mock.patch.object(cli_train, "Trainer", Kept), \
+            mock.patch.object(tasks.AVSRTask, "prepare_batch", nudged), CliTap(cli_train) as tap:
+        run = TENSOR_RUN + (["mesh.tensor=2"] if tensor else [])
+        _, t_run = wall(lambda: cli_train.main(cli_config("mms-llama", run), device=DEV))
+    steps = tap.of("train")
+    trainer = kept["trainer"]
+    out = {"losses": [s["loss"] for s in steps], "gnorms": [s["gnorm"] for s in steps],
+           "update": (whole_masters_flat(trainer) - kept["start"]).cpu(),
+           "launches": read_counts(table), "step_ms": [s["step_ms"] for s in steps],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "wall_s": t_run,
+           "bytes": split_bytes(trainer.module, trainer)}
+    del kept, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_speech_run(table, tensor: bool = False, change=None) -> dict:
+    """``SpeechTask("nollm")`` at full width (``speech_config()``, bf16,
+    random from SPEECH_SEED), split on {tensor 2} where ``tensor``, into
+    ``Trainer`` (the conf/mms-speech-nollm.yaml optimizer, warmup
+    PARALLEL_WARMUP): PARALLEL_STEPS updates on the speech training batch,
+    its modality mode drawn a step as the task draws it, dropout on;
+    ``change``: the audio features perturbed.  Its mel L1s, gnorms, the masters'
+    update, K1's launches (and those through ``FlashAttentionGrad``), the
+    step walls, the peak and the split leaves' bytes."""
+    import gc
+
+    import torch
+
+    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.parallel.mesh import make_mesh
+    from multimodalvc_tpu_torch.parallel.tensor import split_tensor_parallel_
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+    from multimodalvc_tpu_torch.tasks import SpeechTask, SpeechTaskConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    task = SpeechTask(SpeechTaskConfig(variant="nollm"), speech_config(), dtype=torch.bfloat16,
+                      device=DEV)
+    task.init_random(SPEECH_SEED)
+    if tensor:
+        split_tensor_parallel_(task.module, make_mesh({"tensor": 2}))
+    opt = OptimizationConfig(lr=2e-4, lr_scheduler="cosine", warmup_updates=PARALLEL_WARMUP,
+                             max_update=60000, clip_norm=1.0)
+    trainer = Trainer(task.make_loss_fn(), task.module, opt, task.frozen_patterns())
+    raw = make_speech_train_batch()
+    if change is not None:
+        raw = {**raw, "audio_feats": perturb(raw["audio_feats"], change)}
+    start = whole_masters_flat(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(table)
+    metrics, walls = [], []
+    with GradLaunches() as grads:
+        for _ in range(PARALLEL_STEPS):
+            batch = task.prepare_batch(raw)
+            m, t_step = wall(lambda: trainer.train_step(batch))
+            metrics.append(m)
+            walls.append(t_step)
+    out = {"losses": [m["mel_l1"] for m in metrics], "gnorms": [m["gnorm"] for m in metrics],
+           "update": (whole_masters_flat(trainer) - start).cpu(), "launches": read_counts(table),
+           "grad_launches": grads.n, "step_ms": [1e3 * x for x in walls],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "bytes": split_bytes(task.module, trainer)}
+    del task, trainer, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+TENSOR_RUNS = {"tensor_avsr": tensor_avsr_run, "tensor_speech": tensor_speech_run}
+
+
+def tensor_child(what: str, out: str) -> int:
+    """A child process of ``tensor_phase``, written to ``out``.
+    ``tensor_avsr`` / ``tensor_speech``: one of its two
+    ranks (RANK, WORLD_SIZE 2 and LOCAL_RANK 0 from the parent: both bind
+    cuda:0), joined over gloo (NCCL refuses two ranks on one card), the run
+    on {tensor 2}.  ``..._one``: the one-process run, the same from the same
+    start with the inputs changed by each of PERTURBATIONS, and with K1's
+    plain version (the floor sources).  Both start from a fresh process: a
+    one-process run in the parent, after the earlier phases, moved the
+    NoLLM step-1 loss by 0.4%."""
+    import torch
+
+    from multimodalvc_tpu_torch.parallel import distributed
+
+    table = kernels()
+    if what.endswith("_one"):
+        run = TENSOR_RUNS[what[:-len("_one")]]
+        runs = [run(table)] + [run(table, change=c) for c in PERTURBATIONS]
+        with plain_versions(["flash_attention"]):
+            runs.append(run(table))
+        torch.save(runs, out)
+        return 0
+    distributed.distributed_init(backend="gloo")
+    torch.save(TENSOR_RUNS[what](table, tensor=True), out)
+    distributed.destroy()
+    return 0
+
+
+def tensor_phase(name: str, what: str) -> dict:
+    """The one-process run, and its noise floor in one child process: the
+    largest gap of each compared quantity from the same start with the
+    inputs changed by PERTURBATIONS (``parallel_data_2rank``'s nudges at
+    three offsets, and a one-ulp dither of every feature) or with K1's plain
+    version (another correct rounding of every attention).  The tensor
+    split rounds every split product differently: the NoLLM head, which
+    does not amplify a change into chaos as the AVSR model does, reads it
+    as a change of every element, not of 0.01% of them (its step-3 loss
+    sat at 0.7-1.3x the nudges' floor, PR 20's calls 3-9).  Then the two
+    ranks of ``tensor_child(what)``.
+    Checks: the ranks' losses, gnorms and
+    updates bitwise equal; each within TENSOR_FLOOR_MARGIN x its floor of
+    the one-process run; each rank's K1 launches the one-process run's (every
+    attention on its local heads through K1, none on a plain one), and its
+    split leaves half of the whole bytes."""
+    import torch
+
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    one = PARALLEL_DIR / f"{what}_one.pt"
+    one.unlink(missing_ok=True)
+    run_children([[sys.executable, str(REPO / "chip_smoke.py"), "--parallel-child",
+                   f"{what}_one", str(one)]], [{}], name)
+    ref, *others = torch.load(one, weights_only=False)
+    sources = [_data_gaps(run, ref) for run in others]  # PERTURBATIONS, then K1 plain
+    floor = {k: max(n[k] for n in sources) for k in sources[0]}
+    outs = [PARALLEL_DIR / f"{what}_rank{r}.pt" for r in range(2)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    env = {"WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "LOCAL_RANK": "0"}
+    t1 = time.perf_counter()
+    run_children([[sys.executable, str(REPO / "chip_smoke.py"), "--parallel-child", what,
+                   str(o)] for o in outs], [{**env, "RANK": str(r)} for r in range(2)], name)
+    t_ranks = time.perf_counter() - t1
+    a, b = (torch.load(o, weights_only=False) for o in outs)
+    if (a["losses"] != b["losses"] or a["gnorms"] != b["gnorms"]
+            or not torch.equal(a["update"], b["update"])):
+        raise SmokeFailure(f"{name}: the two ranks differ")
+    gaps = _data_gaps(a, ref)
+    gates = {k: TENSOR_FLOOR_MARGIN * floor[k] for k in floor}
+    steps = len(ref["losses"])
+    k1 = [r["launches"]["flash_attention"] // steps for r in (a, b)]
+    print(f"  {name}: two gloo ranks on one card at {{tensor 2}}, {steps} updates: losses "
+          f"{a['losses']} vs one process {ref['losses']}, gnorms {a['gnorms']} vs "
+          f"{ref['gnorms']}, update norm {float(a['update'].norm()):.4e} vs "
+          f"{float(ref['update'].norm()):.4e}; gaps "
+          + ", ".join(f"{k} {gaps[k]:.2e} (floor {floor[k]:.2e}: nudges "
+                      + " / ".join(f"{n[k]:.2e}" for n in sources[:-2])
+                      + f", dither {sources[-2][k]:.2e}, K1 plain {sources[-1][k]:.2e}; "
+                      f"gate {gates[k]:.2e})" for k in gaps)
+          + f"; split leaves {a['bytes']['leaves']}: {a['bytes']['held_gib']:.3f} / "
+          f"{b['bytes']['held_gib']:.3f} GiB a rank of {a['bytes']['whole_gib']:.3f} whole; "
+          f"peak {a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB a rank ({ref['peak_gib']:.2f} one "
+          f"process); step ms {[round(x, 1) for x in a['step_ms']]} a rank vs "
+          f"{[round(x, 1) for x in ref['step_ms']]}; K1 {k1} a step a rank "
+          f"({ref['launches']['flash_attention'] // steps} one process)")
+    if not all(math.isfinite(x) for x in a["losses"]) or len(a["losses"]) != steps:
+        raise SmokeFailure(f"{name}: losses {a['losses']}")
+    if not all(gaps[k] <= gates[k] for k in gaps):
+        raise SmokeFailure(f"{name}: gaps {gaps} from the one-process run (gates {gates})")
+    if any(r["launches"] != ref["launches"] for r in (a, b)) or not k1[0]:
+        raise SmokeFailure(f"{name}: launches {a['launches']} / {b['launches']} a rank vs "
+                           f"{ref['launches']} in one process")
+    if "grad_launches" in ref and not (a["grad_launches"] == b["grad_launches"]
+                                       == ref["grad_launches"] > 0):
+        raise SmokeFailure(f"{name}: K1 launches with a gradient {a['grad_launches']} / "
+                           f"{b['grad_launches']} vs {ref['grad_launches']}")
+    for r in (a, b):
+        if not (r["bytes"]["leaves"] and 2 * r["bytes"]["held_gib"] == r["bytes"]["whole_gib"]):
+            raise SmokeFailure(f"{name}: split leaves {r['bytes']} (half the whole bytes)")
+    return {"losses": a["losses"], "one_process_losses": ref["losses"], "gnorms": a["gnorms"],
+            "one_process_gnorms": ref["gnorms"], "gaps": gaps, "noise_floor": floor,
+            "nudges": sources[:-2], "dither_gaps": sources[-2], "k1_plain_gaps": sources[-1],
+            "gates": gates, "step_ms_a_rank": a["step_ms"],
+            "one_process_step_ms": ref["step_ms"],
+            "peak_gib_a_rank": [r["peak_gib"] for r in (a, b)],
+            "one_process_peak_gib": ref["peak_gib"], "split": a["bytes"],
+            "launches": a["launches"], "k1_a_step_a_rank": k1[0],
+            "k1_grad_a_step_a_rank": a.get("grad_launches", 0) // steps,
+            "ranks_wall_s": t_ranks, "wall_s": time.perf_counter() - t0}
+
+
+def parallel_tensor_avsr(table) -> dict:
+    """``cli.train`` on the mms-llama preset at full width with
+    ``mesh.tensor=2`` on two gloo ranks (``tensor_phase``): the Whisper,
+    AV-HuBERT, Q-Former and speech-rate attentions and FFNs, the AV-HuBERT
+    projection, the LLaMA MLP's gate and up and its embedding split; K1 on
+    8 of 16 heads a rank in the encoders."""
+    return tensor_phase("parallel_tensor_avsr", "tensor_avsr")
+
+
+def parallel_tensor_speech(table) -> dict:
+    """The NoLLM head at full width on {tensor 2} (``tensor_phase``): K1
+    with a gradient on 4 of Conformer-L's 8 heads a rank."""
+    return tensor_phase("parallel_tensor_speech", "tensor_speech")
+
+
 def parallel_phases(table) -> dict:
     """The several-rank phases (the corpus written first if absent);
     build/parallel removed after."""
@@ -5384,6 +5713,8 @@ def parallel_phases(table) -> dict:
     phases["parallel_nccl_1rank"] = parallel_nccl_1rank(table)
     phases["parallel_data_2rank"] = parallel_data_2rank(table)
     phases["parallel_moe_speech"] = parallel_moe_speech(table)
+    phases["parallel_tensor_avsr"] = parallel_tensor_avsr(table)
+    phases["parallel_tensor_speech"] = parallel_tensor_speech(table)
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
     phases["parallel_wall_s"] = time.perf_counter() - t0
     print(f"  parallel phases: {phases['parallel_wall_s']:.1f} s")
@@ -6039,10 +6370,15 @@ def main() -> int:
 
     if "--parallel-child" in sys.argv[1:]:
         what, out = sys.argv[sys.argv.index("--parallel-child") + 1:][:2]
+        if what.startswith("tensor_"):
+            return tensor_child(what, out)
         return {"nccl": nccl_child, "data": data_child}[what](out)
     if "--parallel" in sys.argv[1:]:
+        results = []
+        check_flash(results, TENSOR_FLASH_CASES)
+        check_flash_grad(results, only=[CONFORMER_TENSOR_GRAD])
         phases = parallel_phases(kernels())
-        print(json.dumps({"phases": phases}))
+        print(json.dumps({"cases": results, "phases": phases}))
         print(f"smoke --parallel: {time.perf_counter() - start:.1f} s, the kernels' build "
               "included")
         print(card)
@@ -6144,7 +6480,8 @@ def main() -> int:
 
     results = []
     print("kernel checks (kernel vs plain PyTorch, same inputs, CUDA-event ms):")
-    for check in (check_flash, lambda r: check_flash(r, SPEECH_FLASH_CASES), check_flash_grad,
+    for check in (check_flash, lambda r: check_flash(r, SPEECH_FLASH_CASES),
+                  lambda r: check_flash(r, TENSOR_FLASH_CASES), check_flash_grad,
                   check_decode, lambda r: check_decode(r, "bf16"),
                   check_merged, check_topk, check_beam_topk, check_gather_rows,
                   check_int8_matmul, check_int4_matmul):
@@ -6189,7 +6526,8 @@ def main() -> int:
           "quantize_tree of the full-width state dict")
     phases["prep_tools"] = prep_tools(table)
     print("several ranks: cli.train in an NCCL group of one under torch.distributed.run; two "
-          "data-parallel gloo ranks on the card at full width; the MoE Conformer preset")
+          "data-parallel gloo ranks on the card at full width; the MoE Conformer preset; "
+          "two gloo ranks at {tensor 2}: cli.train on mms-llama and the NoLLM head")
     phases.update(parallel_phases(table))
 
     summary = []
@@ -6205,7 +6543,8 @@ def main() -> int:
                for p in ("train_avsr_remat", "pretrain_train", "pretrain_remat",
                          "pretrain_dump_features", "seq2seq", "seq2seq_constrained",
                          "prep_tools", "parallel_nccl_1rank", "parallel_data_2rank",
-                         "parallel_moe_speech")},
+                         "parallel_moe_speech", "parallel_tensor_avsr",
+                         "parallel_tensor_speech")},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "case": mine[0]["name"],

@@ -20,7 +20,11 @@ E2E loop never reads.  ``--device cpu`` runs on the CPU.
 Several devices: one process a device, launched by ``torch.distributed.run``
 (torchrun) or SLURM (``parallel/distributed.py``).  ``mesh`` lays the world
 out over the (pipeline, data, fsdp, sequence, expert, tensor) axes
-(``parallel/mesh.py``; -1 fills); ``mesh.tensor > 1`` raises.  Each loop
+(``parallel/mesh.py``; -1 fills).  On a tensor axis each loop swaps the
+leaves that the JAX sharding rules split for their tensor-parallel forms
+(``parallel/tensor.py: split_tensor_parallel_``) once the weights are final
+(init, ``init_from_pt``) and before its trainer is built; a resume loads
+the whole leaves of the checkpoint into the split modules.  Each loop
 takes its batch-group rank's share of the batches (``shard_batches``); a
 step is the step on the batch group's concatenated batch.  Every rank
 validates the whole set on its own (``parallel.mesh.local``); the beam WER
@@ -67,6 +71,7 @@ from ..parallel.mesh import (
     resolve_axis_sizes,
     restore_generator_,
 )
+from ..parallel.tensor import split_tensor_parallel_
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.debug import (
     NanDetector,
@@ -80,8 +85,6 @@ from ..runtime.trainer import Trainer
 
 logger = logging.getLogger(__name__)
 
-NO_TENSOR = ("mesh.tensor > 1: the tensor-parallel (Megatron) forms of the attention and MLP "
-             "are not ported (ROADMAP queue 1 item 7)")
 E2E_NO_PT = ("checkpoint.init_from_pt: the E2E GAN loop takes no reference .pt, as the JAX "
              "E2E loop never reads the field")
 
@@ -105,14 +108,10 @@ def parse_args(argv=None, results: bool = False):
 
 def mesh_sizes(cfg: TrainRootConfig, n_devices: Optional[int] = None) -> Dict[str, int]:
     """The mesh axes of ``cfg`` resolved over ``n_devices`` (default the
-    world: one device a process); NotImplementedError for a tensor axis past
-    1."""
-    sizes = resolve_axis_sizes({f.name: getattr(cfg.mesh, f.name)
-                                for f in dataclasses.fields(MeshConfig)
-                                if f.name != "microbatches"}, n_devices)
-    if sizes["tensor"] > 1:
-        raise NotImplementedError(f"mesh {sizes}: {NO_TENSOR}")
-    return sizes
+    world: one device a process)."""
+    return resolve_axis_sizes({f.name: getattr(cfg.mesh, f.name)
+                               for f in dataclasses.fields(MeshConfig)
+                               if f.name != "microbatches"}, n_devices)
 
 
 def compute_dtype(cfg: TrainRootConfig) -> torch.dtype:
@@ -229,6 +228,7 @@ def _train_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
     task.init_random(seed)
     if cfg.checkpoint.init_from_pt:
         import_init_from_pt(task.module, cfg.checkpoint.init_from_pt)
+    split_tensor_parallel_(task.module)
     if cfg.optimization.lr_scheduler == "reduce_lr_on_plateau":
         # the plateau direction follows the tracked checkpoint metric
         cfg.optimization.plateau_maximize = bool(cfg.checkpoint.maximize_best_checkpoint_metric)
@@ -475,6 +475,7 @@ def _e2e_gan_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
     """The E2E waveform model's GAN loop (``E2EGanTask.make_trainer``: the
     stage's frozen leaves, the discriminators random from the seed)."""
     task.init_random(cfg.common.seed)
+    split_tensor_parallel_(task.model)
     trainer = task.make_trainer(cfg.common.seed)
     return _gan_loop(cfg, task, device, trainer, cfg.dataset.batch_size or 4,
                      cfg.dataset.max_tokens, lambda b: trainer.synthesize(b)[0])
@@ -490,6 +491,9 @@ def _vocoder_loop(cfg: TrainRootConfig, task, device) -> Dict[str, float]:
         model.import_torch_checkpoint(cfg.checkpoint.init_from_pt)
         model.reset_optimizers()
         logger.info("warm-started the generator from %s", cfg.checkpoint.init_from_pt)
+    # no JAX rule splits a HiFi-GAN or discriminator leaf (nothing to swap)
+    for module in (model.generator, model.discriminator):
+        split_tensor_parallel_(module)
     return _gan_loop(cfg, task, device, model, cfg.dataset.batch_size or 8, None,
                      lambda b: model.generate(b["mel"][:1])[0])
 

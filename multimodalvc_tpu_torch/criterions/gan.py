@@ -37,6 +37,7 @@ from ..nn.hifigan import (
 from ..nn.init import init_random_
 from ..ops.stft import hifigan_log_mel
 from ..parallel.mesh import dropout_seed
+from ..parallel.tensor import gather_whole, slice_of
 from ..runtime.trainer import (
     AdamW,
     apply_gradients_,
@@ -165,26 +166,43 @@ class E2EGanTrainer:
         """model (the trainable leaves' f32 masters and every other entry of
         its state_dict: the frozen leaves, the BatchNorm statistics),
         discriminator (masters and spectral buffers), both optimizers, the
-        step and the dropout generator's state."""
-        model = {n: x for n, x in self.model.state_dict().items() if n not in self.gen_master}
-        model.update(self.gen_master)
+        step and the dropout generator's state.  On a tensor axis the split
+        leaves, their masters and moments are gathered whole (collective)."""
+        named = dict(self.model.named_parameters())
+        model = {n: gather_whole(named[n], x) if n in named else x
+                 for n, x in self.model.state_dict().items() if n not in self.gen_master}
+        model.update({n: gather_whole(named[n], m) for n, m in self.gen_master.items()})
+        gen_opt = self.gen_opt.state_dict()
+        for kind in ("mu", "nu"):
+            gen_opt[kind] = {n: gather_whole(named[n], m) for n, m in gen_opt[kind].items()}
         disc = {n: x for n, x in self.discriminator.state_dict().items()
                 if n not in self.disc_master}
         disc.update(self.disc_master)
-        return {"model": model, "discriminator": disc, "gen_opt": self.gen_opt.state_dict(),
+        return {"model": model, "discriminator": disc, "gen_opt": gen_opt,
                 "disc_opt": self.disc_opt.state_dict(), "step": self.step,
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load a whole state; a tensor-split leaf takes this rank's slice."""
+        named = dict(self.model.named_parameters())
+
+        def mine(n, x):
+            return slice_of(named[n], x) if n in named else x
+
         with torch.no_grad():
             for key, module, masters in (("model", self.model, self.gen_master),
                                          ("discriminator", self.discriminator, self.disc_master)):
                 own = module.state_dict()
                 for n, x in state[key].items():
-                    (masters if n in masters else own)[n].copy_(x)
+                    (masters if n in masters else own)[n].copy_(
+                        mine(n, x.to(own[n].device)) if key == "model" else x)
         copy_masters_(self.gen_params, self.gen_master)
         copy_masters_(self.disc_params, self.disc_master)
-        self.gen_opt.load_state_dict(state["gen_opt"])
+        gen_opt = dict(state["gen_opt"])
+        for kind in ("mu", "nu"):
+            gen_opt[kind] = {n: mine(n, m.to(self.gen_master[n].device))
+                             for n, m in gen_opt[kind].items()}
+        self.gen_opt.load_state_dict(gen_opt)
         self.disc_opt.load_state_dict(state["disc_opt"])
         self.step = int(state["step"])
         self.generator.set_state(state["generator"].cpu())

@@ -56,6 +56,7 @@ from ..ops.constraints import (
     pack_constraints,
 )
 from ..ops.interpolate import linear_resize_batched
+from ..parallel.tensor import vocab_parallel
 
 LLAMA3_EOS = 128001  # <|end_of_text|>
 LLAMA3_PAD = 128004  # <|finetune_right_pad_id|>
@@ -296,7 +297,8 @@ class AVSRModel(nn.Module):
         emb, attn_mask, labels = self.build_prompt(queries, query_lens, batch, with_labels=True)
         out = self.llama(inputs_embeds=emb, attn_mask=attn_mask, dropout_rng=rng,
                          return_hidden=True)
-        loss, n_correct, n_valid = cross_entropy_lm_loss(out["logits"], labels)
+        loss, n_correct, n_valid = cross_entropy_lm_loss(
+            out["logits"], labels, vocab=vocab_parallel(self.llama.embed_tokens))
         return loss, {"logits": out["logits"], "labels": labels, "hidden": out["hidden"],
                       "attn_mask": attn_mask, "query_lens": query_lens,
                       "n_correct": n_correct, "n_valid": n_valid}
@@ -416,7 +418,8 @@ class AVSRSystem:
                                          device=generator.device))
             logits = pipeline_lm_forward(module.llama, emb, attn_mask, mesh, n_microbatches,
                                          dropout_seed=seed)
-            loss, n_correct, n_valid = cross_entropy_lm_loss(logits, labels)
+            loss, n_correct, n_valid = cross_entropy_lm_loss(
+                logits, labels, vocab=vocab_parallel(module.llama.embed_tokens))
             return loss, lm_metrics(loss, {"n_correct": n_correct, "n_valid": n_valid})
 
         return loss_fn

@@ -77,7 +77,12 @@ def check_ported(cfg: AVHubertConfig) -> None:
 
 class AVHubertModel(nn.Module):
     """``audio``: whether the audio stream exists (``audio_proj``), as the
-    flax init creates it only when given audio."""
+    flax init creates it only when given audio.  On a tensor axis the two
+    projections are row-parallel with no column partner (the JAX rule for
+    ``o_proj`` matches their names): each rank takes its slice of the
+    input features."""
+
+    TENSOR_FORMS = {"video_proj": "row_scatter", "audio_proj": "row_scatter"}
 
     def __init__(self, cfg: AVHubertConfig, audio: bool = False, device=None, dtype=None):
         super().__init__()

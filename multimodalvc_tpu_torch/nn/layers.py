@@ -7,7 +7,7 @@ the weight bridge (``interop/from_flax.py``) maps trees by path.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ from ..ops.attention import dot_product_attention, flash_attention
 from ..ops.ring_attention import ring_attention
 from ..parallel.collectives import all_gather, all_reduce_sum, shard_of
 from ..parallel.mesh import BATCH_AXES, active_mesh
+from ..parallel.tensor import heads_within, input_shard, split_head_attention
 
 
 def use_flash(tq: int, tk: int, head_dim: int, x: torch.Tensor) -> bool:
@@ -47,6 +48,21 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> tor
     if rng is None or rate == 0.0:
         return x
     keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def sharded_dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator],
+                    shard: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """``dropout`` of ``x``, the slice ``shard`` = (rank, size) of the last
+    dim of a tensor-split activation: the whole activation's mask is drawn
+    (the generator's stream stays the one-rank run's) and sliced.  Without
+    ``shard``, ``dropout``."""
+    if shard is None or rng is None or rate == 0.0:
+        return dropout(x, rate, rng)
+    rank, size = shard
+    n = x.shape[-1]
+    whole = torch.rand(x.shape[:-1] + (n * size,), generator=rng, device=x.device)
+    keep = whole[..., rank * n:(rank + 1) * n] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -93,7 +109,15 @@ class MultiHeadAttention(nn.Module):
     divides T, each sequence rank runs ring attention on its time chunk
     (``ops/ring_attention.py``) and the chunks' outputs are all-gathered
     along time; otherwise, as the JAX layer with the flag, the plain
-    attention (never the flash kernel)."""
+    attention (never the flash kernel).
+
+    On a tensor axis (``parallel/tensor.py``) ``q_proj`` / ``k_proj`` /
+    ``v_proj`` are column-parallel and ``out_proj`` row-parallel: each rank
+    attends with its H / tensor heads (with fewer heads than ranks, each
+    head spans several: ``split_head_attention``)."""
+
+    TENSOR_FORMS = {"q_proj": "column", "k_proj": "column", "v_proj": "column",
+                    "out_proj": "row"}
 
     def __init__(self, d_model: int, num_heads: int, kv_dim: Optional[int] = None,
                  dropout: float = 0.0, sequence_parallel: bool = False, device=None, dtype=None):
@@ -112,10 +136,21 @@ class MultiHeadAttention(nn.Module):
         b, tq = x.shape[:2]
         tk = kv.shape[1]
 
-        def split(t):
-            return t.reshape(b, -1, self.num_heads, self.head_dim).transpose(1, 2)
+        def split(t):  # this rank's heads
+            return t.reshape(b, t.shape[1], -1, self.head_dim).transpose(1, 2)
 
-        q, k, v = split(self.q_proj(x)), split(self.k_proj(kv)), split(self.v_proj(kv))
+        def key_mask():
+            if kv_lens is None:
+                return None
+            return torch.arange(tk, device=x.device)[None, None, None, :] < kv_lens[:, None, None, None]
+
+        q, k, v = self.q_proj(x), self.k_proj(kv), self.v_proj(kv)
+        within = heads_within(self.num_heads, self.q_proj)
+        if within is not None:
+            out = split_head_attention(q, k, v, self.num_heads, within, key_mask())
+            return self.out_proj(sharded_dropout(out, self.dropout, dropout_rng,
+                                                 input_shard(self.out_proj)))
+        q, k, v = split(q), split(k), split(v)
         ring = self.sequence_parallel and tq == tk
         mesh = active_mesh() if ring else None
         n_seq = mesh.size("sequence") if mesh is not None else 1
@@ -127,15 +162,15 @@ class MultiHeadAttention(nn.Module):
         elif not ring and use_flash(tq, tk, self.head_dim, q):
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_lens=kv_lens)
         else:
-            mask = None
-            if kv_lens is not None:
-                mask = torch.arange(tk, device=x.device)[None, None, None, :] < kv_lens[:, None, None, None]
-            out = dot_product_attention(q, k, v, mask=mask)
-        out = dropout(out.transpose(1, 2).reshape(b, tq, -1), self.dropout, dropout_rng)
+            out = dot_product_attention(q, k, v, mask=key_mask())
+        out = sharded_dropout(out.transpose(1, 2).reshape(b, tq, -1), self.dropout, dropout_rng,
+                              input_shard(self.out_proj))
         return self.out_proj(out)
 
 
 class FeedForward(nn.Module):
+    TENSOR_FORMS = {"fc1": "column", "fc2": "row"}
+
     def __init__(self, d: int, hidden_dim: int, activation=gelu_exact, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)

@@ -34,6 +34,15 @@ training forward (LoRA dropout drawn from an explicit generator), and
 bf16 product with f32 logits (``TiedUnembed``).  ``pipeline_lm_forward`` is
 the training forward with the decoder layers split over the mesh's
 pipeline axis (``parallel/pipeline.py``).
+
+On a tensor axis (``parallel/tensor.py``) the JAX rules split the MLP's
+``gate_proj`` / ``up_proj`` by columns (their product is gathered before
+the whole ``down_proj``) and ``embed_tokens`` by vocabulary rows: the
+lookup masks the other ranks' ids and all-reduces, the tied unembed gives
+the logits over the rank's vocabulary, and ``cross_entropy_lm_loss`` (given
+the table as ``vocab``) the whole vocabulary's loss and argmax.  The
+attention projections stay whole (their kernels sit under ``base``, which
+the JAX rules do not match).
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -65,7 +75,9 @@ from ..ops.int8_matmul import (
     quantize_kernel,
     quantize_kernel_int4,
 )
+from ..parallel.collectives import copy_to_tensor_region, reduce_from_tensor_region
 from ..parallel.mesh import batch_group_rank, batch_total
+from ..parallel.tensor import VocabParallelEmbedding, gather_columns, vocab_parallel
 from ..parallel.pipeline import microbatch, pipeline_apply, unmicrobatch
 from .layers import add_layers, dropout, remat
 
@@ -458,6 +470,8 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
+    TENSOR_FORMS = {"gate_proj": "column", "up_proj": "column"}
+
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -470,7 +484,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = dense(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        h = F.silu(self.gate_proj(x)) * self.up_proj(x)
+        return self.down_proj(gather_columns(h, self.gate_proj))
 
 
 class LlamaLayer(nn.Module):
@@ -499,6 +514,8 @@ def _layer_state(layer, x, positions, attn_mask, dropout_rng):
 class LlamaModel(nn.Module):
     """Decoder trunk. Accepts token ids or pre-built input embeddings."""
 
+    TENSOR_FORMS = {"embed_tokens": "vocab"}
+
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -517,12 +534,18 @@ class LlamaModel(nn.Module):
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         # gather the rows first, then cast (the table may be bf16)
+        if vocab_parallel(self.embed_tokens) is not None:
+            return self.embed_tokens(input_ids).to(self.dtype)
         return self.embed_tokens.weight[input_ids].to(self.dtype)
 
     def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Tied lm_head: hidden @ embed^T -> f32 logits."""
+        """Tied lm_head: hidden @ embed^T -> f32 logits (over this rank's
+        vocabulary on a tensor axis)."""
         if self.cfg.weight_quant:
             return self.unembed_q(hidden)
+        table = vocab_parallel(self.embed_tokens)
+        if table is not None:
+            hidden = copy_to_tensor_region(hidden, table.group)
         emb = self.embed_tokens.weight.to(self.dtype)
         if hidden.dtype == torch.float32 or not hidden.is_cuda:
             # bf16 x bf16 products are exact in f32: same as the JAX einsum's
@@ -607,22 +630,61 @@ class TiedUnembed(torch.autograd.Function):
 
 
 def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-                          ignore_index: int = -100):
+                          ignore_index: int = -100,
+                          vocab: Optional[VocabParallelEmbedding] = None):
     """HF-style causal LM loss: shift by one, the mean of -log p over the
     label tokens that are not ``ignore_index`` (the softmax in f32).  Returns
     (loss, n_correct, n_valid): argmax hits and the count of valid tokens
     (this rank's).  On a mesh the sum divides by the batch group's count
-    (``batch_total``): the rank's share of the global batch's loss."""
+    (``batch_total``): the rank's share of the global batch's loss.
+    ``vocab``: the logits are the rank's columns of that vocab-parallel
+    table's; the loss and the argmax (its first index on ties) are the
+    whole vocabulary's."""
     shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
     valid = shift_labels != ignore_index
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
-    logp = torch.log_softmax(shift_logits.float(), dim=-1)
-    token_logp = logp.gather(-1, safe[..., None])[..., 0]
+    if vocab is None:
+        logp = torch.log_softmax(shift_logits.float(), dim=-1)
+        token_logp = logp.gather(-1, safe[..., None])[..., 0]
+        pred = shift_logits.argmax(dim=-1)
+    else:
+        token_logp, pred = _vocab_parallel_logp(shift_logits, safe, vocab)
     n_valid = valid.sum()
     nll = -torch.where(valid, token_logp, torch.zeros_like(token_logp)).sum()
     loss = nll / batch_total(n_valid).clamp(min=1)
-    n_correct = ((shift_logits.argmax(dim=-1) == shift_labels) & valid).sum()
+    n_correct = ((pred == shift_labels) & valid).sum()
     return loss, n_correct, n_valid
+
+
+def _vocab_parallel_logp(logits: torch.Tensor, targets: torch.Tensor,
+                         vocab: VocabParallelEmbedding):
+    """(log p of ``targets``, the argmax) over the whole vocabulary from the
+    rank's columns ``logits``: the max, the sum of exp and the target's
+    logit all-reduced over the tensor group (log_softmax's x - max -
+    log(sum exp(x - max))); the argmax from each rank's (max, first index),
+    the first rank holding the greatest."""
+    group, n = vocab.group, logits.shape[-1]
+    x = logits.float()
+    local = targets - vocab.start
+    inside = (local >= 0) & (local < n)
+    with torch.no_grad():
+        m = x.max(dim=-1).values
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        idx = x.argmax(dim=-1)
+        best = x.gather(-1, idx[..., None])[..., 0]
+        size = dist.get_world_size(group)
+        vals = [torch.empty_like(best) for _ in range(size)]
+        ids = [torch.empty_like(idx) for _ in range(size)]
+        dist.all_gather(vals, best, group=group)
+        dist.all_gather(ids, idx + vocab.start, group=group)
+        vals, ids = torch.stack(vals), torch.stack(ids)
+        first = (vals == vals.max(dim=0).values).to(torch.int32).argmax(dim=0)
+        pred = ids.gather(0, first[None])[0]
+    total = reduce_from_tensor_region(torch.exp(x - m[..., None]).sum(dim=-1), group)
+    picked = x.gather(-1, torch.where(inside, local, torch.zeros_like(local))[..., None])[..., 0]
+    target = reduce_from_tensor_region(torch.where(inside, picked, torch.zeros_like(picked)),
+                                       group)
+    return target - m - torch.log(total), pred
 
 
 def prefill_split_cache(

@@ -29,6 +29,10 @@ class QFormerConfig:
 
 
 class QFormerLayer(nn.Module):
+    # the JAX rules split both FFN kernels by columns (their names end in
+    # "query"): each gathers its output
+    TENSOR_FORMS = {"intermediate_query": "column_gather", "output_query": "column_gather"}
+
     def __init__(self, cfg: QFormerConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)

@@ -17,6 +17,7 @@ from torch import nn
 
 from .state_maps import as_tensor
 from ..ops.attention import dot_product_attention, flash_attention
+from ..parallel.tensor import heads_within, split_head_attention
 from .layers import FeedForward, add_layers, gelu_exact, sinusoidal_positions, use_flash
 
 
@@ -39,7 +40,12 @@ class WhisperEncoderConfig:
 
 
 class WhisperAttention(nn.Module):
-    """MHA with bias on q/v/out but not k (HF Whisper convention)."""
+    """MHA with bias on q/v/out but not k (HF Whisper convention).  On a
+    tensor axis the projections take ``MultiHeadAttention``'s forms: each
+    rank attends with its H / tensor heads."""
+
+    TENSOR_FORMS = {"q_proj": "column", "k_proj": "column", "v_proj": "column",
+                    "out_proj": "row"}
 
     def __init__(self, d: int, num_heads: int, device=None, dtype=None):
         super().__init__()
@@ -54,18 +60,24 @@ class WhisperAttention(nn.Module):
         b, t, d = x.shape
         hd = d // self.num_heads
 
-        def split(z):
-            return z.reshape(b, t, self.num_heads, hd).transpose(1, 2).contiguous()
+        def split(z):  # this rank's heads
+            return z.reshape(b, t, -1, hd).transpose(1, 2).contiguous()
 
-        q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
+        def key_mask():
+            if kv_lens is None:
+                return None
+            return torch.arange(t, device=x.device)[None, None, None, :] < kv_lens[:, None, None, None]
+
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        within = heads_within(self.num_heads, self.q_proj)
+        if within is not None:
+            return self.out_proj(split_head_attention(q, k, v, self.num_heads, within, key_mask()))
+        q, k, v = split(q), split(k), split(v)
         if use_flash(t, t, hd, q):
             out = flash_attention(q, k, v, kv_lens=kv_lens)
         else:
-            mask = None
-            if kv_lens is not None:
-                mask = torch.arange(t, device=x.device)[None, None, None, :] < kv_lens[:, None, None, None]
-            out = dot_product_attention(q, k, v, mask=mask)
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
+            out = dot_product_attention(q, k, v, mask=key_mask())
+        return self.out_proj(out.transpose(1, 2).reshape(b, t, -1))
 
 
 class WhisperEncoderLayer(nn.Module):

@@ -3,10 +3,11 @@
 Port of ``multimodalvc_tpu/parallel/``: the mesh over the (pipeline, data,
 fsdp, sequence, expert, tensor) axes (``mesh.py``), the process-group
 bootstrap (``distributed.py``), the collectives with derivatives
-(``collectives.py``), the fsdp split of the optimizer state
-(``sharding.py``), the expert-parallel MoE layer (``expert.py``), the GPipe
-schedule (``pipeline.py``) and BMUF (``bmuf.py``).  Ring attention is
-``ops/ring_attention.py``.  The tensor axis is not ported.
+(``collectives.py``), the JAX sharding rules on the port's leaves
+(``sharding.py``), the tensor-parallel forms (``tensor.py``), the
+expert-parallel MoE layer (``expert.py``), the GPipe schedule
+(``pipeline.py``) and BMUF (``bmuf.py``).  Ring attention is
+``ops/ring_attention.py``.
 """
 from .mesh import (  # noqa: F401
     AXIS_ORDER,

@@ -6,6 +6,18 @@ rank of a group holds is a **sum** over the group: an all-reduce's adjoint
 is an all-reduce, an all-gather's a reduce-scatter, a ring shift's the
 shift the other way.  The parameters' gradients are then summed over the
 world as they are.
+
+The tensor axis's four operators (Megatron's regions) follow Megatron's
+convention instead: every rank of a tensor group holds the same loss, the
+gradient of an activation that the group holds whole is the same on each
+rank, and a split activation's gradient is its share of it.  Copy into the
+region: identity forward, all-reduce backward; reduce out of it:
+all-reduce forward, identity backward; gather along the last dim: its
+adjoint takes the rank's slice; scatter (the slice): its adjoint is the
+all-gather.  Each rank's loss still enters with 1 / ``replicas()``, which
+counts the tensor ranks, so the gradient of a split leaf, summed over the
+ranks that hold the same slice, comes out ``tensor`` times too small: the
+trainers scale it back (``runtime/trainer.py``).
 """
 from __future__ import annotations
 
@@ -124,3 +136,93 @@ def flat_all_reduce_(tensors, group: Optional[object] = None) -> None:
         n = t.numel()
         t.copy_(flat[offset:offset + n].view_as(t))
         offset += n
+
+
+# ---- the tensor axis: Megatron's region operators --------------------------------
+
+
+def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    # a list all-gather: gloo takes it for CUDA tensors too (ranks sharing a card)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=-1)
+
+
+def _slice_last(x: torch.Tensor, group) -> torch.Tensor:
+    return shard_of(x, group, x.ndim - 1).contiguous()
+
+
+def _all_reduced(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``, taken in f32 for a narrower float type."""
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    y = x.float() if wide else x.contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype) if wide else y
+
+
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduced(g, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice_last(g, ctx.group), None
+
+
+class _ScatterToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _slice_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_last(g, ctx.group), None
+
+
+def copy_to_tensor_region(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (whole on every rank of the tensor ``group``) entering a
+    region of split activations: the identity; the gradient all-reduced."""
+    return _CopyToRegion.apply(x, group)
+
+
+def reduce_from_tensor_region(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial ``x`` summed over the tensor ``group``; the
+    gradient passes as it is."""
+    return _ReduceFromRegion.apply(x, group)
+
+
+def gather_from_tensor_region(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' slices of the last dim concatenated in rank order; the
+    gradient's slice returns to each rank."""
+    return _GatherFromRegion.apply(x, group)
+
+
+def scatter_to_tensor_region(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's equal slice of ``x``'s last dim; the gradients of the
+    ranks' slices are gathered into the whole one on every rank."""
+    return _ScatterToRegion.apply(x, group)

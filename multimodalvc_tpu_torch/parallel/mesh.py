@@ -126,9 +126,14 @@ def _unravel(rank: int, sizes: Dict[str, int]):
 
 
 # the groups every mesh makes: each axis alone, the batch group, the axes
-# a sharded gradient is summed over after its fsdp reduce-scatter, the world
+# a sharded gradient is summed over after its fsdp reduce-scatter (of a
+# whole leaf, and of a tensor-split one), the axes a tensor-split leaf's
+# gradient is summed over, the world
 GROUP_AXES = [(ax,) for ax in AXIS_ORDER] + [BATCH_AXES,
                                              tuple(a for a in AXIS_ORDER if a != "fsdp"),
+                                             tuple(a for a in AXIS_ORDER
+                                                   if a not in ("fsdp", "tensor")),
+                                             tuple(a for a in AXIS_ORDER if a != "tensor"),
                                              AXIS_ORDER]
 
 

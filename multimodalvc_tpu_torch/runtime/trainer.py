@@ -48,15 +48,29 @@ enters with the weight 1 / ``replicas()``, and the gradients are summed over
 the world.  Every rank then makes the same decisions: the global grad norm
 and its clip, the non-finite skip, the plateau metric (rank 0's).  Under
 fsdp each rank keeps its share of the f32 masters and the optimizer state
-of the leaves that ``parallel/sharding.py: fsdp_shard_dim`` splits (ZeRO-3
+of the leaves that ``parallel/sharding.py: param_specs`` splits (ZeRO-3
 for the optimizer state): their gradients are reduce-scattered over fsdp,
 the updated shares all-gathered into the module's whole weights; the
 reductions over a whole leaf (adafactor's means and RMSs, lamb's norms) sum
 the shares over the group (``Leaves``).  This changes memory, never the
-numbers.  The trainable leaves and the buffers
-start from rank 0's (after ``init_from_pt``, and in ``load_state_dict``
-after a restore); ``state_dict`` gathers the shares, so a checkpoint written
-on any mesh resumes on any other.  The GAN steps (``apply_gradients_`` with
+numbers.  Which leaves fsdp splits, and along which dim, the JAX sharding
+rules say (``parallel/sharding.py: param_specs``: the rule's dim where one
+matches and fits, else the largest-dim fallback).
+
+On a tensor axis the module holds only its slice of each leaf the rules
+split (``parallel/tensor.py: split_tensor_parallel_``), and the trainer
+keeps the master and the optimizer state of that slice (under fsdp too,
+its fsdp share cut from the slice).  A split leaf's gradient is the
+tensor group's share (Megatron's region operators): it is scaled by the
+tensor size, which ``replicas()`` counts in the loss weight, and summed
+over the ranks that hold the same slice only; the global grad norm, its
+clip and the non-finite skip count each slice once, and adafactor's and
+lamb's whole-leaf reductions sum over the tensor group too.  The trainable
+leaves and the buffers start from rank 0's (after ``init_from_pt``, and in
+``load_state_dict`` after a restore; a split leaf from the ranks of rank
+0's tensor group, which took rank 0's whole leaf before the split);
+``state_dict`` gathers the shares and slices, so a checkpoint written on
+any mesh resumes on any other.  The GAN steps (``apply_gradients_`` with
 ``rows``) weight their row means and sum their gradients the same way.
 
 Not ported: ``CompileGuard`` and buffer donation (XLA scaffolding).
@@ -76,6 +90,7 @@ import torch.distributed as dist
 from ..config.configs import OptimizationConfig
 from ..parallel.collectives import flat_all_reduce_
 from ..parallel.mesh import (
+    AXIS_ORDER,
     Mesh,
     active_mesh,
     batch_total,
@@ -83,7 +98,15 @@ from ..parallel.mesh import (
     replicas,
     restore_generator_,
 )
-from ..parallel.sharding import fsdp_shard_dim
+from ..parallel.sharding import param_specs
+from ..parallel.tensor import (
+    gather_dim,
+    gather_whole,
+    slice_dim,
+    slice_of,
+    tensor_dim,
+    tensor_groups,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -273,40 +296,56 @@ def adamw_update_(params, grads, mu, nu, count: int, lr: float, betas, eps: floa
 
 class Leaves:
     """The layout of the leaves an optimizer updates: each leaf's whole
-    shape, the dim along which fsdp splits it (absent: whole on this rank),
-    the group that splits it, and the names whose JAX layout is the reverse
-    of the port's (``nn.Linear`` weights: torch [out, in], flax [in, out]).
-    The reductions over a whole leaf (adafactor's means and RMSs, lamb's
-    norms) sum a split leaf's shares over the group, so fsdp changes memory,
-    never the numbers."""
+    shape, the dim along which fsdp splits it (absent: whole on this rank)
+    and the group that splits it, the same for the tensor axis (``tdims``,
+    ``tgroup``), and the names whose JAX layout is the reverse of the
+    port's (``nn.Linear`` weights: torch [out, in], flax [in, out]).  The
+    reductions over a whole leaf (adafactor's means and RMSs, lamb's norms)
+    sum a split leaf's shares over the groups, so fsdp and tensor change
+    memory, never the numbers."""
 
     def __init__(self, params: Dict[str, torch.Tensor], shapes=None, dims=None, group=None,
-                 reversed_layout: Iterable[str] = ()):
+                 reversed_layout: Iterable[str] = (), tdims=None, tgroup=None):
         self.shapes = {n: tuple(p.shape) for n, p in params.items()} if shapes is None \
             else {n: tuple(s) for n, s in shapes.items()}
         self.dims = {n: d for n, d in (dims or {}).items() if d is not None}
         self.group = group
+        self.tdims = {n: d for n, d in (tdims or {}).items() if d is not None}
+        self.tgroup = tgroup
         self.reversed_layout = frozenset(reversed_layout)
 
     def dim(self, name: str) -> Optional[int]:
         return self.dims.get(name)
 
-    def total_(self, x: torch.Tensor, split: bool) -> torch.Tensor:
-        """``x`` (a sum over a share) summed over the group where ``split``."""
+    def tdim(self, name: str) -> Optional[int]:
+        return self.tdims.get(name)
+
+    @property
+    def split(self) -> bool:
+        """Whether any leaf is split over a group."""
+        return bool(self.dims or self.tdims)
+
+    def total_(self, x: torch.Tensor, split: bool, tsplit: bool = False) -> torch.Tensor:
+        """``x`` (a sum over a share) summed over the fsdp group where
+        ``split`` and over the tensor group where ``tsplit``."""
         if split:
             dist.all_reduce(x, group=self.group)
+        if tsplit:
+            dist.all_reduce(x, group=self.tgroup)
         return x
 
     def square_sum(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """The sum of the squares of the whole leaf ``name`` (``x`` its share)."""
-        return self.total_((x * x).sum(), self.dim(name) is not None)
+        return self.total_((x * x).sum(), self.dim(name) is not None,
+                           self.tdim(name) is not None)
 
     def mean(self, x: torch.Tensor, axis: int, split: Optional[int], size: int,
-             keepdim: bool = False) -> torch.Tensor:
+             keepdim: bool = False, tsplit: Optional[int] = None) -> torch.Tensor:
         """The mean over ``axis`` (of length ``size`` whole) of a tensor whose
-        share ``x`` is split along ``split``: the sum over the share, summed
-        over the group where ``axis`` is the split one, over ``size``."""
-        return self.total_(x.sum(axis, keepdim=keepdim), split == axis) / size
+        share ``x`` is split along ``split`` (fsdp) and ``tsplit`` (tensor):
+        the sum over the share, summed over the group whose split dim is
+        ``axis``, over ``size``."""
+        return self.total_(x.sum(axis, keepdim=keepdim), split == axis, tsplit == axis) / size
 
 
 class BaseOptimizer:
@@ -326,6 +365,10 @@ class BaseOptimizer:
     def split_dim(self, kind: str, name: str) -> Optional[int]:
         """The dim along which fsdp splits ``state[kind][name]``."""
         return self.leaves.dim(name)
+
+    def tensor_split_dim(self, kind: str, name: str) -> Optional[int]:
+        """The dim along which the tensor axis splits ``state[kind][name]``."""
+        return self.leaves.tdim(name)
 
     def apply_(self, params, grads, count: int, lr: float, scale: float = 1.0) -> None:
         raise NotImplementedError
@@ -483,19 +526,27 @@ class Adafactor(BaseOptimizer):
             self.state["v_row"][n] = p.new_zeros(_without(p.shape, d0))
             self.state["v_col"][n] = p.new_zeros(_without(p.shape, d1))
 
-    def split_dim(self, kind, name):
-        s = self.leaves.dim(name)
+    def _state_dim(self, kind, name, s):
+        """The dim of ``state[kind][name]`` that the leaf's split dim ``s``
+        becomes (None where the statistic reduced it away)."""
         if kind == "v" or s is None:
             return s
         d1, d0 = self.factored[name]
         gone = d0 if kind == "v_row" else d1
         return None if s == gone else (s - 1 if s > gone else s)
 
+    def split_dim(self, kind, name):
+        return self._state_dim(kind, name, self.leaves.dim(name))
+
+    def tensor_split_dim(self, kind, name):
+        return self._state_dim(kind, name, self.leaves.tdim(name))
+
     def apply_(self, params, grads, count, lr, scale=1.0):
         decay = _decay_rate(count, self.DECAY)
         lr32 = _f32(lr)
         for name, p in params.items():
             g, shape, s = grads[name], self.leaves.shapes[name], self.leaves.dim(name)
+            ts = self.leaves.tdim(name)
             grad_sqr = g * g + self.EPS
             if self.factored[name] is None:
                 v = self.state["v"][name]
@@ -505,12 +556,13 @@ class Adafactor(BaseOptimizer):
                 d1, d0 = self.factored[name]
                 v_row, v_col = self.state["v_row"][name], self.state["v_col"][name]
                 v_row.copy_(decay * v_row + (1.0 - decay)
-                            * self.leaves.mean(grad_sqr, d0, s, shape[d0]))
+                            * self.leaves.mean(grad_sqr, d0, s, shape[d0], tsplit=ts))
                 v_col.copy_(decay * v_col + (1.0 - decay)
-                            * self.leaves.mean(grad_sqr, d1, s, shape[d1]))
+                            * self.leaves.mean(grad_sqr, d1, s, shape[d1], tsplit=ts))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_col_mean = self.leaves.mean(v_row, reduced_d1, self.split_dim("v_row", name),
-                                                shape[d1], keepdim=True)
+                                                shape[d1], keepdim=True,
+                                                tsplit=self.tensor_split_dim("v_row", name))
                 row_factor = (v_row / row_col_mean) ** -0.5
                 col_factor = v_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -669,6 +721,18 @@ def row_share(rows: int, mesh: Mesh) -> float:
     return rows / float(total) / replicas(mesh)
 
 
+def sum_gradients_(grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
+                   mesh: Mesh) -> None:
+    """Sum each rank's gradients of whole leaves over the world; a
+    tensor-split leaf's (the tensor group's share: times the tensor size)
+    over the ranks that hold the same slice."""
+    split = {n for n in grads if tensor_dim(params[n]) is not None}
+    for n in split:
+        grads[n].mul_(mesh.size("tensor"))
+    flat_all_reduce_(g for n, g in grads.items() if n not in split)
+    flat_all_reduce_((grads[n] for n in split), tensor_groups(mesh)[1])
+
+
 def apply_gradients_(loss: torch.Tensor, params: Dict[str, torch.Tensor],
                      masters: Dict[str, torch.Tensor], opt: Optimizer,
                      rows: Optional[int] = None) -> None:
@@ -676,7 +740,7 @@ def apply_gradients_(loss: torch.Tensor, params: Dict[str, torch.Tensor],
     respect to ``params`` (zero where the loss does not reach a leaf); then
     each parameter takes its master's value.  On a mesh ``loss`` is a mean
     over the rank's ``rows`` batch rows: it enters with its ``row_share`` and
-    the gradients are summed over the world."""
+    the gradients are summed over the world (``sum_gradients_``)."""
     names = list(params)
     mesh = active_mesh()
     if mesh is not None:
@@ -685,7 +749,7 @@ def apply_gradients_(loss: torch.Tensor, params: Dict[str, torch.Tensor],
     grads = {n: torch.zeros_like(masters[n]) if g is None else g.float()
              for n, g in zip(names, got)}
     if mesh is not None:
-        flat_all_reduce_(grads.values())
+        sum_gradients_(grads, params, mesh)
     with torch.no_grad():
         opt.update(grads, masters)
     copy_masters_(params, masters)
@@ -752,6 +816,10 @@ class MaskedOptimizer:
     def split_dim(self, kind: str, name: str) -> Optional[int]:
         return self.leaves.dim(name) if kind == "acc" else self.base.split_dim(kind, name)
 
+    def tensor_split_dim(self, kind: str, name: str) -> Optional[int]:
+        return self.leaves.tdim(name) if kind == "acc" else \
+            self.base.tensor_split_dim(kind, name)
+
     def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> bool:
         k = self.cfg.update_freq
         if self.acc is None:
@@ -770,23 +838,35 @@ class MaskedOptimizer:
         return applied
 
     def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The global norm of ``grads``; under fsdp the squares of the split
-        leaves' shares are summed over the group."""
-        if not self.leaves.dims:
+        """The global norm of ``grads``; the squares of the split leaves'
+        shares are summed over their groups (fsdp, tensor), each slice
+        counted once."""
+        leaves = self.leaves
+        if not leaves.split:
             return global_norm(grads.values())
         zero = torch.zeros((), device=next(iter(grads.values())).device)
 
-        def squares(split: bool) -> torch.Tensor:
+        def squares(fsdp: bool, tensor: bool) -> torch.Tensor:
             return sum(((g.float() * g.float()).sum() for n, g in grads.items()
-                        if (self.leaves.dim(n) is not None) == split), zero)
+                        if (leaves.dim(n) is not None) == fsdp
+                        and (leaves.tdim(n) is not None) == tensor), zero)
 
-        return torch.sqrt(squares(False) + self.leaves.total_(squares(True), True))
+        out = squares(False, False)
+        if leaves.dims:
+            fsdp = leaves.total_(torch.stack([squares(True, False), squares(True, True)]), True)
+            out = out + fsdp[0]
+            both = fsdp[1]
+        else:
+            both = zero
+        if leaves.tdims:
+            out = out + leaves.total_(squares(False, True) + both, False, True)
+        return torch.sqrt(out)
 
     def _all_finite(self, grads) -> bool:
         finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
-        if self.leaves.dims:
+        if self.leaves.split:  # every rank makes the same decision
             flag = finite.to(torch.int32)
-            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.leaves.group)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
             finite = flag > 0
         return bool(finite)
 
@@ -893,12 +973,22 @@ class Trainer:
         self.opt_cfg = opt_cfg
         self.mesh = active_mesh()
         self.mask, self.params, full = trainable_leaves(module, frozen_patterns or [])
+        # the tensor-split leaves (the module holds their slices) and their dims
+        self.tensor_dim = {n: d for n, p in self.params.items()
+                           if (d := tensor_dim(p)) is not None}
         if self.mesh is not None:
             # rank 0's trainable leaves and buffers (after its init_from_pt)
-            broadcast_([*self.params.values(), *module.buffers()])
+            broadcast_([*(p for n, p in self.params.items() if n not in self.tensor_dim),
+                        *module.buffers()])
+            # a split leaf's slice from the rank of rank 0's tensor group
+            # that holds it
+            _, holders = tensor_groups(self.mesh)
+            for n in self.tensor_dim:
+                dist.broadcast(self.params[n].data, src=self._first_holder(), group=holders)
             full = {n: p.detach().float().clone() for n, p in self.params.items()}
         fsdp = self.mesh.size("fsdp") if self.mesh is not None else 1
-        self.shard_dim = {n: fsdp_shard_dim(tuple(p.shape), fsdp) for n, p in self.params.items()}
+        specs = param_specs(module, self.mesh.sizes) if self.mesh is not None else {}
+        self.shard_dim = {n: specs[n].fsdp if fsdp > 1 else None for n in self.params}
         self.master = {n: self._share(n, m) for n, m in full.items()}
         named = dict(module.named_parameters())
         n_train = sum(p.numel() for p in self.params.values())
@@ -906,18 +996,37 @@ class Trainer:
         logger.info("trainable params: %.2fM / %.2fM (%.2f%%)", n_train / 1e6, n_total / 1e6,
                     100.0 * n_train / max(n_total, 1))
         linear = {f"{m}.weight" for m, mod in module.named_modules()
-                  if isinstance(mod, torch.nn.Linear)}
+                  if isinstance(mod, torch.nn.Linear) or getattr(mod, "flax_leaf", "") == "kernel"}
         # the masters' layout, for the optimizer (and one built later for them)
-        self.leaves = Leaves(self.master, {n: p.shape for n, p in self.params.items()},
+        self.leaves = Leaves(self.master, {n: getattr(p, "whole_shape", p.shape)
+                                           for n, p in self.params.items()},
                              self.shard_dim if fsdp > 1 else None,
                              self.mesh.group("fsdp") if fsdp > 1 else None,
-                             reversed_layout=linear & set(self.params))
+                             reversed_layout=linear & set(self.params),
+                             tdims=self.tensor_dim,
+                             tgroup=self.mesh.group("tensor") if self.tensor_dim else None)
         self.optimizer = build_optimizer(opt_cfg, self.master, self.leaves)
         device = next(iter(named.values())).device
         self.generator = torch.Generator(device=device).manual_seed(dropout_seed(seed, self.mesh))
         self._step = 0
 
-    # -- the fsdp shares ---------------------------------------------------------------
+    # -- the fsdp shares and the tensor slices -----------------------------------------
+
+    def _first_holder(self) -> int:
+        """The rank of rank 0's tensor group that holds this rank's slices."""
+        return self.mesh.rank_of(**{a: 0 for a in AXIS_ORDER if a != "tensor"})
+
+    def _tensor_whole(self, name: str, t: torch.Tensor, d: Optional[int] = -1) -> torch.Tensor:
+        """The whole tensor from the tensor group's slices along ``d`` (by
+        default the leaf's tensor dim)."""
+        d = self.tensor_dim.get(name) if d == -1 else d
+        return t if d is None else gather_dim(t, d, self.mesh.group("tensor"))
+
+    def _tensor_slice(self, name: str, whole: torch.Tensor, d: Optional[int] = -1):
+        """This rank's slice of a whole tensor along ``d`` (by default the
+        leaf's tensor dim)."""
+        d = self.tensor_dim.get(name) if d == -1 else d
+        return whole if d is None else slice_dim(whole, d, self.mesh.group("tensor"))
 
     def _share(self, name: str, full: torch.Tensor, d: Optional[int] = -1) -> torch.Tensor:
         """This rank's share of a whole tensor split along ``d`` (by default
@@ -942,19 +1051,29 @@ class Trainer:
 
     def _reduce_(self, grads: Dict[str, torch.Tensor]) -> None:
         """Sum the gradients over the world: the whole leaves through one
-        flat all-reduce; a split leaf reduce-scattered over fsdp, then summed
-        over the other axes."""
-        flat_all_reduce_(g for n, g in grads.items() if self.shard_dim[n] is None)
-        fsdp = self.mesh.size("fsdp")
+        flat all-reduce; a tensor-split leaf's (its share of the tensor
+        group's loss: times the tensor size) over the ranks that hold the
+        same slice; an fsdp-split leaf reduce-scattered over fsdp, then
+        summed over the other axes (but tensor, for a tensor-split one)."""
+        mesh, tensor = self.mesh, self.mesh.size("tensor")
+        for n in self.tensor_dim:
+            grads[n].mul_(tensor)
+        flat_all_reduce_(g for n, g in grads.items()
+                         if self.shard_dim[n] is None and n not in self.tensor_dim)
+        _, holders = tensor_groups(mesh)
+        flat_all_reduce_((g for n, g in grads.items()
+                          if self.shard_dim[n] is None and n in self.tensor_dim), holders)
+        fsdp = mesh.size("fsdp")
         for n, d in self.shard_dim.items():
             if d is None:
                 continue
             g = grads[n].movedim(d, 0).contiguous()
             out = g.new_empty((g.shape[0] // fsdp,) + g.shape[1:])
-            dist.reduce_scatter_tensor(out, g, group=self.mesh.group("fsdp"))
-            if self.mesh.world > fsdp:
-                dist.all_reduce(out, group=self.mesh.group(*(a for a in self.mesh.sizes
-                                                             if a != "fsdp")))
+            dist.reduce_scatter_tensor(out, g, group=mesh.group("fsdp"))
+            rest = [a for a in mesh.sizes if a != "fsdp" and not (a == "tensor"
+                                                                 and n in self.tensor_dim)]
+            if mesh.size(*rest) > 1:
+                dist.all_reduce(out, group=mesh.group(*rest))
             grads[n] = out.movedim(0, d).contiguous()
 
     def _copy_to_module(self) -> None:
@@ -1006,13 +1125,16 @@ class Trainer:
         generator state (rank 0's on a mesh).  Under fsdp the shares are
         gathered: every rank must call it, and the result is the one-rank
         state."""
-        frozen = {n for n, _ in self.module.named_parameters() if n not in self.master}
-        model = {n: t for n, t in self.module.state_dict().items()
-                 if n not in self.master and (include_frozen or n not in frozen)}
-        model.update({n: self._whole(n, m) for n, m in self.master.items()})
+        named = dict(self.module.named_parameters())
+        model = {n: gather_whole(named[n], t) if n in named else t
+                 for n, t in self.module.state_dict().items()
+                 if n not in self.master and (include_frozen or n not in named)}
+        model.update({n: self._tensor_whole(n, self._whole(n, m))
+                      for n, m in self.master.items()})
         opt = self.optimizer.state_dict()
         for kind in self.optimizer.tensor_kinds():
-            opt[kind] = {n: self._whole(n, t, self.optimizer.split_dim(kind, n))
+            opt[kind] = {n: self._tensor_whole(n, self._whole(n, t, self.optimizer.split_dim(kind, n)),
+                                               self.optimizer.tensor_split_dim(kind, n))
                          for n, t in opt[kind].items()}
         return {"model": model, "optimizer": opt, "step": self._step,
                 "generator": self.generator.get_state()}
@@ -1020,8 +1142,10 @@ class Trainer:
     def load_state_dict(self, state: Dict[str, Any], reset_optimizer: bool = False) -> None:
         """Load a (one-rank layout) state.  On a mesh the trainable leaves,
         the buffers and the optimizer moments are rank 0's; the frozen leaves
-        come from the same file on every rank."""
+        come from the same file on every rank; a tensor-split leaf and its
+        state take this rank's slice."""
         own = self.module.state_dict()
+        named = dict(self.module.named_parameters())
         buffers = {n for n, _ in self.module.named_buffers()}
         device = next(iter(own.values())).device
 
@@ -1035,15 +1159,21 @@ class Trainer:
         with torch.no_grad():
             for name, t in state["model"].items():
                 if name in self.master:
-                    whole = rank0(t)
-                    self.master[name].copy_(self._share(name, whole.float()))
-                    self.params[name].copy_(whole)
+                    mine = self._tensor_slice(name, rank0(t))
+                    self.master[name].copy_(self._share(name, mine.float()))
+                    self.params[name].copy_(mine)
+                elif name in buffers:
+                    own[name].copy_(rank0(t))
                 else:
-                    own[name].copy_(rank0(t) if name in buffers else t)
+                    own[name].copy_(slice_of(named[name], t.to(own[name].device))
+                                    if name in named else t)
         if not reset_optimizer:
             opt = dict(state["optimizer"])
-            for kind in self.optimizer.tensor_kinds():
-                opt[kind] = {n: self._share(n, rank0(t), self.optimizer.split_dim(kind, n))
+            opt_ = self.optimizer
+            for kind in opt_.tensor_kinds():
+                opt[kind] = {n: self._share(n, self._tensor_slice(n, rank0(t),
+                                                                  opt_.tensor_split_dim(kind, n)),
+                                            opt_.split_dim(kind, n))
                              for n, t in opt[kind].items()}
             self.optimizer.load_state_dict(opt)
         self._step = int(state["step"])

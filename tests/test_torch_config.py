@@ -4,9 +4,10 @@ same ``to_dict``, with and without dotted overrides, which parse alike);
 the served presets' task and model groups build the port's registered
 configs as the JAX ones; chip_smoke.py's override lists are their presets;
 a mesh is resolved over the world as the JAX CLI resolves it over its
-devices (a mesh beyond one process's device raises the same ValueError),
-what the port's CLI cannot run (a tensor axis, ``checkpoint.init_from_pt``
-in the E2E GAN loop) raises NotImplementedError, and
+devices (a mesh beyond one process's device raises the same ValueError; a
+tensor axis resolves as the JAX one), what the port's CLI cannot run
+(``checkpoint.init_from_pt`` in the E2E GAN loop) raises
+NotImplementedError, and
 ``checkpoint.init_from_pt`` warm starts an AVSR task."""
 import dataclasses
 import glob
@@ -125,7 +126,7 @@ MESHES = [{"pipeline": 2}, {"data": 2}, {"data": -1, "fsdp": -1}, {"expert": 4},
 def test_meshes_beyond_one_device_raise(mesh):
     """In one process (one device) a mesh beyond it raises the JAX
     ``resolve_axis_sizes`` error; over four devices every mesh resolves as
-    the JAX one does, but a tensor axis, which raises NotImplementedError."""
+    the JAX one does, a tensor axis too."""
     cfg = tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": mesh})
     with pytest.raises(ValueError):
         ttrain.main(cfg, device="cpu")
@@ -138,9 +139,6 @@ def test_meshes_beyond_one_device_raise(mesh):
         want = None
     if want is None:
         with pytest.raises(ValueError):
-            ttrain.mesh_sizes(cfg, 4)
-    elif want["tensor"] > 1:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             ttrain.mesh_sizes(cfg, 4)
     else:
         assert ttrain.mesh_sizes(cfg, 4) == want
@@ -174,7 +172,7 @@ def test_presets_beyond_one_device_raise():
 
 def test_multi_process_launch_raises(monkeypatch):
     """A launch of four processes (torchrun's variables) is read as such,
-    and the one mesh it cannot run, a tensor axis, raises."""
+    and a tensor axis over it resolves as the JAX mesh does."""
     for k, v in (("MASTER_ADDR", "10.0.0.1"), ("MASTER_PORT", "29500"), ("WORLD_SIZE", "4"),
                  ("RANK", "3"), ("LOCAL_RANK", "1")):
         monkeypatch.setenv(k, v)
@@ -183,8 +181,10 @@ def test_multi_process_launch_raises(monkeypatch):
     assert infer_init_args() == {"init_method": "tcp://10.0.0.1:29500", "world_size": 4,
                                  "rank": 3, "local_rank": 1}
     cfg = tconfig.from_dict(tconfig.TrainRootConfig, {"mesh": {"data": -1, "tensor": 2}})
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ttrain.mesh_sizes(cfg, 4)
+    sizes = ttrain.mesh_sizes(cfg, 4)
+    assert sizes == jmesh.resolve_axis_sizes(
+        {k: v for k, v in dataclasses.asdict(cfg.mesh).items() if k != "microbatches"}, 4)
+    assert sizes["tensor"] == 2 and sizes["data"] == 2
     assert ttrain.mesh_sizes(tconfig.TrainRootConfig(), 4)["data"] == 4
 
 

@@ -2,12 +2,16 @@
 package in this process: a data-parallel AVSR step on {data: 2} equals the
 JAX Trainer's on the concatenated batch, and the ranks are bitwise equal;
 fsdp 2 gives the data-2 numbers with half the split leaves' optimizer bytes
-on each rank, and its checkpoint resumes on one rank; a checkpoint resumes
-on two ranks, rank 1 drawing apart from rank 0; every rank takes rank 0's
+on each rank, and its checkpoint resumes on one rank; tensor 2 gives the
+JAX Trainer's steps on the same mesh with half of each split leaf on each
+rank, its checkpoints resume at tensor 1 and the other way round, and the
+NoLLM head's training steps with dropout are the one-process steps; a
+checkpoint resumes on two ranks, rank 1 drawing apart from rank 0; every rank takes rank 0's
 validation metrics; BatchNorm's training
 statistics are the global batch's; ring attention at sequence 2 is exact
 attention, forward and gradient; BMUF syncs the workers; the vocoder's
-GAN steps on two ranks give the one-process steps."""
+GAN steps on two ranks give the one-process steps.  One spawn of two ranks
+runs every job (~110 s for the whole file with the tensor-2 jobs)."""
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -16,7 +20,7 @@ import optax
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
-from torch_dist_worker import spawn, tiny_vocoder, toy_trainer
+from torch_dist_worker import avsr_tensor_ckpt, nollm_steps, spawn, tiny_vocoder, toy_trainer
 from torch_parity import jax_variables, randomize, to_numpy_tree
 
 from multimodalvc_tpu.config.configs import OptimizationConfig as JaxOptimizationConfig
@@ -42,6 +46,7 @@ STEPS = 3
 FSDP_OPTIMIZERS, TOY_STEPS = ("adafactor", "lamb"), 4
 TOY_OPT = dict(lr=1e-2, weight_decay=0.01, clip_norm=1.0, lr_scheduler="fixed")
 ATTN_TOL = 1e-5  # ring against exact attention, f32
+NOLLM_STEPS = 2
 
 
 def batch4(cfg, seed=0):
@@ -57,6 +62,26 @@ def batch4(cfg, seed=0):
         "instruction": rng.integers(1, 200, (4, 5)).astype(np.int32),
         "labels": rng.integers(1, 200, (4, 8)).astype(np.int32),
         "label_lengths": np.asarray([8, 3, 6, 2], np.int32),
+    }
+
+
+def nollm_batch(seed=5):
+    """Two rows for the tiny NoLLM speech head (its 80 mel frames), both
+    streams."""
+    from multimodalvc_tpu_torch.models.speech import SpeechConfig
+
+    cfg = SpeechConfig.tiny()
+    rng = np.random.default_rng(seed)
+    t_v = cfg.max_video_frames
+    return {
+        "audio_feats": rng.standard_normal((2, cfg.whisper.n_mels, 2 * cfg.whisper.max_frames))
+        .astype(np.float32),
+        "video": rng.standard_normal((2, t_v, 24, 24, 1)).astype(np.float32),
+        "video_lengths": np.asarray([t_v, t_v // 2], np.int32),
+        "audio_lengths": np.asarray([80 * 160, 50 * 160], np.int32),
+        "target_mel": rng.standard_normal((2, cfg.max_mel_frames, 128)).astype(np.float32),
+        "target_mel_lengths": np.asarray([80, 50], np.int32),
+        "modality_mode": np.asarray(0, np.int32),
     }
 
 
@@ -109,6 +134,10 @@ def world(tmp_path_factory):
     ring_cases = {n: dict(c, shape=RING_SHAPE, seed=i) for i, (n, c) in enumerate(
         RING_CASES.items())}
     trainer_kw = dict(state=state, batch=str(tmp / "batch.npz"), opt=OPT, steps=STEPS)
+    np.savez(tmp / "nollm.npz", **nollm_batch())
+    # a one-process checkpoint for the tensor-2 resume, and its next step
+    one_ckpt = str(tmp / "one_ckpt.pt")
+    one_next = avsr_tensor_ckpt(0, {}, **trainer_kw, save=one_ckpt)["next"]
     jobs = [("avsr_trainer:data", dict(trainer_kw, mesh={"data": 2})),
             ("avsr_trainer:fsdp", dict(trainer_kw, mesh={"fsdp": 2}, fsdp_min=64,
                                        ckpt=str(tmp / "fsdp_ckpt.pt"))),
@@ -119,10 +148,17 @@ def world(tmp_path_factory):
             ("bmuf", dict(sync_every=3, steps=5, lr=0.05, block_momentum=0.875)),
             *((f"optim_fsdp:{name}", dict(mesh={"fsdp": 2}, opt=dict(TOY_OPT, optimizer=name),
                                           steps=TOY_STEPS)) for name in FSDP_OPTIMIZERS),
-            ("vocoder", dict(batch=str(tmp / "vocoder.npz"), steps=2))]
+            ("vocoder", dict(batch=str(tmp / "vocoder.npz"), steps=2)),
+            ("avsr_trainer:tensor", dict(trainer_kw, mesh={"tensor": 2})),
+            ("avsr_tensor_ckpt:save", dict(trainer_kw, mesh={"tensor": 2},
+                                           save=str(tmp / "tensor2_ckpt.pt"))),
+            ("avsr_tensor_ckpt:load", dict(trainer_kw, mesh={"tensor": 2}, steps=0,
+                                           load=one_ckpt)),
+            ("nollm_tensor", dict(mesh={"tensor": 2}, batch=str(tmp / "nollm.npz"), opt=OPT,
+                                  steps=NOLLM_STEPS))]
     ranks = spawn(tmp, 2, jobs)
     return dict(ranks=ranks, jsys=jsys, variables=variables, batch=batch, tmp=tmp, state=state,
-                bn=(x, w), ring_cases=ring_cases)
+                bn=(x, w), ring_cases=ring_cases, one_next=one_next, trainer_kw=trainer_kw)
 
 
 def _jax_run(world, mesh_sizes):
@@ -161,6 +197,66 @@ def test_data_parallel_step_matches_jax_on_the_concatenated_batch(world):
                                    err_msg=n)
 
 
+def test_tensor2_steps_match_jax_on_the_same_mesh(world):
+    """{tensor 2}: both ranks hold the whole batch and report the JAX
+    Trainer's loss, grad norm and masters on a 2-device {tensor: 2} mesh;
+    each rank holds half the bytes of each split leaf (the module's weight,
+    frozen ones too, and a trainable one's master and moments)."""
+    jm, jparams = _jax_run(world, {"tensor": 2})
+    r0, r1 = (r["avsr_trainer:tensor"] for r in world["ranks"])
+    assert r0["tensor_split"] and r0["tensor_split"] == r1["tensor_split"]
+    for r in (r0, r1):
+        assert r["tensor_bytes"].keys() == r0["tensor_split"].keys()
+        assert all(2 * held == whole for held, whole in r["tensor_bytes"].values())
+    # a trainable split leaf: its master and moments are halved too
+    assert any(n.startswith("encoder.qformer") for n in r0["tensor_split"])
+    for step, (a, b, j) in enumerate(zip(r0["metrics"], r1["metrics"], jm)):
+        assert a == b, step
+        np.testing.assert_allclose(a["loss"], float(j["loss"]), rtol=LOSS_RTOL)
+        np.testing.assert_allclose(a["gnorm"], float(j["gnorm"]), rtol=1e-4)
+        assert a["n_tokens"] == int(j["n_tokens"])
+    for n, m in r0["masters"].items():
+        assert torch.equal(m, r1["masters"][n]), n
+        np.testing.assert_allclose(m.numpy(), jparams[n].numpy(), rtol=MASTER_RTOL, atol=1e-7,
+                                   err_msg=n)
+
+
+@pytest.mark.parametrize("direction", ["tensor2_to_1", "tensor1_to_2"])
+def test_tensor_checkpoints_resume_at_the_other_size(world, direction):
+    """A checkpoint written at tensor 2 (the whole leaves, gathered) resumes
+    in one process with the next step the tensor-2 run took, and one written
+    in one process resumes at tensor 2 likewise."""
+    ranks = world["ranks"]
+    if direction == "tensor2_to_1":
+        want = ranks[0]["avsr_tensor_ckpt:save"]["next"]
+        got = avsr_tensor_ckpt(0, {}, **dict(world["trainer_kw"], steps=0),
+                               load=str(world["tmp"] / "tensor2_ckpt.pt"))["next"]
+        results = [got]
+    else:
+        want = world["one_next"]
+        results = [r["avsr_tensor_ckpt:load"]["next"] for r in ranks]
+    for got in results:
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["gnorm"], want["gnorm"], rtol=1e-4)
+        assert got["n_tokens"] == want["n_tokens"]
+
+
+def test_nollm_dropout_steps_at_tensor_2_equal_one_process(world):
+    """The NoLLM head's training steps (dropout on: the Q-Former's and the
+    Conformer's, whose split attention outputs draw the whole masks; the
+    BatchNorm on batch statistics) at tensor 2 equal the one-process steps."""
+    one = nollm_steps(str(world["tmp"] / "nollm.npz"), OPT, NOLLM_STEPS)
+    for r in world["ranks"]:
+        got = r["nollm_tensor"]
+        assert any(".conformer." in n for n in got["split"])
+        for a, w in zip(got["metrics"], one["metrics"]):
+            np.testing.assert_allclose(a["loss"], w["loss"], rtol=LOSS_RTOL)
+            np.testing.assert_allclose(a["gnorm"], w["gnorm"], rtol=1e-4)
+        for n, m in got["masters"].items():
+            np.testing.assert_allclose(m.numpy(), one["masters"][n].numpy(), rtol=MASTER_RTOL,
+                                       atol=1e-7, err_msg=n)
+
+
 def test_fsdp_gives_the_data_parallel_numbers_with_half_the_bytes(world):
     ranks = world["ranks"]
     data = ranks[0]["avsr_trainer:data"]
@@ -187,8 +283,8 @@ def test_fsdp_optimizer_takes_the_one_rank_steps(world, name):
     one = toy_trainer(dict(TOY_OPT, optimizer=name), TOY_STEPS)
     r0, r1 = (r[f"optim_fsdp:{name}"] for r in world["ranks"])
     # the [128, 256] weight along dim 1 (adafactor's d0), the [255, 128] one
-    # along dim 1 (its d1), the 128-wide bias
-    assert r0["split"] == {"0.weight": 1, "2.weight": 1, "0.bias": 0}
+    # along dim 1 (its d1); the JAX rules keep every bias whole
+    assert r0["split"] == {"0.weight": 1, "2.weight": 1}
     for a, b, w in zip(r0["metrics"], r1["metrics"], one["metrics"]):
         assert a == b
         np.testing.assert_allclose(a["loss"], w["loss"], rtol=1e-6)

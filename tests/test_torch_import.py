@@ -61,6 +61,7 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch.parallel.expert",
     "multimodalvc_tpu_torch.parallel.pipeline",
     "multimodalvc_tpu_torch.parallel.sharding",
+    "multimodalvc_tpu_torch.parallel.tensor",
     "multimodalvc_tpu_torch.runtime.debug",
     "multimodalvc_tpu_torch.runtime.quantization",
     "multimodalvc_tpu_torch.runtime.trainer",

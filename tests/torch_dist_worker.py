@@ -10,6 +10,7 @@ only (no JAX), so the ranks never start a JAX runtime.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from datetime import timedelta
 
@@ -95,17 +96,21 @@ def _tiny_avsr(state_path, lora_dropout=None):
 
 def avsr_trainer(rank, mesh, state, batch, opt, steps, fsdp_min=None, ckpt=None):
     """The AVSR Trainer on ``mesh`` over this rank's rows of ``batch`` (the
-    evaluation loss: no dropout draw enters): its metrics, its masters and
-    the bytes of master and moments it holds."""
+    evaluation loss: no dropout draw enters), the module split on a tensor
+    axis: its metrics, its masters, the bytes of master and moments it
+    holds of the fsdp-split leaves, and of the tensor-split leaves those and
+    the module's weights (frozen ones too) against the whole leaves'."""
     from multimodalvc_tpu_torch.config.configs import OptimizationConfig
     from multimodalvc_tpu_torch.criterions.lm import lm_metrics
     from multimodalvc_tpu_torch.parallel import sharding
+    from multimodalvc_tpu_torch.parallel.tensor import split_tensor_parallel_
     from multimodalvc_tpu_torch.runtime.trainer import Trainer
 
     if fsdp_min is not None:
         sharding.FSDP_MIN_SIZE = fsdp_min
     m = _mesh(mesh)
     system = _tiny_avsr(state)
+    tensor_split = split_tensor_parallel_(system.module, m)
     mine = _rows(dict(np.load(batch)), m)
 
     def loss_fn(b, generator):
@@ -119,6 +124,17 @@ def avsr_trainer(rank, mesh, state, batch, opt, steps, fsdp_min=None, ckpt=None)
     held = sum(4 * (trainer.master[n].numel() + trainer.optimizer.state["mu"][n].numel()
                     + trainer.optimizer.state["nu"][n].numel()) for n in split)
     whole = sum(12 * trainer.params[n].numel() for n in split)
+    named = dict(system.module.named_parameters())
+    t_bytes = {}  # leaf: (held, whole)
+    for n in tensor_split:
+        p, n_whole = named[n], math.prod(named[n].whole_shape)
+        t_held, t_whole = p.numel() * p.element_size(), n_whole * p.element_size()
+        if n in trainer.master:
+            t_held += 4 * sum(x.numel() for x in (trainer.master[n],
+                                                  trainer.optimizer.state["mu"][n],
+                                                  trainer.optimizer.state["nu"][n]))
+            t_whole += 12 * n_whole
+        t_bytes[n] = (t_held, t_whole)
     state_dict = trainer.state_dict(include_frozen=False)
     if ckpt is not None and rank == 0:
         torch.save(trainer.state_dict(), ckpt)
@@ -126,13 +142,98 @@ def avsr_trainer(rank, mesh, state, batch, opt, steps, fsdp_min=None, ckpt=None)
         trainer.state_dict()  # the gather is collective
     return {"metrics": metrics, "masters": {n: state_dict["model"][n] for n in trainer.master},
             "mu": state_dict["optimizer"]["mu"], "split": split, "held_bytes": held,
-            "whole_bytes": whole, "rows": int(mine["labels"].shape[0])}
+            "whole_bytes": whole, "rows": int(mine["labels"].shape[0]),
+            "tensor_split": tensor_split, "tensor_bytes": t_bytes}
+
+
+def avsr_tensor_ckpt(rank, mesh, state, batch, opt, steps, save=None, load=None):
+    """The AVSR Trainer on ``mesh`` (split on its tensor axis) over this
+    rank's rows: with ``load`` it resumes from that (whole, one-rank)
+    checkpoint first; ``steps`` steps, then with ``save`` the state written
+    by rank 0, then one more step: that step's metrics."""
+    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.criterions.lm import lm_metrics
+    from multimodalvc_tpu_torch.parallel.tensor import split_tensor_parallel_
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+
+    m = _mesh(mesh)
+    system = _tiny_avsr(state)
+    split_tensor_parallel_(system.module, m)
+    mine = _rows(dict(np.load(batch)), m)
+
+    def loss_fn(b, generator):
+        loss, aux = system.module(b, train=False)
+        return loss, lm_metrics(loss, aux)
+
+    trainer = Trainer(loss_fn, system.module, OptimizationConfig(**opt), system.frozen_patterns())
+    if load is not None:
+        trainer.load_state_dict(torch.load(load, weights_only=False))
+    for _ in range(steps):
+        trainer.train_step(mine)
+    if save is not None:
+        saved = trainer.state_dict()
+        if rank == 0:
+            torch.save(saved, save)
+    return {"next": trainer.train_step(mine)}
+
+
+def nollm_task(moe_experts: int = 0):
+    """The tiny NoLLM speech task (dropout on; with ``moe_experts`` an expert
+    bank in each Conformer block), random from seed 0."""
+    from multimodalvc_tpu_torch.models.speech import SpeechConfig
+    from multimodalvc_tpu_torch.tasks import SpeechTask, SpeechTaskConfig
+
+    cfg = dataclasses.replace(SpeechConfig.tiny(), conformer_moe_experts=moe_experts)
+    task = SpeechTask(SpeechTaskConfig(variant="nollm", max_mel_frames=80), cfg, device="cpu")
+    task.init_random(0)
+    return task
+
+
+def nollm_steps(batch, opt, steps, mesh=None, moe_experts: int = 0):
+    """``steps`` Trainer steps of the NoLLM task's training loss (dropout
+    drawn, BatchNorm on batch statistics) on ``batch`` (every rank the
+    whole batch), split on ``mesh``'s tensor axis: metrics, masters and the
+    split leaves."""
+    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.parallel.tensor import split_tensor_parallel_
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+
+    task = nollm_task(moe_experts)
+    split = split_tensor_parallel_(task.module, mesh)
+    trainer = Trainer(task.make_loss_fn(), task.module, OptimizationConfig(**opt),
+                      task.frozen_patterns(), seed=0)
+    b = {k: torch.from_numpy(np.array(v)) for k, v in np.load(batch).items()}
+    metrics = [trainer.train_step(b) for _ in range(steps)]
+    state = trainer.state_dict()
+    return {"metrics": metrics, "masters": {n: state["model"][n] for n in trainer.master},
+            "split": split}
+
+
+def nollm_tensor(rank, mesh, batch, opt, steps, moe_experts=0):
+    return nollm_steps(batch, opt, steps, _mesh(mesh), moe_experts)
+
+
+def _sum_grads(names, grads, named, mesh):
+    """Each gradient summed over the world; a tensor-split leaf's (the tensor
+    group's share) times the tensor size over the ranks that hold its slice,
+    then gathered whole."""
+    from multimodalvc_tpu_torch.parallel.tensor import gather_whole, tensor_dim, tensor_groups
+
+    _, holders = tensor_groups(mesh)
+    out = {}
+    for n, g in zip(names, grads):
+        if tensor_dim(named[n]) is None:
+            (out[n],) = _sum_over([g])
+        else:
+            (out[n],) = _sum_over([g * mesh.size("tensor")], holders)
+            out[n] = gather_whole(named[n], out[n])
+    return out
 
 
 def toy_model(seed: int = 0):
     """Two Linear layers whose weights fsdp splits along their largest dim
-    ([128, 256]) and along their smaller one ([255, 128]: 255 is odd), with a
-    bias that it splits and one that it keeps whole."""
+    ([128, 256]) and along their smaller one ([255, 128]: 255 is odd); their
+    biases stay whole (the JAX rule for names ending in ``bias``)."""
     torch.manual_seed(seed)
     return torch.nn.Sequential(torch.nn.Linear(256, 128), torch.nn.Tanh(),
                                torch.nn.Linear(128, 255))
@@ -335,9 +436,12 @@ def avsr_pipeline(rank, mesh, state, batch, microbatches):
     from multimodalvc_tpu_torch.runtime.trainer import trainable_mask
     from multimodalvc_tpu_torch.tasks import AVSRTask, AVSRTaskConfig
 
+    from multimodalvc_tpu_torch.parallel.tensor import gather_whole, split_tensor_parallel_
+
     _no_dropout()
     m = _mesh(mesh)
     system = _tiny_avsr(state, lora_dropout=0.0)
+    split_tensor_parallel_(system.module, m)
     task = AVSRTask(AVSRTaskConfig(pipeline_microbatches=microbatches), system.cfg, device="cpu")
     task.system = system
     whole = dict(np.load(batch))
@@ -354,11 +458,11 @@ def avsr_pipeline(rank, mesh, state, batch, microbatches):
 
     loss_fn = task.make_loss_fn()
     loss, metrics = loss_fn(_rows(whole, m), torch.Generator())
-    pipe = dict(zip(names, _sum_over(grads_of(loss / replicas(m)))))
+    pipe = _sum_grads(names, grads_of(loss / replicas(m)), named, m)
     with local():
         ref_loss, _ = system.make_trainer_loss_fn()(
             {k: torch.from_numpy(v) for k, v in whole.items()}, torch.Generator())
-        ref = dict(zip(names, grads_of(ref_loss)))
+        ref = {n: gather_whole(named[n], g) for n, g in zip(names, grads_of(ref_loss))}
     return {"loss": float(metrics["loss"]), "n_tokens": int(metrics["n_tokens"]),
             "fn": loss_fn.__qualname__, "grads": pipe, "ref_loss": float(ref_loss),
             "ref_grads": ref}
@@ -385,27 +489,41 @@ def moe(rank, mesh, state, x, w, experts, ffn):
             "load": {k: v.clone() for k, v in layer.load.items()}}
 
 
-def encoder_sp(rank, mesh, state, x, lengths):
+def encoder_sp(rank, mesh, state, x, lengths, w=None):
     """The port's TransformerEncoder with ``sequence_parallel`` on this
-    rank's rows (d 32, 2 layers, 4 heads, FFN 64): its output."""
+    rank's rows (d 32, 2 layers, 4 heads, FFN 64), split on a tensor axis:
+    its output; with ``w`` the gradients of sum(out * w) (``_sum_grads``)."""
     from multimodalvc_tpu_torch.nn.layers import TransformerEncoder
+    from multimodalvc_tpu_torch.parallel.tensor import split_tensor_parallel_
 
     m = _mesh(mesh)
     enc = TransformerEncoder(32, 2, 4, 64, sequence_parallel=True)
     enc.load_state_dict(torch.load(state), strict=True)
+    split_tensor_parallel_(enc, m)
     mine = _rows({"x": np.load(x), "lengths": np.load(lengths)}, m)
-    with torch.no_grad():
-        return {"out": enc(mine["x"], lengths=mine["lengths"])}
+    if w is None:
+        with torch.no_grad():
+            return {"out": enc(mine["x"], lengths=mine["lengths"])}
+    from multimodalvc_tpu_torch.parallel.mesh import replicas
+
+    out = enc(mine["x"], lengths=mine["lengths"])
+    weights = _rows({"w": np.load(w)}, m)["w"]
+    named = dict(enc.named_parameters())
+    grads = torch.autograd.grad((out * weights).sum() / replicas(m), list(named.values()))
+    return {"out": out.detach(), "grads": _sum_grads(list(named), grads, named, m)}
 
 
-def cli_train(rank, argv):
+def cli_train(rank, argv=None, tree=None, dropout=False):
     """``cli.train.main`` of the port in a launch of several processes (the
-    group started here, which the CLI takes as a launcher's), without
-    dropout: the stats it logged and the checkpoints it wrote."""
+    group started here, which the CLI takes as a launcher's) on the command
+    line ``argv`` or the config ``tree``, without dropout unless
+    ``dropout``: the stats it logged and the checkpoints it wrote."""
+    from multimodalvc_tpu_torch.config import TrainRootConfig, from_dict
     from multimodalvc_tpu_torch.cli import train as ttrain
     from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
 
-    _no_dropout()
+    if not dropout:
+        _no_dropout()
     lines, writes = [], []
     real, real_write = ttrain.log_stats, CheckpointManager._write
     ttrain.log_stats = lambda stats, step, prefix="train", fmt="simple": (
@@ -417,7 +535,7 @@ def cli_train(rank, argv):
         real_write(mgr, state, name)
 
     CheckpointManager._write = write
-    cfg, _ = ttrain.parse_args(argv)
+    cfg = ttrain.parse_args(argv)[0] if tree is None else from_dict(TrainRootConfig, tree)
     ttrain.main(cfg, device="cpu")
     return {"train": [(step, s) for p, step, s in lines if p == "train"],
             "valid": [s for p, _, s in lines if p == "valid"], "writes": writes}
@@ -463,6 +581,7 @@ def vocoder(rank, batch, steps):
 
 
 JOBS = {"avsr_trainer": avsr_trainer, "optim_fsdp": optim_fsdp, "avsr_resume": avsr_resume,
+        "avsr_tensor_ckpt": avsr_tensor_ckpt, "nollm_tensor": nollm_tensor,
         "agree": agree, "vocoder": vocoder, "batch_norm": batch_norm, "ring": ring, "bmuf": bmuf,
         "llama_pipeline": llama_pipeline, "avsr_pipeline": avsr_pipeline, "moe": moe,
         "encoder_sp": encoder_sp, "cli_train": cli_train}
