@@ -13,7 +13,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    against its plain PyTorch version at the serving shapes, with
    edge cases, and times both, the one PyTorch call that computes the same
    function where there is one, and the card's bound for the work (K7 and
-   K8 with a cold L2, as the decode finds their weights).
+   K8 with a cold L2, as the decode finds their weights).  Then the
+   ``selftest`` phase: the package's kernel self-test
+   (``multimodalvc_tpu_torch.ops.selftest.run_all``), the JAX selftest's
+   sixteen checks at its shapes against its oracles, one line and one wall
+   a record; a red record fails the run.  The smoke's own cases at the
+   selftest's shapes stay: they hold more than its tolerances do.
 3. Serves batches through the full-width AVSR path (Whisper-medium,
    AV-HuBERT-Large, Q-Former, LLaMA-3.2-3B with random weights from seed 0):
    batch 8, 16 s, beam 5 (8 and 17 where named), in fourteen phases:
@@ -186,7 +191,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``parallel_tensor_avsr`` (``cli.train`` on mms-llama with
    ``mesh.tensor=2``) and ``parallel_tensor_speech`` (the NoLLM head, K1
    with a gradient on 4 of Conformer-L's 8 heads), each against a
-   one-process run and its two nudged runs in a fresh child process, with
+   one-process run, its nudged and dithered runs and its run with K1 plain,
+   all in the smoke's own process, with
    each rank's bytes of the split leaves, peak and K1 launches; K1 at the
    local-head shapes (``TENSOR_FLASH_CASES``, ``conformer_l_tensor2``) is
    in 2.
@@ -196,6 +202,8 @@ wall, then the ``{"kernels": [...]}`` summary, then the card line, then, as the 
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Needs a CUDA device and the repository around it; it does not fall
 back to the CPU.
+
+``python3 chip_smoke.py --selftest`` runs only the ``selftest`` phase.
 
 ``python3 chip_smoke.py --train`` runs only ``check_flash_grad`` and the two
 training phases.
@@ -354,6 +362,38 @@ def record(results, name, err, tol, library=None, **extra):
     print(f"  {name}: max_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}"
           + "".join(f" {k}={v:.3e}" if k.endswith("_err") else f" {k}={v:.4f}"
                     for k, v in extra.items() if isinstance(v, float)))
+
+
+# ---- the package's kernel self-test ----------------------------------------------
+
+
+def selftest_phase() -> dict:
+    """``multimodalvc_tpu_torch.ops.selftest.run_all()`` on the card: the JAX
+    selftest's sixteen checks, K1-K8 through the port's entries at its
+    shapes against its oracles, each timed (its inputs, the launch and the
+    oracle, synchronised), one line a record.  Fails on a red record."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops.selftest import CHECKS, run_all
+
+    t0 = time.perf_counter()
+    records = []
+    for name in CHECKS:
+        t1 = time.perf_counter()
+        (rec,) = run_all([name])
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t1
+        records.append(rec)
+        print(f"  selftest {name}: max_err={rec['max_err']:.3e} tol={rec['tol']:g} "
+              f"{'ok' if rec['ok'] else 'FAIL'} ({rec['wall_s']:.2f} s)"
+              + (f" error: {rec['error']}" if "error" in rec else ""))
+    wall_s = time.perf_counter() - t0
+    print(f"  selftest: {len(records)} checks in {wall_s:.1f} s")
+    failed = [r["name"] for r in records if not r["ok"]]
+    if failed or len(records) != len(CHECKS):
+        raise SmokeFailure(f"selftest: red checks {failed}")
+    torch.cuda.empty_cache()
+    return {"records": records, "wall_s": wall_s}
 
 
 # ---- kernels against their plain versions ------------------------------------
@@ -3923,7 +3963,8 @@ def cli_train_avsr(table) -> dict:
     directly from the dataset (bitwise the CLI's batch); K1 24 times a
     step in Whisper and 24 more in AV-HuBERT at >= 256 frames; the resumed
     run's losses and trainable leaves against the straight run's at
-    REL_TOL; a validation WER logged; checkpoints written."""
+    REL_TOL; a validation WER logged; checkpoints written (``checkpoint_best``
+    by the first run only: 7 writes of the full state, not 10)."""
     import gc
     import shutil
 
@@ -3937,11 +3978,14 @@ def cli_train_avsr(table) -> dict:
     for d in run_dirs.values():
         shutil.rmtree(d, ignore_errors=True)
 
-    def overrides(save_dir, max_update):
+    def overrides(save_dir, max_update, best):
+        # no best metric ("none") writes no checkpoint_best (a 7.81 GiB
+        # file): only the first run writes one
         return ["task.llm_path=null", f"task.noise_wav={CLI_DIR}/babble.wav",
                 f"dataset.max_tokens={CLI_MAX_TOKENS}", f"optimization.max_update={max_update}",
                 "dataset.valid_wer_batches=1", "generation.max_len=16",
-                f"checkpoint.save_dir={save_dir}"]
+                f"checkpoint.save_dir={save_dir}",
+                f"checkpoint.best_checkpoint_metric={'loss' if best else 'none'}"]
 
     made = []
 
@@ -3980,7 +4024,7 @@ def cli_train_avsr(table) -> dict:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(table)
-            cfg = cli_config("mms-llama", overrides(save_dir, max_update))
+            cfg = cli_config("mms-llama", overrides(save_dir, max_update, name == "first"))
             with CliTap(cli_train) as tap:
                 val, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
             trainer, task = made[-1], tasks[-1]
@@ -3994,7 +4038,7 @@ def cli_train_avsr(table) -> dict:
                 raise SmokeFailure(f"cli_train_avsr {name}: no validation WER logged")
             if not all(math.isfinite(x) for x in losses[name]):
                 raise SmokeFailure(f"cli_train_avsr {name}: losses {losses[name]}")
-            for ck in ("checkpoint_last", "checkpoint_best"):
+            for ck in ("checkpoint_last", "checkpoint_best")[:2 if name == "first" else 1]:
                 if not (save_dir / ck / "state.pt").exists():
                     raise SmokeFailure(f"cli_train_avsr {name}: no {ck} under {save_dir}")
             times = step_times(tap)
@@ -5344,6 +5388,7 @@ def parallel_moe_speech(table) -> dict:
 
     from multimodalvc_tpu_torch.cli import train as cli_train
     from multimodalvc_tpu_torch.parallel.expert import BaseMoELayer
+    from multimodalvc_tpu_torch.parallel.mesh import mesh_scope
     from multimodalvc_tpu_torch.runtime.trainer import Trainer
 
     gc.collect()
@@ -5351,53 +5396,54 @@ def parallel_moe_speech(table) -> dict:
     t0 = time.perf_counter()
     cfg = cli_config("mms-speech-nollm-moe", ["mesh.expert=1", "model.max_video_frames=400",
                                               "optimization.warmup_updates=2"])
-    cli_train.make_mesh(cli_train.mesh_sizes(cfg))
-    task = cli_train.build_task(cfg, DEV)
-    task.init_random(cfg.common.seed)
-    trainer = Trainer(task.make_loss_fn(), task.module, cfg.optimization, task.frozen_patterns(),
-                      seed=cfg.common.seed)
-    banks = [m for m in task.module.modules() if isinstance(m, BaseMoELayer)]
-    blocks = [m for m in task.module.modules() if type(m).__name__ == "ConformerBlock"]
-    if not banks or len(banks) != len(blocks):
-        raise SmokeFailure(f"parallel_moe_speech: {len(banks)} expert banks in {len(blocks)} "
-                           "Conformer blocks")
-    raw = make_speech_train_batch()
-    gate_batch = {**task.prepare_batch(raw, train=False),
-                  "modality_mode": torch.tensor(0, dtype=torch.int32, device=DEV)}
-    record = gradient_gate(trainer, gate_batch, "parallel_moe_speech")
-    torch.cuda.reset_peak_memory_stats()
-    metrics, walls, loads = [], [], []
-    reset_counts(table)
-    with GradLaunches() as grads:
-        for _ in range(MOE_STEPS):
-            m, t_step = wall(lambda: trainer.train_step(task.prepare_batch(raw)))
-            metrics.append(m)
-            walls.append(t_step)
-            loads.append([{k: v.tolist() for k, v in b.load.items()} for b in banks])
-    launches = read_counts(table)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_k1_launches("parallel_moe_speech", launches, grads.n, MOE_STEPS,
-                      CONFORMER_GRAD_LAUNCHES)
-    losses = [m["mel_l1"] for m in metrics]
-    if not all(math.isfinite(x) for x in losses) or len(set(losses)) < 2:
-        raise SmokeFailure(f"parallel_moe_speech: mel L1 {losses} (finite, moving)")
-    last = loads[-1]
-    tokens = sum(sum(b["tokens"]) + b["overflow"] for b in last)
-    overflow = sum(b["overflow"] for b in last) / tokens
-    if any(sum(b["tokens"]) == 0 for b in last):
-        raise SmokeFailure("parallel_moe_speech: an expert bank took no token")
-    step_s = sum(walls[1:]) / len(walls[1:])
-    print(f"  parallel_moe_speech: {MOE_STEPS} updates, mel L1 {[round(x, 4) for x in losses]}, "
-          f"{1e3 * step_s:.1f} ms a step, peak {peak:.2f} GiB; block 0's experts took "
-          f"{last[0]['tokens']} tokens, {100 * overflow:.2f}% of the tokens overflowed")
-    record.update(mel_l1=losses, step_ms=[1e3 * x for x in walls], mean_step_ms=1e3 * step_s,
-                  peak_gib=peak, launches=launches, expert_tokens=[b["tokens"] for b in last],
-                  overflow_share=overflow, k1_grad_launches_a_step=grads.n // MOE_STEPS,
-                  wall_s=time.perf_counter() - t0)
-    del task, trainer, banks
-    gc.collect()
-    torch.cuda.empty_cache()
-    return record
+    with mesh_scope(cli_train.mesh_sizes(cfg)):  # the caller's mesh current again after
+        task = cli_train.build_task(cfg, DEV)
+        task.init_random(cfg.common.seed)
+        trainer = Trainer(task.make_loss_fn(), task.module, cfg.optimization,
+                          task.frozen_patterns(), seed=cfg.common.seed)
+        banks = [m for m in task.module.modules() if isinstance(m, BaseMoELayer)]
+        blocks = [m for m in task.module.modules() if type(m).__name__ == "ConformerBlock"]
+        if not banks or len(banks) != len(blocks):
+            raise SmokeFailure(f"parallel_moe_speech: {len(banks)} expert banks in {len(blocks)} "
+                               "Conformer blocks")
+        raw = make_speech_train_batch()
+        gate_batch = {**task.prepare_batch(raw, train=False),
+                      "modality_mode": torch.tensor(0, dtype=torch.int32, device=DEV)}
+        record = gradient_gate(trainer, gate_batch, "parallel_moe_speech")
+        torch.cuda.reset_peak_memory_stats()
+        metrics, walls, loads = [], [], []
+        reset_counts(table)
+        with GradLaunches() as grads:
+            for _ in range(MOE_STEPS):
+                m, t_step = wall(lambda: trainer.train_step(task.prepare_batch(raw)))
+                metrics.append(m)
+                walls.append(t_step)
+                loads.append([{k: v.tolist() for k, v in b.load.items()} for b in banks])
+        launches = read_counts(table)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_k1_launches("parallel_moe_speech", launches, grads.n, MOE_STEPS,
+                          CONFORMER_GRAD_LAUNCHES)
+        losses = [m["mel_l1"] for m in metrics]
+        if not all(math.isfinite(x) for x in losses) or len(set(losses)) < 2:
+            raise SmokeFailure(f"parallel_moe_speech: mel L1 {losses} (finite, moving)")
+        last = loads[-1]
+        tokens = sum(sum(b["tokens"]) + b["overflow"] for b in last)
+        overflow = sum(b["overflow"] for b in last) / tokens
+        if any(sum(b["tokens"]) == 0 for b in last):
+            raise SmokeFailure("parallel_moe_speech: an expert bank took no token")
+        step_s = sum(walls[1:]) / len(walls[1:])
+        print(f"  parallel_moe_speech: {MOE_STEPS} updates, mel L1 "
+              f"{[round(x, 4) for x in losses]}, {1e3 * step_s:.1f} ms a step, peak "
+              f"{peak:.2f} GiB; block 0's experts took {last[0]['tokens']} tokens, "
+              f"{100 * overflow:.2f}% of the tokens overflowed")
+        record.update(mel_l1=losses, step_ms=[1e3 * x for x in walls], mean_step_ms=1e3 * step_s,
+                      peak_gib=peak, launches=launches, expert_tokens=[b["tokens"] for b in last],
+                      overflow_share=overflow, k1_grad_launches_a_step=grads.n // MOE_STEPS,
+                      wall_s=time.perf_counter() - t0)
+        del task, trainer, banks
+        gc.collect()
+        torch.cuda.empty_cache()
+        return record
 
 
 # ---- the tensor axis: two gloo ranks sharing the card ----------------------------
@@ -5413,12 +5459,6 @@ TENSOR_RUN = ["task.llm_path=null", f"task.noise_wav={CLI_DIR}/babble.wav",
 # a change of every element, not of 0.01% of them
 DITHER = "dither"
 PERTURBATIONS = (0, 2500, 4999, DITHER)
-# the tensor phases' gate over their floor: the split's own rounding (a
-# split the CPU tests hold to the one-process steps) landed at 0.82-1.30x
-# the largest floor source in the NoLLM step-3 loss over PR 20's calls,
-# where a fault (a split leaf's gradient unscaled, a dropout mask sliced
-# wrong, a bias added twice) lands at 10-10,000x
-TENSOR_FLOOR_MARGIN = 2.0
 
 
 def perturb(x, how):
@@ -5520,6 +5560,29 @@ def tensor_avsr_run(table, tensor: bool = False, change=None) -> dict:
     return out
 
 
+def nollm_trainer(mesh=None):
+    """The NoLLM task at full width (``speech_config()``, bf16, random from
+    SPEECH_SEED), split on ``mesh``'s tensor axis where one is given, its
+    ``Trainer`` (the conf/mms-speech-nollm.yaml optimizer, warmup
+    PARALLEL_WARMUP) and the raw speech training batch."""
+    import torch
+
+    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.parallel.tensor import split_tensor_parallel_
+    from multimodalvc_tpu_torch.runtime.trainer import Trainer
+    from multimodalvc_tpu_torch.tasks import SpeechTask, SpeechTaskConfig
+
+    task = SpeechTask(SpeechTaskConfig(variant="nollm"), speech_config(), dtype=torch.bfloat16,
+                      device=DEV)
+    task.init_random(SPEECH_SEED)
+    if mesh is not None:
+        split_tensor_parallel_(task.module, mesh)
+    opt = OptimizationConfig(lr=2e-4, lr_scheduler="cosine", warmup_updates=PARALLEL_WARMUP,
+                             max_update=60000, clip_norm=1.0)
+    trainer = Trainer(task.make_loss_fn(), task.module, opt, task.frozen_patterns())
+    return task, trainer, make_speech_train_batch()
+
+
 def tensor_speech_run(table, tensor: bool = False, change=None) -> dict:
     """``SpeechTask("nollm")`` at full width (``speech_config()``, bf16,
     random from SPEECH_SEED), split on {tensor 2} where ``tensor``, into
@@ -5533,23 +5596,11 @@ def tensor_speech_run(table, tensor: bool = False, change=None) -> dict:
 
     import torch
 
-    from multimodalvc_tpu_torch.config.configs import OptimizationConfig
     from multimodalvc_tpu_torch.parallel.mesh import make_mesh
-    from multimodalvc_tpu_torch.parallel.tensor import split_tensor_parallel_
-    from multimodalvc_tpu_torch.runtime.trainer import Trainer
-    from multimodalvc_tpu_torch.tasks import SpeechTask, SpeechTaskConfig
 
     gc.collect()
     torch.cuda.empty_cache()
-    task = SpeechTask(SpeechTaskConfig(variant="nollm"), speech_config(), dtype=torch.bfloat16,
-                      device=DEV)
-    task.init_random(SPEECH_SEED)
-    if tensor:
-        split_tensor_parallel_(task.module, make_mesh({"tensor": 2}))
-    opt = OptimizationConfig(lr=2e-4, lr_scheduler="cosine", warmup_updates=PARALLEL_WARMUP,
-                             max_update=60000, clip_norm=1.0)
-    trainer = Trainer(task.make_loss_fn(), task.module, opt, task.frozen_patterns())
-    raw = make_speech_train_batch()
+    task, trainer, raw = nollm_trainer(make_mesh({"tensor": 2}) if tensor else None)
     if change is not None:
         raw = {**raw, "audio_feats": perturb(raw["audio_feats"], change)}
     start = whole_masters_flat(trainer)
@@ -5577,46 +5628,38 @@ TENSOR_RUNS = {"tensor_avsr": tensor_avsr_run, "tensor_speech": tensor_speech_ru
 
 
 def tensor_child(what: str, out: str) -> int:
-    """A child process of ``tensor_phase``, written to ``out``.
-    ``tensor_avsr`` / ``tensor_speech``: one of its two
-    ranks (RANK, WORLD_SIZE 2 and LOCAL_RANK 0 from the parent: both bind
-    cuda:0), joined over gloo (NCCL refuses two ranks on one card), the run
-    on {tensor 2}.  ``..._one``: the one-process run, the same from the same
-    start with the inputs changed by each of PERTURBATIONS, and with K1's
-    plain version (the floor sources).  Both start from a fresh process: a
-    one-process run in the parent, after the earlier phases, moved the
-    NoLLM step-1 loss by 0.4%."""
+    """A child process of ``tensor_phase``, written to ``out``:
+    ``tensor_avsr`` / ``tensor_speech``, one of its two ranks (RANK,
+    WORLD_SIZE 2 and LOCAL_RANK 0 from the parent: both bind cuda:0),
+    joined over gloo (NCCL refuses two ranks on one card), the run on
+    {tensor 2}."""
     import torch
 
     from multimodalvc_tpu_torch.parallel import distributed
 
     table = kernels()
-    if what.endswith("_one"):
-        run = TENSOR_RUNS[what[:-len("_one")]]
-        runs = [run(table)] + [run(table, change=c) for c in PERTURBATIONS]
-        with plain_versions(["flash_attention"]):
-            runs.append(run(table))
-        torch.save(runs, out)
-        return 0
     distributed.distributed_init(backend="gloo")
     torch.save(TENSOR_RUNS[what](table, tensor=True), out)
     distributed.destroy()
     return 0
 
 
-def tensor_phase(name: str, what: str) -> dict:
-    """The one-process run, and its noise floor in one child process: the
-    largest gap of each compared quantity from the same start with the
-    inputs changed by PERTURBATIONS (``parallel_data_2rank``'s nudges at
-    three offsets, and a one-ulp dither of every feature) or with K1's plain
-    version (another correct rounding of every attention).  The tensor
+def tensor_phase(table, name: str, what: str) -> dict:
+    """The one-process run in the smoke's own process, after the earlier
+    phases (none of what they leave moves it: the speech models read
+    ``avsr.train_rng`` at each call, and a finished ``cli.train`` leaves the
+    caller's mesh current), and its noise
+    floor: the largest gap of each compared quantity from the same start
+    with the inputs changed by PERTURBATIONS (``parallel_data_2rank``'s
+    nudges at three offsets, and a one-ulp dither of every feature) or with
+    K1's plain version (another correct rounding of every attention).  The tensor
     split rounds every split product differently: the NoLLM head, which
     does not amplify a change into chaos as the AVSR model does, reads it
     as a change of every element, not of 0.01% of them (its step-3 loss
     sat at 0.7-1.3x the nudges' floor, PR 20's calls 3-9).  Then the two
     ranks of ``tensor_child(what)``.
     Checks: the ranks' losses, gnorms and
-    updates bitwise equal; each within TENSOR_FLOOR_MARGIN x its floor of
+    updates bitwise equal; each within FLOOR_MARGIN x its floor of
     the one-process run; each rank's K1 launches the one-process run's (every
     attention on its local heads through K1, none on a plain one), and its
     split leaves half of the whole bytes."""
@@ -5624,11 +5667,10 @@ def tensor_phase(name: str, what: str) -> dict:
 
     PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    one = PARALLEL_DIR / f"{what}_one.pt"
-    one.unlink(missing_ok=True)
-    run_children([[sys.executable, str(REPO / "chip_smoke.py"), "--parallel-child",
-                   f"{what}_one", str(one)]], [{}], name)
-    ref, *others = torch.load(one, weights_only=False)
+    one = TENSOR_RUNS[what]
+    ref, *others = [one(table)] + [one(table, change=c) for c in PERTURBATIONS]
+    with plain_versions(["flash_attention"]):
+        others.append(one(table))
     sources = [_data_gaps(run, ref) for run in others]  # PERTURBATIONS, then K1 plain
     floor = {k: max(n[k] for n in sources) for k in sources[0]}
     outs = [PARALLEL_DIR / f"{what}_rank{r}.pt" for r in range(2)]
@@ -5645,7 +5687,13 @@ def tensor_phase(name: str, what: str) -> dict:
             or not torch.equal(a["update"], b["update"])):
         raise SmokeFailure(f"{name}: the two ranks differ")
     gaps = _data_gaps(a, ref)
-    gates = {k: TENSOR_FLOOR_MARGIN * floor[k] for k in floor}
+    # FLOOR_MARGIN, as parallel_data_2rank: the split's own rounding (a split
+    # the CPU tests hold to the one-process steps) lands at 0.77-1.18x the
+    # largest floor source, the same bits in every run since the NoLLM step
+    # repeats itself (three --parallel runs on an H100), where a fault (a split leaf's
+    # gradient unscaled, a dropout mask sliced wrong, a bias added twice)
+    # lands at 10-10,000x
+    gates = {k: FLOOR_MARGIN * floor[k] for k in floor}
     steps = len(ref["losses"])
     k1 = [r["launches"]["flash_attention"] // steps for r in (a, b)]
     print(f"  {name}: two gloo ranks on one card at {{tensor 2}}, {steps} updates: losses "
@@ -5694,13 +5742,13 @@ def parallel_tensor_avsr(table) -> dict:
     AV-HuBERT, Q-Former and speech-rate attentions and FFNs, the AV-HuBERT
     projection, the LLaMA MLP's gate and up and its embedding split; K1 on
     8 of 16 heads a rank in the encoders."""
-    return tensor_phase("parallel_tensor_avsr", "tensor_avsr")
+    return tensor_phase(table, "parallel_tensor_avsr", "tensor_avsr")
 
 
 def parallel_tensor_speech(table) -> dict:
     """The NoLLM head at full width on {tensor 2} (``tensor_phase``): K1
     with a gradient on 4 of Conformer-L's 8 heads a rank."""
-    return tensor_phase("parallel_tensor_speech", "tensor_speech")
+    return tensor_phase(table, "parallel_tensor_speech", "tensor_speech")
 
 
 def parallel_phases(table) -> dict:
@@ -6458,6 +6506,10 @@ def main() -> int:
         print(f"smoke --optim: {time.perf_counter() - start:.1f} s, the kernels' build included")
         print(card)
         return 0
+    if "--selftest" in sys.argv[1:]:
+        print(json.dumps({"selftest": selftest_phase()}))
+        print(card)
+        return 0
     if "--profile-remat" in sys.argv[1:]:
         print(json.dumps({"profile_remat": profile_remat()}))
         print(card)
@@ -6490,12 +6542,15 @@ def main() -> int:
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
         raise SmokeFailure(f"kernel checks failed: {failed}")
+    print("selftest (multimodalvc_tpu_torch.ops.selftest.run_all on the card):")
+    selftest = selftest_phase()
 
     table = kernels()
     batch = make_batch()
     print(f"serving: AVSRConfig() full width, random weights (seed 0), batch {BATCH}, "
           f"{SECONDS} s, beam {BEAMS}")
     phases, checks = serving_phases(table, batch)
+    phases["selftest"] = selftest
     print(f"training: AVSRConfig() full width, batch {BATCH} x {SECONDS} s, {TRAIN_LABELS} label "
           f"tokens, {TRAIN_STEPS} steps on one batch")
     for name, flash in (("train_avsr", False), ("train_avsr_flash", True)):

@@ -67,7 +67,7 @@ from ..parallel.mesh import (
     batch_group_size,
     from_rank0,
     local,
-    make_mesh,
+    mesh_scope,
     resolve_axis_sizes,
     restore_generator_,
 )
@@ -196,16 +196,17 @@ def main(cfg: TrainRootConfig, device="cuda") -> Dict[str, float]:
     np.random.seed(cfg.common.seed)
     # a multi-process launch rendezvous before the first device access
     distributed_init()
-    make_mesh(mesh_sizes(cfg))
-    task = build_task(cfg, device)
-    with Profiler(cfg):
-        if type(task).__name__ == "VocoderTask":
-            return _vocoder_loop(cfg, task, device)
-        if type(task).__name__ == "E2EGanTask":
-            if cfg.checkpoint.init_from_pt:
-                raise NotImplementedError(E2E_NO_PT)
-            return _e2e_gan_loop(cfg, task, device)
-        return _train_loop(cfg, task, device)
+    # the run's mesh is current until it returns, then the caller's again
+    with mesh_scope(mesh_sizes(cfg)):
+        task = build_task(cfg, device)
+        with Profiler(cfg):
+            if type(task).__name__ == "VocoderTask":
+                return _vocoder_loop(cfg, task, device)
+            if type(task).__name__ == "E2EGanTask":
+                if cfg.checkpoint.init_from_pt:
+                    raise NotImplementedError(E2E_NO_PT)
+                return _e2e_gan_loop(cfg, task, device)
+            return _train_loop(cfg, task, device)
 
 
 def import_init_from_pt(module: torch.nn.Module, path: str) -> int:

@@ -40,7 +40,11 @@ from ..nn.hifigan import HifiGanConfig, HifiGanGenerator
 from ..nn.init import init_random_
 from ..nn.llama import LlamaModel
 from ..ops.interpolate import linear_resize_batched
-from .avsr import AVSRConfig, AVSREncoder, assemble_left_padded, train_rng
+# ``train_rng`` is called through its module: a caller that switches the
+# dropout off replaces ``avsr.train_rng`` for a while, and a name bound here
+# would keep whatever stood there when this module was first imported
+from . import avsr
+from .avsr import AVSRConfig, AVSREncoder, assemble_left_padded
 
 MEL_BINS = 128
 HOP = 160
@@ -145,7 +149,7 @@ class SpeechLLMModel(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        rng = train_rng(train, generator)
+        rng = avsr.train_rng(train, generator)
         queries, query_lens = self.encoder(batch["audio_feats"], batch["video"],
                                            batch["video_lengths"], dropout_rng=rng)
         dev = queries.device
@@ -176,7 +180,7 @@ class SpeechNoLLMModel(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        rng = train_rng(train, generator)
+        rng = avsr.train_rng(train, generator)
         queries, query_lens = self.encoder(batch["audio_feats"], batch["video"],
                                            batch["video_lengths"], dropout_rng=rng,
                                            modality_mode=batch.get("modality_mode"))

@@ -20,6 +20,7 @@ from .mesh import (  # noqa: F401
     get_current_mesh,
     local,
     make_mesh,
+    mesh_scope,
     replicas,
     resolve_axis_sizes,
     set_current_mesh,

@@ -179,6 +179,20 @@ def make_mesh(axis_sizes: Optional[Dict[str, int]] = None) -> Mesh:
     return mesh
 
 
+@contextlib.contextmanager
+def mesh_scope(axis_sizes: Optional[Dict[str, int]] = None) -> Iterator[Mesh]:
+    """``make_mesh(axis_sizes)`` for a block: its mesh is the current one
+    inside the block, and the mesh that was current before is current again
+    after it, so that a run that has ended leaves no mesh for a later run in
+    the same process (a notebook, a sweep script) to pick up through
+    ``active_mesh``."""
+    prev = get_current_mesh()
+    try:
+        yield make_mesh(axis_sizes)
+    finally:
+        set_current_mesh(prev)
+
+
 def set_current_mesh(mesh: Optional[Mesh]) -> None:
     global _CURRENT
     _CURRENT = mesh

@@ -40,7 +40,7 @@ from multimodalvc_tpu_torch import tasks as ttasks
 from multimodalvc_tpu_torch.cli import train as ttrain
 from multimodalvc_tpu_torch.config import TrainRootConfig, from_dict
 from multimodalvc_tpu_torch.criterions import gan as tgan
-from multimodalvc_tpu_torch.models import speech as tsp
+from multimodalvc_tpu_torch.models import avsr as tavsr
 from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
 from multimodalvc_tpu_torch.runtime.trainer import AdamW
 
@@ -90,7 +90,7 @@ def test_e2e_gan_loop_matches_jax(corpus, tmp_path):
         mp.setattr(ttasks.E2EGanTask, "init_random", init_random)
         mp.setattr(ttasks.E2EGanTask, "make_trainer", tmake_trainer)
         mp.setattr(tgan, "AdamW", functools.partial(AdamW, eps=eps))
-        mp.setattr(tsp, "train_rng", lambda train, generator: None)
+        mp.setattr(tavsr, "train_rng", lambda train, generator: None)
         ttap = LogTap(mp, ttrain)
         save_dir = str(tmp_path / "port")
         ttrain.main(from_dict(TrainRootConfig, e2e_tree(root, save_dir)), device="cpu")

@@ -160,8 +160,8 @@ def test_presets_beyond_one_device_raise():
             ttrain.main(tconfig.from_dict(tconfig.TrainRootConfig, tree), device="cpu")
         over = ["mesh.pipeline=1", "mesh.expert=1", "model.preset=tiny"]
         cfg = tconfig.from_dict(tconfig.TrainRootConfig, tconfig.apply_overrides(tree, over))
-        ttrain.make_mesh(ttrain.mesh_sizes(cfg))
-        task = ttrain.build_task(cfg, device="cpu")
+        with ttrain.mesh_scope(ttrain.mesh_sizes(cfg)):
+            task = ttrain.build_task(cfg, device="cpu")
         if preset == "mms-llama-pp":
             assert task.cfg.pipeline_microbatches == 4
             assert task.make_loss_fn().__qualname__.startswith("AVSRSystem.make_trainer_loss_fn")

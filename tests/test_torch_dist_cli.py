@@ -2,10 +2,11 @@
 over the tiny AVSR preset and the synthetic corpus of tests/fixtures.py,
 without dropout: each rank takes its share of every epoch's batches, both
 log the same losses (the batch group's), rank 0 alone writes the
-checkpoints, and the checkpoint resumes in one process."""
+checkpoints, the checkpoint resumes in one process, and the run leaves no
+mesh behind for a later training in the same ranks."""
 import numpy as np
 import pytest
-from torch_dist_worker import spawn
+from torch_dist_worker import nollm_batch, spawn
 from torch_parity import t  # noqa: F401 (sets one torch thread)
 
 from multimodalvc_tpu_torch.cli import train as ttrain
@@ -15,6 +16,7 @@ from multimodalvc_tpu_torch.models import avsr as tavsr
 from tests.fixtures import make_corpus
 
 UPDATES = 3
+NOLLM = dict(opt=dict(lr=1e-3, warmup_updates=2, max_update=10, adam_eps=1e-3), steps=2)
 
 
 def model_stats(stats):
@@ -40,8 +42,13 @@ def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("distcli")
     root, noise = make_corpus(str(tmp / "corpus"), frame_sizes=(10, 14, 16))
     save = tmp / "ckpt"
-    ranks = spawn(tmp, 2, [("cli_train", dict(argv=argv(root, noise, save, UPDATES)))])
-    return dict(ranks=[r["cli_train"] for r in ranks], root=root, noise=noise, save=save)
+    np.savez(tmp / "nollm.npz", **nollm_batch())
+    nollm = dict(NOLLM, batch=str(tmp / "nollm.npz"))
+    ranks = spawn(tmp, 2, [("nollm_one:before", nollm),
+                           ("cli_train", dict(argv=argv(root, noise, save, UPDATES))),
+                           ("nollm_one:after", nollm)])
+    return dict(ranks=[r["cli_train"] for r in ranks], root=root, noise=noise, save=save,
+                nollm=[(r["nollm_one:before"], r["nollm_one:after"]) for r in ranks])
 
 
 def test_two_ranks_log_the_same_losses(run):
@@ -52,6 +59,17 @@ def test_two_ranks_log_the_same_losses(run):
     # every rank validates the whole set; no beam WER in a launch of two
     assert model_stats(a["valid"]) == model_stats(b["valid"]) and a["valid"]
     assert all("wer" not in v for v in a["valid"])
+
+
+def test_a_finished_run_leaves_no_mesh_behind(run):
+    """cli.train's {data: 2} mesh is current only while it runs: the NoLLM
+    steps that the same ranks run after it, with no mesh of their own, are
+    bit for bit the steps they ran before it.  (A mesh left current would be
+    taken by the later Trainer: rank 1's dropout stream apart, the losses
+    over twice the rows, the gradients summed over both ranks.)"""
+    for before, after in run["nollm"]:
+        assert len(before) == NOLLM["steps"] and all(np.isfinite(m["loss"]) for m in before)
+        assert after == before
 
 
 def test_each_rank_takes_its_share_of_the_batches():

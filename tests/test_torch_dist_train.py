@@ -20,7 +20,14 @@ import optax
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
-from torch_dist_worker import avsr_tensor_ckpt, nollm_steps, spawn, tiny_vocoder, toy_trainer
+from torch_dist_worker import (
+    avsr_tensor_ckpt,
+    nollm_batch,
+    nollm_steps,
+    spawn,
+    tiny_vocoder,
+    toy_trainer,
+)
 from torch_parity import jax_variables, randomize, to_numpy_tree
 
 from multimodalvc_tpu.config.configs import OptimizationConfig as JaxOptimizationConfig
@@ -62,26 +69,6 @@ def batch4(cfg, seed=0):
         "instruction": rng.integers(1, 200, (4, 5)).astype(np.int32),
         "labels": rng.integers(1, 200, (4, 8)).astype(np.int32),
         "label_lengths": np.asarray([8, 3, 6, 2], np.int32),
-    }
-
-
-def nollm_batch(seed=5):
-    """Two rows for the tiny NoLLM speech head (its 80 mel frames), both
-    streams."""
-    from multimodalvc_tpu_torch.models.speech import SpeechConfig
-
-    cfg = SpeechConfig.tiny()
-    rng = np.random.default_rng(seed)
-    t_v = cfg.max_video_frames
-    return {
-        "audio_feats": rng.standard_normal((2, cfg.whisper.n_mels, 2 * cfg.whisper.max_frames))
-        .astype(np.float32),
-        "video": rng.standard_normal((2, t_v, 24, 24, 1)).astype(np.float32),
-        "video_lengths": np.asarray([t_v, t_v // 2], np.int32),
-        "audio_lengths": np.asarray([80 * 160, 50 * 160], np.int32),
-        "target_mel": rng.standard_normal((2, cfg.max_mel_frames, 128)).astype(np.float32),
-        "target_mel_lengths": np.asarray([80, 50], np.int32),
-        "modality_mode": np.asarray(0, np.int32),
     }
 
 

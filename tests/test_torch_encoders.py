@@ -119,6 +119,24 @@ def test_linear_resize_batched(align_corners):
         tinterp.length_mask(t(tgt), 20).numpy())
 
 
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_linear_resize_batched_gradient(align_corners):
+    """The resize's gradient, a product with the dense interpolation weights
+    (not the gathers' scatter-add), is JAX's; a source row feeds several
+    output rows, and row 2's single source row feeds all of its own."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3, 10, 4)).astype(np.float32)
+    g = rng.standard_normal((3, 20, 4)).astype(np.float32)
+    src, tgt = np.asarray([10, 7, 1], np.int32), np.asarray([19, 3, 5], np.int32)
+    _, vjp = jax.vjp(lambda a: jinterp.linear_resize_batched(
+        a, jnp.asarray(src), jnp.asarray(tgt), 20, align_corners=align_corners), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    xt = t(x).requires_grad_()
+    tinterp.linear_resize_batched(xt, t(src), t(tgt), 20, align_corners=align_corners).backward(
+        t(g))
+    assert max_err(want, xt.grad) < 1e-6
+
+
 def test_assemble_left_padded():
     rng = np.random.default_rng(7)
     pad = np.full((4,), -1.0, np.float32)

@@ -9,10 +9,12 @@ only (no JAX), so the ranks never start a JAX runtime.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
 from datetime import timedelta
+from unittest import mock
 
 import numpy as np
 import torch
@@ -73,11 +75,12 @@ def _sum_over(tensors, group=None):
 
 
 def _no_dropout():
-    """The port's training forwards without a generator (no dropout draws),
-    as tests/test_torch_cli.py runs them."""
+    """Within the block, the port's training forwards without a generator (no
+    dropout draws), as tests/test_torch_cli.py runs them; a later job of the
+    same rank draws its dropout again."""
     from multimodalvc_tpu_torch.models import avsr as tavsr
 
-    tavsr.train_rng = lambda train, generator: None
+    return mock.patch.object(tavsr, "train_rng", lambda train, generator: None)
 
 
 def _tiny_avsr(state_path, lora_dropout=None):
@@ -211,6 +214,32 @@ def nollm_steps(batch, opt, steps, mesh=None, moe_experts: int = 0):
 
 def nollm_tensor(rank, mesh, batch, opt, steps, moe_experts=0):
     return nollm_steps(batch, opt, steps, _mesh(mesh), moe_experts)
+
+
+def nollm_one(rank, batch, opt, steps):
+    """The NoLLM steps with no mesh of their own, as a one-process training
+    in a process that holds a group runs them: their metrics."""
+    return nollm_steps(batch, opt, steps)["metrics"]
+
+
+def nollm_batch(seed=5):
+    """Two rows for the tiny NoLLM speech head (its 80 mel frames), both
+    streams."""
+    from multimodalvc_tpu_torch.models.speech import SpeechConfig
+
+    cfg = SpeechConfig.tiny()
+    rng = np.random.default_rng(seed)
+    t_v = cfg.max_video_frames
+    return {
+        "audio_feats": rng.standard_normal((2, cfg.whisper.n_mels, 2 * cfg.whisper.max_frames))
+        .astype(np.float32),
+        "video": rng.standard_normal((2, t_v, 24, 24, 1)).astype(np.float32),
+        "video_lengths": np.asarray([t_v, t_v // 2], np.int32),
+        "audio_lengths": np.asarray([80 * 160, 50 * 160], np.int32),
+        "target_mel": rng.standard_normal((2, cfg.max_mel_frames, 128)).astype(np.float32),
+        "target_mel_lengths": np.asarray([80, 50], np.int32),
+        "modality_mode": np.asarray(0, np.int32),
+    }
 
 
 def _sum_grads(names, grads, named, mesh):
@@ -428,6 +457,11 @@ def llama_pipeline(rank, mesh, state, emb, mask, microbatches):
 
 
 def avsr_pipeline(rank, mesh, state, batch, microbatches):
+    with _no_dropout():
+        return _avsr_pipeline(mesh, state, batch, microbatches)
+
+
+def _avsr_pipeline(mesh, state, batch, microbatches):
     """The AVSR pipelined loss (``AVSRTask.make_loss_fn`` on a pipeline
     axis) on this rank's rows, its trainable gradients summed over the world,
     and the same of the plain loss on the whole batch computed alone
@@ -438,7 +472,6 @@ def avsr_pipeline(rank, mesh, state, batch, microbatches):
 
     from multimodalvc_tpu_torch.parallel.tensor import gather_whole, split_tensor_parallel_
 
-    _no_dropout()
     m = _mesh(mesh)
     system = _tiny_avsr(state, lora_dropout=0.0)
     split_tensor_parallel_(system.module, m)
@@ -522,21 +555,23 @@ def cli_train(rank, argv=None, tree=None, dropout=False):
     from multimodalvc_tpu_torch.cli import train as ttrain
     from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
 
-    if not dropout:
-        _no_dropout()
     lines, writes = [], []
     real, real_write = ttrain.log_stats, CheckpointManager._write
-    ttrain.log_stats = lambda stats, step, prefix="train", fmt="simple": (
-        lines.append((prefix, step, dict(stats))), real(stats, step, prefix, fmt))
 
     def write(mgr, state, name):
         if mgr.writer:
             writes.append(name)
         real_write(mgr, state, name)
 
-    CheckpointManager._write = write
     cfg = ttrain.parse_args(argv)[0] if tree is None else from_dict(TrainRootConfig, tree)
-    ttrain.main(cfg, device="cpu")
+    with contextlib.ExitStack() as patches:
+        if not dropout:
+            patches.enter_context(_no_dropout())
+        patches.enter_context(mock.patch.object(
+            ttrain, "log_stats", lambda stats, step, prefix="train", fmt="simple": (
+                lines.append((prefix, step, dict(stats))), real(stats, step, prefix, fmt))))
+        patches.enter_context(mock.patch.object(CheckpointManager, "_write", write))
+        ttrain.main(cfg, device="cpu")
     return {"train": [(step, s) for p, step, s in lines if p == "train"],
             "valid": [s for p, _, s in lines if p == "valid"], "writes": writes}
 
@@ -582,6 +617,7 @@ def vocoder(rank, batch, steps):
 
 JOBS = {"avsr_trainer": avsr_trainer, "optim_fsdp": optim_fsdp, "avsr_resume": avsr_resume,
         "avsr_tensor_ckpt": avsr_tensor_ckpt, "nollm_tensor": nollm_tensor,
+        "nollm_one": nollm_one,
         "agree": agree, "vocoder": vocoder, "batch_norm": batch_norm, "ring": ring, "bmuf": bmuf,
         "llama_pipeline": llama_pipeline, "avsr_pipeline": avsr_pipeline, "moe": moe,
         "encoder_sp": encoder_sp, "cli_train": cli_train}
