@@ -114,7 +114,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    - ``cli_generate``: ``cli.generate synthesize`` on a 16 s clip from the
      NoLLM and vocoder checkpoints, then ``vocode`` of its mel.
    Each run prints its step ms, the share of a step spent waiting for the
-   batch and its peak GiB.
+   batch and its peak GiB.  Then ``cli_dummy_avsr``: ``cli.train`` of
+   ``task.name=dummy_avsr model.name=mms_llama_avsr
+   optimization.max_update=3`` (``AVSRConfig()``, the task's fabricated
+   batch of 4 x 100 frames with a 30 s Whisper window, validation off, one
+   save, not written): the first update against ``Trainer.train_step`` on
+   the fabricated batch, K1 24 times a step, the step and data ms, label
+   tokens/s and the peak GiB.
 8. Starts from the paper's weights, in their reference layouts:
    - ``import_pretrained``: the seed-0 bf16 system written out as HF
      LLaMA-3.2-3B and HF Whisper-medium state dicts, a fairseq
@@ -181,7 +187,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    from synthetic landmarks, ``split`` / ``hours`` / ``normalize-rates`` /
    ``update-paths`` / ``filter-language`` / ``make-babble``), then
    ``quantize_tree`` of the full-width bf16 state dict on the card (its
-   error, size ratio and one leaf's codes equal to the CPU's).
+   error, size ratio and one leaf's codes equal to the CPU's).  Then
+   ``native``: the host C++ routines (``multimodalvc_tpu_torch/native``)
+   built with g++, each against its plain Python version at corpus size
+   (10k word pairs, 1M clip lengths, 1M sentences, 10k BLEU pairs, [4000,
+   100] n-gram rows; the balanced assignment of 19,200 frames to 4 experts
+   against the greedy fill's total score), both host times printed.
 
 12. Several ranks (the corpus of 7. written first if absent):
    ``parallel_nccl_1rank`` (``cli.train`` in an NCCL group of one under
@@ -224,6 +235,9 @@ of 7. first.
 corpus of 7. and its k-means labels first where absent);
 ``--profile-remat`` profiles one ``train_avsr_remat`` step with and one
 without remat.
+
+``python3 chip_smoke.py --dummy`` runs only ``cli_dummy_avsr`` (7.) and
+``native`` (11.).
 
 ``python3 chip_smoke.py --prep`` writes the corpus of 7. and runs
 ``prep_tools`` (11.).
@@ -3963,8 +3977,11 @@ def cli_train_avsr(table) -> dict:
     directly from the dataset (bitwise the CLI's batch); K1 24 times a
     step in Whisper and 24 more in AV-HuBERT at >= 256 frames; the resumed
     run's losses and trainable leaves against the straight run's at
-    REL_TOL; a validation WER logged; checkpoints written (``checkpoint_best``
-    by the first run only: 7 writes of the full state, not 10)."""
+    REL_TOL; a validation WER logged; checkpoints written by the split
+    runs: the first run's ``checkpoint_last`` (which the resumed run reads)
+    and ``checkpoint_best``, the resumed run's ``checkpoint_last`` (which
+    cli_eval reads): 4-5 writes of the full state.  The straight run's 2,
+    which nothing reads, are not made."""
     import gc
     import shutil
 
@@ -3973,6 +3990,7 @@ def cli_train_avsr(table) -> dict:
     from multimodalvc_tpu_torch.cli import train as cli_train
     from multimodalvc_tpu_torch.data.dataset import to_device, to_tensors
     from multimodalvc_tpu_torch.ops.attention import flash_attention
+    from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
 
     run_dirs = {k: CLI_RUNS / f"avsr_{k}" for k in ("split", "straight")}
     for d in run_dirs.values():
@@ -4025,7 +4043,9 @@ def cli_train_avsr(table) -> dict:
             torch.cuda.reset_peak_memory_stats()
             reset_counts(table)
             cfg = cli_config("mms-llama", overrides(save_dir, max_update, name == "first"))
-            with CliTap(cli_train) as tap:
+            with CliTap(cli_train) as tap, (
+                    ExitStack() if name != "straight"
+                    else mock.patch.object(CheckpointManager, "_write", lambda *a: None)):
                 val, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
             trainer, task = made[-1], tasks[-1]
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4038,7 +4058,8 @@ def cli_train_avsr(table) -> dict:
                 raise SmokeFailure(f"cli_train_avsr {name}: no validation WER logged")
             if not all(math.isfinite(x) for x in losses[name]):
                 raise SmokeFailure(f"cli_train_avsr {name}: losses {losses[name]}")
-            for ck in ("checkpoint_last", "checkpoint_best")[:2 if name == "first" else 1]:
+            for ck in {"first": ("checkpoint_last", "checkpoint_best"),
+                       "resumed": ("checkpoint_last",)}.get(name, ()):
                 if not (save_dir / ck / "state.pt").exists():
                     raise SmokeFailure(f"cli_train_avsr {name}: no {ck} under {save_dir}")
             times = step_times(tap)
@@ -4076,8 +4097,8 @@ def cli_train_avsr(table) -> dict:
                 record["launches"] = read_counts(table)
             else:
                 leaves[name] = _trainable_flat(trainer)
-            if name == "resumed":  # full-state checkpoints: free the disk
-                shutil.rmtree(run_dirs["split"], ignore_errors=True)
+            if name == "resumed":  # full-state checkpoints: keep cli_eval's alone
+                shutil.rmtree(run_dirs["split"] / "checkpoint_best", ignore_errors=True)
             made.clear()
             tasks.clear()
             del trainer, task
@@ -4091,6 +4112,7 @@ def cli_train_avsr(table) -> dict:
         raise SmokeFailure(f"cli_train_avsr: resumed run {len(joined)} updates, losses rel "
                            f"{rel_losses:.3e}, leaves {rel_leaves:.3e} from the straight run")
     record.update(resume_losses_rel=rel_losses, resume_leaves_rel_l2=rel_leaves)
+    shutil.rmtree(run_dirs["straight"], ignore_errors=True)  # its metadata alone
     del leaves
     gc.collect()
     torch.cuda.empty_cache()
@@ -4110,7 +4132,7 @@ CLI_EVAL_RUNS = {  # run -> (generation overrides, kernels that must launch)
 
 
 def cli_eval_phase(table) -> dict:
-    """``cli.eval.main`` from cli_train_avsr's straight run's checkpoint over
+    """``cli.eval.main`` from cli_train_avsr's resumed run's checkpoint over
     the test subset, once a CLI_EVAL_RUNS entry, at max_len 16.  Checks:
     each run writes wer.* and hypo-*.json and launches the kernels its
     options select; run (a)'s hypotheses equal the tokens of
@@ -4142,7 +4164,7 @@ def cli_eval_phase(table) -> dict:
         shutil.rmtree(results, ignore_errors=True)
         cfg = cli_config("mms-llama", [
             "task.llm_path=null", "task.noise_wav=null", f"dataset.max_tokens={CLI_MAX_TOKENS}",
-            f"checkpoint.save_dir={CLI_RUNS}/avsr_straight", "checkpoint.restore_file=checkpoint_last",
+            f"checkpoint.save_dir={CLI_RUNS}/avsr_split", "checkpoint.restore_file=checkpoint_last",
             "generation.max_len=16", *gen])
         reset_counts(table)
         with mock.patch.object(cli_eval, "build_task", build_task):
@@ -4189,19 +4211,21 @@ def cli_eval_phase(table) -> dict:
                                    f"{[hyps[i] for i in forced if CLI_CONSTRAINT not in hyps[i]]}")
             record[name]["constrained"] = len(forced)
         del task
-    shutil.rmtree(CLI_RUNS / "avsr_straight", ignore_errors=True)
+    shutil.rmtree(CLI_RUNS / "avsr_split", ignore_errors=True)
     return record
 
 
-def cli_speech_run(table, name, preset, run) -> dict:
+def cli_speech_run(table, name, preset, run, write: bool = True) -> dict:
     """One ``cli.train.main`` run of a speech preset: finite losses, a
-    checkpoint, the step ms and the wait for batches."""
+    checkpoint (with ``write``; else the saves run without their files),
+    the step ms and the wait for batches."""
     import gc
     import shutil
 
     import torch
 
     from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4210,14 +4234,15 @@ def cli_speech_run(table, name, preset, run) -> dict:
     cfg = cli_config(preset, [f"checkpoint.save_dir={save_dir}", *run])
     torch.cuda.reset_peak_memory_stats()
     reset_counts(table)
-    with CliTap(cli_train) as tap:
+    with CliTap(cli_train) as tap, (ExitStack() if write else mock.patch.object(
+            CheckpointManager, "_write", lambda *a: None)):
         val, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = tap.of("train")
     bad = [s for s in steps + [val] for k, v in s.items() if not math.isfinite(v)]
     if len(steps) != cfg.optimization.max_update or bad or not tap.of("valid"):
         raise SmokeFailure(f"cli_train_speech {name}: {len(steps)} updates, non-finite {bad}")
-    if not (save_dir / "checkpoint_last" / "state.pt").exists():
+    if write and not (save_dir / "checkpoint_last" / "state.pt").exists():
         raise SmokeFailure(f"cli_train_speech {name}: no checkpoint under {save_dir}")
     times = step_times(tap)
     keys = [k for k in steps[0] if k.startswith(("loss", "mel_l1"))]
@@ -4234,14 +4259,16 @@ def cli_speech_run(table, name, preset, run) -> dict:
 def cli_train_speech(table) -> dict:
     """The speech presets through ``cli.train.main`` at full width: the NoLLM
     head (4 updates, mel targets computed by ``hifigan_mel_np``), the E2E
-    GAN's stages 1 and 2 (2 updates each) and the vocoder (3 updates)."""
+    GAN's stages 1 and 2 (2 updates each; their 4 checkpoint writes, which
+    nothing reads, not made) and the vocoder (3 updates)."""
     return {
         "nollm": cli_speech_run(table, "speech_nollm", "mms-speech-nollm",
                                 ["optimization.max_update=4"]),
         "e2e_stage1": cli_speech_run(table, "e2e_stage1", "mms-speech-nollm-e2e",
-                                     ["optimization.max_update=2"]),
+                                     ["optimization.max_update=2"], write=False),
         "e2e_stage2": cli_speech_run(table, "e2e_stage2", "mms-speech-nollm-e2e",
-                                     ["optimization.max_update=2", "task.stage1_freeze=false"]),
+                                     ["optimization.max_update=2", "task.stage1_freeze=false"],
+                                     write=False),
         "vocoder": cli_speech_run(table, "vocoder", "hifigan-vocoder",
                                   ["optimization.max_update=3"]),
     }
@@ -4300,6 +4327,250 @@ def cli_phases(table) -> dict:
     phases["cli_wall_s"] = time.perf_counter() - t0
     print(f"  cli phases: {phases['cli_wall_s']:.1f} s")
     return phases
+
+
+# ---- the dummy_avsr task and the host C++ routines ------------------------------
+
+
+DUMMY_UPDATES = 3
+# the command line of cli_dummy_avsr after `python -m multimodalvc_tpu_torch.cli.train`
+DUMMY_ARGV = ["task.name=dummy_avsr", "model.name=mms_llama_avsr",
+              f"optimization.max_update={DUMMY_UPDATES}"]
+
+
+def cli_dummy_avsr(table) -> dict:
+    """``cli.train`` of ``task.name=dummy_avsr model.name=mms_llama_avsr
+    optimization.max_update=3`` at full width (``AVSRConfig()``; the task's
+    fabricated batch of 4: 100 video frames, a 30 s Whisper window, 24 label
+    tokens), through ``cli.train``'s own parser and ``main``, with validation
+    off, each update logged and no best metric; its one ``checkpoint_last``,
+    which nothing reads, goes through the save path but is not written
+    (``CheckpointManager._write`` a no-op, as in the tensor phases).
+    Checks: the first update's loss against
+    ``Trainer.train_step`` from the same start on the batch the task
+    fabricates (bitwise the CLI's), at REL_TOL as cli_train_avsr; finite
+    losses; K1 ``cli_k1_a_step(100)`` = 24 times a step (Whisper's 24 layers
+    at 1500 frames; AV-HuBERT's 100 frames are under ``use_flash``'s 256);
+    one save.  Prints the step and data ms, label tokens/s and the peak
+    GiB."""
+    import gc
+    import shutil
+
+    import torch
+
+    from multimodalvc_tpu_torch.cli import train as cli_train
+    from multimodalvc_tpu_torch.data.dataset import to_device, to_tensors
+    from multimodalvc_tpu_torch.ops.attention import flash_attention
+    from multimodalvc_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    save_dir = CLI_RUNS / "dummy_avsr"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    made, tasks, saves = [], [], []
+
+    class Probe(cli_train.Trainer):
+        """Trainer that keeps its first batch, its state before it and each
+        step's K1 launches."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.first, self.k1 = None, []
+            made.append(self)
+
+        def train_step(self, batch):
+            if self.first is None:
+                self.first = ({k: v.clone() for k, v in batch.items()},
+                              copy.deepcopy(self.state_dict(include_frozen=False)))
+            before = flash_attention.launches
+            out = super().train_step(batch)
+            self.k1.append(flash_attention.launches - before)
+            return out
+
+    real_build = cli_train.build_task
+
+    def build_task(*a, **k):
+        tasks.append(real_build(*a, **k))
+        return tasks[-1]
+
+    cfg, _ = cli_train.parse_args(DUMMY_ARGV + [
+        "dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=none",
+        f"checkpoint.save_dir={save_dir}", "common.log_interval=1"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(table)
+    with mock.patch.object(cli_train, "Trainer", Probe), \
+            mock.patch.object(cli_train, "build_task", build_task), CliTap(cli_train) as tap, \
+            mock.patch.object(CheckpointManager, "_write", lambda mgr, state, name: saves.append(
+                (name, len(state)))):
+        _, t_run = wall(lambda: cli_train.main(cfg, device=DEV))
+    launches = read_counts(table)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer, task = made[-1], tasks[-1]
+    losses = [s["loss"] for s in tap.of("train")]
+    want_k1, k1 = cli_k1_a_step(task.cfg.video_frames), list(trainer.k1)
+    if k1 != [want_k1] * DUMMY_UPDATES:
+        raise SmokeFailure(f"cli_dummy_avsr: K1 launches a step {k1} ({want_k1} each)")
+    if len(losses) != DUMMY_UPDATES or not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"cli_dummy_avsr: losses {losses}")
+    if [name for name, _ in saves] != ["checkpoint_last"]:
+        raise SmokeFailure(f"cli_dummy_avsr: saves {saves} (one checkpoint_last)")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    times = step_times(tap)
+    label_tokens = task.cfg.batch_size * task.cfg.label_tokens
+    tokens_per_s = label_tokens / (times["mean_step_ms"] / 1e3)
+    print(f"  cli_dummy_avsr: {len(losses)} updates in {t_run:.1f} s, losses "
+          f"{[round(x, 4) for x in losses]}, step ms {[round(x, 1) for x in times['step_ms']]} "
+          f"(mean of steps 2 on {times['mean_step_ms']:.1f}), data ms "
+          f"{[round(x, 1) for x in times['wait_ms']]}, {tokens_per_s:.1f} label tokens/s "
+          f"({label_tokens} a step), peak {peak:.2f} GiB, K1 {k1} a step, saves {saves} "
+          "(not written)")
+    # the task's own batch, straight from its dataset, from the CLI's start
+    ds = task.load_dataset(cfg.dataset.train_subset)
+    direct = task.prepare_batch(to_device(to_tensors(ds.load_batch(ds.batches()[0])), DEV))
+    cli_batch, start = trainer.first
+    for k, v in direct.items():
+        if not torch.equal(v, cli_batch[k]):
+            raise SmokeFailure(f"cli_dummy_avsr: the CLI's first batch differs in {k}")
+    trainer.load_state_dict(start)
+    direct_loss = trainer.train_step(direct)["loss"]
+    rel = abs(direct_loss - losses[0]) / abs(direct_loss)
+    print(f"    first update: CLI loss {losses[0]:.6f}, Trainer.train_step on the fabricated "
+          f"batch {direct_loss:.6f} (rel {rel:.2e}, gate {REL_TOL:g})")
+    if not rel <= REL_TOL:
+        raise SmokeFailure(f"cli_dummy_avsr: first update {rel:.3e} from the direct step")
+    record = {"losses": losses, "direct_first_loss": direct_loss, "direct_rel": rel,
+              "wall_s": t_run, "peak_gib": peak, "label_tokens_per_s": tokens_per_s,
+              "k1_a_step": k1, "launches": launches, **times}
+    made.clear()
+    tasks.clear()
+    del trainer, task, start, cli_batch, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+NATIVE_SEED = 11
+NATIVE_PAIRS = 10_000  # edit-distance word pairs, BLEU sentence pairs
+NATIVE_SIZES = 1_000_000  # batch_by_size's clip lengths, the token blocks' sentences
+NATIVE_ROUTING = (4, 8 * 2400)  # balanced_assignment: 4 experts (MoE preset), 8 x 2400 frames
+NATIVE_NGRAM = (4000, 100, 3)  # ngram_banned_tokens: rows, tokens a row, n
+
+
+def noisy_copies(rng, vocab: int, pairs: int):
+    """``pairs`` (hypothesis, reference) id lists: references of 5-30 ids,
+    each hypothesis its reference with 15% of the ids replaced and one in
+    four missing its last."""
+    import numpy as np
+
+    out = []
+    for _ in range(pairs):
+        ref = rng.integers(0, vocab, rng.integers(5, 31))
+        hyp = np.where(rng.random(len(ref)) < 0.15, rng.integers(0, vocab, len(ref)), ref)
+        out.append((hyp[: len(hyp) - (rng.random() < 0.25)].tolist(), ref.tolist()))
+    return out
+
+
+def native_phase() -> dict:
+    """The host C++ routines (``multimodalvc_tpu_torch.native``): the library
+    built from the checkout with the host's g++, then each function against
+    its plain Python twin at corpus size, both timed on the host:
+    edit distance over NATIVE_PAIRS word pairs, ``batch_by_size`` over
+    NATIVE_SIZES clip lengths (the AVSR preset's buckets, max_tokens
+    CLI_MAX_TOKENS, multiples of 8), ``token_blocks_complete`` over
+    NATIVE_SIZES sentences ('complete_doc', blocks of 1024), the BLEU of
+    NATIVE_PAIRS sentence pairs (``BleuScorer`` on each twin's counts),
+    ``ngram_banned_tokens`` at NATIVE_NGRAM.  Equal results, exactly; the
+    balanced assignment (an auction against the plain greedy fill, as in
+    the JAX package) at NATIVE_ROUTING: both fill every worker exactly, and
+    the auction's total score is the greedy one's or better, up to its
+    epsilon bound (max |score| / 4 over all jobs)."""
+    import numpy as np
+
+    from multimodalvc_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(NATIVE_SEED)
+    record = {"build_s": build_s, "library": Path(lib._name).name}
+    print(f"  native: built {record['library']} with {native.compiler()} in {build_s:.2f} s")
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def compare(name, fast, plain, same, what):
+        (got, ms), (want, plain_ms) = timed(fast), timed(plain)
+        ok = same(got, want)
+        record[name] = {"ms": ms, "plain_ms": plain_ms, "equal": ok, "size": what}
+        print(f"  native {name} ({what}): C++ {ms:.1f} ms, plain {plain_ms:.1f} ms on the host, "
+              f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            raise SmokeFailure(f"native: {name} differs from its plain version")
+        return got
+
+    words = [f"w{i}" for i in range(1000)]
+    pairs = [([words[i] for i in h], [words[i] for i in r])
+             for h, r in noisy_copies(rng, len(words), NATIVE_PAIRS)]
+    dist = compare("edit_distance", lambda: [native.edit_distance_native(h, r) for h, r in pairs],
+                   lambda: [native.edit_distance_native_plain(h, r) for h, r in pairs],
+                   lambda a, b: a == b, f"{NATIVE_PAIRS} word pairs")
+    record["edit_distance"]["wer"] = 100.0 * sum(dist) / sum(len(r) for _, r in pairs)
+
+    sizes = rng.integers(25, 500, NATIVE_SIZES)
+    order = np.argsort(sizes, kind="stable")
+    args = (sizes, order, [100, 200, 300, 400, 500], CLI_MAX_TOKENS, 0, 8)
+    batches = compare("batch_by_size", lambda: native.batch_by_size_native(*args),
+                      lambda: native.batch_by_size_native_plain(*args),
+                      lambda a, b: len(a) == len(b) and all(map(np.array_equal, a, b)),
+                      f"{NATIVE_SIZES} sizes")
+    record["batch_by_size"]["batches"] = len(batches)
+
+    sentences = rng.integers(1, 200, NATIVE_SIZES)
+    compare("token_blocks_complete", lambda: native.token_blocks_complete(sentences, 1024, True),
+            lambda: native.token_blocks_complete_plain(sentences, 1024, True),
+            np.array_equal, f"{NATIVE_SIZES} sentences")
+
+    def bleu(counts):
+        scorer = native.BleuScorer(counts=counts)
+        for h, r in id_pairs:
+            scorer.add(h, r)
+        return scorer
+
+    id_pairs = noisy_copies(rng, 1000, NATIVE_PAIRS)
+    scorer = compare("bleu", lambda: bleu(native.bleu_counts),
+                     lambda: bleu(native.bleu_counts_plain),
+                     lambda a, b: (a.score() == b.score() and np.array_equal(a.matches, b.matches)
+                                   and np.array_equal(a.totals, b.totals)),
+                     f"{NATIVE_PAIRS} sentence pairs")
+    record["bleu"]["score"] = scorer.score()
+
+    rows, length, n = NATIVE_NGRAM
+    tokens = rng.integers(0, 20, (rows, length))
+    bans = compare("ngram_banned_tokens", lambda: native.ngram_banned_tokens(tokens, n),
+                   lambda: native.ngram_banned_tokens_plain(tokens, n), lambda a, b: a == b,
+                   f"[{rows}, {length}], n = {n}")
+    record["ngram_banned_tokens"]["bans"] = sum(map(len, bans))
+
+    scores = rng.standard_normal(NATIVE_ROUTING).astype(np.float32)
+    (auction, ms), (greedy, plain_ms) = (timed(lambda: native.balanced_assignment(scores)),
+                                         timed(lambda: native.balanced_assignment_plain(scores)))
+    total = lambda owner: float(scores.astype(np.float64)[owner, np.arange(scores.shape[1])].sum())
+    cap = scores.shape[1] // scores.shape[0]
+    slack = float(np.abs(scores).max()) / 4
+    ok = (all((np.bincount(x, minlength=scores.shape[0]) == cap).all() for x in (auction, greedy))
+          and total(auction) >= total(greedy) - slack)
+    record["balanced_assignment"] = {"ms": ms, "plain_ms": plain_ms, "total": total(auction),
+                                     "plain_total": total(greedy), "slack": slack, "ok": ok,
+                                     "size": list(NATIVE_ROUTING)}
+    print(f"  native balanced_assignment ({list(NATIVE_ROUTING)}): auction {ms:.1f} ms, greedy "
+          f"(plain) {plain_ms:.1f} ms on the host; {cap} jobs a worker, total score "
+          f"{total(auction):.3f} against the greedy {total(greedy):.3f} (slack {slack:.3f})")
+    if not ok:
+        raise SmokeFailure("native: the auction is unbalanced or under the greedy fill")
+    record["wall_s"] = time.perf_counter() - t0
+    return record
 
 
 # ---- the paper's weights: the reference layouts, read back and imported -------
@@ -6514,6 +6785,12 @@ def main() -> int:
         print(json.dumps({"profile_remat": profile_remat()}))
         print(card)
         return 0
+    if "--dummy" in sys.argv[1:]:
+        phases = {"cli_dummy_avsr": cli_dummy_avsr(kernels()), "native": native_phase()}
+        print(json.dumps({"phases": phases}))
+        print(f"smoke --dummy: {time.perf_counter() - start:.1f} s, the kernels' build included")
+        print(card)
+        return 0
     if "--prep" in sys.argv[1:]:
         phases = {"cli_corpus": write_corpus(), "prep_tools": prep_tools(kernels())}
         print(json.dumps({"phases": phases}))
@@ -6570,6 +6847,8 @@ def main() -> int:
     print(f"command line: manifest corpus of {CLI_CLIPS} clips; cli.train, cli.eval and "
           "cli.generate at full width")
     phases.update(cli_phases(table))
+    print(f"the dummy_avsr task: cli.train {' '.join(DUMMY_ARGV)} at full width")
+    phases["cli_dummy_avsr"] = cli_dummy_avsr(table)
     print("weight import: the reference layouts of the full-width system, read back and imported; "
           "cli.train with checkpoint.init_from_pt; cli.demo")
     phases.update(import_phases(table))
@@ -6580,6 +6859,9 @@ def main() -> int:
     print("data preparation: every manifest_tools subcommand over the corpus laid out raw; "
           "quantize_tree of the full-width state dict")
     phases["prep_tools"] = prep_tools(table)
+    print("host C++ routines: multimodalvc_tpu_torch.native built with g++, each function "
+          "against its plain version at corpus size")
+    phases["native"] = native_phase()
     print("several ranks: cli.train in an NCCL group of one under torch.distributed.run; two "
           "data-parallel gloo ranks on the card at full width; the MoE Conformer preset; "
           "two gloo ranks at {tensor 2}: cli.train on mms-llama and the NoLLM head")
@@ -6595,7 +6877,7 @@ def main() -> int:
             "launches": phases[phase]["launches"][name],
             "speech_launches": phases["speech_nollm"]["mode0"]["launches"][name],
             **{f"{p}_launches": phases[p]["launches"][name]
-               for p in ("train_avsr_remat", "pretrain_train", "pretrain_remat",
+               for p in ("cli_dummy_avsr", "train_avsr_remat", "pretrain_train", "pretrain_remat",
                          "pretrain_dump_features", "seq2seq", "seq2seq_constrained",
                          "prep_tools", "parallel_nccl_1rank", "parallel_data_2rank",
                          "parallel_moe_speech", "parallel_tensor_avsr",

@@ -51,6 +51,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import benchmark as _benchmark  # noqa: F401 (registers the dummy task)
 from .. import tasks as _tasks  # noqa: F401 (registers the tasks)
 from ..config import TrainRootConfig, apply_overrides, from_dict, load_yaml, merge
 from ..config.configs import MeshConfig

@@ -38,6 +38,15 @@ def batch_by_size(
     the bucket.  Returns a list of index arrays."""
     sizes = np.asarray(sizes)
     order = np.argsort(sizes, kind="stable")
+    return _shuffled(batches_in_order(sizes, order, buckets, max_tokens, batch_size,
+                                      required_multiple), shuffle_seed)
+
+
+def batches_in_order(sizes: np.ndarray, order: Sequence[int], buckets: Sequence[int],
+                     max_tokens: Optional[int], batch_size: Optional[int],
+                     required_multiple: int) -> List[np.ndarray]:
+    """``batch_by_size``'s batches over the length-sorted ``order``,
+    unshuffled (``native.batch_by_size_native_plain`` shares it)."""
     batches: List[np.ndarray] = []
     cur: List[int] = []
     cur_bucket = 0
@@ -60,7 +69,7 @@ def batch_by_size(
         cur_bucket = new_bucket
     if cur:
         batches.append(np.asarray(cur))  # the final remainder, whole
-    return _shuffled(batches, shuffle_seed)
+    return batches
 
 
 def _shuffled(batches: List[np.ndarray], seed: Optional[int]) -> List[np.ndarray]:

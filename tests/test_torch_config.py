@@ -17,6 +17,7 @@ import pytest
 from torch_parity import t  # noqa: F401 (sets one torch thread)
 
 import chip_smoke
+from multimodalvc_tpu import benchmark as _jbench  # noqa: F401 (registers dummy_avsr)
 from multimodalvc_tpu import config as jconfig
 from multimodalvc_tpu import tasks as jtasks  # noqa: F401 (registers the tasks)
 from multimodalvc_tpu.parallel import mesh as jmesh
@@ -245,11 +246,11 @@ def test_init_from_pt(task, tmp_path, monkeypatch):
 def test_registries_name_the_jax_tasks_and_models():
     assert set(tregistry.available("task")) == {
         "avsr_training", "speech_training", "vocoder_training", "e2e_gan_training",
-        "avhubert_pretraining"}
-    assert set(tregistry.available("task")) <= set(jconfig.registry.available("task"))
+        "avhubert_pretraining", "dummy_avsr"}
+    assert set(tregistry.available("task")) == set(jconfig.registry.available("task"))
     assert set(tregistry.available("model")) == {
         "mms_llama_avsr", "mms_llama_speech", "mms_speech_nollm", "mms_speech_nollm_e2e",
         "hifigan_vocoder", "av_hubert_pretrain"}
     assert set(tregistry.available("model")) <= set(jconfig.registry.available("model"))
-    with pytest.raises(KeyError, match="available"):
-        tregistry.lookup("task", "dummy_avsr")  # the JAX benchmark task, not ported
+    dummy, _ = tregistry.lookup("task", "dummy_avsr")
+    assert dummy.__module__ == "multimodalvc_tpu_torch.benchmark"

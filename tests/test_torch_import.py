@@ -21,6 +21,7 @@ from multimodalvc_tpu_torch.ops import (
 REPO = Path(__file__).resolve().parent.parent
 SLICE_MODULES = [
     "multimodalvc_tpu_torch",
+    "multimodalvc_tpu_torch.benchmark",
     "multimodalvc_tpu_torch.cli.manifest_tools",
     "multimodalvc_tpu_torch.cli.train",
     "multimodalvc_tpu_torch.criterions.gan",
@@ -28,6 +29,7 @@ SLICE_MODULES = [
     "multimodalvc_tpu_torch.data.batching",
     "multimodalvc_tpu_torch.data.roi",
     "multimodalvc_tpu_torch.interop.from_flax",
+    "multimodalvc_tpu_torch.native",
     "multimodalvc_tpu_torch.models.avsr",
     "multimodalvc_tpu_torch.models.speech",
     "multimodalvc_tpu_torch.models.vocoder",
