@@ -1,0 +1,6 @@
+"""K1's forward in synthesis: its least time over its device time, in %."""
+from perfbench import readers
+
+
+def read(layer):
+    return readers.attention_share(layer, "synth", "fwd")

@@ -1,0 +1,6 @@
+"""Share of the traced training window with nothing on the device, in %."""
+from perfbench import readers
+
+
+def read(layer):
+    return readers.idle_share(layer, "train")

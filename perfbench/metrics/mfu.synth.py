@@ -1,0 +1,6 @@
+"""Model FLOPs of the traced synthesis batches over the window and the bf16 peak, in %."""
+from perfbench import readers
+
+
+def read(layer):
+    return readers.mfu(layer, "synth")
