@@ -73,6 +73,7 @@ from ..parallel.mesh import (
     restore_generator_,
 )
 from ..parallel.tensor import split_tensor_parallel_
+from ..runtime import tracing
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.debug import (
     NanDetector,
@@ -167,10 +168,11 @@ def timed_batches(batches, task, device, train: bool = True):
 
 class Profiler:
     """``common.profile``: a ``torch.profiler`` trace of the run, written as
-    a Chrome trace under ``common.profile_dir``."""
+    a Chrome trace under ``common.profile_dir``, with the port's spans
+    (``runtime/tracing.py``) as ``record_function`` ranges in it."""
 
     def __init__(self, cfg: TrainRootConfig):
-        self.cfg, self.prof = cfg, None
+        self.cfg, self.prof, self.spans = cfg, None, None
 
     def __enter__(self):
         if self.cfg.common.profile:
@@ -179,10 +181,12 @@ class Profiler:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.__enter__()
+            self.spans = tracing.install(tracing.ProfilerSpans())
         return self
 
     def __exit__(self, *exc):
         if self.prof is not None:
+            tracing.install(self.spans)
             self.prof.__exit__(*exc)
             os.makedirs(self.cfg.common.profile_dir, exist_ok=True)
             path = os.path.join(self.cfg.common.profile_dir, f"trace_{os.getpid()}.json")

@@ -57,6 +57,7 @@ from ..ops.constraints import (
 )
 from ..ops.interpolate import linear_resize_batched
 from ..parallel.tensor import vocab_parallel
+from ..runtime.tracing import span
 
 LLAMA3_EOS = 128001  # <|end_of_text|>
 LLAMA3_PAD = 128004  # <|finetune_right_pad_id|>
@@ -169,6 +170,10 @@ class AVSREncoder(nn.Module):
         ``modality_mode`` (a scalar for the whole batch: 0 both streams, 1
         video only, 2 audio only; None is 0) takes effect with
         ``modality_dropout``; both encoders run in every mode."""
+        with span("layer.encoder"):
+            return self._forward(audio_feats, video, video_lengths, dropout_rng, modality_mode)
+
+    def _forward(self, audio_feats, video, video_lengths, dropout_rng, modality_mode):
         cfg = self.cfg
         t_v = video.shape[1]
         with torch.no_grad():
@@ -194,8 +199,10 @@ class AVSREncoder(nn.Module):
         # 50 Hz -> 25 Hz audio conv, then align to the video frames
         a = self.afeat_1d_conv(whisper_out.transpose(1, 2)).transpose(1, 2)[:, :t_v]
         if cfg.modality_dropout:
-            mode = torch.as_tensor(0 if modality_mode is None else modality_mode,
-                                   device=a.device)
+            mode = torch.as_tensor(0 if modality_mode is None else modality_mode)
+            if mode.device != a.device:
+                with span("encoder.mode.wait"):  # a host number copied to the device
+                    mode = mode.to(a.device)
             a = torch.where(mode == 1, self.audio_mask_emb.to(a.dtype).expand_as(a), a)
             av_out = torch.where(mode == 2, self.video_mask_emb.to(av_out.dtype)
                                  .expand_as(av_out), av_out)

@@ -40,6 +40,7 @@ from ..nn.hifigan import HifiGanConfig, HifiGanGenerator
 from ..nn.init import init_random_
 from ..nn.llama import LlamaModel
 from ..ops.interpolate import linear_resize_batched
+from ..runtime.tracing import span
 # ``train_rng`` is called through its module: a caller that switches the
 # dropout off replaces ``avsr.train_rng`` for a while, and a name bound here
 # would keep whatever stood there when this module was first imported
@@ -124,12 +125,13 @@ class SpeechHead(nn.Module):
                 dropout_rng: Optional[torch.Generator] = None):
         """tokens [B, Q, in_dim] valid to token_lens -> [B, max_mel_frames,
         128 (or the Conformer's width)] valid to mel_lens."""
-        x = self._norm("ln1", self.proj1(tokens))
-        x = linear_resize_batched(x, token_lens, mel_lens, self.cfg.max_mel_frames)
-        x = self._norm("ln2", self.proj2(x))
-        x = self._norm("ln3", self.conformer(x, lengths=mel_lens, train=train,
-                                             dropout_rng=dropout_rng))
-        return self.mel_head(x) if self.emit_mel else x
+        with span("layer.head"):
+            x = self._norm("ln1", self.proj1(tokens))
+            x = linear_resize_batched(x, token_lens, mel_lens, self.cfg.max_mel_frames)
+            x = self._norm("ln2", self.proj2(x))
+            x = self._norm("ln3", self.conformer(x, lengths=mel_lens, train=train,
+                                                 dropout_rng=dropout_rng))
+            return self.mel_head(x) if self.emit_mel else x
 
     def _norm(self, name: str, x):
         return getattr(self, name)(x) if self.use_layer_norms else x
@@ -267,12 +269,18 @@ def synthesize(speech_system: SpeechNoLLMSystem, vocoder,
     cut to its ``mel_lengths`` frames, through ``vocoder.generate``
     (``models/vocoder.py: VocoderModel``); rows of one length share a call.
     Returns [mel_lengths[i] * 160] waveforms."""
-    out = speech_system(batch)
-    mel, lens = out["melspec"], out["mel_lengths"].tolist()
-    wavs: List[Optional[torch.Tensor]] = [None] * len(lens)
-    for n in sorted(set(lens)):
-        rows = [i for i, m in enumerate(lens) if m == n]
-        wav = vocoder.generate(mel[rows, :n])
-        for j, i in enumerate(rows):
-            wavs[i] = wav[j]
-    return wavs
+    with span("synth.batch"):
+        out = speech_system(batch)
+        with span("synth.lengths.wait"):
+            lens = out["mel_lengths"].tolist()
+        mel = out["melspec"]
+        wavs: List[Optional[torch.Tensor]] = [None] * len(lens)
+        with span("synth.vocoder"):
+            for n in sorted(set(lens)):
+                rows = [i for i, m in enumerate(lens) if m == n]
+                with span("synth.rows.wait"):  # the row list copied to the device
+                    chosen = mel[rows, :n]
+                wav = vocoder.generate(chosen)
+                for j, i in enumerate(rows):
+                    wavs[i] = wav[j]
+        return wavs

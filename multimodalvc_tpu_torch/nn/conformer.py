@@ -37,6 +37,7 @@ from torch import nn
 
 from ..ops.dynamic_conv import dynamic_conv, lightweight_conv
 from ..parallel.expert import BaseMoELayer
+from ..runtime.tracing import span
 from .layers import MultiHeadAttention, add_layers, batch_norm_train_, dropout
 
 CONV_TYPES = ("depthwise", "lightweight", "dynamic")
@@ -210,7 +211,9 @@ class ConformerEncoder(nn.Module):
         if hasattr(self, "input_proj"):
             x = self.input_proj(x)
         t, d = x.shape[1], self.cfg.attention_dim
-        x = (x * x.new_tensor(np.sqrt(d)) + positional_table(t, d, x.device)).to(x.dtype)
+        with span("conformer.scale.wait"):  # a host number copied to the device
+            scale = x.new_tensor(np.sqrt(d))
+        x = (x * scale + positional_table(t, d, x.device)).to(x.dtype)
         x = dropout(x, self.dropout_rate, dropout_rng)
         for block in self.blocks:
             x = block(x, lengths, train, dropout_rng)

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime.tracing import span
 from .layers import add_layers
 from .wn_conv import SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d, avg_pool_1d
 
@@ -137,6 +138,10 @@ class HifiGanGenerator(nn.Module):
         self.conv_post = WNConv1d(ch, 1, 7, padding=3, **kw)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        with span("layer.generator"):
+            return self._forward(x, lengths)
+
+    def _forward(self, x, lengths):
         cfg = self.cfg
         if cfg.unit_nums is not None and not torch.is_floating_point(x):
             x = self.lut[x.long()]

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..runtime.tracing import span
 from . import kernel_lib
 
 NEG_INF = -1e30
@@ -118,6 +119,13 @@ def flash_attention(
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_lens, causal, scale, kv_starts)
+    with span("k1.fwd"):
+        return _entry(q, k, v, kv_lens, causal, scale, kv_starts)
+
+
+def _entry(q, k, v, kv_lens, causal, scale, kv_starts) -> torch.Tensor:
+    """``flash_attention`` on the card: the operands checked, then K1 (with a
+    gradient through ``FlashAttentionGrad``)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     scale, kv_lens, kv_starts = _defaults(q, k, kv_lens, scale, kv_starts)
@@ -165,9 +173,10 @@ class FlashAttentionGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_lens, kv_starts = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = _windowed_reference_attention(*leaves, kv_lens, kv_starts, ctx.causal,
-                                                ctx.scale)
-        dq, dk, dv = torch.autograd.grad(out, leaves, g.to(q.dtype))
+        with span("k1.bwd"):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = _windowed_reference_attention(*leaves, kv_lens, kv_starts, ctx.causal,
+                                                    ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g.to(q.dtype))
         return dq, dk, dv, None, None, None, None

@@ -107,6 +107,7 @@ from ..parallel.tensor import (
     tensor_dim,
     tensor_groups,
 )
+from .tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -255,6 +256,19 @@ def make_schedule(cfg: OptimizationConfig) -> Callable[[int], float]:
 def _f32(x: float) -> float:
     """x rounded to the nearest f32."""
     return float(torch.tensor(x, dtype=torch.float32))
+
+
+def host_numbers(values: Dict[str, Any]) -> Dict[str, Any]:
+    """``values`` with each one-element tensor as a Python number (an int for
+    an integer tensor, as ``.item()`` gives it), the tensors read from the
+    device together: one synchronisation, not one a tensor."""
+    keys = [k for k, v in values.items() if isinstance(v, torch.Tensor)]
+    out = dict(values)
+    if keys:
+        read = torch.stack([values[k].detach().reshape(()).double() for k in keys]).tolist()
+        for k, x in zip(keys, read):
+            out[k] = x if values[k].is_floating_point() else int(x)
+    return out
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -821,6 +835,10 @@ class MaskedOptimizer:
             self.base.tensor_split_dim(kind, name)
 
     def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> bool:
+        with span("train.optimizer.update"):
+            return self._update(grads, params)
+
+    def _update(self, grads, params) -> bool:
         k = self.cfg.update_freq
         if self.acc is None:
             return self._if_finite(grads, params)
@@ -868,7 +886,8 @@ class MaskedOptimizer:
             flag = finite.to(torch.int32)
             dist.all_reduce(flag, op=dist.ReduceOp.MIN)
             finite = flag > 0
-        return bool(finite)
+        with span("train.finite.wait"):
+            return bool(finite)
 
     def _if_finite(self, grads, params) -> bool:
         if not self.cfg.skip_nonfinite_grads:
@@ -1077,7 +1096,7 @@ class Trainer:
             grads[n] = out.movedim(0, d).contiguous()
 
     def _copy_to_module(self) -> None:
-        with torch.no_grad():
+        with span("train.optimizer.copy"), torch.no_grad():
             for n, p in self.params.items():
                 p.copy_(self._whole(n, self.master[n]))
 
@@ -1087,25 +1106,31 @@ class Trainer:
         """One step: the loss function's metrics as Python numbers, with loss
         (the batch group's) and gnorm (the global norm of this micro-step's
         gradients)."""
-        loss, metrics = self.loss_fn(batch, self.generator)
+        with span("train.step"):
+            return self._train_step(batch)
+
+    def _train_step(self, batch) -> Dict[str, float]:
+        with span("train.forward"):
+            loss, metrics = self.loss_fn(batch, self.generator)
         names = list(self.params)
         weighted = loss if self.mesh is None else loss / replicas(self.mesh)
-        got = torch.autograd.grad(weighted, [self.params[n] for n in names], allow_unused=True)
-        # a trainable leaf the loss does not reach has a zero gradient
-        grads = {n: torch.zeros_like(self.params[n], dtype=torch.float32) if g is None
-                 else g.float() for n, g in zip(names, got)}
+        with span("train.backward"):
+            got = torch.autograd.grad(weighted, [self.params[n] for n in names],
+                                      allow_unused=True)
+            # a trainable leaf the loss does not reach has a zero gradient
+            grads = {n: torch.zeros_like(self.params[n], dtype=torch.float32) if g is None
+                     else g.float() for n, g in zip(names, got)}
         if self.mesh is not None:
             self._reduce_(grads)
-        gnorm = self.optimizer.grad_norm(grads)
-        if self.optimizer.update(grads, self.master):
-            self._copy_to_module()
+        with span("train.optimizer"):
+            gnorm = self.optimizer.grad_norm(grads)
+            if self.optimizer.update(grads, self.master):
+                self._copy_to_module()
         self._step += 1
-        out = {k: v.detach().item() if isinstance(v, torch.Tensor) else v
-               for k, v in metrics.items()}
-        if "loss" not in out:  # the criterions report the batch group's loss themselves
-            out["loss"] = float(batch_total(loss.detach()))
-        out["gnorm"] = float(gnorm)
-        return out
+        if "loss" not in metrics:  # the criterions report the batch group's loss themselves
+            metrics = dict(metrics, loss=batch_total(loss.detach()))
+        with span("train.metrics.wait"):
+            return host_numbers(dict(metrics, gnorm=gnorm))
 
     def plateau_step(self, value: float) -> Optional[float]:
         """Feed a validation metric to the reduce-on-plateau scheduler (a

@@ -31,6 +31,7 @@ from .models.vocoder import VocoderConfig, VocoderModel
 from .nn.hifigan import HifiGanConfig
 from .nn.init import init_random_
 from .parallel.mesh import batch_total, get_current_mesh
+from .runtime.tracing import span
 
 
 def _trim_audio_feats(batch: Dict[str, torch.Tensor], whisper_frames: int) -> Dict[str, torch.Tensor]:
@@ -195,8 +196,9 @@ class _ModeDraw:
         self.rng = np.random.default_rng(7)
 
     def __call__(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor(int(self.rng.choice(3, p=self.p)), dtype=torch.int32,
-                            device=like.device)
+        mode = int(self.rng.choice(3, p=self.p))
+        with span("train.mode.wait"):  # a host number copied to the device
+            return torch.tensor(mode, dtype=torch.int32, device=like.device)
 
 
 def _take(batch, keys) -> Dict[str, torch.Tensor]:
