@@ -248,6 +248,11 @@ speech phases.
 ``python3 chip_smoke.py --speech-train`` runs only K1's Conformer-L
 gradient case and the four speech training phases.
 
+``python3 chip_smoke.py --adamw`` runs only K9 (``check_adamw``: the
+optimizer's square sums and update at the NoLLM head's 485 trained leaves,
+against the plain versions and their byte bound) and ``train_speech_nollm``
+(K9 once each a step, the profiled update's kernels).
+
 ``python3 chip_smoke.py --digests`` runs only the AVSR serving phases and
 prints their output digests as one JSON line: copied into an older tree
 (``git archive`` of it under ``build/``, this file put beside its
@@ -1427,6 +1432,184 @@ def check_gather_rows(results):
         del x, copies, run, plain, library
 
 
+# K9's square sums against the plain version's, relative: both sum f32
+# squares, in other orders (the kernel by 16 KB chunks, then leaf by leaf)
+SQUARE_RTOL = 1e-5
+
+
+def nollm_trained_shapes() -> list:
+    """The shapes of the NoLLM head's trained leaves (``SpeechTask("nollm")``
+    at full width, ``speech_config()``), from the module built on the meta
+    device: 485 leaves, 123.96M elements."""
+    import torch
+
+    from multimodalvc_tpu_torch.runtime.trainer import trainable_mask
+    from multimodalvc_tpu_torch.tasks import SpeechTask, SpeechTaskConfig
+
+    task = SpeechTask(SpeechTaskConfig(variant="nollm"), speech_config(), dtype=torch.bfloat16,
+                      device="meta")
+    named = dict(task.module.named_parameters())
+    mask = trainable_mask(named, task.frozen_patterns())
+    return [tuple(p.shape) for n, p in named.items() if mask[n]]
+
+
+def adamw_leaves(shapes, grad_dtype, copy_dtype, seed, misalign=()):
+    """Seeded operands of K9 at ``shapes``: gradients of ``grad_dtype`` (~1e-3,
+    so that the NoLLM's norm ~ 10 engages a clip of 1), f32 masters, moments
+    (v > 0), module copies of ``copy_dtype`` (None: no copies).  The leaves
+    at the indices ``misalign`` start 4 bytes past a 16-byte boundary in
+    every operand (views one element into a larger buffer)."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def make(shape, dtype, scale, i, positive=False):
+        n = math.prod(shape)
+        off = (4 // torch.empty((), dtype=dtype).element_size()) if i in misalign else 0
+        x = torch.empty(n + off, device=DEV).uniform_(0, 1, generator=g) if positive else \
+            torch.randn(n + off, generator=g, device=DEV)
+        return (scale * x).to(dtype)[off:].view(shape)
+
+    out = {"grads": [], "masters": [], "mu": [], "nu": [], "copies": []}
+    for i, s in enumerate(shapes):
+        out["grads"].append(make(s, grad_dtype, 1e-3, i))
+        out["masters"].append(make(s, torch.float32, 0.02, i))
+        out["mu"].append(make(s, torch.float32, 1e-4, i))
+        out["nu"].append(make(s, torch.float32, 1e-7, i, positive=True))
+        if copy_dtype is not None:
+            out["copies"].append(out["masters"][-1].to(copy_dtype) if i not in misalign else
+                                 make(s, copy_dtype, 0.0, i).copy_(out["masters"][-1]))
+    if copy_dtype is None:
+        out["copies"] = None
+    return out
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """The median host time of one call of ``fn`` on an idle card (its
+    launches enqueued, not run)."""
+    import torch
+
+    times = []
+    for _ in range(iters + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * sorted(times[2:])[iters // 2]
+
+
+def adamw_bound(leaves) -> dict:
+    """K9's update: each gradient read once, the master and both moments read
+    and written, each copy written."""
+    moved = sum(nbytes(*leaves[k]) for k in ("grads", "copies") if leaves[k] is not None) \
+        + 2 * sum(nbytes(*leaves[k]) for k in ("masters", "mu", "nu"))
+    return bound(moved)
+
+
+# the update cases: (name, gradient dtype, copy dtype, clip engaged, weight
+# decay, plateau scale, update count); the first is the NoLLM step's
+ADAMW_CASES = [
+    ("nollm_step", "bfloat16", "bfloat16", True, 0.01, 1.0, 1),
+    ("no_clip_scaled", "bfloat16", "bfloat16", False, 0.0, 0.5, 3),
+    ("f32_no_copy", "float32", None, False, 1e-4, 1.0, 7),
+]
+
+
+def check_adamw(results, shapes=None):
+    """K9 at the NoLLM head's 485 trained leaves (``nollm_trained_shapes``)
+    plus a leaf of 3 elements (under 16 bytes) and, in the update, one whose
+    every operand starts 4 bytes past a 16-byte boundary (the scalar path):
+    - ``square_sums_many``: each leaf's sum within SQUARE_RTOL of the plain
+      version's, the totals and the norm too, the finite flag (and false with
+      one inf planted), two calls bit for bit, one launch a call;
+    - ``adamw_many_`` in ADAMW_CASES (the NoLLM step: bf16 gradients and
+      copies, the clip engaged; no clip at a plateau scale of 0.5; f32
+      gradients and no copies, the GAN trainers' AdamW): given the plain
+      version's norm, the masters, both moments and the copies equal the plain
+      version's on the card bit for bit; one launch a call.
+    The leaves move 3.47 GB a call, so each launch finds them cold.
+    ``library_ms``: ``torch.optim.AdamW(fused=True)`` over the same leaves
+    (f32 gradients, no clip, no copies: the port never calls it); the square
+    sums' is ``torch._foreach_norm``.  ``host_ms``: the wrapper's host time a
+    call (its table and launch)."""
+    import torch
+
+    from multimodalvc_tpu_torch.ops import adamw
+
+    shapes = (nollm_trained_shapes() + [(3,)]) if shapes is None else shapes
+    grads = adamw_leaves(shapes, torch.bfloat16, None, 26)["grads"]
+    plain = adamw.square_sums_many_plain(grads)
+    adamw.square_sums_many.launches = 0
+    got = adamw.square_sums_many(grads)
+    again = adamw.square_sums_many(grads)
+    if adamw.square_sums_many.launches != 2:
+        raise SmokeFailure(f"square_sums_many: {adamw.square_sums_many.launches} launches in "
+                           "2 calls")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SmokeFailure("square_sums_many: two calls differ")
+    rel = lambda a, b: float(((a.double() - b.double()).abs()  # noqa: E731
+                              / b.double().abs().clamp_min(1e-30)).max())
+    err = max(rel(got[0], plain[0]), rel(got[1][:1], plain[1][:1]),
+              rel(torch.sqrt(got[1][0]), torch.sqrt(plain[1][0])))
+    if not bool(got[2]) or float(got[1][1:].abs().sum()) != 0.0:
+        raise SmokeFailure(f"square_sums_many: finite {bool(got[2])}, totals {got[1].tolist()}")
+    planted = grads[len(grads) // 2].view(-1)
+    keep = planted[7].clone()
+    planted[7] = float("inf")
+    if bool(adamw.square_sums_many(grads)[2]):
+        raise SmokeFailure("square_sums_many: an inf gradient counted finite")
+    planted[7] = keep
+    n = sum(g.numel() for g in grads)
+    record(results, f"adamw/square_sums/{len(shapes)}_leaves", err, SQUARE_RTOL,
+           ms=time_ms(lambda: adamw.square_sums_many(grads), iters=20),
+           plain_ms=time_ms(lambda: adamw.square_sums_many_plain(grads), iters=3, warmup=1),
+           library_ms=time_ms(lambda: torch._foreach_norm(grads), iters=20),
+           host_ms=host_ms(lambda: adamw.square_sums_many(grads)), elements=n,
+           leaves=len(shapes), **bound(nbytes(*grads)))
+    norm = torch.sqrt(plain[1][0])
+    del grads, got, again, plain
+    for name, gdt, cdt, clipped, wd, scale, count in ADAMW_CASES:
+        gdt, cdt = getattr(torch, gdt), None if cdt is None else getattr(torch, cdt)
+        leaves = adamw_leaves(shapes + [(1031,)], gdt, cdt, 27, misalign=[len(shapes)])
+        twin = {k: None if v is None else [t.clone() for t in v] for k, v in leaves.items()}
+        hyper = dict(count=count, lr=2e-4, betas=(0.9, 0.98), eps=1e-8, weight_decay=wd,
+                     scale=scale, clip=1.0 if clipped else float(norm) * 2.0, norm=norm)
+        args = lambda t: (t["masters"], t["grads"], t["mu"], t["nu"])  # noqa: E731
+        adamw.adamw_many_.launches = 0
+        adamw.adamw_many_(*args(leaves), copies=leaves["copies"], **hyper)
+        adamw.adamw_many_plain(*args(twin), copies=twin["copies"], **hyper)
+        if adamw.adamw_many_.launches != 1:
+            raise SmokeFailure(f"adamw_many_ {name}: {adamw.adamw_many_.launches} launches")
+        differ = [(k, i) for k in ("masters", "mu", "nu", "copies") if leaves[k] is not None
+                  for i, (a, b) in enumerate(zip(leaves[k], twin[k])) if not torch.equal(a, b)]
+        if differ:
+            k, i = differ[0]
+            raise SmokeFailure(f"adamw_many_ {name}: {len(differ)} tensors differ from the plain "
+                               f"version, first {k}[{i}] {tuple(leaves[k][i].shape)} max err "
+                               f"{max_err(leaves[k][i], twin[k][i]):.3e}")
+        del twin
+        def call(leaves=leaves, hyper=hyper):
+            adamw.adamw_many_(*args(leaves), copies=leaves["copies"], **hyper)
+
+        extra = {"library_ms": None}
+        if name == ADAMW_CASES[0][0]:
+            params = [torch.nn.Parameter(t.clone()) for t in leaves["masters"]]
+            for p, g in zip(params, leaves["grads"]):
+                p.grad = g.float()
+            library = torch.optim.AdamW(params, lr=2e-4, betas=(0.9, 0.98), eps=1e-8,
+                                        weight_decay=wd, fused=True)
+            extra.update(host_ms=host_ms(call), library_ms=time_ms(library.step, iters=20),
+                         plain_ms=time_ms(lambda: adamw.adamw_many_plain(
+                             *args(leaves), copies=leaves["copies"], **hyper), iters=3, warmup=1))
+            del params, library
+        record(results, f"adamw/update/{name}", 0.0, 0.0, ms=time_ms(call, iters=20),
+               elements=sum(p.numel() for p in leaves["masters"]), leaves=len(shapes) + 1,
+               **extra, **adamw_bound(leaves))
+        del leaves
+        torch.cuda.empty_cache()
+
+
 # A rotation of weight copies at least this large (two 50 MB L2s) finds
 # every copy cold at its next use, as the decode does, which streams ~3.2 GB
 # of int8 weight a step.
@@ -2386,6 +2569,43 @@ def step_split(trainer, batch) -> dict:
             "k1_recomputes": len(recompute), "optimizer_s": opt_s}
 
 
+# a profiled update of the trainer's own optimizer: K9's three kernels and
+# the norm's square root (the table copies are not kernels), where the
+# per-leaf chain launched ~36 a leaf
+OPTIMIZER_KERNELS = 8
+
+
+def optimizer_profile(name, trainer) -> dict:
+    """The device kernels of one ``grad_norm`` + ``update`` of ``trainer``'s
+    optimizer on seeded gradients of the module's dtype, under
+    ``torch.profiler``: their count, names and device ms, and the host ms of
+    the two calls; more than OPTIMIZER_KERNELS kernels fail."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    grads = {n: 1e-3 * torch.randn(p.shape, generator=gen, device=DEV, dtype=p.dtype)
+             for n, p in trainer.params.items()}
+    opt = trainer.optimizer
+    opt.grad_norm(grads), opt.update(grads, trainer.master)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.grad_norm(grads)
+        opt.update(grads, trainer.master)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.lower().startswith(("memcpy", "memset"))]
+    out = {"kernels": len(kernels), "names": sorted({e.name[:60] for e in kernels}),
+           "device_ms": sum(e.device_time for e in kernels) / 1e3, "host_ms": 1e3 * host}
+    print(f"    {name} optimizer: {out['kernels']} kernels, {out['device_ms']:.3f} device ms, "
+          f"{out['host_ms']:.2f} host ms (grad_norm + update, the wait included)")
+    if not 0 < out["kernels"] <= OPTIMIZER_KERNELS:
+        raise SmokeFailure(f"{name}: {out['kernels']} kernels in one update: {out['names']}")
+    return out
+
+
 def train_speech_phase(table, variant: str) -> dict:
     """SpeechTask(variant) -> Trainer at full width (bf16, seed 0), the
     step-1 gradients gated against K1 plain first, then SPEECH_TRAIN_STEPS
@@ -2393,13 +2613,17 @@ def train_speech_phase(table, variant: str) -> dict:
     it; with every launch count 0 before the first step and read after the
     last.  Checks: K1 SPEECH_FLASH times a step, 12 of them with a
     gradient; the frozen leaves bit for bit; every Conformer running
-    statistic moved; the losses finite and the last below the first.  Then
-    one step timed by stage (``step_split``)."""
+    statistic moved; the losses finite and the last below the first; K9
+    (the optimizer's two passes, ``ops/adamw.py``) once each a step, and in
+    a profiled update (``optimizer_profile``) no more than
+    OPTIMIZER_KERNELS kernels.  Then one step timed by stage
+    (``step_split``)."""
     import gc
 
     import torch
 
     from multimodalvc_tpu_torch.config.configs import OptimizationConfig
+    from multimodalvc_tpu_torch.ops import adamw
     from multimodalvc_tpu_torch.runtime.trainer import Trainer
     from multimodalvc_tpu_torch.tasks import SpeechTask, SpeechTaskConfig
 
@@ -2432,6 +2656,7 @@ def train_speech_phase(table, variant: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     metrics, walls, modes = [], [], []
     reset_counts(table)
+    adamw.adamw_many_.launches = adamw.square_sums_many.launches = 0
     with GradLaunches() as grads:
         for step in range(SPEECH_TRAIN_STEPS):
             batch = task.prepare_batch(raw)
@@ -2442,8 +2667,12 @@ def train_speech_phase(table, variant: str) -> dict:
             print(f"    step {step + 1} (mode {modes[-1]}): mel L1 {m['mel_l1']:.4f} gnorm "
                   f"{m['gnorm']:.3e} {1e3 * t_step:.1f} ms")
     launches = read_counts(table)
+    k9 = {"adamw_many_": adamw.adamw_many_.launches,
+          "square_sums_many": adamw.square_sums_many.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_k1_launches(name, launches, grads.n, SPEECH_TRAIN_STEPS, CONFORMER_GRAD_LAUNCHES)
+    if set(k9.values()) != {SPEECH_TRAIN_STEPS}:
+        raise SmokeFailure(f"{name}: K9 launches {k9} in {SPEECH_TRAIN_STEPS} steps")
     unchanged(name, task.module, frozen)
     now = task.module.state_dict()
     still = [n for n, x in stats.items() if torch.equal(now[n], x)]
@@ -2453,10 +2682,11 @@ def train_speech_phase(table, variant: str) -> dict:
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SmokeFailure(f"{name}: mel L1 {losses} (finite, the last below the first)")
     step_s = sum(walls[1:]) / len(walls[1:])
+    record["optimizer_profile"] = optimizer_profile(name, trainer)
     split = step_split(trainer, batch)
     record.update(mel_l1=losses, modes=modes, step_ms=[1e3 * x for x in walls],
                   mean_step_ms=1e3 * step_s, audio_s_per_s=BATCH * SECONDS / step_s,
-                  peak_gib=peak, launches=launches, k1_launches_a_step=SPEECH_FLASH,
+                  peak_gib=peak, launches=launches, k9_launches=k9, k1_launches_a_step=SPEECH_FLASH,
                   k1_grad_launches_a_step=grads.n // SPEECH_TRAIN_STEPS, split=split,
                   frozen_leaves=len(frozen), trainable_leaves=len(trainer.master))
     print(f"  phase {name}: {1e3 * step_s:.1f} ms a step (steps 2-{SPEECH_TRAIN_STEPS}), "
@@ -6775,6 +7005,14 @@ def main() -> int:
         phases = optim_phases(kernels())
         print(json.dumps({"phases": phases}))
         print(f"smoke --optim: {time.perf_counter() - start:.1f} s, the kernels' build included")
+        print(card)
+        return 0
+    if "--adamw" in sys.argv[1:]:
+        results = []
+        check_adamw(results)
+        phases = {"train_speech_nollm": train_speech_phase(kernels(), "nollm")}
+        print(json.dumps({"cases": results, "phases": phases}))
+        print(f"smoke --adamw: {time.perf_counter() - start:.1f} s, the kernels' build included")
         print(card)
         return 0
     if "--selftest" in sys.argv[1:]:

@@ -37,6 +37,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures of csrc/*.cu; every function returns a cudaError_t
 SIGNATURES = {
     "mmvc_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -60,6 +61,8 @@ SIGNATURES = {
     "mmvc_gather_rows_many": [_I, _P, _P, _P, _P, _P, _I, _P],
     "mmvc_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmvc_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mmvc_square_sums_many": [_P, _I, _LL, _P, _P, _P, _P, _P, _P],
+    "mmvc_adamw_many": [_P, _I, _LL, _P, _I, _P, _P],
 }
 
 

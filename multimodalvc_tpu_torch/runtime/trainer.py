@@ -31,8 +31,12 @@ Dtypes: each trainable leaf keeps an f32 master copy in the trainer, as the
 JAX trainer keeps f32 params; the optimizer updates the master and copies it,
 cast, into the module's parameter, with which the module computes in its
 own dtype (bf16 on the card, f32 in the CPU tests).  Frozen leaves stay in
-the module's dtype.  Gradients are taken in the module's dtype and then
-widened to f32.
+the module's dtype.  Gradients are taken in the module's dtype and widened
+to f32, except where the update is one multi-tensor pass (``adam`` /
+``adamw`` over leaves on the card, ``ops/adamw.py``) and no mesh sums them:
+that pass reads them in their dtype, the norm and the finite check come
+from one pass of square sums, and the update writes the module's cast copy
+itself where no leaf is fsdp-split.
 
 ``Optimizer`` is a plain optax alias (every leaf, a schedule of its own
 update count, no clipping); ``AdamW`` (``optax.adamw``) is the optimizer of
@@ -88,6 +92,7 @@ import torch
 import torch.distributed as dist
 
 from ..config.configs import OptimizationConfig
+from ..ops.adamw import adamw_many_, f32 as _f32, square_sums_many
 from ..parallel.collectives import flat_all_reduce_
 from ..parallel.mesh import (
     AXIS_ORDER,
@@ -253,11 +258,6 @@ def make_schedule(cfg: OptimizationConfig) -> Callable[[int], float]:
 # ---- the optimizers ----------------------------------------------------------------
 
 
-def _f32(x: float) -> float:
-    """x rounded to the nearest f32."""
-    return float(torch.tensor(x, dtype=torch.float32))
-
-
 def host_numbers(values: Dict[str, Any]) -> Dict[str, Any]:
     """``values`` with each one-element tensor as a Python number (an int for
     an integer tensor, as ``.item()`` gives it), the tensors read from the
@@ -288,24 +288,6 @@ def _finish_(p, u, step_size: float, scale: float) -> None:
     if scale != 1.0:
         u = u * scale
     p.add_(u)
-
-
-def adamw_update_(params, grads, mu, nu, count: int, lr: float, betas, eps: float,
-                  weight_decay: float, scale: float = 1.0) -> None:
-    """One optax ``adam`` (+ ``add_decayed_weights``) update in place:
-    moments, bias corrections 1 - b^count as f32 scalars, eps outside the
-    square root, the decay added to the direction, times -lr (and the
-    plateau ``scale``).  ``count`` is the update's number, from 1."""
-    b1, b2 = (float(b) for b in betas)
-    bc1, bc2 = _f32(1.0 - b1 ** count), _f32(1.0 - b2 ** count)
-    step_size = -_f32(lr)
-    for name, p in params.items():
-        m, v = mu[name], nu[name]
-        _moments(grads[name], m, v, b1, b2)
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if weight_decay:
-            u = u + weight_decay * p
-        _finish_(p, u, step_size, scale)
 
 
 class Leaves:
@@ -367,9 +349,11 @@ class BaseOptimizer:
     f32 leaves.  ``state`` holds its tensors by kind ({kind: {leaf: tensor}},
     the names optax gives them); ``apply_`` makes update number ``count``
     (from 1) at learning rate ``lr`` (the schedule's value for count - 1),
-    times the plateau ``scale``, in place."""
+    times the plateau ``scale``, in place.  ``fused``: the update is one
+    multi-tensor pass, which takes the gradients in any float dtype."""
 
     KINDS: tuple = ()
+    fused = False
 
     def __init__(self, params: Dict[str, torch.Tensor], leaves: Leaves):
         self.leaves = leaves
@@ -384,22 +368,43 @@ class BaseOptimizer:
         """The dim along which the tensor axis splits ``state[kind][name]``."""
         return self.leaves.tdim(name)
 
-    def apply_(self, params, grads, count: int, lr: float, scale: float = 1.0) -> None:
+    def apply_(self, params, grads, count: int, lr: float, scale: float = 1.0,
+               norm: Optional[torch.Tensor] = None, clip: Optional[float] = None,
+               copies: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """With ``norm`` (the gradients' global norm, a tensor) the gradients
+        are first clipped to global norm ``clip``; with ``copies`` (the
+        module's parameters) each then takes its leaf's value, cast."""
+        if norm is not None:
+            grads = {n: torch.where(norm < clip, g, (g / norm) * clip) for n, g in grads.items()}
+        self._update_leaves(params, grads, count, lr, scale)
+        if copies is not None:
+            copy_masters_(copies, params)
+
+    def _update_leaves(self, params, grads, count: int, lr: float, scale: float) -> None:
         raise NotImplementedError
 
 
 class Adam(BaseOptimizer):
-    """``optax.adamw`` (``weight_decay`` > 0) / ``optax.adam``: "mu", "nu"."""
+    """``optax.adamw`` (``weight_decay`` > 0) / ``optax.adam``: "mu", "nu".
+    The clip, the update and the copies are one ``adamw_many_`` pass: a
+    kernel launch for leaves on the card (``fused``), the per-leaf chain on
+    the CPU."""
 
     KINDS = ("mu", "nu")
 
     def __init__(self, params, leaves, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
         super().__init__(params, leaves)
         self.betas, self.eps, self.weight_decay = (b1, b2), eps, weight_decay
+        self.fused = all(p.is_cuda for p in params.values())
 
-    def apply_(self, params, grads, count, lr, scale=1.0):
-        adamw_update_(params, grads, self.state["mu"], self.state["nu"], count, lr, self.betas,
-                      self.eps, self.weight_decay, scale)
+    def apply_(self, params, grads, count, lr, scale=1.0, norm=None, clip=None, copies=None):
+        names = list(params)
+        mu, nu = self.state["mu"], self.state["nu"]
+        adamw_many_([params[n] for n in names], [grads[n] for n in names],
+                    [mu[n] for n in names], [nu[n] for n in names], count=count, lr=lr,
+                    betas=self.betas, eps=self.eps, weight_decay=self.weight_decay, scale=scale,
+                    norm=norm, clip=clip,
+                    copies=None if copies is None else [copies[n] for n in names])
 
 
 class Lamb(BaseOptimizer):
@@ -413,7 +418,7 @@ class Lamb(BaseOptimizer):
         super().__init__(params, leaves)
         self.b1, self.b2, self.eps, self.weight_decay = float(b1), float(b2), eps, weight_decay
 
-    def apply_(self, params, grads, count, lr, scale=1.0):
+    def _update_leaves(self, params, grads, count, lr, scale):
         bc1, bc2 = _f32(1.0 - self.b1 ** count), _f32(1.0 - self.b2 ** count)
         for name, p in params.items():
             m, v = self.state["mu"][name], self.state["nu"][name]
@@ -440,7 +445,7 @@ class Adagrad(BaseOptimizer):
             t.fill_(initial_accumulator_value)
         self.eps = eps
 
-    def apply_(self, params, grads, count, lr, scale=1.0):
+    def _update_leaves(self, params, grads, count, lr, scale):
         for name, p in params.items():
             g, s = grads[name], self.state["sum_of_squares"][name]
             s.copy_(g * g + s)
@@ -458,7 +463,7 @@ class Adamax(BaseOptimizer):
         super().__init__(params, leaves)
         self.b1, self.b2, self.eps = float(b1), float(b2), eps
 
-    def apply_(self, params, grads, count, lr, scale=1.0):
+    def _update_leaves(self, params, grads, count, lr, scale):
         bc1 = _f32(1.0 - self.b1 ** count)
         for name, p in params.items():
             g, m, v = grads[name], self.state["mu"][name], self.state["nu"][name]
@@ -477,7 +482,7 @@ class Sgd(BaseOptimizer):
             self.state["trace"] = {n: torch.zeros_like(p) for n, p in params.items()}
         self.momentum, self.nesterov = momentum, nesterov
 
-    def apply_(self, params, grads, count, lr, scale=1.0):
+    def _update_leaves(self, params, grads, count, lr, scale):
         for name, p in params.items():
             u = grads[name]
             if self.momentum is not None:
@@ -555,7 +560,7 @@ class Adafactor(BaseOptimizer):
     def tensor_split_dim(self, kind, name):
         return self._state_dim(kind, name, self.leaves.tdim(name))
 
-    def apply_(self, params, grads, count, lr, scale=1.0):
+    def _update_leaves(self, params, grads, count, lr, scale):
         decay = _decay_rate(count, self.DECAY)
         lr32 = _f32(lr)
         for name, p in params.items():
@@ -795,12 +800,21 @@ class MaskedOptimizer:
     [MultiSteps] of apply_if_finite of clip_by_global_norm -> the base
     optimizer of ``cfg.optimizer`` (``make_base``) -> the plateau scale.
     ``update`` applies one micro-step's gradients in place and says whether
-    the parameters moved.  ``leaves`` is the masters' layout (fsdp shares)."""
+    the parameters moved.  ``leaves`` is the masters' layout (fsdp shares).
+    ``copies`` (the module's parameters, or None): each takes its master's
+    value, cast, in every update that moves them.
+
+    The global norm and the finite check come from one ``square_sums_many``
+    pass over the gradients: ``grad_norm`` keeps it for the same gradients'
+    ``update``, which takes its finite flag and clips by its norm."""
 
     def __init__(self, cfg: OptimizationConfig, params: Dict[str, torch.Tensor],
-                 leaves: Optional[Leaves] = None):
+                 leaves: Optional[Leaves] = None,
+                 copies: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg = cfg
         self.leaves = leaves or Leaves(params)
+        self.copies = copies
+        self._pass = None  # (gradients, norm, finite) of the last square sums
         self.schedule = make_schedule(cfg)
         self.base = make_base(cfg.optimizer, params, self.leaves, cfg.adam_betas, cfg.adam_eps,
                               cfg.weight_decay)
@@ -823,6 +837,12 @@ class MaskedOptimizer:
         """The base optimizer's tensors by kind."""
         return self.base.state
 
+    @property
+    def fused(self) -> bool:
+        """The update is one multi-tensor pass, which takes the gradients in
+        any float dtype."""
+        return self.base.fused
+
     def tensor_kinds(self) -> List[str]:
         """The kinds of per-leaf tensors ``state_dict`` holds."""
         return list(self.base.state) + ([] if self.acc is None else ["acc"])
@@ -836,7 +856,10 @@ class MaskedOptimizer:
 
     def update(self, grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> bool:
         with span("train.optimizer.update"):
-            return self._update(grads, params)
+            try:
+                return self._update(grads, params)
+            finally:
+                self._pass = None
 
     def _update(self, grads, params) -> bool:
         k = self.cfg.update_freq
@@ -859,29 +882,31 @@ class MaskedOptimizer:
         """The global norm of ``grads``; the squares of the split leaves'
         shares are summed over their groups (fsdp, tensor), each slice
         counted once."""
+        return self._square_pass(grads)[0]
+
+    def _square_pass(self, grads) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(global norm, all finite) of ``grads`` from one ``square_sums_many``
+        pass, kept for the same ``grads`` until the end of ``update``.  The
+        split leaves' sums are totalled by split group (fsdp bit, tensor bit)
+        on the device, then summed over their groups."""
+        if self._pass is not None and self._pass[0] is grads:
+            return self._pass[1:]
         leaves = self.leaves
-        if not leaves.split:
-            return global_norm(grads.values())
-        zero = torch.zeros((), device=next(iter(grads.values())).device)
-
-        def squares(fsdp: bool, tensor: bool) -> torch.Tensor:
-            return sum(((g.float() * g.float()).sum() for n, g in grads.items()
-                        if (leaves.dim(n) is not None) == fsdp
-                        and (leaves.tdim(n) is not None) == tensor), zero)
-
-        out = squares(False, False)
+        groups = [(leaves.dim(n) is not None) + 2 * (leaves.tdim(n) is not None)
+                  for n in grads] if leaves.split else None
+        _, totals, finite = square_sums_many(list(grads.values()), groups)
+        out, both = totals[0], None
         if leaves.dims:
-            fsdp = leaves.total_(torch.stack([squares(True, False), squares(True, True)]), True)
-            out = out + fsdp[0]
-            both = fsdp[1]
-        else:
-            both = zero
+            fsdp = leaves.total_(totals[1::2].clone(), True)  # groups 1 and 3
+            out, both = out + fsdp[0], fsdp[1]
         if leaves.tdims:
-            out = out + leaves.total_(squares(False, True) + both, False, True)
-        return torch.sqrt(out)
+            tensor = totals[2].clone() if both is None else totals[2] + both
+            out = out + leaves.total_(tensor, False, True)
+        self._pass = (grads, torch.sqrt(out), finite)
+        return self._pass[1:]
 
     def _all_finite(self, grads) -> bool:
-        finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+        finite = self._square_pass(grads)[1]
         if self.leaves.split:  # every rank makes the same decision
             flag = finite.to(torch.int32)
             dist.all_reduce(flag, op=dist.ReduceOp.MIN)
@@ -908,13 +933,12 @@ class MaskedOptimizer:
 
     def _apply(self, grads, params) -> None:
         cfg = self.cfg
-        if cfg.clip_norm and cfg.clip_norm > 0:
-            norm = self.grad_norm(grads)
-            clip = float(cfg.clip_norm)
-            grads = {n: torch.where(norm < clip, g, (g / norm) * clip) for n, g in grads.items()}
+        clip = float(cfg.clip_norm) if cfg.clip_norm and cfg.clip_norm > 0 else None
         self.count += 1
         self.base.apply_(params, grads, self.count, self.schedule(self.count - 1),
-                         1.0 if self.plateau is None else self.plateau["scale"])
+                         1.0 if self.plateau is None else self.plateau["scale"],
+                         norm=None if clip is None else self._square_pass(grads)[0], clip=clip,
+                         copies=self.copies)
 
     def plateau_update(self, value: float) -> Optional[float]:
         """Host-side reduce-on-plateau step (torch ``ReduceLROnPlateau``,
@@ -962,11 +986,12 @@ class MaskedOptimizer:
 
 
 def build_optimizer(opt_cfg: OptimizationConfig, params: Dict[str, torch.Tensor],
-                    leaves: Optional[Leaves] = None) -> MaskedOptimizer:
+                    leaves: Optional[Leaves] = None,
+                    copies: Optional[Dict[str, torch.Tensor]] = None) -> MaskedOptimizer:
     """The optimizer over ``params`` (the trainable leaves' f32 masters):
     the JAX ``build_optimizer``, kept under its name for callers ported from
     the JAX package."""
-    return MaskedOptimizer(opt_cfg, params, leaves)
+    return MaskedOptimizer(opt_cfg, params, leaves, copies)
 
 
 def broadcast_(tensors: Iterable[torch.Tensor]) -> None:
@@ -1024,7 +1049,10 @@ class Trainer:
                              reversed_layout=linear & set(self.params),
                              tdims=self.tensor_dim,
                              tgroup=self.mesh.group("tensor") if self.tensor_dim else None)
-        self.optimizer = build_optimizer(opt_cfg, self.master, self.leaves)
+        # the update writes the module's copies where they are whole masters
+        split = any(d is not None for d in self.shard_dim.values())
+        self.optimizer = build_optimizer(opt_cfg, self.master, self.leaves,
+                                         None if split else self.params)
         device = next(iter(named.values())).device
         self.generator = torch.Generator(device=device).manual_seed(dropout_seed(seed, self.mesh))
         self._step = 0
@@ -1114,17 +1142,20 @@ class Trainer:
             loss, metrics = self.loss_fn(batch, self.generator)
         names = list(self.params)
         weighted = loss if self.mesh is None else loss / replicas(self.mesh)
+        # a one-pass update reads the gradients in the module's dtype; a mesh
+        # sums them in f32
+        dtype = None if self.mesh is None and self.optimizer.fused else torch.float32
         with span("train.backward"):
             got = torch.autograd.grad(weighted, [self.params[n] for n in names],
                                       allow_unused=True)
             # a trainable leaf the loss does not reach has a zero gradient
-            grads = {n: torch.zeros_like(self.params[n], dtype=torch.float32) if g is None
-                     else g.float() for n, g in zip(names, got)}
+            grads = {n: torch.zeros_like(self.params[n], dtype=dtype) if g is None
+                     else g.to(dtype or g.dtype) for n, g in zip(names, got)}
         if self.mesh is not None:
             self._reduce_(grads)
         with span("train.optimizer"):
             gnorm = self.optimizer.grad_norm(grads)
-            if self.optimizer.update(grads, self.master):
+            if self.optimizer.update(grads, self.master) and self.optimizer.copies is None:
                 self._copy_to_module()
         self._step += 1
         if "loss" not in metrics:  # the criterions report the batch group's loss themselves

@@ -1,4 +1,4 @@
-"""On-card tier of the port: each hand-written CUDA kernel (K1-K8, and the
+"""On-card tier of the port: each hand-written CUDA kernel (K1-K9, and the
 merged K2 + K3 entry) built by nvcc and held against its plain PyTorch
 version at the serving shapes, through the same checks chip_smoke.py runs.  Needs an NVIDIA GPU with nvcc:
 
@@ -138,6 +138,20 @@ def test_gather_rows_kernel(smoke):
     the full cache's) and single leaves, exact, timed with a cold L2."""
     results = []
     smoke.check_gather_rows(results)
+    _all_ok(results)
+
+
+@pytest.mark.cuda
+def test_adamw_kernel(smoke):
+    """K9 at the NoLLM head's 485 trained leaves (shapes from the module on
+    the meta device), a leaf under 16 bytes and one not 16-byte aligned: the
+    square sums within SQUARE_RTOL of the plain version's (f32 reduction
+    order), the finite flag; the update equal to the plain version on the
+    card bit for bit given the same norm (the NoLLM step with the clip, no
+    clip at a plateau scale, f32 gradients without copies); one launch a
+    call; timed against its byte bound."""
+    results = []
+    smoke.check_adamw(results)
     _all_ok(results)
 
 
